@@ -1,30 +1,47 @@
-"""Smoke test of the PyTorch port on one NVIDIA GPU: build, check, render.
+"""Smoke test of the PyTorch port on one NVIDIA GPU: build, check, render, train.
 
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the CUDA kernels from
-   ``mc_nerf_torch/csrc`` (nvcc, sm_90a) and prints the build time.
-2. Holds each kernel against its plain PyTorch version on the card, at the
-   main path's widths: ``fused_mlp_apply`` (coarse sigma-only 4x128 and
+   ``mc_nerf_torch/csrc`` (nvcc, sm_90a, one process per source, in
+   parallel) and prints the build time.
+2. Holds each eval kernel against its plain PyTorch version on the card, at
+   the main path's widths: ``fused_mlp_apply`` (coarse sigma-only 4x128 and
    fine full 8x256, 65,536 points plus a ragged tail) and ``fused_render``
    (flags (F,F), (T,T), (T,F) at s=32 and s=48, 2,000 rays); then times
-   both, and compares them again, on one main-path chunk of 16384 rays
-   (48 coarse samples, 32 fine samples per ray).  Each check also measures
-   planted faults (points mixed up inside a tile, the skip input dropped,
-   the first layer lost, another ray's SH basis) against the same plain
-   version, and fails if one of them would pass.
+   both, and compares them again, on one eval chunk of 16384 rays (48
+   coarse, 32 fine samples per ray).
 3. Drives the demo (``mc_nerf_torch.train.engine.demo``) at the library's
    default full width over two 800x800 views, with the occupancy refresh,
    and checks through the launch counters that both kernels ran; renders
    one chunk through the plain route and compares; times frames.
+4. The training slice: ``fused_render`` at the training packs and flags
+   (coarse full 4x128, s=48, noise + wsel; fine 8x256, s=32, noise; 7000
+   rays); the backward's two launches (``render_bwd_points``,
+   ``render_bwd_weights``) against ``fused_render_bwd_plain`` at the same
+   shapes, beside the plain version's own fp32 spread; timings of each.
+5. The GLOBAL_OPTIM step at full width on the workload ``bench.py`` times
+   (``tools/scene.train_workload``): the kernel route and the plain route
+   timed in turns with CUDA events, the launch counts of the kernel route
+   (each kernel twice per step), one step's loss and gradients on both
+   routes compared, 20 steps on one fixed batch (the rgb loss must fall),
+   one stage-0 and one stage-2 step, and a ``torch.profiler`` profile of
+   both routes (device busy share, top device and host operations).
+6. Prints the ``kernels`` JSON line, one entry per kernel and path (the
+   demo; the train step): that path's launches, time per launch at its
+   shapes, bound, plain and library times; then
+   ``{"ok": true, "device": ...}`` last.
 
-The weights are the seeded test scene of ``mc_nerf_torch.tools.scene``
-(He-scaled, so the field's density and colour vary with the point).
-4. Prints the ``kernels`` JSON line (time per launch, launches, bound,
-   plain and library times), then ``{"ok": true, "device": ...}`` last.
-
-Any failed check exits non-zero.  Needs one CUDA card; imports nothing of
-the JAX package.
+Every kernel check also measures planted faults against the same plain
+version (points mixed up, the skip input dropped, the first layer lost,
+another ray's SH basis; for the backward also a layer's dW transposed or
+zeroed, the skip's dfeat share dropped, the suffix scan shifted by one:
+``tools/bwd_check.py``) and fails if one of them would pass.  Bounds
+count only the work the function needs (not the pad lane, the packed
+head's zero blocks or the backward's workspace).  The weights are the seeded test
+scene of ``mc_nerf_torch.tools.scene`` (He-scaled, so the field's density
+and colour vary with the point).  Any failed check exits non-zero.  Needs
+one CUDA card; imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -56,6 +73,23 @@ DEPTH_ATOL = 5e-2          # depth, in [near, far] = [1, 8]
 # plus a bound on the mean.
 SLICE_ATOL = 0.05
 SLICE_MEAN_ATOL = 0.01
+# Backward kernels vs the plain backward under an MSE's cotangent, relative
+# L2 per output (tools/bwd_check.bwd_errs), per pass: the same rounding
+# points, fp32 sums in another order.  About 10x the error measured on an
+# H100 (PERF.md), which is the size of the plain version's own
+# fp32-against-float64 spread; every planted fault lands at 3.5x or more.
+BWD_TOL = {"coarse": {"dW": 5e-4, "db": 3.5e-4, "last layer": 1.5e-4, "dfeat": 1.2e-2,
+                      "dbasis": 1e-3},
+           "fine": {"dW": 1e-2, "db": 6.3e-3, "last layer": 1.5e-4, "dfeat": 0.125,
+                    "dbasis": 3.4e-3}}
+# One train step, kernel route vs the bf16 plain route from the same params
+# and draws: the plain route rounds sigma and SH to bf16 (the kernels keep
+# them fp32), so its importance samples land apart a little.  About 10x
+# the measured loss 2.6e-5 and worst leaf 1.4e-2 (PERF.md).
+STEP_LOSS_RTOL = 3e-4
+STEP_GRAD_TOL = {"grad rel L2 (worst leaf)": 0.15}
+N_TRAIN = 10               # timed steps per round of a route
+N_FIXED = 20               # steps on one fixed batch: the rgb loss must fall
 
 
 def fail(msg: str) -> None:
@@ -164,6 +198,349 @@ def library_mlp(packed, feat, depth, skips):
     return torch.addmm(bs[depth + 1], h1, ws[depth + 1])
 
 
+def render_inputs(nc, rays, s, rng, dev):
+    """Rays from (0, 0, -4) in seeded directions, sorted depths in [1, 8],
+    their features, SH basis and two noise draws."""
+    from mc_nerf_torch.models.sh import sh_basis
+    from mc_nerf_torch.ops.cuda.fused_mlp import BASIS_LANES, encode_kernel_order
+
+    nb = (nc.sh_deg + 1) ** 2
+    d = torch.as_tensor(rng.normal(size=(rays, 3)), dtype=torch.float32, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    z = torch.sort(torch.as_tensor(rng.uniform(1.0, 8.0, (rays, s)), dtype=torch.float32,
+                                   device=dev), dim=-1).values.contiguous()
+    feat = encode_kernel_order((torch.tensor([0.0, 0.0, -4.0], device=dev)[None, None]
+                                + d[:, None] * z[..., None]).reshape(-1, 3), nc.emb_freqs_xyz)
+    basis16 = torch.nn.functional.pad(sh_basis(nc.sh_deg, d), (0, BASIS_LANES - nb)).contiguous()
+    noise = torch.as_tensor(rng.normal(size=(rays, s)), dtype=torch.float32, device=dev)
+    noise_sel = torch.as_tensor(rng.normal(size=(rays, s)), dtype=torch.float32, device=dev)
+    return feat, basis16, z, noise, noise_sel
+
+
+def library_fwd(ws, bs, feat, depth, skips):
+    """A bf16 torch.addmm chain of the MLP forward, keeping every layer's
+    input and h1: (xins, h_last, h1).  A yardstick, never called by the
+    port."""
+    h, xins = feat, []
+    for i in range(depth):
+        if i in skips:
+            h = torch.cat([feat, h], dim=1)
+        xins.append(h)
+        h = torch.relu(torch.addmm(bs[i][0], h, ws[i]))
+    h1 = torch.relu(torch.addmm(bs[depth][0], h, ws[depth]))
+    return xins, h, h1
+
+
+def library_bwd_dx(ws, bs, feat, dout_b, depth, skips):
+    """The recompute and dX products of the backward as a bf16
+    torch.addmm / mm chain (the ReLU masks as multiplies): a yardstick.
+    Returns what the dW products need."""
+    xins, h_last, h1 = library_fwd(ws, bs, feat, depth, skips)
+    torch.addmm(bs[depth + 1][0], h1, ws[depth + 1])
+    d_h1 = (dout_b @ ws[depth + 1].t()) * (h1 > 0)
+    d_a = (d_h1 @ ws[depth].t()) * (h_last > 0)
+    das = [None] * depth
+    e = feat.shape[1]
+    for li in reversed(range(depth)):
+        das[li] = d_a
+        d_x = d_a @ ws[li].t()
+        if li > 0:
+            d_a = (d_x[:, e:] if li in skips else d_x) * (xins[li][:, -ws[li].shape[1]:] > 0)
+    return xins, h_last, h1, d_h1, das
+
+
+def library_bwd_dw(xins, h_last, h1, d_h1, das, dout_b):
+    """The dW products of the backward as bf16 torch.mm: a yardstick."""
+    return [x.t() @ d for x, d in zip(xins, das)] + [h_last.t() @ d_h1, h1.t() @ dout_b]
+
+
+def train_passes(nc, params):
+    """The two passes of a training step: (label, module, depth, width,
+    skips, samples per ray, emit_wsel)."""
+    return (("coarse", params.coarse, nc.coarse_depth, nc.coarse_width, nc.coarse_skips,
+             nc.occ_coarse_samples, True),
+            ("fine", params.fine, nc.fine_depth, nc.fine_width, nc.fine_skips, 32, False))
+
+
+def per_launch(passes: dict) -> dict:
+    """One kernel's numbers over a training step's launches (one per pass):
+    each time and bound is the mean per launch; ``per_pass`` keeps each."""
+    mean = {k: sum(p[k] for p in passes.values()) / len(passes)
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by = max(passes.values(), key=lambda p: p["bound_ms"])["bound_by"]
+    return {**mean, "bound_by": by, "per_pass": passes}
+
+
+def check_train_forward(nc, params, dev, rng, rays, errs, render_tol):
+    """fused_render at the training packs and flags (coarse full 4x128,
+    s=48, noise + wsel; fine 8x256, s=32, noise) against the plain forward,
+    with planted faults.  Returns per pass the kernel's ms, the plain
+    version's, a bf16 matmul chain's and the bound at these shapes."""
+    from mc_nerf_torch.ops.cuda.fused_mlp import pack_mlp_params
+    from mc_nerf_torch.ops.cuda.fused_render import fused_render, fused_render_plain
+
+    nb = (nc.sh_deg + 1) ** 2
+    passes = {}
+    for label, mlp, depth, width, skips, s, emit in train_passes(nc, params):
+        pk = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+        feat, basis16, z, noise, noise_sel = render_inputs(nc, rays, s, rng, dev)
+        feat_mixed = feat.view(rays, s, -1)[torch.arange(rays, device=dev).view(-1, 2).flip(1)
+                                            .reshape(-1)].reshape(rays * s, -1)
+
+        def args(pk=pk, ft=feat, bas=basis16):
+            return (pk, ft, bas, z, noise, noise_sel, depth, skips, s, nb, True, emit,
+                    nc.white_back)
+
+        k_out, k_w = fused_render(*args())
+        torch.cuda.synchronize()
+        p_out, p_w = fused_render_plain(*args())
+        e = render_errs(k_out, k_w, p_out, p_w)
+        errs["fused_render"] = max(errs["fused_render"], *e.values())
+        hold(f"fused_render training {label} s={s} rays={rays}", e, render_tol, {
+            "points mixed in a block": render_errs(*fused_render_plain(*args(ft=feat_mixed)),
+                                                   p_out, p_w),
+            "skip input dropped": render_errs(*fused_render_plain(*args(pk=drop_skip(pk, skips))),
+                                              p_out, p_w),
+            "another ray's basis": render_errs(*fused_render_plain(*args(bas=basis16.roll(1, 0))),
+                                               p_out, p_w),
+        })
+        p = rays * s
+        # read: feat, basis, z, noise (and noise_sel), the pack; written:
+        # ray_out (and wsel)
+        nbytes = (p * feat.shape[1] * 2 + rays * basis16.shape[1] * 4 + p * 4 * (3 if emit else 2)
+                  + rays * 8 * 4 + (p * 4 if emit else 0) + pack_bytes(pk))
+        t_bound, by = bound(2.0 * needed_macs(nc, depth, width, skips, False) * p, nbytes)
+        passes[label] = {"ms": cuda_ms(lambda: fused_render(*args())),
+                         "plain_ms": cuda_ms(lambda: fused_render_plain(*args()), 3),
+                         "library_ms": cuda_ms(lambda: library_mlp(pk, feat, depth, skips)),
+                         "bound_ms": t_bound, "bound_by": by}
+    return passes
+
+
+def check_backward(nc, params, dev, rng, rays, bwd_tol):
+    """The backward kernels against fused_render_bwd_plain at the training
+    shapes of both passes on the scene's weights, beside the plain
+    version's own fp32 spread (against float64 sums of the same rounding
+    points), with planted faults; the cotangent is an MSE's
+    (``tools/bwd_check.mse_cotangent``).  Returns per pass (relative
+    errors, inputs, the bf16 pack), and each launch's max abs error over
+    both passes."""
+    from mc_nerf_torch.ops.cuda.fused_mlp import _flat_weights, pack_mlp_params
+    from mc_nerf_torch.ops.cuda.fused_render import (
+        _render_plain_flat, fused_render_bwd, fused_render_bwd_plain)
+    from mc_nerf_torch.tools.bwd_check import bwd_errs, mse_cotangent, planted_errs
+
+    nb = (nc.sh_deg + 1) ** 2
+    out, max_abs = {}, {"render_bwd_points": 0.0, "render_bwd_weights": 0.0}
+    for label, mlp, depth, _width, skips, s, _emit in train_passes(nc, params):
+        pk = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+        ws, bs = _flat_weights(pk)
+        feat, basis16, z, noise, _ = render_inputs(nc, rays, s, rng, dev)
+        ray_out, _ = _render_plain_flat(ws, bs, feat, basis16, z, noise, None, depth, skips,
+                                        s, nb, True, False, nc.white_back)
+        dray = mse_cotangent(ray_out, nc.far)
+        args = (ws, bs, feat, basis16, z, noise, dray, depth, skips, s, nb, True, nc.white_back)
+        k = fused_render_bwd(*args)
+        torch.cuda.synchronize()
+        ref = fused_render_bwd_plain(*args)
+        spread = bwd_errs(ref, fused_render_bwd_plain(*args[:6], dray.double(), *args[7:]))
+        print(f"backward {label}: the plain version's own spread (fp32 against float64 "
+              "sums): " + ", ".join(f"{n} {v:.3e}" for n, v in spread.items()), flush=True)
+        e = bwd_errs(k, ref)
+        hold(f"backward {label} s={s} rays={rays} (relative L2)", e, bwd_tol[label],
+             planted_errs(args, ref))
+        out[label] = (e, args, pk)
+        max_abs["render_bwd_points"] = max(max_abs["render_bwd_points"], *(
+            float((a - b).abs().max()) for a, b in zip(k[2:], ref[2:])))
+        max_abs["render_bwd_weights"] = max(max_abs["render_bwd_weights"], *(
+            float((a - b).abs().max()) for a, b in zip([*k[0], *k[1]], [*ref[0], *ref[1]])))
+    return out, max_abs
+
+
+def time_backward(nc, bwd, rng, dev) -> dict:
+    """Per backward launch and pass: ms, the whole plain backward's ms, a
+    bf16 torch.addmm/mm chain of the same products (recompute + dX for
+    ``render_bwd_points``, dW for ``render_bwd_weights``), and the bound
+    of the work each launch's share of the function needs: recompute + dX
+    products and the function's inputs and dfeat/dbasis for the first;
+    the dW products and the weight gradients written for the second.  The
+    workspace that design (a) passes between them is not needed work."""
+    from mc_nerf_torch.ops.cuda.fused_render import (
+        _bwd_fns, fused_render_bwd_plain, render_bwd_points, render_bwd_weights)
+
+    nb = (nc.sh_deg + 1) ** 2
+    out = {"render_bwd_points": {}, "render_bwd_weights": {}}
+    for label, (_e, args, pk) in bwd.items():
+        ws, bs, feat, basis16, z, noise, dray, depth, skips, s = args[:10]
+        rays, p, enc = basis16.shape[0], feat.shape[0], feat.shape[1]
+        width = ws[0].shape[1]
+        nbytes = _bwd_fns()[0](rays, s, enc, depth, sum(1 << i for i in skips), width,
+                               ws[-2].shape[1])
+        work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+        pts_args = (ws, bs, feat, basis16, z, noise, dray, depth, skips, s, nb, nc.white_back,
+                    work)
+        dout_b = torch.as_tensor(rng.normal(size=(p, 32)) * 1e-4, dtype=torch.bfloat16,
+                                 device=dev)
+        saved = library_bwd_dx(ws, bs, feat, dout_b, depth, skips)
+        macs = needed_macs(nc, depth, width, skips, False)
+        plain_ms = cuda_ms(lambda: fused_render_bwd_plain(*args), 3)
+        b_pts = bound(2.0 * 2 * macs * p,
+                      p * enc * 2 + 2 * p * 4 + rays * (basis16.shape[1] + 8) * 4
+                      + pack_bytes(pk) + p * enc * 4 + rays * basis16.shape[1] * 4)
+        b_w = bound(2.0 * macs * p, 2 * pack_bytes(pk))
+        out["render_bwd_points"][label] = {
+            "ms": cuda_ms(lambda: render_bwd_points(*pts_args)), "plain_ms": plain_ms,
+            "library_ms": cuda_ms(lambda: library_bwd_dx(ws, bs, feat, dout_b, depth, skips)),
+            "bound_ms": b_pts[0], "bound_by": b_pts[1]}
+        out["render_bwd_weights"][label] = {
+            "ms": cuda_ms(lambda: render_bwd_weights(ws, bs, feat, rays, s, skips, work)),
+            "plain_ms": plain_ms,
+            "library_ms": cuda_ms(lambda: library_bwd_dw(*saved, dout_b)),
+            "bound_ms": b_w[0], "bound_by": b_w[1]}
+        del work, saved
+    return out
+
+
+def train_phase(cfg, dev, h: int, w: int) -> dict:
+    """The GLOBAL_OPTIM step at full width on the workload bench.py times
+    (``tools/scene.train_workload``), from the middle of the schedule (the
+    BARF gate half open): timed steps through the kernels with their launch
+    counts, one step's loss and gradients against the plain route, the
+    plain route timed, the rgb loss over 20 steps on one fixed batch, one
+    stage-0 and one stage-2 step, and a profile of both routes."""
+    import dataclasses
+
+    from mc_nerf_torch.ops.cuda.fused_render import (
+        fused_render, render_bwd_points, render_bwd_weights)
+    from mc_nerf_torch.tools.bwd_check import rel_l2
+    from mc_nerf_torch.tools.profile_step import profile_steps
+    from mc_nerf_torch.tools.scene import STEPS_PER_EPOCH, TOTAL_STEPS, train_workload
+    from mc_nerf_torch.train.optim import build_optimizers, flatten_params
+    from mc_nerf_torch.train.steps import TrainState, draw_step, make_loss_fn, make_stage_step
+
+    counters = (fused_render, render_bwd_points, render_bwd_weights)
+    params, data = train_workload(cfg, SEED, dev, img_h=h, img_w=w)
+    p_flat = flatten_params(params)
+    txs, states = build_optimizers(cfg, params, p_flat, STEPS_PER_EPOCH)
+    state = TrainState(params, p_flat, states, TOTAL_STEPS // 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n_img = data.images_u8.shape[0]
+    rays = cfg.train.rays_per_batch
+
+    def draw(stage):
+        return draw_step(cfg, stage, n_img, h, w, True, gen)
+
+    cfg_plain = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, use_pallas=False))
+    step_k = make_stage_step(cfg, 1, txs[1], h, w, TOTAL_STEPS)
+    step_p = make_stage_step(cfg_plain, 1, txs[1], h, w, TOTAL_STEPS)
+    for _ in range(3):
+        step_k(state, data, draw(1))
+    draws = [draw(1) for _ in range(N_TRAIN)]
+
+    def timed(step, ds):
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for d in ds:
+            m = step(state, data, d)
+        end.record()
+        end.synchronize()
+        if not all(bool(torch.isfinite(v)) for v in m.values()):
+            fail(f"train step metrics are not finite: {m}")
+        return start.elapsed_time(end) / len(ds)
+
+    # the two routes in turns (kernel, plain, plain, kernel): the step is
+    # bound by the host, whose speed drifts on a shared machine
+    rounds = {"kernel": [], "plain": []}
+    launches = None
+    for route in ("kernel", "plain", "plain", "kernel"):
+        ds = draws if launches is None else [draw(1) for _ in range(N_TRAIN)]
+        if launches is None:
+            for c in counters:
+                c.launches = 0
+        rounds[route].append(timed(step_k if route == "kernel" else step_p, ds))
+        if launches is None:
+            launches = {c.__name__: c.launches for c in counters}
+            print(f"launches over {N_TRAIN} kernel-route steps: {launches}", flush=True)
+            if any(n != 2 * N_TRAIN for n in launches.values()):
+                fail(f"each kernel should launch twice per step: {launches}")
+    step_ms = sum(rounds["kernel"]) / 2
+    plain_ms = sum(rounds["plain"]) / 2
+    print(f"train step ms per round (kernel, plain, plain, kernel): {rounds['kernel'][0]:.3f}, "
+          f"{rounds['plain'][0]:.3f}, {rounds['plain'][1]:.3f}, {rounds['kernel'][1]:.3f}; "
+          f"kernel route {step_ms:.3f} ms ({rays / step_ms * 1e3:.0f} rays/s), plain route "
+          f"{plain_ms:.3f} ms ({rays / plain_ms * 1e3:.0f} rays/s)", flush=True)
+
+    # one step's loss and gradients, kernel route against the plain route
+    d = draw(1)
+
+    def loss_and_grads(c, prm):
+        for p in prm.parameters():
+            p.grad = None
+        total, _ = make_loss_fn(c, 1, h, w, TOTAL_STEPS)(prm, data, d, state.step)
+        total.backward()
+        return float(total), {n: p.grad.detach().clone() for n, p in prm.named_parameters()}
+
+    def route_errs(a, b):
+        return {"loss rel": abs(a[0] - b[0]) / abs(b[0]),
+                "grad rel L2 (worst leaf)": max(rel_l2(a[1][n], b[1][n]) for n in b[1]
+                                                if float(b[1][n].norm()) > 0)}
+
+    ker = loss_and_grads(cfg, params)
+    pln = loss_and_grads(cfg_plain, params)
+    broken = copy.deepcopy(params)
+    with torch.no_grad():
+        broken.nerf.fine.trunk[cfg.nerf.fine_skips[0]].weight[:, :cfg.nerf.embed_dim] = 0
+    hold("train step, kernel route vs bf16 plain route", route_errs(ker, pln),
+         {"loss rel": STEP_LOSS_RTOL, **STEP_GRAD_TOL},
+         {"fine skip input dropped": route_errs(loss_and_grads(cfg_plain, broken), pln)})
+    del broken
+    per_leaf = {n: rel_l2(ker[1][n], pln[1][n]) for n in pln[1] if float(pln[1][n].norm()) > 0}
+    print("  per-leaf gradient rel L2, kernel vs plain: "
+          + ", ".join(f"{n} {v:.2e}" for n, v in per_leaf.items()), flush=True)
+
+    # twenty kernel-route steps on one fixed batch, from a fresh optimizer
+    state.opt_states = tuple(txs[i].init(p_flat) if i == 1 else o
+                             for i, o in enumerate(state.opt_states))
+    fixed = draw(1)
+    rgb = []
+    for _ in range(N_FIXED):
+        m = step_k(state, data, fixed)
+        rgb.append(float(m["loss_rgb_c"] + m["loss_rgb_f"]))
+    print(f"rgb loss (coarse + fine) over {N_FIXED} steps on one batch: {rgb[0]:.6f} -> "
+          f"{rgb[-1]:.6f}", flush=True)
+    if not rgb[-1] < rgb[0]:
+        fail("the rgb loss did not fall over 20 steps on one fixed batch")
+
+    others = {}
+    for stage in (0, 2):
+        m = make_stage_step(cfg, stage, txs[stage], h, w, TOTAL_STEPS)(state, data, draw(stage))
+        others[stage] = {k: float(v) for k, v in m.items()}
+        if not all(math.isfinite(v) for v in others[stage].values()):
+            fail(f"stage {stage} step is not finite: {others[stage]}")
+    print(f"stage 0 step: {others[0]}\nstage 2 step: {others[2]}", flush=True)
+
+    profiles = {}
+    for route, step, n in (("kernel", step_k, 3), ("plain", step_p, 2)):
+        wall, rows, host = profile_steps(lambda: step(state, data, draw(1)), n)
+        busy = sum(r[0] for r in rows)
+        profiles[route] = {"step_ms": wall, "kernel_ms": busy, "busy_share": busy / wall,
+                           "top": [{"ms": ms, "calls": c, "name": nm[:80]}
+                                   for ms, c, nm in rows[:8]],
+                           "host_top": [{"ms": ms, "calls": c, "name": nm[:60]}
+                                        for ms, c, nm in host[:6]]}
+        print(f"profile, {route} route: {wall:.1f} ms wall, {busy:.1f} ms of kernels, busy "
+              f"share {busy / wall:.3f}; top: " + "; ".join(
+                  f"{nm[:60]} {ms:.2f} ms x{c}" for ms, c, nm in rows[:8])
+              + "; host (self CPU): " + "; ".join(
+                  f"{nm[:40]} {ms:.2f} ms x{c}" for ms, c, nm in host[:6]), flush=True)
+    return {"train_step_ms": step_ms, "train_rays_per_s": rays / step_ms * 1e3,
+            "plain_step_ms": plain_ms, "plain_rays_per_s": rays / plain_ms * 1e3,
+            "rounds_ms": rounds,
+            "route_errs": route_errs(ker, pln), "rgb_loss_fixed_batch": [rgb[0], rgb[-1]],
+            "profiles": profiles, "launches": launches}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -175,7 +552,8 @@ def main() -> None:
     from mc_nerf_torch.ops.cuda import _build
     from mc_nerf_torch.ops.cuda.fused_mlp import (
         BASIS_LANES, encode_kernel_order, fused_mlp_apply, mlp_plain)
-    from mc_nerf_torch.ops.cuda.fused_render import fused_render, fused_render_plain
+    from mc_nerf_torch.ops.cuda.fused_render import (
+        fused_render, fused_render_plain, max_samples, max_samples_bwd)
     from mc_nerf_torch.tools.scene import LEGO_FOV, orbit_views, scene_params
     from mc_nerf_torch.train.engine import demo, refresh_occupancy
     from mc_nerf_torch.train.steps import make_render_fn
@@ -202,6 +580,8 @@ def main() -> None:
     nc = cfg.nerf
     params = scene_params(nc, SEED, device=dev)
     packed_c, packed_f = pack_eval_params(params, nc)
+    print(f"samples per ray at the fine pack, at most: forward {max_samples(packed_f)}, "
+          f"backward {max_samples_bwd(packed_f)} (the kernels' shared-memory layout)")
     nb = (nc.sh_deg + 1) ** 2
     rng = np.random.default_rng(SEED)
     errs = {"fused_mlp_apply": 0.0, "fused_render": 0.0}   # max abs, for the kernels line
@@ -330,6 +710,7 @@ def main() -> None:
     demo_s = time.perf_counter() - t0
     launches = {"fused_mlp_apply": fused_mlp_apply.launches,
                 "fused_render": fused_render.launches}
+    demo_launches = dict(launches)
     print(f"demo: {result} in {demo_s:.2f} s; launches {launches}", flush=True)
     if not all(n > 0 for n in launches.values()):
         fail(f"a kernel of the main path was not launched: {launches}")
@@ -369,19 +750,52 @@ def main() -> None:
          {"fine skip input dropped": slice_errs(render_rays_eval(
              broken, rd, ro, nc, torch.bfloat16, importance_samples=sf, packed=None, occ=occ))})
 
+    # ---- the training slice: forward at the training packs, the backward kernels
+    t_rays = cfg.train.rays_per_batch
+    train_numbers = {"fused_render": check_train_forward(nc, params, dev, rng, t_rays, errs,
+                                                         render_tol)}
+    bwd, bwd_max_abs = check_backward(nc, params, dev, rng, t_rays, BWD_TOL)
+    errs.update(bwd_max_abs)
+    train_numbers.update(time_backward(nc, bwd, rng, dev))
+    for name, passes in train_numbers.items():
+        for label, t in passes.items():
+            print(f"{name}, training {label} pass ({t_rays} rays): {t['ms']:.3f} ms (plain "
+                  f"{t['plain_ms']:.3f}, bf16 torch chain {t['library_ms']:.3f}, bound "
+                  f"{t['bound_ms']:.3f} by {t['bound_by']})", flush=True)
+
+    # ---- the GLOBAL_OPTIM train step at full width
+    train = train_phase(cfg, dev, h, w)
+
     replaces = {"fused_mlp_apply": "mc_nerf_tpu/ops/pallas/fused_mlp.py:241",
-                "fused_render": "mc_nerf_tpu/ops/pallas/fused_render.py:211"}
+                "fused_render": "mc_nerf_tpu/ops/pallas/fused_render.py:211",
+                "render_bwd_points": "mc_nerf_tpu/ops/pallas/fused_render.py:290",
+                "render_bwd_weights": "mc_nerf_tpu/ops/pallas/fused_render.py:290"}
     sources = {"fused_mlp_apply": "mc_nerf_torch/csrc/fused_mlp.cu",
-               "fused_render": "mc_nerf_torch/csrc/fused_render.cu"}
+               "fused_render": "mc_nerf_torch/csrc/fused_render.cu",
+               "render_bwd_points": "mc_nerf_torch/csrc/fused_render_bwd.cu",
+               "render_bwd_weights": "mc_nerf_torch/csrc/fused_render_bwd.cu"}
+    # one entry per kernel and path, each path's launches counted from 0
+    # just before it ran: the demo (2 frames; times at one eval chunk) and
+    # the train step (N_TRAIN steps; times per launch, the mean of the
+    # coarse and the fine pass, each pass kept in per_pass)
     kernels = [{
-        "name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
-        "launches": launches[name], "max_abs_err": errs[name], "ms": times[name][0],
-        "plain_ms": times[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-        "library_ms": times[name][2],
+        "name": name, "path": "demo", "route": "cuda", "source": sources[name],
+        "replaces": replaces[name], "launches": demo_launches[name],
+        "max_abs_err": errs[name], "ms": times[name][0], "plain_ms": times[name][1],
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": times[name][2],
     } for name in ("fused_mlp_apply", "fused_render")]
+    kernels += [{
+        "name": name, "path": "train_step", "route": "cuda", "source": sources[name],
+        "replaces": replaces[name], "launches": train["launches"][name],
+        "launches_per_step": train["launches"][name] / N_TRAIN, "max_abs_err": errs[name],
+        **per_launch(train_numbers[name]),
+    } for name in ("fused_render", "render_bwd_points", "render_bwd_weights")]
     print(json.dumps({"frame_ms": frame_ms, "rays_per_s": h * w / frame_ms * 1e3,
-                      "launches_per_frame": {k: v / 2 for k, v in launches.items()},
+                      "launches_per_frame": {k: v / 2 for k, v in demo_launches.items()},
                       "occupied_share": occ_share, "card": smi}))
+    print(json.dumps({"train": {k: v for k, v in train.items() if k != "launches"},
+                      "train_launches": train["launches"],
+                      "backward_rel_l2": {k: v[0] for k, v in bwd.items()}, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

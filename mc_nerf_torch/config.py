@@ -1,17 +1,71 @@
-"""Configuration for the PyTorch port: the fields the render path reads.
+"""Configuration for the PyTorch port: the fields the ported code reads.
 
-An own copy of ``mc_nerf_tpu/config.py``'s ``NerfConfig`` and ``EvalConfig``
-with the same defaults, cut to the fields the ported code reads, and a
-``Config`` holding the fields the demo render reads.  Later slices add
-their fields with their code: ``fine_mode`` with the grid fine mode,
-``occ_pmf`` with the density PMF, ``coarse_free`` with the coarse-free
-branch, and the training and yaml-loader fields.
+An own copy of ``mc_nerf_tpu/config.py``'s ``StageConfig``, ``TrainConfig``,
+``BarfConfig``, ``NerfConfig`` and ``EvalConfig`` with the same defaults,
+cut to the fields the ported code reads (the render and the training
+step).  Later slices add their fields with their code: ``fine_mode`` with
+the grid fine mode, ``occ_pmf`` with the density PMF, ``coarse_free`` with
+the coarse-free branch, ``remat_shade``, the engine's schedule fields and
+the yaml loader.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class StageConfig:
+    """Three-stage training sequence (ref ``config/config.yaml:13-19``)."""
+
+    cam_param_epochs: int = 20      # stage 1: camera parameter initialization
+    global_opt_epochs: int = 16     # stage 2: joint camera + NeRF optimization
+    fine_tune_epochs: int = 16      # stage 3: NeRF fine-tune, poses frozen
+
+    @property
+    def total_epochs(self) -> int:
+        return self.cam_param_epochs + self.global_opt_epochs + self.fine_tune_epochs
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization hyper-parameters (ref ``config/config.yaml:20-30``)."""
+
+    stage1_lr: float = 0.1
+    stage2_lr: float = 5e-4
+    stage3_lr: float = 2.5e-4
+    # stage-1 LR decays exponentially to this floor over the stage
+    # (ref ``main.py:188-189``)
+    stage1_lr_floor: float = 0.005
+    weight_decay: float = 4e-4
+    # global gradient-norm clip in every stage (0 disables: the reference
+    # never clips)
+    grad_clip: float = 10.0
+    rays_per_batch: int = 7000       # rays sampled from one image per step (ref yaml `batch`)
+    seed: int = 42
+    importance_samples: int = 32     # fine samples/ray
+    # the render route of the train step: None or True = the hand-written
+    # kernels (fused_render forward and backward), False = plain PyTorch
+    use_pallas: Optional[bool] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class BarfConfig:
+    """BARF coarse-to-fine frequency schedule (ref ``config/config.yaml:56-61``);
+    ``start``/``end`` parameterize the ramp within stage 2."""
+
+    start: float = 0.0
+    end: float = 1.0
+
+    def global_window(self, stages: StageConfig) -> Tuple[float, float]:
+        """(start, end) in global training progress (ref
+        ``data/data_read.py:338-351``): the ramp begins where stage 2
+        begins and spans ``end`` of stage 2's extent."""
+        total = float(stages.total_epochs)
+        g_start = stages.cam_param_epochs / total + self.start
+        g_end_raw = (stages.cam_param_epochs + stages.global_opt_epochs) / total
+        return g_start, g_start + (g_end_raw - g_start) * self.end
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,9 +118,9 @@ class EvalConfig:
 @dataclasses.dataclass(frozen=True)
 class Config:
     data_name: str = "Ball_Computer"
-    # seeds the occupancy lattice jitter of the demo's grid refresh
-    # (``TrainConfig.seed`` in the JAX package)
-    seed: int = 42
+    stages: StageConfig = dataclasses.field(default_factory=StageConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    barf: BarfConfig = dataclasses.field(default_factory=BarfConfig)
     nerf: NerfConfig = dataclasses.field(default_factory=NerfConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     # numeric policy of the plain route: params fp32, activations in this dtype

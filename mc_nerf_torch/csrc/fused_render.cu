@@ -21,8 +21,8 @@
 // carried over, nor is its s <= 160 VMEM ceiling.  The ceiling here is
 // shared memory: the block stages 16 bytes per sample (sigma, rgb) beside
 // the MLP tile, within 227 KB, so 2 <= s <= 1952 at the fine 8x256 pack
-// with 64 feature lanes (max_samples in ops/cuda/fused_render.py, which
-// refuses a longer ray before launch).
+// with 64 feature lanes (mcn_render_max_samples, which max_samples in
+// ops/cuda/fused_render.py asks to refuse a longer ray before launch).
 //
 // Bound (H100 SXM): compute.  The eval fine pass (full 8x256) needs
 // 629,248 MAC per point (63 real feature lanes at layer 0 and at the skip,
@@ -152,6 +152,15 @@ __global__ void __launch_bounds__(THREADS)
       o[5] = o[6] = o[7] = 0.f;
     }
   }
+}
+
+// The most samples per ray the kernel takes with this pack shape: the MLP
+// tile plus 16 staged bytes per sample within the device's shared memory
+// per block; 0 for a shape the kernel does not take.
+extern "C" int mcn_render_max_samples(int enc, int depth, int width, int head0) {
+  MLPParams p;
+  if (set_shape(&p, depth, 0, enc, width, head0)) return 0;
+  return max_staged_samples(mlp_smem_bytes(p), sizeof(float) * 4);
 }
 
 // feat [rays*s, enc] bf16; basis16 [rays, 16] fp32; z [rays, s] fp32;

@@ -223,12 +223,38 @@ __device__ __forceinline__ void relu_pass(int nc, const bf16* A, int a_pitch, in
   }
 }
 
+// Where mlp_tile also stores a tile's activations (the training
+// backward's recompute): the bf16 output of every trunk layer and of head
+// layer 0, and the fp32 packed output, for the tile's first n_rows rows.
+struct ActSave {
+  bf16* h;          // [depth][points][width]
+  bf16* h1;         // [points][head0]
+  float* out32;     // [points][32]
+  long long points; // rows of one layer's block of h
+  long long row0;   // the tile's first point
+  int n_rows;
+};
+
+// Copy rows [0, n) x cols [0, ncols) (a multiple of 8) of a bf16 shared
+// tile to global rows of `ld` elements, 16 bytes at a time.
+__device__ inline void store_rows(const bf16* src, int pitch, int ncols, bf16* dst, long long ld,
+                                  int n) {
+  const int per_row = ncols >> 3;
+  for (int idx = threadIdx.x; idx < n * per_row; idx += THREADS) {
+    const int r = idx / per_row, c = idx - r * per_row;
+    *reinterpret_cast<uint4*>(dst + r * ld + c * 8) =
+        *reinterpret_cast<const uint4*>(src + r * pitch + c * 8);
+  }
+}
+
 // The whole MLP over one tile.  On entry act[:, 0:enc_pad] holds the
 // tile's features (zero past enc and in rows past the data); on return
 // outs[m, 0:32] holds the packed fp32 output (col 0 raw sigma, cols 1..
-// SH), visible to every thread.
+// SH), visible to every thread.  With `save`, the activations also go to
+// global memory (the copies read shared buffers that the next GEMM only
+// rewrites after its own barriers).
 __device__ void mlp_tile(const MLPParams& p, bf16* act, bf16* h1, bf16* wst,
-                         float* outs) {
+                         float* outs, const ActSave* save = nullptr) {
   const int ep = p.enc_pad, wd = p.width;
   for (int l = 0; l < p.depth; ++l) {
     const bool takes_feat = l == 0 || ((p.skip_mask >> l) & 1);
@@ -236,11 +262,21 @@ __device__ void mlp_tile(const MLPParams& p, bf16* act, bf16* h1, bf16* wst,
     const WeightRows wr = {p.w[l], wd, 0, 0, takes_feat ? p.enc : 0, takes_feat ? ep : 0};
     relu_pass(wd, act, p.act_pitch, takes_feat ? 0 : ep, K, wr, p.b[l], act, p.act_pitch, ep,
               wst);
+    if (save) {
+      __syncthreads();
+      store_rows(act + ep, p.act_pitch, wd, save->h + (l * save->points + save->row0) * wd, wd,
+                 save->n_rows);
+    }
   }
   for (int c0 = 0; c0 < p.head0; c0 += NC_MAX) {
     const int nc = min(NC_MAX, p.head0 - c0);
     const WeightRows w0 = {p.w[p.depth], p.head0, 0, c0, 0, 0};
     relu_pass(nc, act, p.act_pitch, ep, wd, w0, p.b[p.depth], h1, p.h1_pitch, 0, wst);
+    if (save) {
+      __syncthreads();
+      store_rows(h1, p.h1_pitch, nc, save->h1 + save->row0 * p.head0 + c0, p.head0,
+                 save->n_rows);
+    }
     const WeightRows w1 = {p.w[p.depth + 1], OUT_COLS, c0, 0, 0, 0};
     if (c0 == 0) {
       gemm_pass<OUT_ASSIGN, OUT_COLS>(h1, p.h1_pitch, 0, nc, w1, p.b[p.depth + 1], nullptr, 0,
@@ -251,6 +287,12 @@ __device__ void mlp_tile(const MLPParams& p, bf16* act, bf16* h1, bf16* wst,
     }
   }
   __syncthreads();
+  if (save) {
+    for (int idx = threadIdx.x; idx < save->n_rows * OUT_COLS; idx += THREADS) {
+      const int r = idx / OUT_COLS, c = idx - r * OUT_COLS;
+      save->out32[(save->row0 + r) * OUT_COLS + c] = outs[r * OUT_PITCH + c];
+    }
+  }
 }
 
 // Load rows [first, first + 128) of feat [*, enc] (bf16) into
@@ -277,19 +319,14 @@ __device__ inline void load_feat_tile(const MLPParams& p, const bf16* __restrict
   }
 }
 
-// Host side: fill the parameters from the C arguments; returns 0, or a
-// CUDA error code for shapes or pointers the kernel does not take.
-inline int make_params(MLPParams* p, const void* feat, int depth, int skip_mask, int enc,
-                       int width, int head0, const void* const* w, const void* const* b) {
+// Host side: the shape half of the parameters (what sets the shared-memory
+// layout); returns 0, or cudaErrorInvalidValue for a shape the kernel does
+// not take.
+inline int set_shape(MLPParams* p, int depth, int skip_mask, int enc, int width, int head0) {
   const bool width_ok = width == 32 || width == 64 || width == 128 || width == 256;
   if (depth < 1 || depth + 2 > MAX_LAYERS || !width_ok ||
       (head0 != width && head0 != 2 * width) || enc < 1)
     return cudaErrorInvalidValue;
-  for (int l = 0; l < depth + 2; ++l) {
-    if (reinterpret_cast<uintptr_t>(w[l]) % 16) return cudaErrorMisalignedAddress;
-    p->w[l] = static_cast<const bf16*>(w[l]);
-    p->b[l] = static_cast<const bf16*>(b[l]);
-  }
   p->depth = depth;
   p->skip_mask = skip_mask;
   p->enc = enc;
@@ -298,8 +335,34 @@ inline int make_params(MLPParams* p, const void* feat, int depth, int skip_mask,
   p->head0 = head0;
   p->act_pitch = p->enc_pad + width + 8;
   p->h1_pitch = (head0 < NC_MAX ? head0 : NC_MAX) + 8;
+  return 0;
+}
+
+// Host side: fill the parameters from the C arguments; returns 0, or a
+// CUDA error code for shapes or pointers the kernel does not take.
+inline int make_params(MLPParams* p, const void* feat, int depth, int skip_mask, int enc,
+                       int width, int head0, const void* const* w, const void* const* b) {
+  const int err = set_shape(p, depth, skip_mask, enc, width, head0);
+  if (err) return err;
+  for (int l = 0; l < depth + 2; ++l) {
+    if (reinterpret_cast<uintptr_t>(w[l]) % 16) return cudaErrorMisalignedAddress;
+    p->w[l] = static_cast<const bf16*>(w[l]);
+    p->b[l] = static_cast<const bf16*>(b[l]);
+  }
   p->feat_vec = enc == p->enc_pad && reinterpret_cast<uintptr_t>(feat) % 16 == 0;
   return 0;
+}
+
+// Host side: the most samples per ray a kernel takes when its block holds
+// `fixed` bytes of shared memory plus `per_sample` bytes per staged
+// sample, within the current device's opt-in limit per block (227 KB on
+// an H100); 0 if it does not fit at all or the device cannot be asked.
+inline int max_staged_samples(size_t fixed, size_t per_sample) {
+  int dev = 0, limit = 0;
+  if (cudaGetDevice(&dev) ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev))
+    return 0;
+  return (size_t)limit > fixed ? int(((size_t)limit - fixed) / per_sample) : 0;
 }
 
 }  // namespace mcn

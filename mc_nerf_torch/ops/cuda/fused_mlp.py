@@ -1,6 +1,7 @@
 """Fused NeRF-MLP kernel (trunk + packed heads) and the kernel-order encode.
 
-Counterpart of ``mc_nerf_tpu/ops/pallas/fused_mlp.py`` (forward only).
+Counterpart of ``mc_nerf_tpu/ops/pallas/fused_mlp.py`` (the forward kernel,
+the encode with its analytic VJP, and the pack).
 The kernel, ``csrc/fused_mlp.cu``, replaces the Pallas ``_kernel``
 (``fused_mlp.py:241``, called through ``fused_mlp_apply`` at ``:276``):
 a block of 256 threads runs 128 pre-encoded points through every trunk
@@ -24,6 +25,7 @@ Layout (as in the JAX package):
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -52,15 +54,8 @@ def encode_width(n_freqs: int) -> int:
     return ENC_PAD + 6 * n_freqs
 
 
-def encode_kernel_order(xyz: torch.Tensor, n_freqs: int,
-                        freq_weights: Optional[torch.Tensor] = None,
-                        dtype=torch.bfloat16) -> torch.Tensor:
-    """[P, 3] points -> [P, 4 + 6L] features in the kernel's lane order,
-    computed in the points' dtype and cast to ``dtype`` at the end.
-
-    The octaves stack along a new leading axis and land in the output with
-    one strided copy: stacking [P, 3] tensors along an inner axis cost
-    ~5 ms per 16384-ray chunk on an H100 (PERF.md)."""
+def _encode_fwd(xyz: torch.Tensor, n_freqs: int, freq_weights: Optional[torch.Tensor],
+                dtype) -> torch.Tensor:
     p = xyz.shape[0]
     sins, coss = spectrum_octaves(xyz, n_freqs)
     spec = torch.stack(sins + coss).view(2, n_freqs, p, 3)   # [2, L, P, 3]
@@ -71,6 +66,68 @@ def encode_kernel_order(xyz: torch.Tensor, n_freqs: int,
     out[:, 3] = 0
     out[:, ENC_PAD:].view(p, n_freqs, 2, 3).copy_(spec.permute(2, 1, 0, 3))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _encode_selection(n_freqs: int, device: torch.device) -> torch.Tensor:
+    """[4 + 6L, 3] 0/1: lane -> the coordinate it derives from (none for
+    the pad lane).  Made once per device: a copy from the host each step
+    would wait for the card."""
+    sel = np.zeros((encode_width(n_freqs), 3), np.float32)
+    for d in range(3):
+        sel[d, d] = 1.0
+        for f in range(n_freqs):
+            sel[ENC_PAD + 6 * f + d, d] = 1.0
+            sel[ENC_PAD + 6 * f + 3 + d, d] = 1.0
+    return torch.as_tensor(sel, device=device)
+
+
+class _Encode(torch.autograd.Function):
+    """The kernel-order encode with the JAX package's analytic VJP
+    (``fused_mlp.py:91-125``): the derivative spectrum (d sin = 2^f cos,
+    d cos = -2^f sin, times the BARF gate) in kernel lane order, multiplied
+    lane-wise by the upcast cotangent and reduced with one [4 + 6L, 3]
+    selection product.  ``freq_weights`` is a schedule: no gradient."""
+
+    @staticmethod
+    def forward(ctx, xyz, n_freqs, freq_weights, dtype):
+        ctx.n_freqs = n_freqs
+        ctx.save_for_backward(xyz, freq_weights)
+        return _encode_fwd(xyz, n_freqs, freq_weights, dtype)
+
+    @staticmethod
+    def backward(ctx, dfeat):
+        xyz, freq_weights = ctx.saved_tensors
+        n = ctx.n_freqs
+        x32 = xyz.float()
+        p = x32.shape[0]
+        sins, coss = spectrum_octaves(x32, n)
+        f = 2.0 ** torch.arange(n, dtype=torch.float32, device=xyz.device)
+        if freq_weights is not None:
+            f = f * freq_weights.float()
+        f = f[:, None, None]
+        spec = torch.stack([torch.stack(coss) * f, -torch.stack(sins) * f])  # [2, L, P, 3]
+        deriv = torch.empty((p, encode_width(n)), dtype=torch.float32, device=xyz.device)
+        deriv[:, :3] = 1.0
+        deriv[:, 3] = 0.0
+        deriv[:, ENC_PAD:].view(p, n, 2, 3).copy_(spec.permute(2, 1, 0, 3))
+        dx = (dfeat.float() * deriv) @ _encode_selection(n, xyz.device)
+        return dx.to(xyz.dtype), None, None, None
+
+
+def encode_kernel_order(xyz: torch.Tensor, n_freqs: int,
+                        freq_weights: Optional[torch.Tensor] = None,
+                        dtype=torch.bfloat16) -> torch.Tensor:
+    """[P, 3] points -> [P, 4 + 6L] features in the kernel's lane order,
+    computed in the points' dtype and cast to ``dtype`` at the end.
+    Differentiable in ``xyz`` with the JAX package's analytic VJP
+    (:class:`_Encode`); the cotangent arrives in ``dtype`` (bf16-rounded,
+    as in the JAX package) and is upcast.
+
+    The octaves stack along a new leading axis and land in the output with
+    one strided copy: stacking [P, 3] tensors along an inner axis cost
+    ~5 ms per 16384-ray chunk on an H100 (PERF.md)."""
+    return _Encode.apply(xyz, n_freqs, freq_weights, dtype)
 
 
 def _enc_permutation(n_freqs: int) -> np.ndarray:
@@ -86,29 +143,43 @@ def _enc_permutation(n_freqs: int) -> np.ndarray:
     return perm
 
 
-def _permute_rows(w: torch.Tensor, perm: np.ndarray) -> torch.Tensor:
-    """[in_dim, out] -> [len(perm), out] with zero rows where perm == -1."""
-    src = torch.as_tensor(np.where(perm >= 0, perm, 0), device=w.device)
-    mask = torch.as_tensor(perm >= 0, device=w.device)[:, None]
+@functools.lru_cache(maxsize=None)
+def _permutation_tensors(n_freqs: int, device: torch.device):
+    """(source rows, live mask [rows, 1]) of :func:`_enc_permutation` on
+    the device, made once: the training pack runs every step, and a copy
+    from the host each time would wait for the card."""
+    perm = _enc_permutation(n_freqs)
+    return (torch.as_tensor(np.where(perm >= 0, perm, 0), device=device),
+            torch.as_tensor(perm >= 0, device=device)[:, None])
+
+
+def _permute_rows(w: torch.Tensor, n_freqs: int) -> torch.Tensor:
+    """[3 + 6L, out] -> [4 + 6L, out] in kernel lane order, with a zero
+    row at the pad lane."""
+    src, mask = _permutation_tensors(n_freqs, w.device)
     return torch.where(mask, w[src], torch.zeros((), dtype=w.dtype, device=w.device))
 
 
 def pack_mlp_params(mlp: NerfMLP, n_freqs: int, skips: Sequence[int],
                     sigma_only: bool = False, dtype=torch.bfloat16) -> PackedMLP:
     """fp32 module weights -> the kernel layout; leaves equal the JAX
-    package's ``pack_mlp_params`` bit for bit."""
-    with torch.no_grad():
-        perm = _enc_permutation(n_freqs)
+    package's ``pack_mlp_params`` bit for bit.
+
+    A float32 pack (training, ``models/nerf.py``) is differentiable: its
+    autograd carries the kernels' fp32 weight gradients back to the module
+    (the inverse row permutation, nothing for the pad lane, only the live
+    blocks of ``head_w1``).  Other dtypes pack without autograd (eval)."""
+    with torch.set_grad_enabled(torch.is_grad_enabled() and dtype == torch.float32):
         n_enc = 3 + 6 * n_freqs
         trunk_w, trunk_b = [], []
         for i, layer in enumerate(mlp.trunk):
             w = layer.weight.t()                            # [in, out]
             if i == 0:
-                w = _permute_rows(w, perm)
+                w = _permute_rows(w, n_freqs)
             elif i in skips:
                 # skip input rows are [enc(3+6L) | h]; the kernel's are
                 # [feat(4+6L) | h]: permute/pad the encode block only
-                w = torch.cat([_permute_rows(w[:n_enc], perm), w[n_enc:]], dim=0)
+                w = torch.cat([_permute_rows(w[:n_enc], n_freqs), w[n_enc:]], dim=0)
             trunk_w.append(w.to(dtype).contiguous())
             trunk_b.append(layer.bias.reshape(1, -1).to(dtype))
 
@@ -149,7 +220,7 @@ def _flat_weights(packed: PackedMLP):
     reads them (the JAX call casts every leaf once, fused_mlp.py:308)."""
     ws = [*packed.trunk_w, packed.head_w0, packed.head_w1]
     bs = [*packed.trunk_b, packed.head_b0, packed.head_b1]
-    cast = lambda t: t.to(torch.bfloat16).contiguous()
+    cast = lambda t: t.detach().to(torch.bfloat16).contiguous()
     return [cast(w) for w in ws], [cast(b) for b in bs]
 
 
@@ -157,8 +228,14 @@ def mlp_plain(packed: PackedMLP, feat: torch.Tensor, depth: int,
               skips: Sequence[int]) -> torch.Tensor:
     """The MLP of both kernels in plain PyTorch: fp32 products of
     bf16-rounded values, the kernel's rounding points.  [P, E] -> [P, 32]."""
-    ws, bs = _flat_weights(packed)
-    f = feat.to(torch.bfloat16).float()
+    return mlp_plain_flat(*_flat_weights(packed), feat, depth, skips)
+
+
+def mlp_plain_flat(ws, bs, feat: torch.Tensor, depth: int,
+                   skips: Sequence[int]) -> torch.Tensor:
+    """:func:`mlp_plain` on the bf16 (weights, biases) of
+    :func:`_flat_weights`."""
+    f = feat.detach().to(torch.bfloat16).float()
     h = f
     for i in range(depth):
         if i in skips:
@@ -182,7 +259,12 @@ def _check_mlp_args(packed: PackedMLP, feat: torch.Tensor, depth: int,
 def launch_args(packed: PackedMLP, skips: Sequence[int], device: torch.device):
     """The C arguments that describe the MLP: (keep-alive tensors,
     skip_mask, width, head0, weight pointer array, bias pointer array)."""
-    ws, bs = _flat_weights(packed)
+    return launch_args_flat(*_flat_weights(packed), skips, device)
+
+
+def launch_args_flat(ws, bs, skips: Sequence[int], device: torch.device):
+    """:func:`launch_args` on the bf16 (weights, biases) of
+    :func:`_flat_weights`."""
     for t in ws + bs:
         if t.device != device:
             raise ValueError(f"weights on {t.device}, feat on {device}")

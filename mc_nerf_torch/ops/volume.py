@@ -110,8 +110,10 @@ def sample_pdf(
 
     # bracketing values as masked max/min over the monotone cdf/mids —
     # the JAX package's formulation, kept for bitwise agreement with it
+    # (a Python constant, not a tensor made on the host: copying one to the
+    # card each call would wait for it)
     mask = cdf[..., None, :] <= u[..., None]                     # [R, K, S-1]
-    big = torch.tensor(1e10, dtype=torch.float32, device=z_vals.device)
+    big = 1e10
     cdf_lo = torch.where(mask, cdf[..., None, :], -big).amax(-1)
     z_lo = torch.where(mask, mids[..., None, :], -big).amax(-1)
     cdf_hi = torch.where(mask, big, cdf[..., None, :]).amin(-1)

@@ -1,5 +1,6 @@
 """The test scene of the measuring scripts: seeded weights whose field
-varies with position, and cameras on a sphere looking at the origin."""
+varies with position, cameras on a sphere looking at the origin, and the
+training workload of the GLOBAL_OPTIM step."""
 
 from __future__ import annotations
 
@@ -9,9 +10,20 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from mc_nerf_torch.config import NerfConfig
+from mc_nerf_torch import resolve_device
+from mc_nerf_torch.config import Config, NerfConfig
 from mc_nerf_torch.data.blender import _blender_pose_to_w2c_np
+from mc_nerf_torch.data.calibration import calibration_from_numpy
+from mc_nerf_torch.models.camera_params import init_camera_params_from_gt
 from mc_nerf_torch.models.nerf import NerfParams, init_nerf_params
+from mc_nerf_torch.ops.occupancy import uniform_prior_map
+from mc_nerf_torch.train.optim import Params
+from mc_nerf_torch.train.steps import TrainData
+
+# steps of the whole three-stage schedule at the reference scale: 52
+# epochs of 5500 steps (bench.py's total_steps), and the steps per epoch
+TOTAL_STEPS = 286000
+STEPS_PER_EPOCH = 5500
 
 LEGO_FOV = 0.6911112070083618   # camera_angle_x of the NeRF-synthetic scenes
 
@@ -50,3 +62,29 @@ def orbit_views(azimuths: Sequence[float], h: int = 800, w: int = 800,
     focal = (w / 2.0) / math.tan(fov / 2.0)
     K = np.array([[focal, 0, w / 2.0], [0, focal, h / 2.0], [0, 0, 1]], np.float32)
     return np.stack(poses), K
+
+
+def train_workload(cfg: Config, seed: int, device=None, n_images: int = 110,
+                   img_h: int = 800, img_w: int = 800) -> Tuple[Params, TrainData]:
+    """The workload ``bench.py:69-105`` times, built on the device: 110
+    seeded uint8 images of 800x800, seeded detections (uniform in
+    [10, 790] px, every tag visible), the all-occupied ``uniform_prior_map``
+    (culling changes where samples land, never how many), and
+    :func:`scene_params` weights.  The cameras start at ground truth on an
+    orbit of radius 4 around the scene (the benchmark starts them at the
+    all-ones init; here the rays cross the scene's box)."""
+    dev = resolve_device(device)
+    poses, K = orbit_views(np.linspace(0.0, 2 * math.pi, n_images, endpoint=False),
+                           img_h, img_w)
+    cam = init_camera_params_from_gt(
+        torch.as_tensor(poses, dtype=torch.float32, device=dev),
+        torch.as_tensor(np.tile(K, (n_images, 1, 1)), device=dev), img_h, img_w)
+    params = Params(cam, scene_params(cfg.nerf, seed, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    images = torch.randint(0, 256, (n_images, img_h * img_w, 3), generator=gen,
+                           dtype=torch.uint8, device=dev)
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(10, min(img_h, img_w) - 10, size=(n_images, 6, 5, 2)).astype(np.float32)
+    valid = np.ones((n_images, 6), bool)
+    calib = calibration_from_numpy(pts, valid, pts, valid, device=dev)
+    return params, TrainData(images, calib, uniform_prior_map(cfg.nerf, dev))

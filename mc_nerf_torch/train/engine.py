@@ -50,7 +50,7 @@ def apply_depth_colormap(depth01: np.ndarray) -> np.ndarray:
 def refresh_occupancy(nerf_params: NerfParams, cfg: Config, device) -> torch.Tensor:
     """A fresh occupancy map from the coarse MLP: one lattice evaluation
     (``update_grid(None, ...)``) thresholded by ``sampler_map``.  The
-    lattice is jittered from a generator seeded by ``cfg.seed``.  Plain
+    lattice is jittered from a generator seeded by ``cfg.train.seed``.  Plain
     PyTorch in ``cfg.compute_dtype`` (the JAX package leaves it to XLA)."""
     nc = cfg.nerf
     cd = _dtype(cfg.compute_dtype)
@@ -61,7 +61,7 @@ def refresh_occupancy(nerf_params: NerfParams, cfg: Config, device) -> torch.Ten
         sigma, _ = nerf_params.coarse(enc, cd, sigma_only=True)
         return F.softplus(sigma.reshape(-1))
 
-    gen = torch.Generator().manual_seed(cfg.seed ^ 0x0CC)
+    gen = torch.Generator().manual_seed(cfg.train.seed ^ 0x0CC)
     grid = update_grid(None, act, nc.occ_grid_size, nc.bound_min, nc.bound_max,
                        generator=gen, decay=nc.occ_decay, device=device)
     return sampler_map(grid, nc)

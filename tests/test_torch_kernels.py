@@ -22,7 +22,7 @@ from mc_nerf_tpu.ops.pallas.fused_render import fused_render as j_fused_render
 from mc_nerf_torch.config import NerfConfig
 from mc_nerf_torch.models.nerf import init_nerf_params, nerf_params_from_numpy, pack_eval_params
 from mc_nerf_torch.ops.cuda import fused_mlp as t_fm
-from mc_nerf_torch.ops.cuda.fused_render import fused_render, max_samples
+from mc_nerf_torch.ops.cuda.fused_render import fused_render
 
 NFREQ, SH_DEG = 4, 2
 NB = (SH_DEG + 1) ** 2
@@ -138,12 +138,26 @@ def test_fused_render_refuses_bad_shapes(rng):
         t_fm.fused_mlp_apply(pt, t(feat).bfloat16(), 4, (1,))
 
 
-def test_fused_render_sample_ceiling():
-    """The kernel's shared-memory ceiling on samples per ray: 1,952 for the
-    default fine pack (8x256, 10 octaves), more for narrower packs; the
-    plain version on CPU tensors has none."""
+def test_fused_render_sample_ceiling(rng):
+    """The kernels' shared-memory ceiling on samples per ray (1,952 forward
+    and 1,301 backward at the default fine pack on an H100) is the CUDA
+    sources' and is held on the card (tests/test_torch_gpu.py); the plain
+    versions on CPU tensors have none: a 1,953-sample ray at that pack
+    renders and takes its gradients, and nothing launches."""
     nc = NerfConfig()
-    _, packed_f = pack_eval_params(init_nerf_params(nc, device="cpu"), nc)
-    assert max_samples(packed_f) == 1952
-    _, tp = _params()
-    assert max_samples(t_fm.pack_mlp_params(tp.fine, NFREQ, (1,))) > 1952
+    params = init_nerf_params(nc, device="cpu")
+    packed = t_fm.pack_mlp_params(params.fine, nc.emb_freqs_xyz, nc.fine_skips,
+                                  dtype=torch.float32)
+    s, rays, nb = 1953, 2, (nc.sh_deg + 1) ** 2
+    t = torch.as_tensor
+    z = np.sort(rng.uniform(1.0, 8.0, size=(rays, s)), axis=-1).astype(np.float32)
+    feat = t_fm.encode_kernel_order(t(rng.uniform(-3, 3, size=(rays * s, 3)).astype(np.float32)),
+                                    nc.emb_freqs_xyz).requires_grad_()
+    basis16 = t(np.pad(np.full((rays, nb), 0.3, np.float32), ((0, 0), (0, 16 - nb))))
+    launches = fused_render.launches
+    out, _ = fused_render(packed, feat, basis16, t(z), t(rng.normal(size=(rays, s)).astype(
+        np.float32)), None, nc.fine_depth, nc.fine_skips, s, nb, True, False, True)
+    out[:, :5].sum().backward()
+    assert fused_render.launches == launches
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(feat.grad.float()).all())
+    assert float(params.fine.trunk[0].weight.grad.abs().max()) > 0
