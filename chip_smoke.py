@@ -1,4 +1,5 @@
-"""Smoke test of the PyTorch port on one NVIDIA GPU: build, check, render, train.
+"""Smoke test of the PyTorch port on one NVIDIA GPU: build, check, render, train,
+in both fine modes.
 
     python3 chip_smoke.py
 
@@ -27,16 +28,30 @@
    routes compared, 20 steps on one fixed batch (the rgb loss must fall),
    one stage-0 and one stage-2 step, and a ``torch.profiler`` profile of
    both routes (device busy share, top device and host operations).
-6. Prints the ``kernels`` JSON line, one entry per kernel and path (the
-   demo; the train step): that path's launches, time per launch at its
-   shapes, bound, plain and library times; then
-   ``{"ok": true, "device": ...}`` last.
+6. The grid fine mode (``fine_mode="grid"``: 128 uniform coarse samples,
+   the first 26 above-threshold coarse bins x 5 fine samples per ray, no
+   occupancy map): ``fused_shaded_mlp`` (K4) and its backward (K5) against
+   their plain versions at the grid step's shapes (coarse full 4x128 over
+   7000 x 128 points, fine 8x256 over 7000 x 130) and odd ones (53 rays x
+   7, 7 rays x 1), with times; the differentiable ``fused_mlp`` driven
+   through autograd (K1 forward, K6 backward; coarse full 4x128 over 7000
+   x 48 points, fine 8x256 over 7000 x 32), K6 against its plain version;
+   the demo in grid mode over the two 800x800 views with K1 and K4 counted,
+   a frame timed, one chunk against the plain route, K1 and K4 at one eval
+   chunk's shapes; the grid GLOBAL_OPTIM step as in 5 (K4 and K5 twice
+   per step).
+7. Prints the ``kernels`` JSON line, one entry per kernel and path (the
+   demo; the train step; the grid demo; the grid train step; the
+   fused_mlp VJP): that path's launches, time per launch at its shapes,
+   bound, plain and library times; then ``{"ok": true, "device": ...}``
+   last.
 
 Every kernel check also measures planted faults against the same plain
 version (points mixed up, the skip input dropped, the first layer lost,
-another ray's SH basis; for the backward also a layer's dW transposed or
-zeroed, the skip's dfeat share dropped, the suffix scan shifted by one:
-``tools/bwd_check.py``) and fails if one of them would pass.  Bounds
+another ray's SH basis; for the backwards also a layer's dW transposed or
+zeroed, the skip's dfeat share dropped, the suffix scan shifted by one,
+the sigmoid's derivative dropped on one channel: ``tools/bwd_check.py``)
+and fails if one of them would pass.  Bounds
 count only the work the function needs (not the pad lane, the packed
 head's zero blocks or the backward's workspace).  The weights are the seeded test
 scene of ``mc_nerf_torch.tools.scene`` (He-scaled, so the field's density
@@ -47,6 +62,7 @@ one CUDA card; imports nothing of the JAX package.
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import subprocess
@@ -57,6 +73,7 @@ import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 SEED = 0
 # Kernel vs plain: the same rounding points, sums in another order, so a
@@ -89,7 +106,28 @@ BWD_TOL = {"coarse": {"dW": 5e-4, "db": 3.5e-4, "last layer": 1.5e-4, "dfeat": 1
 STEP_LOSS_RTOL = 3e-4
 STEP_GRAD_TOL = {"grad rel L2 (worst leaf)": 0.15}
 N_TRAIN = 10               # timed steps per round of a route
+N_TRAIN_GRID = 5           # the same in the grid fine mode (~3x the importance step's time)
 N_FIXED = 20               # steps on one fixed batch: the rgb loss must fall
+# fused_shaded_mlp (K4) vs its plain version: sigma's max abs error over
+# its largest magnitude, the rgb's max abs error; 3.7x and 5.2x the
+# largest measured on an H100 (1.35e-2, 9.7e-3 at the eval chunk), every
+# planted fault at 9.8x or more (PERF.md)
+SHADED_TOL = {"sigma rel": 5e-2, "rgb": 5e-2}
+# K5 (under tools/bwd_check.shaded_cotangent) and K6 (mlp_cotangent) vs
+# their plain backwards, relative L2 per output and pass: about 10x the
+# largest error measured on an H100 over this script's shapes (PERF.md);
+# the skip's dfeat share dropped is the tight plant (~3x)
+SHADED_BWD_TOL = {"coarse": {"dW": 1.2e-3, "db": 7.5e-4, "last layer": 1.9e-4, "dfeat": 2.5e-2,
+                             "dbasis": 7.5e-4},
+                  "fine": {"dW": 5.4e-2, "db": 6e-2, "last layer": 1.2e-3, "dfeat": 0.14,
+                           "dbasis": 1.3e-3}}
+MLP_BWD_TOL = {"coarse": {"dW": 2.2e-4, "db": 1.2e-4, "last layer": 1.1e-4, "dfeat": 2.3e-2},
+               "fine": {"dW": 9e-4, "db": 5.3e-4, "last layer": 1.1e-4, "dfeat": 8.4e-2}}
+# one grid-mode train step, kernel route vs the bf16 plain route: the
+# plain route rounds sigma and SH to bf16, so a ray near the selection's
+# threshold may pick another bin.  About 18x the measured loss error
+# (5.6e-6) and 6x the worst leaf's (4.7e-2, PERF.md)
+GRID_STEP_TOL = {"loss rel": 1e-4, "grad rel L2 (worst leaf)": 0.3}
 
 
 def fail(msg: str) -> None:
@@ -128,8 +166,12 @@ def pack_bytes(packed) -> int:
     return sum(t.numel() * t.element_size() for t in leaves)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, fp32_flops: float = 0.0):
+    """(least ms, "operations" or "bytes"): bf16 tensor-core FLOPs over the
+    bf16 peak plus fp32 FLOPs outside the tensor cores over theirs, or the
+    bytes over the memory rate, whichever is larger."""
+    t_ops = flops / PEAK_BF16_FLOPS + fp32_flops / PEAK_FP32_FLOPS
+    t_bytes = nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -401,24 +443,22 @@ def time_backward(nc, bwd, rng, dev) -> dict:
     return out
 
 
-def train_phase(cfg, dev, h: int, w: int) -> dict:
+def train_phase(cfg, dev, h: int, w: int, counters, n_steps: int, route_tol: dict) -> dict:
     """The GLOBAL_OPTIM step at full width on the workload bench.py times
-    (``tools/scene.train_workload``), from the middle of the schedule (the
-    BARF gate half open): timed steps through the kernels with their launch
-    counts, one step's loss and gradients against the plain route, the
-    plain route timed, the rgb loss over 20 steps on one fixed batch, one
-    stage-0 and one stage-2 step, and a profile of both routes."""
-    import dataclasses
-
-    from mc_nerf_torch.ops.cuda.fused_render import (
-        fused_render, render_bwd_points, render_bwd_weights)
+    (``tools/scene.train_workload``; no occupancy map in the grid fine
+    mode), from the middle of the schedule (the BARF gate half open):
+    timed steps through the kernels with the launch counts of ``counters``
+    (each must launch exactly twice per step), one step's loss and
+    gradients against the plain route within ``route_tol``, the plain
+    route timed, the rgb loss over 20 steps on one fixed batch, one stage-0
+    and one stage-2 step, and a profile of both routes."""
     from mc_nerf_torch.tools.bwd_check import rel_l2
     from mc_nerf_torch.tools.profile_step import profile_steps
     from mc_nerf_torch.tools.scene import STEPS_PER_EPOCH, TOTAL_STEPS, train_workload
     from mc_nerf_torch.train.optim import build_optimizers, flatten_params
     from mc_nerf_torch.train.steps import TrainState, draw_step, make_loss_fn, make_stage_step
 
-    counters = (fused_render, render_bwd_points, render_bwd_weights)
+    mode = cfg.train.fine_mode
     params, data = train_workload(cfg, SEED, dev, img_h=h, img_w=w)
     p_flat = flatten_params(params)
     txs, states = build_optimizers(cfg, params, p_flat, STEPS_PER_EPOCH)
@@ -428,14 +468,14 @@ def train_phase(cfg, dev, h: int, w: int) -> dict:
     rays = cfg.train.rays_per_batch
 
     def draw(stage):
-        return draw_step(cfg, stage, n_img, h, w, True, gen)
+        return draw_step(cfg, stage, n_img, h, w, data.occ is not None, gen)
 
     cfg_plain = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, use_pallas=False))
     step_k = make_stage_step(cfg, 1, txs[1], h, w, TOTAL_STEPS)
     step_p = make_stage_step(cfg_plain, 1, txs[1], h, w, TOTAL_STEPS)
     for _ in range(3):
         step_k(state, data, draw(1))
-    draws = [draw(1) for _ in range(N_TRAIN)]
+    draws = [draw(1) for _ in range(n_steps)]
 
     def timed(step, ds):
         torch.cuda.synchronize()
@@ -454,19 +494,20 @@ def train_phase(cfg, dev, h: int, w: int) -> dict:
     rounds = {"kernel": [], "plain": []}
     launches = None
     for route in ("kernel", "plain", "plain", "kernel"):
-        ds = draws if launches is None else [draw(1) for _ in range(N_TRAIN)]
+        ds = draws if launches is None else [draw(1) for _ in range(n_steps)]
         if launches is None:
             for c in counters:
                 c.launches = 0
         rounds[route].append(timed(step_k if route == "kernel" else step_p, ds))
         if launches is None:
             launches = {c.__name__: c.launches for c in counters}
-            print(f"launches over {N_TRAIN} kernel-route steps: {launches}", flush=True)
-            if any(n != 2 * N_TRAIN for n in launches.values()):
+            print(f"launches over {n_steps} kernel-route {mode} steps: {launches}", flush=True)
+            if any(n != 2 * n_steps for n in launches.values()):
                 fail(f"each kernel should launch twice per step: {launches}")
     step_ms = sum(rounds["kernel"]) / 2
     plain_ms = sum(rounds["plain"]) / 2
-    print(f"train step ms per round (kernel, plain, plain, kernel): {rounds['kernel'][0]:.3f}, "
+    print(f"{mode} train step ms per round (kernel, plain, plain, kernel): "
+          f"{rounds['kernel'][0]:.3f}, "
           f"{rounds['plain'][0]:.3f}, {rounds['plain'][1]:.3f}, {rounds['kernel'][1]:.3f}; "
           f"kernel route {step_ms:.3f} ms ({rays / step_ms * 1e3:.0f} rays/s), plain route "
           f"{plain_ms:.3f} ms ({rays / plain_ms * 1e3:.0f} rays/s)", flush=True)
@@ -491,9 +532,8 @@ def train_phase(cfg, dev, h: int, w: int) -> dict:
     broken = copy.deepcopy(params)
     with torch.no_grad():
         broken.nerf.fine.trunk[cfg.nerf.fine_skips[0]].weight[:, :cfg.nerf.embed_dim] = 0
-    hold("train step, kernel route vs bf16 plain route", route_errs(ker, pln),
-         {"loss rel": STEP_LOSS_RTOL, **STEP_GRAD_TOL},
-         {"fine skip input dropped": route_errs(loss_and_grads(cfg_plain, broken), pln)})
+    hold(f"{mode} train step, kernel route vs bf16 plain route", route_errs(ker, pln),
+         route_tol, {"fine skip input dropped": route_errs(loss_and_grads(cfg_plain, broken), pln)})
     del broken
     per_leaf = {n: rel_l2(ker[1][n], pln[1][n]) for n in pln[1] if float(pln[1][n].norm()) > 0}
     print("  per-leaf gradient rel L2, kernel vs plain: "
@@ -507,7 +547,7 @@ def train_phase(cfg, dev, h: int, w: int) -> dict:
     for _ in range(N_FIXED):
         m = step_k(state, data, fixed)
         rgb.append(float(m["loss_rgb_c"] + m["loss_rgb_f"]))
-    print(f"rgb loss (coarse + fine) over {N_FIXED} steps on one batch: {rgb[0]:.6f} -> "
+    print(f"{mode}: rgb loss (coarse + fine) over {N_FIXED} steps on one batch: {rgb[0]:.6f} -> "
           f"{rgb[-1]:.6f}", flush=True)
     if not rgb[-1] < rgb[0]:
         fail("the rgb loss did not fall over 20 steps on one fixed batch")
@@ -518,7 +558,7 @@ def train_phase(cfg, dev, h: int, w: int) -> dict:
         others[stage] = {k: float(v) for k, v in m.items()}
         if not all(math.isfinite(v) for v in others[stage].values()):
             fail(f"stage {stage} step is not finite: {others[stage]}")
-    print(f"stage 0 step: {others[0]}\nstage 2 step: {others[2]}", flush=True)
+    print(f"{mode}: stage 0 step: {others[0]}\nstage 2 step: {others[2]}", flush=True)
 
     profiles = {}
     for route, step, n in (("kernel", step_k, 3), ("plain", step_p, 2)):
@@ -529,7 +569,7 @@ def train_phase(cfg, dev, h: int, w: int) -> dict:
                                    for ms, c, nm in rows[:8]],
                            "host_top": [{"ms": ms, "calls": c, "name": nm[:60]}
                                         for ms, c, nm in host[:6]]}
-        print(f"profile, {route} route: {wall:.1f} ms wall, {busy:.1f} ms of kernels, busy "
+        print(f"profile, {mode} {route} route: {wall:.1f} ms wall, {busy:.1f} ms of kernels, busy "
               f"share {busy / wall:.3f}; top: " + "; ".join(
                   f"{nm[:60]} {ms:.2f} ms x{c}" for ms, c, nm in rows[:8])
               + "; host (self CPU): " + "; ".join(
@@ -539,6 +579,316 @@ def train_phase(cfg, dev, h: int, w: int) -> dict:
             "rounds_ms": rounds,
             "route_errs": route_errs(ker, pln), "rgb_loss_fixed_batch": [rgb[0], rgb[-1]],
             "profiles": profiles, "launches": launches}
+
+
+def shaded_errs(out, ref) -> dict:
+    if not (bool(torch.isfinite(out).all()) and float(out[:, 4:].abs().max()) == 0.0):
+        fail("fused_shaded_mlp output is not finite or its lanes 4..7 are not 0")
+    return {"sigma rel": float((out[:, 0] - ref[:, 0]).abs().max() / ref[:, 0].abs().max()),
+            "rgb": float((out[:, 1:4] - ref[:, 1:4]).abs().max())}
+
+
+def mixed_in_tiles(out):
+    """The rows of every full 128-point tile (of all rows, below 128) in
+    reverse order: points mixed up inside a tile."""
+    tile = min(128, out.shape[0])
+    n = out.shape[0] // tile * tile
+    return torch.cat([out[:n].view(-1, tile, out.shape[1]).flip(1).reshape(n, -1), out[n:]])
+
+
+def grid_passes(nc, params):
+    """The two shading passes of a grid-mode training step: (label, module,
+    depth, width, skips, samples per ray)."""
+    return (("coarse", params.coarse, nc.coarse_depth, nc.coarse_width, nc.coarse_skips,
+             nc.samples_coarse),
+            ("fine", params.fine, nc.fine_depth, nc.fine_width, nc.fine_skips, nc.samples_fine))
+
+
+def max_abs(a, b) -> float:
+    """The largest abs difference over a backward's outputs."""
+    flat = lambda r: [*r[0], *r[1], *r[2:]]
+    return max(float((x - y).abs().max()) for x, y in zip(flat(a), flat(b)))
+
+
+def check_shaded(nc, params, dev, rng, rays, errs) -> dict:
+    """fused_shaded_mlp (K4) and its backward (K5) against their plain
+    versions at the grid training step's shapes (coarse full 4x128 pack,
+    rays x 128 points; fine 8x256, rays x 130) and at odd ones (53 rays x
+    7 samples, 7 rays x 1), with planted faults: points mixed in a tile,
+    the skip input dropped, another ray's basis; for K5 also a layer's dW
+    transposed or zeroed, the skip's dfeat share dropped and the sigmoid's
+    derivative dropped on one channel.  Cotangent: a render-shaped loss
+    (``tools/bwd_check.shaded_cotangent``).  Returns per pass the numbers
+    of the kernels line (K4 and K5 at the training shapes) and K5's
+    relative errors."""
+    from mc_nerf_torch.ops.cuda.fused_mlp import (
+        _flat_weights, fused_shaded_mlp, fused_shaded_mlp_bwd, fused_shaded_mlp_bwd_plain,
+        fused_shaded_mlp_plain, pack_mlp_params)
+    from mc_nerf_torch.tools.bwd_check import bwd_errs, planted_errs_shaded, shaded_cotangent
+
+    nb = (nc.sh_deg + 1) ** 2
+    fwd, bwd, rel = {}, {}, {}
+    for label, mlp, depth, width, skips, s_main in grid_passes(nc, params):
+        pk = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+        ws, bs = _flat_weights(pk)
+        for r, s in ((rays, s_main), (53, 7), (7, 1)):
+            feat, basis16 = render_inputs(nc, r, s, rng, dev)[:2]
+
+            def fargs(p=pk, b=basis16):
+                return (p, feat, b, depth, skips, s, nb)
+
+            k_out = fused_shaded_mlp(*fargs())
+            torch.cuda.synchronize()
+            p_out = fused_shaded_mlp_plain(*fargs())
+            e = shaded_errs(k_out, p_out)
+            errs["fused_shaded_mlp"] = max(errs["fused_shaded_mlp"],
+                                           float((k_out - p_out).abs().max()))
+            hold(f"fused_shaded_mlp {label} rays={r} s={s}", e, SHADED_TOL, {
+                "points mixed in a tile": shaded_errs(mixed_in_tiles(k_out), p_out),
+                "skip input dropped": shaded_errs(
+                    fused_shaded_mlp_plain(*fargs(p=drop_skip(pk, skips))), p_out),
+                "another ray's basis": shaded_errs(
+                    fused_shaded_mlp_plain(*fargs(b=basis16.roll(1, 0))), p_out)})
+            dout8 = shaded_cotangent(p_out, s)
+            args = (ws, bs, feat, basis16, dout8, depth, skips, s, nb)
+            k = fused_shaded_mlp_bwd(*args)
+            torch.cuda.synchronize()
+            ref = fused_shaded_mlp_bwd_plain(*args)
+            e = bwd_errs(k, ref)
+            errs["fused_shaded_mlp_bwd"] = max(errs["fused_shaded_mlp_bwd"], max_abs(k, ref))
+            if r == rays:
+                spread = bwd_errs(ref, fused_shaded_mlp_bwd_plain(*args[:4], dout8.double(),
+                                                                  *args[5:]))
+                print(f"shaded backward {label}: the plain version's own spread (fp32 against "
+                      "float64 sums): " + ", ".join(f"{n} {v:.3e}" for n, v in spread.items()),
+                      flush=True)
+                rel[label] = e
+            hold(f"shaded backward {label} rays={r} s={s} (relative L2)", e,
+                 SHADED_BWD_TOL[label], planted_errs_shaded(args, ref))
+            del k, ref
+        # times at the training shapes
+        feat, basis16 = render_inputs(nc, rays, s_main, rng, dev)[:2]
+        p = rays * s_main
+        enc = feat.shape[1]
+        fa = (pk, feat, basis16, depth, skips, s_main, nb)
+        dout8 = shaded_cotangent(fused_shaded_mlp_plain(*fa), s_main)
+        args = (ws, bs, feat, basis16, dout8, depth, skips, s_main, nb)
+        macs = needed_macs(nc, depth, width, skips, False)
+        shade_flops = 2.0 * 3 * nb * p
+        t_fwd = bound(2.0 * macs * p,
+                      p * enc * 2 + rays * 16 * 4 + p * 8 * 4 + pack_bytes(pk), shade_flops)
+        # backward: recompute, dX and dW; reads feat, basis, dout8 and the
+        # pack, writes dfeat, dbasis and the fp32 weight gradients
+        t_bwd = bound(3 * 2.0 * macs * p,
+                      p * enc * 2 + rays * 16 * 4 + p * 8 * 4 + pack_bytes(pk)
+                      + p * enc * 4 + rays * 16 * 4 + 2 * pack_bytes(pk), 3 * shade_flops)
+        dout_b = torch.as_tensor(rng.normal(size=(p, 32)) * 1e-4, dtype=torch.bfloat16,
+                                 device=dev)
+
+        def library_bwd():
+            saved = library_bwd_dx(ws, bs, feat, dout_b, depth, skips)
+            library_bwd_dw(*saved, dout_b)
+
+        fwd[label] = {"ms": cuda_ms(lambda: fused_shaded_mlp(*fa)),
+                      "plain_ms": cuda_ms(lambda: fused_shaded_mlp_plain(*fa), 3),
+                      "library_ms": cuda_ms(lambda: library_mlp(pk, feat, depth, skips)),
+                      "bound_ms": t_fwd[0], "bound_by": t_fwd[1]}
+        bwd[label] = {"ms": cuda_ms(lambda: fused_shaded_mlp_bwd(*args), 3),
+                      "plain_ms": cuda_ms(lambda: fused_shaded_mlp_bwd_plain(*args), 2),
+                      "library_ms": cuda_ms(library_bwd, 3),
+                      "bound_ms": t_bwd[0], "bound_by": t_bwd[1]}
+        torch.cuda.reset_peak_memory_stats()
+        fused_shaded_mlp_bwd(*args)
+        print(f"shaded backward {label} pass ({rays} x {s_main} points): peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (the workspace included)",
+              flush=True)
+    return {"fused_shaded_mlp": fwd, "fused_shaded_mlp_bwd": bwd, "rel": rel}
+
+
+def fused_mlp_vjp_phase(nc, params, dev, rng, rays, errs) -> dict:
+    """The differentiable ``fused_mlp`` (K1 forward, K6 backward) through
+    autograd at the coarse full 4x128 pack over rays x 48 points and the
+    fine 8x256 pack over rays x 32, launches counted from 0 just before;
+    then K6 against ``fused_mlp_bwd_plain`` at the same shapes under an MSE
+    of the packed output (``tools/bwd_check.mlp_cotangent``), with planted
+    faults, and its times."""
+    from mc_nerf_torch.ops.cuda.fused_mlp import (
+        _flat_weights, fused_mlp, fused_mlp_apply, fused_mlp_bwd, fused_mlp_bwd_plain,
+        mlp_plain, pack_mlp_params)
+    from mc_nerf_torch.tools.bwd_check import bwd_errs, mlp_cotangent, planted_errs_mlp
+
+    passes = (("coarse", params.coarse, nc.coarse_depth, nc.coarse_width, nc.coarse_skips,
+               nc.occ_coarse_samples),
+              ("fine", params.fine, nc.fine_depth, nc.fine_width, nc.fine_skips, 32))
+    inputs = {}
+    for label, mlp, depth, width, skips, s in passes:
+        pk = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+        feat = render_inputs(nc, rays, s, rng, dev)[0]
+        inputs[label] = (pk, feat, mlp_cotangent(mlp_plain(pk, feat, depth, skips)))
+    torch.cuda.synchronize()
+    fused_mlp_apply.launches = 0
+    fused_mlp_bwd.launches = 0
+    for label, mlp, depth, width, skips, s in passes:
+        _pk, feat, dout = inputs[label]
+        f = feat.detach().clone().requires_grad_()
+        out = fused_mlp(pack_mlp_params(mlp, nc.emb_freqs_xyz, skips, dtype=torch.float32), f,
+                        depth, skips)
+        out.backward(dout)
+        if not (bool(torch.isfinite(f.grad.float()).all())
+                and all(bool(torch.isfinite(q.grad).all()) for q in mlp.parameters())):
+            fail(f"fused_mlp VJP {label}: gradients are not finite")
+        mlp.zero_grad(set_to_none=True)
+    torch.cuda.synchronize()
+    launches = {"fused_mlp_apply": fused_mlp_apply.launches,
+                "fused_mlp_bwd": fused_mlp_bwd.launches}
+    print(f"fused_mlp VJP (coarse {rays} x 48, fine {rays} x 32): launches {launches}", flush=True)
+    if launches != {"fused_mlp_apply": 2, "fused_mlp_bwd": 2}:
+        fail(f"fused_mlp's VJP should launch its forward and backward once per pack: {launches}")
+    numbers, rel = {}, {}
+    for label, mlp, depth, width, skips, s in passes:
+        pk, feat, dout = inputs[label]
+        ws, bs = _flat_weights(pk)
+        args = (ws, bs, feat, dout, depth, skips)
+        k = fused_mlp_bwd(*args)
+        torch.cuda.synchronize()
+        ref = fused_mlp_bwd_plain(*args)
+        spread = bwd_errs(ref, fused_mlp_bwd_plain(*args[:3], dout.double(), *args[4:]))
+        print(f"fused_mlp backward {label}: the plain version's own spread (fp32 against "
+              "float64 sums): " + ", ".join(f"{n} {v:.3e}" for n, v in spread.items()), flush=True)
+        rel[label] = bwd_errs(k, ref)
+        errs["fused_mlp_bwd"] = max(errs["fused_mlp_bwd"], max_abs(k, ref))
+        hold(f"fused_mlp backward {label} P={feat.shape[0]} (relative L2)", rel[label],
+             MLP_BWD_TOL[label], planted_errs_mlp(args, ref))
+        p, enc = feat.shape
+        macs = needed_macs(nc, depth, width, skips, False)
+        t_b = bound(3 * 2.0 * macs * p, p * enc * 2 + p * 32 * 4 + pack_bytes(pk) + p * enc * 4
+                    + 2 * pack_bytes(pk))
+        dout_b = dout.bfloat16()
+
+        def library_bwd():
+            saved = library_bwd_dx(ws, bs, feat, dout_b, depth, skips)
+            library_bwd_dw(*saved, dout_b)
+
+        numbers[label] = {"ms": cuda_ms(lambda: fused_mlp_bwd(*args)),
+                          "plain_ms": cuda_ms(lambda: fused_mlp_bwd_plain(*args), 3),
+                          "library_ms": cuda_ms(library_bwd),
+                          "bound_ms": t_b[0], "bound_by": t_b[1]}
+    return {"launches": launches, "fused_mlp_bwd": numbers, "rel": rel}
+
+
+def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> dict:
+    """The demo in the grid fine mode (``eval.fine_mode="grid"``: uniform
+    128 coarse samples through the sigma-only ``fused_mlp_apply``, 26 bins
+    x 5 fine samples per ray through ``fused_shaded_mlp``, no occupancy
+    refresh) over two 800x800 views, K1 and K4 counted from 0 just before;
+    one frame timed; one chunk of the frame through the plain route
+    against the kernel route; K1 and K4 at one eval chunk's shapes
+    (16384 x 128 coarse, 16384 x 130 fine) against their plain versions,
+    and their times."""
+    from mc_nerf_torch.cameras.rays import pixel_grid, rays_for_pixels
+    from mc_nerf_torch.models.nerf import pack_eval_params, render_rays_eval
+    from mc_nerf_torch.ops.cuda.fused_mlp import (
+        encode_kernel_order, fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_plain,
+        mlp_plain)
+    from mc_nerf_torch.train.engine import demo
+    from mc_nerf_torch.train.steps import make_render_fn
+
+    nc = cfg.nerf
+    cfg_g = dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval, fine_mode="grid"))
+    render = make_render_fn(cfg_g, h, w, device=dev)
+    render(params, poses[0], K)               # warm-up frame
+    torch.cuda.synchronize()
+    fused_mlp_apply.launches = 0
+    fused_shaded_mlp.launches = 0
+    t0 = time.perf_counter()
+    result = demo(params, split, cfg_g, device=dev, cull=True)
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    launches = {"fused_mlp_apply": fused_mlp_apply.launches,
+                "fused_shaded_mlp": fused_shaded_mlp.launches}
+    print(f"grid demo: {result} in {demo_s:.2f} s; launches {launches}", flush=True)
+    if not all(n > 0 for n in launches.values()):
+        fail(f"a kernel of the grid demo was not launched: {launches}")
+    if not (result["count"] == 2 and math.isfinite(result["psnr"])
+            and math.isfinite(result["ssim"])):
+        fail(f"grid demo result is not finite: {result}")
+    frame_ms = cuda_ms(lambda: render(params, poses[1], K), 1)
+    rgb, depth, opac = render(params, poses[1], K)
+    if tuple(rgb.shape) != (h, w, 3) or not bool(torch.isfinite(rgb).all()
+                                                 & torch.isfinite(depth).all()):
+        fail("grid frame is not finite or has the wrong shape")
+    chunk = cfg.eval.rays_per_chunk
+    print(f"grid frame: {frame_ms:.1f} ms per 800x800 frame, {h * w / frame_ms * 1e3:.0f} rays/s "
+          f"({math.ceil(h * w / chunk)} chunks of {chunk} rays); rgb {float(rgb.min()):.3f}.."
+          f"{float(rgb.max()):.3f} (std {float(rgb.std()):.4f}), opacity mean "
+          f"{float(opac.mean()):.4f}", flush=True)
+
+    packed = pack_eval_params(params, nc)
+    pix = pixel_grid(h, w, device=dev)[h * w // 2 - chunk // 2: h * w // 2 + chunk // 2]
+    rd, ro = rays_for_pixels(pix, torch.as_tensor(poses[1], device=dev),
+                             torch.as_tensor(K, device=dev))
+    ker = render_rays_eval(params, rd, ro, nc, torch.bfloat16, fine_mode="grid", packed=packed)
+
+    def slice_errs(pln):
+        span = nc.far - nc.near
+        return {"max rgb/opacity": max(float((ker[i] - pln[i]).abs().max()) for i in (0, 2)),
+                "max depth/(far-near)": float((ker[1] - pln[1]).abs().max()) / span,
+                "mean rgb": float((ker[0] - pln[0]).abs().mean())}
+
+    broken = copy.deepcopy(params)
+    with torch.no_grad():
+        broken.fine.trunk[nc.fine_skips[0]].weight[:, :nc.embed_dim] = 0
+    hold("grid slice chunk, kernel route vs bf16 plain route",
+         slice_errs(render_rays_eval(params, rd, ro, nc, torch.bfloat16, fine_mode="grid")),
+         {"max rgb/opacity": SLICE_ATOL, "max depth/(far-near)": SLICE_ATOL,
+          "mean rgb": SLICE_MEAN_ATOL},
+         {"fine skip input dropped": slice_errs(render_rays_eval(
+             broken, rd, ro, nc, torch.bfloat16, fine_mode="grid"))})
+    del broken
+
+    # K1 and K4 at one eval chunk's shapes
+    rng = np.random.default_rng(SEED + 1)
+    nb = (nc.sh_deg + 1) ** 2
+    sc, sf = nc.samples_coarse, nc.samples_fine
+    feat_c = encode_kernel_order(torch.as_tensor(rng.uniform(-3.5, 3.5, (chunk * sc, 3)),
+                                                 dtype=torch.float32, device=dev),
+                                 nc.emb_freqs_xyz)
+    feat_f, basis16 = render_inputs(nc, chunk, sf, rng, dev)[:2]
+    lib_c = (packed[0], feat_c, nc.coarse_depth, nc.coarse_skips)
+    sh_args = (packed[1], feat_f, basis16, nc.fine_depth, nc.fine_skips, sf, nb)
+    ker_c, ref_c = fused_mlp_apply(*lib_c), mlp_plain(*lib_c)
+    errs["fused_mlp_apply"] = max(errs["fused_mlp_apply"], float((ker_c - ref_c).abs().max()))
+    hold(f"fused_mlp_apply grid eval chunk ({chunk} x {sc})", mlp_errs(ker_c, ref_c),
+         {"rel": MLP_RTOL}, {"points mixed in a tile": mlp_errs(mixed_in_tiles(ker_c), ref_c)})
+    ker_f, ref_f = fused_shaded_mlp(*sh_args), fused_shaded_mlp_plain(*sh_args)
+    errs["fused_shaded_mlp"] = max(errs["fused_shaded_mlp"], float((ker_f - ref_f).abs().max()))
+    hold(f"fused_shaded_mlp grid eval chunk ({chunk} x {sf})", shaded_errs(ker_f, ref_f),
+         SHADED_TOL, {"points mixed in a tile": shaded_errs(mixed_in_tiles(ker_f), ref_f)})
+    del ker_c, ref_c, ker_f, ref_f
+    emb = feat_c.shape[1]
+    p_c, p_f = chunk * sc, chunk * sf
+    macs_c = needed_macs(nc, nc.coarse_depth, nc.coarse_width, nc.coarse_skips, True)
+    macs_f = needed_macs(nc, nc.fine_depth, nc.fine_width, nc.fine_skips, False)
+    b_c = bound(2.0 * macs_c * p_c, p_c * emb * 2 + p_c * 32 * 4 + pack_bytes(packed[0]))
+    b_f = bound(2.0 * macs_f * p_f, p_f * emb * 2 + chunk * 16 * 4 + p_f * 8 * 4
+                + pack_bytes(packed[1]), 2.0 * 3 * nb * p_f)
+    numbers = {
+        "fused_mlp_apply": {"ms": cuda_ms(lambda: fused_mlp_apply(*lib_c)),
+                            "plain_ms": cuda_ms(lambda: mlp_plain(*lib_c), 2),
+                            "library_ms": cuda_ms(lambda: library_mlp(*lib_c)),
+                            "bound_ms": b_c[0], "bound_by": b_c[1]},
+        "fused_shaded_mlp": {"ms": cuda_ms(lambda: fused_shaded_mlp(*sh_args)),
+                             "plain_ms": cuda_ms(lambda: fused_shaded_mlp_plain(*sh_args), 2),
+                             "library_ms": cuda_ms(lambda: library_mlp(
+                                 packed[1], feat_f, nc.fine_depth, nc.fine_skips)),
+                             "bound_ms": b_f[0], "bound_by": b_f[1]},
+    }
+    for name, t in numbers.items():
+        print(f"{name} grid eval chunk: {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}, bf16 "
+              f"matmul chain {t['library_ms']:.3f}, bound {t['bound_ms']:.3f} by "
+              f"{t['bound_by']})", flush=True)
+    return {"launches": launches, "frame_ms": frame_ms, "rays_per_s": h * w / frame_ms * 1e3,
+            "demo_s": demo_s, "result": result, "numbers": numbers}
 
 
 def main() -> None:
@@ -551,9 +901,11 @@ def main() -> None:
     from mc_nerf_torch.cameras.rays import pixel_grid, rays_for_pixels
     from mc_nerf_torch.ops.cuda import _build
     from mc_nerf_torch.ops.cuda.fused_mlp import (
-        BASIS_LANES, encode_kernel_order, fused_mlp_apply, mlp_plain)
+        BASIS_LANES, encode_kernel_order, fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd,
+        mlp_plain)
     from mc_nerf_torch.ops.cuda.fused_render import (
-        fused_render, fused_render_plain, max_samples, max_samples_bwd)
+        fused_render, fused_render_plain, max_samples, max_samples_bwd, render_bwd_points,
+        render_bwd_weights)
     from mc_nerf_torch.tools.scene import LEGO_FOV, orbit_views, scene_params
     from mc_nerf_torch.train.engine import demo, refresh_occupancy
     from mc_nerf_torch.train.steps import make_render_fn
@@ -764,16 +1116,47 @@ def main() -> None:
                   f"{t['bound_ms']:.3f} by {t['bound_by']})", flush=True)
 
     # ---- the GLOBAL_OPTIM train step at full width
-    train = train_phase(cfg, dev, h, w)
+    train = train_phase(cfg, dev, h, w, (fused_render, render_bwd_points, render_bwd_weights),
+                        N_TRAIN, {"loss rel": STEP_LOSS_RTOL, **STEP_GRAD_TOL})
+
+    # ---- the grid fine mode: its kernels, the demo, the train step
+    errs.update({"fused_shaded_mlp": 0.0, "fused_shaded_mlp_bwd": 0.0, "fused_mlp_bwd": 0.0})
+    shaded = check_shaded(nc, params, dev, rng, t_rays, errs)
+    for name in ("fused_shaded_mlp", "fused_shaded_mlp_bwd"):
+        for label, t in shaded[name].items():
+            print(f"{name}, grid training {label} pass: {t['ms']:.3f} ms (plain "
+                  f"{t['plain_ms']:.3f}, bf16 torch chain {t['library_ms']:.3f}, bound "
+                  f"{t['bound_ms']:.3f} by {t['bound_by']})", flush=True)
+    vjp = fused_mlp_vjp_phase(nc, params, dev, rng, t_rays, errs)
+    for label, t in vjp["fused_mlp_bwd"].items():
+        print(f"fused_mlp_bwd, {label} pack: {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}, bf16 "
+              f"torch chain {t['library_ms']:.3f}, bound {t['bound_ms']:.3f} by "
+              f"{t['bound_by']})", flush=True)
+    grid_demo = grid_demo_phase(cfg, params, dev, split, poses, K, h, w, errs)
+    cfg_grid = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, fine_mode="grid"))
+    grid_train = train_phase(cfg_grid, dev, h, w, (fused_shaded_mlp, fused_shaded_mlp_bwd),
+                             N_TRAIN_GRID, GRID_STEP_TOL)
 
     replaces = {"fused_mlp_apply": "mc_nerf_tpu/ops/pallas/fused_mlp.py:241",
                 "fused_render": "mc_nerf_tpu/ops/pallas/fused_render.py:211",
                 "render_bwd_points": "mc_nerf_tpu/ops/pallas/fused_render.py:290",
-                "render_bwd_weights": "mc_nerf_tpu/ops/pallas/fused_render.py:290"}
+                "render_bwd_weights": "mc_nerf_tpu/ops/pallas/fused_render.py:290",
+                "fused_shaded_mlp": "mc_nerf_tpu/ops/pallas/fused_mlp.py:381",
+                "fused_shaded_mlp_bwd": "mc_nerf_tpu/ops/pallas/fused_mlp.py:423",
+                "fused_mlp_bwd": "mc_nerf_tpu/ops/pallas/fused_mlp.py:739"}
     sources = {"fused_mlp_apply": "mc_nerf_torch/csrc/fused_mlp.cu",
                "fused_render": "mc_nerf_torch/csrc/fused_render.cu",
                "render_bwd_points": "mc_nerf_torch/csrc/fused_render_bwd.cu",
-               "render_bwd_weights": "mc_nerf_torch/csrc/fused_render_bwd.cu"}
+               "render_bwd_weights": "mc_nerf_torch/csrc/fused_render_bwd.cu",
+               "fused_shaded_mlp": "mc_nerf_torch/csrc/fused_shaded.cu",
+               "fused_shaded_mlp_bwd": "mc_nerf_torch/csrc/fused_mlp_bwd.cu",
+               "fused_mlp_bwd": "mc_nerf_torch/csrc/fused_mlp_bwd.cu"}
+
+    def entry(name, path, launches, numbers):
+        return {"name": name, "path": path, "route": "cuda", "source": sources[name],
+                "replaces": replaces[name], "launches": launches, "max_abs_err": errs[name],
+                **numbers}
+
     # one entry per kernel and path, each path's launches counted from 0
     # just before it ran: the demo (2 frames; times at one eval chunk) and
     # the train step (N_TRAIN steps; times per launch, the mean of the
@@ -790,6 +1173,23 @@ def main() -> None:
         "launches_per_step": train["launches"][name] / N_TRAIN, "max_abs_err": errs[name],
         **per_launch(train_numbers[name]),
     } for name in ("fused_render", "render_bwd_points", "render_bwd_weights")]
+    # the grid paths: the demo (2 frames; times at one eval chunk), the
+    # train step (N_TRAIN_GRID steps; per launch, the mean of both passes),
+    # the fused_mlp VJP (one launch per pack; the mean of both packs)
+    kernels += [entry(name, "demo_grid", grid_demo["launches"][name],
+                      grid_demo["numbers"][name])
+                for name in ("fused_mlp_apply", "fused_shaded_mlp")]
+    kernels += [{**entry(name, "train_step_grid", grid_train["launches"][name],
+                         per_launch(shaded[name])),
+                 "launches_per_step": grid_train["launches"][name] / N_TRAIN_GRID}
+                for name in ("fused_shaded_mlp", "fused_shaded_mlp_bwd")]
+    kernels.append(entry("fused_mlp_bwd", "fused_mlp_vjp", vjp["launches"]["fused_mlp_bwd"],
+                         per_launch(vjp["fused_mlp_bwd"])))
+    print(json.dumps({"grid_demo": {k: v for k, v in grid_demo.items() if k != "numbers"},
+                      "grid_train": {k: v for k, v in grid_train.items() if k != "launches"},
+                      "grid_train_launches": grid_train["launches"],
+                      "shaded_bwd_rel_l2": shaded["rel"], "fused_mlp_bwd_rel_l2": vjp["rel"],
+                      "card": smi}))
     print(json.dumps({"frame_ms": frame_ms, "rays_per_s": h * w / frame_ms * 1e3,
                       "launches_per_frame": {k: v / 2 for k, v in demo_launches.items()},
                       "occupied_share": occ_share, "card": smi}))

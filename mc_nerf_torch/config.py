@@ -2,11 +2,10 @@
 
 An own copy of ``mc_nerf_tpu/config.py``'s ``StageConfig``, ``TrainConfig``,
 ``BarfConfig``, ``NerfConfig`` and ``EvalConfig`` with the same defaults,
-cut to the fields the ported code reads (the render and the training
-step).  Later slices add their fields with their code: ``fine_mode`` with
-the grid fine mode, ``occ_pmf`` with the density PMF, ``coarse_free`` with
-the coarse-free branch, ``remat_shade``, the engine's schedule fields and
-the yaml loader.
+cut to the fields the ported code reads (the render, the training step
+and both fine modes).  Later slices add their fields with their code:
+``occ_pmf`` with the density PMF, ``coarse_free`` with the coarse-free
+branch, the engine's schedule fields and the yaml loader.
 """
 
 from __future__ import annotations
@@ -44,9 +43,16 @@ class TrainConfig:
     grad_clip: float = 10.0
     rays_per_batch: int = 7000       # rays sampled from one image per step (ref yaml `batch`)
     seed: int = 42
-    importance_samples: int = 32     # fine samples/ray
+    # "importance": stratified inverse-CDF fine sampling; "grid": the
+    # reference-faithful threshold / top-k bins of the fine grid
+    fine_mode: str = "importance"
+    importance_samples: int = 32     # fine samples/ray for fine_mode="importance"
+    # recompute the encode -> MLP -> shade passes in the backward instead of
+    # keeping their activations (torch.utils.checkpoint)
+    remat_shade: bool = False
     # the render route of the train step: None or True = the hand-written
-    # kernels (fused_render forward and backward), False = plain PyTorch
+    # kernels (fused_render, or fused_shaded_mlp in grid mode, forward and
+    # backward), False = plain PyTorch
     use_pallas: Optional[bool] = None
 
 
@@ -75,6 +81,9 @@ class NerfConfig:
     near: float = 1.0
     far: float = 8.0
     samples_coarse: int = 128        # uniform coarse samples/ray (no culling)
+    sample_scale: int = 5            # fine grid = samples_coarse * sample_scale
+    sigma_default: float = -20.0     # raw sigma assigned to unselected fine samples
+    weight_thresh: float = 1e-3      # coarse-weight threshold for fine selection
     bound_min: float = -3.5
     bound_max: float = 3.5
     white_back: bool = True
@@ -86,8 +95,11 @@ class NerfConfig:
     fine_width: int = 256
     fine_skips: Tuple[int, ...] = (4,)
     sh_deg: int = 2
+    # grid fine mode: a static per-ray budget of fine_bins_topk coarse bins
+    # x sample_scale fine samples (the reference caps the total at rays*128)
+    fine_bins_topk: int = 26
 
-    # occupancy-grid sample culling (ops/occupancy.py)
+    # occupancy-grid sample culling (ops/occupancy.py; importance mode only)
     occ_grid_size: int = 64          # lattice resolution G (0 disables culling)
     occ_thresh: float = 0.01         # occupied iff softplus(sigma)*coarse_step > this
     occ_decay: float = 0.95          # EMA-max decay per refresh
@@ -96,6 +108,15 @@ class NerfConfig:
     occ_coarse_samples: int = 48     # coarse samples/ray under culling
     occ_dilate: bool = True          # 3^3 max-pool safety margin
     occ_map_dtype: str = "bfloat16"  # "bfloat16" | "int8" ("bitpack" not ported yet)
+
+    @property
+    def samples_fine_grid(self) -> int:
+        return self.samples_coarse * self.sample_scale
+
+    @property
+    def samples_fine(self) -> int:
+        """Static number of fine samples evaluated per ray in grid mode."""
+        return self.fine_bins_topk * self.sample_scale
 
     @property
     def sh_dim(self) -> int:
@@ -111,7 +132,8 @@ class EvalConfig:
     """Demo/eval parameters (ref ``config/config.yaml:31-36``)."""
 
     rays_per_chunk: int = 16384      # rays per render chunk
-    importance_samples: int = 32     # fine samples/ray
+    fine_mode: str = "importance"    # "importance" | "grid" (reference-faithful)
+    importance_samples: int = 32     # fine samples/ray for fine_mode="importance"
     use_pallas: Optional[bool] = None  # kernel route; None = the kernel route
 
 

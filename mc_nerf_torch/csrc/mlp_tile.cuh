@@ -71,6 +71,8 @@ __host__ __device__ inline size_t mlp_smem_bytes(const MLPParams& p) {
          sizeof(float) * size_t(TILE_M) * OUT_PITCH;
 }
 
+__device__ __forceinline__ float sigmoidf(float x) { return 1.f / (1.f + expf(-x)); }
+
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -225,11 +227,12 @@ __device__ __forceinline__ void relu_pass(int nc, const bf16* A, int a_pitch, in
 
 // Where mlp_tile also stores a tile's activations (the training
 // backward's recompute): the bf16 output of every trunk layer and of head
-// layer 0, and the fp32 packed output, for the tile's first n_rows rows.
+// layer 0, and (unless out32 is null) the fp32 packed output, for the
+// tile's first n_rows rows.
 struct ActSave {
   bf16* h;          // [depth][points][width]
   bf16* h1;         // [points][head0]
-  float* out32;     // [points][32]
+  float* out32;     // [points][32], or null
   long long points; // rows of one layer's block of h
   long long row0;   // the tile's first point
   int n_rows;
@@ -287,7 +290,7 @@ __device__ void mlp_tile(const MLPParams& p, bf16* act, bf16* h1, bf16* wst,
     }
   }
   __syncthreads();
-  if (save) {
+  if (save && save->out32) {
     for (int idx = threadIdx.x; idx < save->n_rows * OUT_COLS; idx += THREADS) {
       const int r = idx / OUT_COLS, c = idx - r * OUT_COLS;
       save->out32[(save->row0 + r) * OUT_COLS + c] = outs[r * OUT_PITCH + c];

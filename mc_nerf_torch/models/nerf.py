@@ -3,17 +3,20 @@
 Counterpart of ``mc_nerf_tpu/models/nerf.py`` (ref ``NeRF_Model``,
 ``model/mc_nerf.py:543-736``).  Ported: the parameters, the weight
 carry-over from the JAX package, and the eval and training renders in
-their uniform and occupancy-culled importance branches, by two routes:
+both fine modes: importance (uniform or occupancy-culled coarse samples,
+inverse-CDF fine samples) and the reference-faithful grid (threshold /
+top-k bins of the fine grid), by two routes:
 
 * the plain route: ``_shade`` + ``composite`` in the configured compute
   dtype (autograd for training);
 * the kernel route: for eval the sigma-only coarse pass through
-  ``fused_mlp_apply`` and the fine pass through ``fused_render``; for
+  ``fused_mlp_apply``, the fine pass through ``fused_render``
+  (importance) or ``fused_shaded_mlp`` + ``composite`` (grid); for
   training both passes through the differentiable ``fused_render``
-  (hand-written forward and backward kernels) on an fp32 pack.
+  (importance) or ``fused_shaded_mlp`` (grid), hand-written forward and
+  backward kernels, on an fp32 pack.
 
-The grid fine mode, the coarse-free branch and ``remat_shade`` wait for
-later slices.
+The coarse-free branch waits for a later slice.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mc_nerf_torch import resolve_device
 from mc_nerf_torch.config import NerfConfig
@@ -35,6 +39,7 @@ from mc_nerf_torch.ops.cuda.fused_mlp import (
     PackedMLP,
     encode_kernel_order,
     fused_mlp_apply,
+    fused_shaded_mlp,
     pack_mlp_params,
 )
 from mc_nerf_torch.ops.cuda.fused_render import fused_render
@@ -42,7 +47,9 @@ from mc_nerf_torch.ops.occupancy import proposal_pmf
 from mc_nerf_torch.ops.volume import (
     composite,
     compute_deltas,
+    expand_bins_to_samples,
     sample_pdf,
+    select_fine_bins,
     sigma_to_weights,
 )
 
@@ -132,15 +139,66 @@ def pack_eval_params(params: NerfParams,
     )
 
 
+def _basis16(basis: torch.Tensor, cfg: NerfConfig) -> Tuple[torch.Tensor, int]:
+    """[R, nb] SH basis -> ([R, 16] padded, nb)."""
+    nb = (cfg.sh_deg + 1) ** 2
+    return F.pad(basis, (0, BASIS_LANES - nb)).contiguous(), nb
+
+
 def _shade_pallas(packed: PackedMLP, depth: int, skips, xyz: torch.Tensor,
-                  cfg: NerfConfig) -> Tuple[torch.Tensor, None]:
-    """Density-only kernel shading: encode -> ``fused_mlp_apply`` ->
-    (sigma [R, S], None).  (The shaded variant with a basis belongs to the
-    grid fine mode, not ported yet.)"""
+                  basis: Optional[torch.Tensor], cfg: NerfConfig
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Kernel shading: encode -> ``fused_mlp_apply`` (``basis=None``: the
+    density-only coarse pass, returns (sigma [R, S], None)) or
+    ``fused_shaded_mlp`` with the SH shading in the kernel (returns
+    (sigma [R, S], rgb [R, S, 3]))."""
     r, s = xyz.shape[0], xyz.shape[1]
     feat = encode_kernel_order(xyz.reshape(r * s, 3), cfg.emb_freqs_xyz, None)
-    out = fused_mlp_apply(packed, feat, depth, tuple(skips))
-    return out[:, 0].reshape(r, s), None
+    if basis is None:
+        out = fused_mlp_apply(packed, feat, depth, tuple(skips))
+        return out[:, 0].reshape(r, s), None
+    basis16, nb = _basis16(basis, cfg)
+    out = fused_shaded_mlp(packed, feat, basis16, depth, tuple(skips), s, nb)
+    return out[:, 0].reshape(r, s), out[:, 1:4].reshape(r, s, 3)
+
+
+def _shade_train_kernel(mlp: NerfMLP, depth: int, skips, xyz: torch.Tensor,
+                        basis: torch.Tensor, cfg: NerfConfig,
+                        freq_w: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training shade through the differentiable ``fused_shaded_mlp`` on an
+    fp32 pack (the kernels cast to bf16 once per call): gradients reach the
+    weights through the pack, the cameras through dfeat -> encode -> xyz
+    and dbasis -> sh_basis -> ray directions.  (sigma [R, S], rgb
+    [R, S, 3])."""
+    r, s = xyz.shape[0], xyz.shape[1]
+    packed = pack_mlp_params(mlp, cfg.emb_freqs_xyz, skips, dtype=torch.float32)
+    feat = encode_kernel_order(xyz.reshape(r * s, 3), cfg.emb_freqs_xyz, freq_w)
+    basis16, nb = _basis16(basis, cfg)
+    out = fused_shaded_mlp(packed, feat, basis16, depth, tuple(skips), s, nb)
+    return out[:, 0].reshape(r, s), out[:, 1:4].reshape(r, s, 3)
+
+
+def _grid_fine_depths(w_sel: torch.Tensor, cfg: NerfConfig):
+    """Grid fine mode: the selected bins' fine-grid sample indices ->
+    (depths [R, k * scale] on the fine grid, validity, the grid step).
+    linspace is affine in the index, so depths come from the index
+    directly (JAX ``models/nerf.py:366-374``)."""
+    bin_idx, valid = select_fine_bins(w_sel, cfg.fine_bins_topk, cfg.weight_thresh)
+    sample_idx, sample_valid = expand_bins_to_samples(bin_idx, valid, cfg.sample_scale)
+    step_f = (cfg.far - cfg.near) / (cfg.samples_fine_grid - 1)
+    return cfg.near + sample_idx.float() * step_f, sample_valid, step_f
+
+
+def _grid_composite(z_f, sigma_f, rgb_f, sample_valid, step_f, cfg: NerfConfig,
+                    noise: Optional[torch.Tensor]):
+    """Unselected fine samples behave as sigma_default / white (ref
+    mc_nerf.py:692-694); the gathered subset of the uniform fine grid
+    composites with each delta capped at the grid step and no 1e10 last
+    delta (the reference composites the full grid)."""
+    sigma_f = torch.where(sample_valid, sigma_f, cfg.sigma_default)
+    rgb_f = torch.where(sample_valid[..., None], rgb_f, 1.0)
+    return composite(z_f, sigma_f, rgb_f, noise=noise, white_back=cfg.white_back,
+                     last_inf=False, max_delta=step_f)
 
 
 @torch.no_grad()
@@ -150,22 +208,30 @@ def render_rays_eval(
     rays_o: torch.Tensor,
     cfg: NerfConfig,
     compute_dtype=torch.bfloat16,
+    fine_mode: str = "importance",
     importance_samples: int = 64,
     packed: Optional[Tuple[PackedMLP, PackedMLP]] = None,
     occ: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Eval render: no jitter, no sigma noise (ref ``render_rays_test``).
 
-    The importance fine mode (the grid fine mode and the coarse-free
-    branch wait for later slices).  The coarse pass is density-only; the
-    fine pass draws
-    ``importance_samples`` depths per ray by deterministic inverse-CDF
-    sampling of the coarse weights.  With ``occ`` (a ``[G*G, G]`` binary
-    map) the coarse samples come from the occupancy PMF instead of the
-    uniform grid.
+    The coarse pass is density-only.  Two fine modes:
+
+    * ``"importance"``: ``importance_samples`` depths per ray by
+      deterministic inverse-CDF sampling of the coarse weights; with
+      ``occ`` (a ``[G*G, G]`` binary map) the coarse samples come from the
+      occupancy PMF instead of the uniform grid.
+    * ``"grid"`` (reference-faithful): threshold + top-k bins on the
+      ``sample_scale``-times-finer grid, unselected slots defaulting to
+      sigma_default / white (mc_nerf.py:692-694).  The threshold's cutoff
+      is a max over all rays given (one eval chunk).  No occupancy map.
 
     Returns (rgb [R, 3], depth [R, 1], opacity [R, 1]) from the fine pass.
     """
+    if fine_mode not in ("importance", "grid"):
+        raise ValueError(f"unknown eval fine_mode: {fine_mode!r}")
+    if occ is not None and fine_mode != "importance":
+        raise ValueError("occupancy culling requires fine_mode='importance'")
     n_rays = rays_d.shape[0]
     if occ is not None:
         sc = cfg.occ_coarse_samples
@@ -179,29 +245,41 @@ def render_rays_eval(
         z_c = z_c[None, :].expand(n_rays, sc)
     basis = sh_basis(cfg.sh_deg, rays_d)
 
-    xyz_c = rays_o[:, None, :] + rays_d[:, None, :] * z_c[..., None]
+    def points(z):
+        return rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+
     if packed is not None:
         sigma_c, _ = _shade_pallas(packed[0], cfg.coarse_depth, cfg.coarse_skips,
-                                   xyz_c, cfg)
+                                   points(z_c), None, cfg)
     else:
-        sigma_c, _ = _shade(params.coarse, cfg.coarse_skips, xyz_c, basis, cfg,
+        sigma_c, _ = _shade(params.coarse, cfg.coarse_skips, points(z_c), basis, cfg,
                             None, compute_dtype, sigma_only=True)
     w_sel = sigma_to_weights(compute_deltas(z_c, last_inf=True), sigma_c)
 
+    def shade_fine(z_f):
+        if packed is not None:
+            return _shade_pallas(packed[1], cfg.fine_depth, cfg.fine_skips, points(z_f),
+                                 basis, cfg)
+        return _shade(params.fine, cfg.fine_skips, points(z_f), basis, cfg, None,
+                      compute_dtype)
+
+    if fine_mode == "grid":
+        z_f, sample_valid, step_f = _grid_fine_depths(w_sel, cfg)
+        sigma_f, rgb_f = shade_fine(z_f)
+        out = _grid_composite(z_f, sigma_f, rgb_f, sample_valid, step_f, cfg, None)
+        return out.rgb, out.depth, out.opacity
+
     z_f = sample_pdf(z_c, w_sel, importance_samples)                # [R, K]
-    xyz_f = rays_o[:, None, :] + rays_d[:, None, :] * z_f[..., None]
     if packed is not None:
-        nb = (cfg.sh_deg + 1) ** 2
-        basis16 = F.pad(basis, (0, BASIS_LANES - nb)).contiguous()
-        feat_f = encode_kernel_order(xyz_f.reshape(-1, 3), cfg.emb_freqs_xyz, None)
+        basis16, nb = _basis16(basis, cfg)
+        feat_f = encode_kernel_order(points(z_f).reshape(-1, 3), cfg.emb_freqs_xyz, None)
         ray_f, _ = fused_render(
             packed[1], feat_f, basis16, z_f.contiguous(), None, None,
             cfg.fine_depth, tuple(cfg.fine_skips), importance_samples, nb,
             False, False, cfg.white_back,
         )
         return ray_f[:, :3], ray_f[:, 3:4], ray_f[:, 4:5]
-    sigma_f, rgb_f = _shade(params.fine, cfg.fine_skips, xyz_f, basis, cfg, None,
-                            compute_dtype)
+    sigma_f, rgb_f = shade_fine(z_f)
     out = composite(z_f, sigma_f, rgb_f, noise=None, white_back=cfg.white_back,
                     last_inf=True)
     return out.rgb, out.depth, out.opacity
@@ -216,19 +294,26 @@ class RenderDraws(NamedTuple):
     #                          PMF draw, or [R, 1] U[0, (far-near)/Sc) grid jitter
     noise_c: torch.Tensor    # kn_c: [R, Sc] N(0,1), the coarse composite's sigma noise
     noise_sel: torch.Tensor  # kn_sel: [R, Sc] N(0,1), the selection weights' noise
-    pdf_u: torch.Tensor      # kn_pdf: [R, K] U[0,1), fine inverse-CDF jitter
-    noise_f: torch.Tensor    # kn_f: [R, K] N(0,1), the fine composite's sigma noise
+    pdf_u: Optional[torch.Tensor]  # kn_pdf: [R, K] U[0,1), fine inverse-CDF jitter
+    #                          (None in grid mode, which draws no fine depths)
+    noise_f: torch.Tensor    # kn_f: [R, K] N(0,1) (grid mode: [R, topk * scale]),
+    #                          the fine composite's sigma noise
 
 
 def draw_render(n_rays: int, cfg: NerfConfig, importance_samples: int, culled: bool,
-                generator: torch.Generator) -> RenderDraws:
-    """Draw :class:`RenderDraws` from ``generator`` on its device."""
+                generator: torch.Generator, fine_mode: str = "importance") -> RenderDraws:
+    """Draw :class:`RenderDraws` from ``generator`` on its device.  In grid
+    mode the fine noise covers ``cfg.samples_fine`` samples and ``pdf_u``
+    is None."""
     dev = generator.device
     sc = cfg.occ_coarse_samples if culled else cfg.samples_coarse
     u = lambda *shape: torch.rand(shape, generator=generator, device=dev)
     n = lambda *shape: torch.randn(shape, generator=generator, device=dev)
     z_u = u(n_rays, sc) if culled else u(n_rays, 1) * ((cfg.far - cfg.near) / sc)
-    return RenderDraws(z_u, n(n_rays, sc), n(n_rays, sc), u(n_rays, importance_samples),
+    noise_c, noise_sel = n(n_rays, sc), n(n_rays, sc)
+    if fine_mode == "grid":
+        return RenderDraws(z_u, noise_c, noise_sel, None, n(n_rays, cfg.samples_fine))
+    return RenderDraws(z_u, noise_c, noise_sel, u(n_rays, importance_samples),
                        n(n_rays, importance_samples))
 
 
@@ -242,26 +327,41 @@ def render_rays_train(
     barf_window: Tuple[float, float],
     barf_on: bool,
     compute_dtype=torch.bfloat16,
+    fine_mode: str = "grid",
     importance_samples: int = 64,
     use_kernels: bool = False,
     occ: Optional[torch.Tensor] = None,
+    remat_shade: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training render, importance fine mode: coarse + fine pass with sigma
-    noise (ref ``render_rays_train``, mc_nerf.py:598-646).
+    """Training render: coarse + fine pass with sigma noise (ref
+    ``render_rays_train``, mc_nerf.py:598-646).
 
     Coarse depths: ``cfg.occ_coarse_samples`` stratified draws from the
-    per-ray occupancy PMF when ``occ`` is given, else the uniform grid of
-    ``cfg.samples_coarse`` plus a per-ray jitter.  The coarse weights with
-    a fresh noise draw (no gradient) select ``importance_samples`` fine
-    depths by stratified inverse-CDF sampling.  ``barf_on`` gates the
-    encode's octaves at progress ``step_r`` within ``barf_window``.
-    ``use_kernels`` renders both passes through the differentiable
-    ``fused_render`` (the plain versions of its kernels on CPU tensors);
-    otherwise ``_shade`` + ``composite`` in ``compute_dtype``.
+    per-ray occupancy PMF when ``occ`` is given (importance mode only),
+    else the uniform grid of ``cfg.samples_coarse`` plus a per-ray jitter.
+    The coarse weights with a fresh noise draw (no gradient) select the
+    fine samples: ``importance_samples`` depths by stratified inverse-CDF
+    sampling (``fine_mode="importance"``), or the first
+    ``cfg.fine_bins_topk`` above-threshold coarse bins on the
+    ``sample_scale``-times-finer grid with the same jitter, unselected
+    samples as sigma_default / white (``"grid"``, the reference's scheme).
+    ``barf_on`` gates the encode's octaves at progress ``step_r`` within
+    ``barf_window``.  ``use_kernels`` shades both passes through the
+    hand-written kernels (their plain versions on CPU tensors):
+    ``fused_render`` in importance mode, ``fused_shaded_mlp`` with the
+    composite in PyTorch in grid mode; otherwise ``_shade`` +
+    ``composite`` in ``compute_dtype``.  ``remat_shade`` recomputes the
+    shading passes (all but the fused importance kernels, as in the JAX
+    package) in the backward (``torch.utils.checkpoint``) instead of
+    keeping their activations.
 
     Returns (rgb_coarse [R, 3], rgb_fine [R, 3]).
     """
+    if fine_mode not in ("importance", "grid"):
+        raise ValueError(f"unknown fine_mode: {fine_mode!r}")
     if occ is not None:
+        if fine_mode != "importance":
+            raise ValueError("occupancy culling requires fine_mode='importance'")
         sc = cfg.occ_coarse_samples
         z_probe, pmf = proposal_pmf(occ, rays_o, rays_d, cfg)
         # probe ladder carries phantom end bins; clip the draws into range
@@ -278,9 +378,8 @@ def render_rays_train(
     def points(z):
         return rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
 
-    if use_kernels:
-        nb = (cfg.sh_deg + 1) ** 2
-        basis16 = F.pad(basis, (0, BASIS_LANES - nb))
+    if use_kernels and fine_mode == "importance":
+        basis16, nb = _basis16(basis, cfg)
         packed_c = pack_mlp_params(params.coarse, cfg.emb_freqs_xyz, cfg.coarse_skips,
                                    dtype=torch.float32)
         packed_f = pack_mlp_params(params.fine, cfg.emb_freqs_xyz, cfg.fine_skips,
@@ -296,15 +395,42 @@ def render_rays_train(
                                 cfg.white_back)
         return ray_c[:, :3], ray_f[:, :3]
 
-    sigma_c, rgb_c = _shade(params.coarse, cfg.coarse_skips, points(z_c), basis, cfg, freq_w,
-                            compute_dtype)
+    def shade_c(z):
+        if use_kernels:
+            return _shade_train_kernel(params.coarse, cfg.coarse_depth, cfg.coarse_skips,
+                                       points(z), basis, cfg, freq_w)
+        return _shade(params.coarse, cfg.coarse_skips, points(z), basis, cfg, freq_w,
+                      compute_dtype)
+
+    def shade_f(z):
+        if use_kernels:
+            return _shade_train_kernel(params.fine, cfg.fine_depth, cfg.fine_skips,
+                                       points(z), basis, cfg, freq_w)
+        return _shade(params.fine, cfg.fine_skips, points(z), basis, cfg, freq_w,
+                      compute_dtype)
+
+    if remat_shade:
+        # recompute encode -> MLP -> shade in the backward instead of keeping
+        # the per-layer activations; the closed-over parameters and rays
+        # still get their gradients
+        shade_c = lambda z, fn=shade_c: checkpoint(fn, z, use_reentrant=False)
+        shade_f = lambda z, fn=shade_f: checkpoint(fn, z, use_reentrant=False)
+
+    sigma_c, rgb_c = shade_c(z_c)
     out_c = composite(z_c, sigma_c, rgb_c, noise=draws.noise_c, white_back=cfg.white_back)
     # fine-bin selection: no gradient, fresh noise (ref mc_nerf.py:613-621)
     w_sel = sigma_to_weights(compute_deltas(z_c, last_inf=True), sigma_c.detach(),
                              draws.noise_sel)
-    z_f = sample_pdf(z_c, w_sel, k, uniforms=draws.pdf_u)
-    sigma_f, rgb_f = _shade(params.fine, cfg.fine_skips, points(z_f), basis, cfg, freq_w,
-                            compute_dtype)
-    out_f = composite(z_f, sigma_f, rgb_f, noise=draws.noise_f, white_back=cfg.white_back,
-                      last_inf=True)
+    if fine_mode == "importance":
+        z_f = sample_pdf(z_c, w_sel, k, uniforms=draws.pdf_u)
+        sigma_f, rgb_f = shade_f(z_f)
+        out_f = composite(z_f, sigma_f, rgb_f, noise=draws.noise_f,
+                          white_back=cfg.white_back, last_inf=True)
+        return out_c.rgb, out_f.rgb
+
+    # the fine grid shares the coarse jitter (ref mc_nerf.py:633-634)
+    z_f, sample_valid, step_f = _grid_fine_depths(w_sel, cfg)
+    z_f = z_f + draws.z_u
+    sigma_f, rgb_f = shade_f(z_f)
+    out_f = _grid_composite(z_f, sigma_f, rgb_f, sample_valid, step_f, cfg, draws.noise_f)
     return out_c.rgb, out_f.rgb

@@ -1,16 +1,29 @@
-"""Fused NeRF-MLP kernel (trunk + packed heads) and the kernel-order encode.
+"""Fused NeRF-MLP kernels (trunk + packed heads, optionally SH-shaded),
+their backwards, and the kernel-order encode.
 
-Counterpart of ``mc_nerf_tpu/ops/pallas/fused_mlp.py`` (the forward kernel,
-the encode with its analytic VJP, and the pack).
-The kernel, ``csrc/fused_mlp.cu``, replaces the Pallas ``_kernel``
-(``fused_mlp.py:241``, called through ``fused_mlp_apply`` at ``:276``):
-a block of 256 threads runs 128 pre-encoded points through every trunk
-layer and both heads with ``wgmma`` bf16 tiles and fp32 accumulation,
-and only the packed ``[P, 32]`` fp32 output reaches device memory.
+Counterpart of ``mc_nerf_tpu/ops/pallas/fused_mlp.py`` (the kernels, the
+encode with its analytic VJP, and the pack).  Four hand-written CUDA
+kernels replace its four Pallas bodies:
+
+* ``csrc/fused_mlp.cu``, the Pallas ``_kernel`` (``fused_mlp.py:241``,
+  via ``fused_mlp_apply`` at ``:276``): a block of 256 threads runs 128
+  pre-encoded points through every trunk layer and both heads with
+  ``wgmma`` bf16 tiles and fp32 accumulation, and only the packed
+  ``[P, 32]`` fp32 output reaches device memory;
+* ``csrc/fused_shaded.cu``, ``_shaded_fwd_kernel`` (``:381``, via
+  ``fused_shaded_mlp`` at ``:686``): the same tile with the SH shading per
+  point, ``[P, 8]`` out;
+* ``csrc/fused_mlp_bwd.cu``, ``_shaded_bwd_kernel`` (``:423``) and
+  ``_bwd_kernel`` (``:739``, the ``fused_mlp`` custom VJP at ``:901``):
+  recompute into a device workspace, the shading backward (shaded only),
+  the heads and trunk backward per 128-point tile, and the weight
+  gradients by split-K with a fixed-order reduction (``csrc/mlp_bwd.cuh``,
+  shared with ``fused_render``'s backward).
 
 Bound on an H100 SXM (989 TFLOP/s dense bf16): compute.  The eval coarse
 pass (sigma-only 4x128, 81,792 MAC per point needed) over a 16384 x 48
-chunk is >= 0.130 ms; see PERF.md for the measured time beside it.
+chunk is >= 0.130 ms; a backward needs about three times its forward's
+MACs.  See PERF.md for the measured times beside the bounds.
 
 Layout (as in the JAX package):
   * features ``[x, y, z, 0, sin(f0) x3, cos(f0) x3, sin(f1) x3, ...]``,
@@ -26,7 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -37,6 +50,7 @@ from mc_nerf_torch.models.mlp import NerfMLP
 ENC_PAD = 4        # [x, y, z, pad] header lanes in the encode layout
 BASIS_LANES = 16   # SH deg <= 2 basis (9) padded to 16 lanes
 OUT_COLS = 32      # packed head output lanes
+SHADED_COLS = 8    # fused_shaded_mlp output lanes: sigma, rgb, 4 zeros
 
 
 class PackedMLP(NamedTuple):
@@ -245,6 +259,69 @@ def mlp_plain_flat(ws, bs, feat: torch.Tensor, depth: int,
     return h1 @ ws[depth + 1].float() + bs[depth + 1].float()
 
 
+def mlp_recompute_plain(ws, bs, feat: torch.Tensor, depth: int, skips: Sequence[int],
+                        dtype=torch.float32):
+    """:func:`mlp_plain_flat` with products and sums in ``dtype``, keeping
+    what a backward needs: (xins, each trunk layer's bf16-rounded input;
+    h_last; h1; out32)."""
+    bf = lambda t: t.to(torch.bfloat16).to(dtype)
+    W = [w.to(dtype) for w in ws]
+    B = [b.to(dtype) for b in bs]
+    f = bf(feat.detach())
+    h, xins = f, []
+    for i in range(depth):
+        if i in skips:
+            h = torch.cat([f, h], dim=1)
+        xins.append(h)
+        h = bf(torch.relu(h @ W[i] + B[i]))
+    h1 = bf(torch.relu(h @ W[depth] + B[depth]))
+    return xins, h, h1, h1 @ W[depth + 1] + B[depth + 1]
+
+
+def _split_skip_grad(d_xin: torch.Tensor, e_lanes: int):
+    """A skip layer's input gradient [feat | h] -> (its share of dfeat, d h)."""
+    return d_xin[:, :e_lanes], d_xin[:, e_lanes:]
+
+
+def mlp_bwd_plain(ws, xins, h_last, h1, dout32, depth: int, skips: Sequence[int]):
+    """The heads and trunk backward of the Pallas backward bodies at their
+    rounding points (``fused_render.py:401-436``, ``fused_mlp.py:495-531``,
+    ``:783-823``), from :func:`mlp_recompute_plain`'s activations and the
+    packed output's cotangent ``dout32`` [P, 32] (in the working dtype):
+    dout32, d_h1 and every d_a rounded to bf16, products and sums in
+    ``dout32``'s dtype; d_hb1 sums ``dout32`` as given.  Returns (dws,
+    dbs, dfeat): every layer's weight [K, N] and bias [1, N] gradient,
+    summed over all points, and dfeat [P, E]."""
+    skips = tuple(skips)
+    sd_t = dout32.dtype
+    bf = lambda t: t.to(torch.bfloat16).to(sd_t)
+    W = [w.to(sd_t) for w in ws]
+    dout_b = bf(dout32)
+    d_hw1 = h1.t() @ dout_b
+    d_hb1 = dout32.sum(0, keepdim=True)
+    d_h1 = bf(torch.where(h1 > 0, dout_b @ W[depth + 1].t(), 0.0))
+    d_hw0 = h_last.t() @ d_h1
+    d_hb0 = d_h1.sum(0, keepdim=True)
+    d_h = d_h1 @ W[depth].t()
+    e_lanes = xins[0].shape[1]
+    d_feat = torch.zeros_like(xins[0])
+    dws: List[torch.Tensor] = [None] * depth
+    dbs: List[torch.Tensor] = [None] * depth
+    for li in reversed(range(depth)):
+        h_out = xins[li + 1][:, -W[li].shape[1]:] if li + 1 < depth else h_last
+        d_a = bf(torch.where(h_out > 0, d_h, 0.0))
+        dws[li] = xins[li].t() @ d_a
+        dbs[li] = d_a.sum(0, keepdim=True)
+        d_xin = d_a @ W[li].t()
+        if li in skips:
+            share, d_h = _split_skip_grad(d_xin, e_lanes)
+            d_feat = d_feat + share
+        else:
+            d_h = d_xin
+    d_feat = d_feat + d_h
+    return dws + [d_hw0, d_hw1], dbs + [d_hb0, d_hb1], d_feat
+
+
 def _check_mlp_args(packed: PackedMLP, feat: torch.Tensor, depth: int,
                     skips: Sequence[int]) -> None:
     if len(packed.trunk_w) != depth:
@@ -324,3 +401,328 @@ def fused_mlp_apply(packed: PackedMLP, feat: torch.Tensor, depth: int,
 
 
 fused_mlp_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The shaded MLP (fused_shaded_mlp) and the differentiable fused_mlp, with
+# their backwards.  Plain versions first: the kernels' arithmetic at their
+# rounding points, written out (not autograd), products and sums in the
+# dtype of the cotangent (float32 is the kernels', float64 a reference).
+# ---------------------------------------------------------------------------
+
+
+def _shade_grad(dout_rgb: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
+    """The sigmoid's backward on the rgb lanes: dout_rgb * sig * (1 - sig)."""
+    return dout_rgb * (sig * (1.0 - sig))
+
+
+def _shaded_plain_flat(ws, bs, feat, basis16, depth, skips, s, nb) -> torch.Tensor:
+    out32 = mlp_plain_flat(ws, bs, feat, depth, skips)
+    p = out32.shape[0]
+    sh = out32[:, 1:1 + 3 * nb].reshape(p // s, s, 3, nb)
+    rgb = torch.sigmoid((sh * basis16.detach().float()[:, None, None, :nb]).sum(-1))
+    out = torch.zeros((p, SHADED_COLS), dtype=torch.float32, device=out32.device)
+    out[:, 0] = out32[:, 0]
+    out[:, 1:4] = rgb.reshape(p, 3)
+    return out
+
+
+def fused_shaded_mlp_plain(packed: PackedMLP, feat, basis16, depth, skips, s, nb):
+    """K4's arithmetic in plain PyTorch: :func:`mlp_plain`, then per point
+    rgb_c = sigmoid(sum_b out32[1 + nb*c + b] * basis[ray, b]) in fp32.
+    Same contract as :func:`fused_shaded_mlp`, no autograd."""
+    return _shaded_plain_flat(*_flat_weights(packed), feat, basis16, depth, tuple(skips), s, nb)
+
+
+def fused_shaded_mlp_bwd_plain(ws, bs, feat, basis16, dout8, depth, skips, s, nb):
+    """The shaded backward kernel's arithmetic in plain PyTorch, at the
+    Pallas body's rounding points (``fused_mlp.py:440-535``): recompute,
+    the shading backward (the sigmoid's derivative on the rgb lanes only;
+    dout32[0] = dout8[0], dout32[1 + nb*c + b] = draw[c] * basis[b], dbasis
+    summed over each ray's samples), then :func:`mlp_bwd_plain` with d_hb1
+    summing the unrounded dout32.
+
+    Args: ``ws``/``bs`` the bf16 layer weights and biases
+    (:func:`_flat_weights`), ``dout8`` [P, 8] the cotangent of the output;
+    the rest as :func:`fused_shaded_mlp`.  Returns (dws, dbs, dfeat [P, E],
+    dbasis [P / s, 16]) in ``dout8``'s dtype."""
+    skips = tuple(skips)
+    sd_t = dout8.dtype
+    xins, h_last, h1, out32 = mlp_recompute_plain(ws, bs, feat, depth, skips, sd_t)
+    p = out32.shape[0]
+    rays = p // s
+    sh = out32[:, 1:1 + 3 * nb].reshape(rays, s, 3, nb)
+    bas = basis16.detach().to(sd_t)[:, None, None, :nb]
+    sig = torch.sigmoid((sh * bas).sum(-1))                           # [R, s, 3]
+    d8 = dout8.detach().reshape(rays, s, SHADED_COLS)
+    draw = _shade_grad(d8[..., 1:4], sig)
+    dout32 = torch.zeros((rays, s, OUT_COLS), dtype=sd_t, device=dout8.device)
+    dout32[..., 0] = d8[..., 0]
+    dout32[..., 1:1 + 3 * nb] = (draw[..., None] * bas).reshape(rays, s, 3 * nb)
+    dbasis = torch.zeros((rays, BASIS_LANES), dtype=sd_t, device=dout8.device)
+    dbasis[:, :nb] = (draw[..., None] * sh).sum(dim=(1, 2))
+    dws, dbs, dfeat = mlp_bwd_plain(ws, xins, h_last, h1, dout32.reshape(p, OUT_COLS), depth,
+                                    skips)
+    return dws, dbs, dfeat, dbasis
+
+
+def fused_mlp_bwd_plain(ws, bs, feat, dout, depth, skips):
+    """K6's arithmetic in plain PyTorch, at the Pallas ``_bwd_kernel``'s
+    rounding points (``fused_mlp.py:760-824``): the cotangent ``dout``
+    [P, 32] rounds to bf16 first, so d_hb1 sums the rounded values; then
+    recompute and :func:`mlp_bwd_plain`.  Returns (dws, dbs, dfeat [P, E])
+    in ``dout``'s dtype."""
+    skips = tuple(skips)
+    sd_t = dout.dtype
+    xins, h_last, h1, _ = mlp_recompute_plain(ws, bs, feat, depth, skips, sd_t)
+    dout_b = dout.detach().to(torch.bfloat16).to(sd_t)
+    return mlp_bwd_plain(ws, xins, h_last, h1, dout_b, depth, skips)
+
+
+def _shaded_fwd_fn():
+    from mc_nerf_torch.ops.cuda import _build
+
+    fn = _build.load("fused_shaded").mcn_fused_shaded
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fns():
+    from mc_nerf_torch.ops.cuda import _build
+
+    lib = _build.load("fused_mlp_bwd")
+    ws_fn, shaded_fn, mlp_fn = lib.mcn_mlp_bwd_workspace, lib.mcn_shaded_bwd, lib.mcn_mlp_bwd
+    ws_fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 6
+    ws_fn.restype = ctypes.c_longlong
+    shaded_fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                          + [ctypes.c_void_p] * 3)
+    shaded_fn.restype = ctypes.c_int
+    mlp_fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p] * 3)
+    mlp_fn.restype = ctypes.c_int
+    return ws_fn, shaded_fn, mlp_fn
+
+
+def _check_cuda(name: str, feat: torch.Tensor, **tensors) -> None:
+    """A kernel's inputs: feat contiguous bf16 on a CUDA device, the rest
+    contiguous float32 on the same device."""
+    if feat.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {feat.device}")
+    if feat.dtype != torch.bfloat16 or not feat.is_contiguous():
+        raise ValueError(f"{name}: feat must be contiguous bfloat16")
+    for key, t in tensors.items():
+        if t.device != feat.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous float32 on {feat.device}")
+
+
+def _workspace(points, enc, ws, skips, shaded, device) -> torch.Tensor:
+    """The backward kernels' device workspace, from the caching allocator."""
+    nbytes = _bwd_fns()[0](points, enc, len(ws) - 2, sum(1 << i for i in skips),
+                           ws[0].shape[1], ws[-2].shape[1], int(shaded))
+    return torch.empty(max(nbytes, 1), dtype=torch.uint8, device=device)
+
+
+def _grad_buffers(ws, bs, device):
+    w_shapes, b_shapes = [tuple(w.shape) for w in ws], [tuple(b.shape) for b in bs]
+    dw = torch.empty(sum(a * b for a, b in w_shapes), dtype=torch.float32, device=device)
+    db = torch.empty(sum(a * b for a, b in b_shapes), dtype=torch.float32, device=device)
+
+    def split():
+        return ([g.view(sh) for g, sh in zip(torch.split(dw, [a * b for a, b in w_shapes]),
+                                             w_shapes)],
+                [g.view(sh) for g, sh in zip(torch.split(db, [a * b for a, b in b_shapes]),
+                                             b_shapes)])
+    return dw, db, split
+
+
+def _shaded_fwd(ws, bs, feat, basis16, depth, skips, s, nb) -> torch.Tensor:
+    """K4 on the bf16 layer weights: plain on CPU tensors, the kernel on
+    CUDA tensors."""
+    if feat.device.type == "cpu":
+        return _shaded_plain_flat(ws, bs, feat, basis16, depth, skips, s, nb)
+    _check_cuda("fused_shaded_mlp", feat, basis16=basis16)
+    _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, feat.device)
+    p = feat.shape[0]
+    out = torch.empty((p, SHADED_COLS), dtype=torch.float32, device=feat.device)
+    stream = torch.cuda.current_stream(feat.device).cuda_stream
+    err = _shaded_fwd_fn()(feat.data_ptr(), basis16.data_ptr(), out.data_ptr(), p, s, nb,
+                           feat.shape[1], depth, skip_mask, width, head0, wp, bp, stream)
+    if err:
+        raise RuntimeError(f"fused_shaded_mlp kernel launch failed: CUDA error {err}")
+    fused_shaded_mlp.launches += 1
+    return out
+
+
+def fused_shaded_mlp_bwd(ws, bs, feat, basis16, dout8, depth, skips, s, nb):
+    """The backward of :func:`fused_shaded_mlp` on the bf16 layer weights:
+    :func:`fused_shaded_mlp_bwd_plain` on CPU tensors, one call of
+    ``csrc/fused_mlp_bwd.cu``'s ``mcn_shaded_bwd`` (points kernel, per-ray
+    dbasis sums, weight gradients) on CUDA tensors.  Same returns (fp32)."""
+    skips = tuple(skips)
+    if feat.device.type == "cpu":
+        return fused_shaded_mlp_bwd_plain(ws, bs, feat, basis16, dout8, depth, skips, s, nb)
+    _check_cuda("fused_shaded_mlp_bwd", feat, basis16=basis16, dout8=dout8)
+    _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, feat.device)
+    p, enc = feat.shape
+    work = _workspace(p, enc, ws, skips, True, feat.device)
+    dfeat = torch.empty((p, enc), dtype=torch.float32, device=feat.device)
+    dbasis = torch.empty((p // s, BASIS_LANES), dtype=torch.float32, device=feat.device)
+    dw, db, split = _grad_buffers(ws, bs, feat.device)
+    stream = torch.cuda.current_stream(feat.device).cuda_stream
+    err = _bwd_fns()[1](feat.data_ptr(), basis16.data_ptr(), dout8.data_ptr(), dfeat.data_ptr(),
+                        dbasis.data_ptr(), dw.data_ptr(), db.data_ptr(), work.data_ptr(), p, s,
+                        nb, enc, depth, skip_mask, width, head0, wp, bp, stream)
+    if err:
+        raise RuntimeError(f"fused_shaded_mlp backward kernel launch failed: CUDA error {err}")
+    fused_shaded_mlp_bwd.launches += 1
+    dws, dbs = split()
+    return dws, dbs, dfeat, dbasis
+
+
+def fused_mlp_bwd(ws, bs, feat, dout, depth, skips):
+    """The backward of :func:`fused_mlp` on the bf16 layer weights:
+    :func:`fused_mlp_bwd_plain` on CPU tensors, ``csrc/fused_mlp_bwd.cu``'s
+    ``mcn_mlp_bwd`` on CUDA tensors.  Returns (dws, dbs, dfeat) fp32."""
+    skips = tuple(skips)
+    if feat.device.type == "cpu":
+        return fused_mlp_bwd_plain(ws, bs, feat, dout, depth, skips)
+    _check_cuda("fused_mlp_bwd", feat, dout=dout)
+    _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, feat.device)
+    p, enc = feat.shape
+    work = _workspace(p, enc, ws, skips, False, feat.device)
+    dfeat = torch.empty((p, enc), dtype=torch.float32, device=feat.device)
+    dw, db, split = _grad_buffers(ws, bs, feat.device)
+    stream = torch.cuda.current_stream(feat.device).cuda_stream
+    err = _bwd_fns()[2](feat.data_ptr(), dout.data_ptr(), dfeat.data_ptr(), dw.data_ptr(),
+                        db.data_ptr(), work.data_ptr(), p, enc, depth, skip_mask, width, head0,
+                        wp, bp, stream)
+    if err:
+        raise RuntimeError(f"fused_mlp backward kernel launch failed: CUDA error {err}")
+    fused_mlp_bwd.launches += 1
+    dws, dbs = split()
+    return dws, dbs, dfeat
+
+
+fused_shaded_mlp_bwd.launches = 0
+fused_mlp_bwd.launches = 0
+
+
+def _leaves(packed: PackedMLP):
+    return (*packed.trunk_w, *packed.trunk_b, packed.head_w0, packed.head_b0,
+            packed.head_w1, packed.head_b1)
+
+
+def _leaf_grads(ctx, dws, dbs, first: int):
+    """The packed leaves' gradients (order of :func:`_leaves`) cast to each
+    leaf's dtype, None where autograd needs none; ``first`` is the index
+    of the first leaf among the Function's inputs."""
+    depth = len(dws) - 2
+    grads = [*dws[:depth], *dbs[:depth], dws[depth], dbs[depth], dws[depth + 1], dbs[depth + 1]]
+    need = ctx.needs_input_grad
+    return [g.reshape(shape).to(dtype) if need[first + i] else None
+            for i, (g, (shape, dtype)) in enumerate(zip(grads, ctx.leaf_meta))]
+
+
+class _FusedShadedMLP(torch.autograd.Function):
+    """The custom VJP of ``fused_mlp.py:685-729``: K4 forward, K5 backward
+    on the same bf16 weight copy, cast once per call."""
+
+    @staticmethod
+    def forward(ctx, meta, feat, basis16, *leaves):
+        depth, skips, s, nb = meta
+        ws, bs = _flat_weights(PackedMLP(leaves[:depth], leaves[depth:2 * depth],
+                                         *leaves[2 * depth:]))
+        out = _shaded_fwd(ws, bs, feat, basis16, depth, skips, s, nb)
+        ctx.meta = meta
+        ctx.leaf_meta = [(t.shape, t.dtype) for t in leaves]
+        ctx.save_for_backward(feat, basis16, *ws, *bs)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout8):
+        depth, skips, s, nb = ctx.meta
+        feat, basis16, *flat = ctx.saved_tensors
+        ws, bs = flat[:depth + 2], flat[depth + 2:]
+        dws, dbs, dfeat, dbasis = fused_shaded_mlp_bwd(
+            ws, bs, feat, basis16, dout8.float().contiguous(), depth, skips, s, nb)
+        need = ctx.needs_input_grad
+        return (None, dfeat.to(feat.dtype) if need[1] else None,
+                dbasis.to(basis16.dtype) if need[2] else None, *_leaf_grads(ctx, dws, dbs, 3))
+
+
+def fused_shaded_mlp(packed: PackedMLP, feat: torch.Tensor, basis16: torch.Tensor, depth: int,
+                     skips: Sequence[int], s: int, nb: int) -> torch.Tensor:
+    """Differentiable fused MLP + SH shading.
+
+    Args:
+      packed: full (sigma + SH) kernel weights: bf16 for eval, fp32 leaves
+        (a differentiable ``pack_mlp_params(..., dtype=float32)``) for
+        training; the kernels read a bf16 copy cast once per call.
+      feat: [rays * s, 4+6L] encoded points, ray-major (bf16 on CUDA).
+      basis16: [rays, 16] fp32 SH basis padded to 16 lanes.
+      s: samples per ray (>= 1); nb: (sh_deg + 1)^2 <= 9.
+
+    Returns:
+      [rays * s, 8] fp32: col 0 raw sigma, cols 1..3 rgb (sigmoid
+      applied), cols 4..7 zero.  CPU tensors take the plain versions,
+      forward and backward; CUDA tensors launch ``csrc/fused_shaded.cu``
+      and, in the backward, ``csrc/fused_mlp_bwd.cu``.  The backward
+      returns fp32 weight gradients cast to the pack's dtype, dfeat in
+      feat's dtype and dbasis in basis16's.
+    """
+    skips = tuple(skips)
+    _check_mlp_args(packed, feat, depth, skips)
+    if s < 1 or not 1 <= nb <= 9:
+        raise ValueError(f"fused_shaded_mlp takes s >= 1 and 1 <= nb <= 9; got s={s}, nb={nb}")
+    if packed.head_w0.shape[1] != 2 * packed.trunk_w[0].shape[1]:
+        raise ValueError("fused_shaded_mlp needs a full (sigma + SH) pack")
+    if feat.shape[0] % s or tuple(basis16.shape) != (feat.shape[0] // s, BASIS_LANES):
+        raise ValueError(f"shape mismatch: feat {tuple(feat.shape)}, basis16 "
+                         f"{tuple(basis16.shape)}, s={s}")
+    return _FusedShadedMLP.apply((depth, skips, s, nb), feat, basis16, *_leaves(packed))
+
+
+fused_shaded_mlp.launches = 0
+
+
+class _FusedMLP(torch.autograd.Function):
+    """The custom VJP of ``fused_mlp.py:900-937``: the forward of
+    :func:`fused_mlp_apply` (K1), the K6 backward, on one bf16 weight
+    copy."""
+
+    @staticmethod
+    def forward(ctx, meta, feat, *leaves):
+        depth, skips = meta
+        ws, bs = _flat_weights(PackedMLP(leaves[:depth], leaves[depth:2 * depth],
+                                         *leaves[2 * depth:]))
+        bf16_pack = PackedMLP(tuple(ws[:depth]), tuple(bs[:depth]), ws[depth], bs[depth],
+                              ws[depth + 1], bs[depth + 1])
+        out = fused_mlp_apply(bf16_pack, feat, depth, skips)
+        ctx.meta = meta
+        ctx.leaf_meta = [(t.shape, t.dtype) for t in leaves]
+        ctx.save_for_backward(feat, *ws, *bs)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        depth, skips = ctx.meta
+        feat, *flat = ctx.saved_tensors
+        ws, bs = flat[:depth + 2], flat[depth + 2:]
+        dws, dbs, dfeat = fused_mlp_bwd(ws, bs, feat, dout.float().contiguous(), depth, skips)
+        return (None, dfeat.to(feat.dtype) if ctx.needs_input_grad[1] else None,
+                *_leaf_grads(ctx, dws, dbs, 2))
+
+
+def fused_mlp(packed: PackedMLP, feat: torch.Tensor, depth: int,
+              skips: Sequence[int]) -> torch.Tensor:
+    """Differentiable fused MLP (the JAX package's ``fused_mlp``, which has
+    no caller on its training path): the forward is :func:`fused_mlp_apply`,
+    the backward recomputes the activations and runs the heads and trunk
+    backward (``csrc/fused_mlp_bwd.cu`` on CUDA tensors, the plain version
+    on CPU tensors).  Same contract as :func:`fused_mlp_apply`; gradients
+    reach the packed leaves (cast to their dtype) and feat (in its dtype)."""
+    skips = tuple(skips)
+    _check_mlp_args(packed, feat, depth, skips)
+    return _FusedMLP.apply((depth, skips), feat, *_leaves(packed))

@@ -33,7 +33,7 @@ no gradient and ``wsel`` is stop-gradient, as in the JAX custom VJP.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -44,7 +44,9 @@ from mc_nerf_torch.ops.cuda.fused_mlp import (
     _check_mlp_args,
     _flat_weights,
     launch_args_flat,
+    mlp_bwd_plain,
     mlp_plain_flat,
+    mlp_recompute_plain,
 )
 
 
@@ -69,11 +71,6 @@ def _exclusive_suffix_sum(x: torch.Tensor) -> torch.Tensor:
     """Per row, the sum over the later columns (the later samples of a ray)."""
     suffix = torch.flip(torch.cumsum(torch.flip(x[:, 1:], [1]), 1), [1])
     return torch.cat([suffix, torch.zeros_like(x[:, :1])], 1)
-
-
-def _split_skip_grad(d_xin: torch.Tensor, e_lanes: int):
-    """A skip layer's input gradient [feat | h] -> (its share of dfeat, d h)."""
-    return d_xin[:, :e_lanes], d_xin[:, e_lanes:]
 
 
 def fused_render_plain(packed, feat, basis16, z, noise, noise_sel, depth, skips,
@@ -133,22 +130,10 @@ def fused_render_bwd_plain(ws, bs, feat, basis16, z, noise, dray, depth, skips, 
     skips = tuple(skips)
     rays = basis16.shape[0]
     sd_t = dray.dtype
-    bf = lambda t: t.to(torch.bfloat16).to(sd_t)
-    W = [w.to(sd_t) for w in ws]
-    B = [b.to(sd_t) for b in bs]
     basis16, z, dray = basis16.detach().to(sd_t), z.detach().to(sd_t), dray.detach().to(sd_t)
     noise = None if noise is None else noise.to(sd_t)
-    f = bf(feat.detach())
     # ---- forward recompute, keeping every layer's (bf16-rounded) input
-    h, xins = f, []
-    for i in range(depth):
-        if i in skips:
-            h = torch.cat([f, h], 1)
-        xins.append(h)
-        h = bf(torch.relu(h @ W[i] + B[i]))
-    h_last = h
-    h1 = bf(torch.relu(h_last @ W[depth] + B[depth]))
-    out32 = h1 @ W[depth + 1] + B[depth + 1]                          # [P, 32]
+    xins, h_last, h1, out32 = mlp_recompute_plain(ws, bs, feat, depth, skips, sd_t)
     out = out32.reshape(rays, s, OUT_COLS)
     sigma = out[..., 0]
     sh = out[..., 1:1 + 3 * nb].reshape(rays, s, 3, nb)
@@ -180,34 +165,11 @@ def fused_render_bwd_plain(ws, bs, feat, basis16, z, noise, dray, depth, skips, 
     dout32[..., 1:1 + 3 * nb] = (draw[..., None] * bas).reshape(rays, s, 3 * nb)
     dbasis = torch.zeros((rays, BASIS_LANES), dtype=sd_t, device=z.device)
     dbasis[:, :nb] = (draw[..., None] * sh).sum(dim=(1, 2))
-    dout32 = dout32.reshape(rays * s, OUT_COLS)
 
-    # ---- heads backward
-    dout_b = bf(dout32)
-    d_hw1 = h1.t() @ dout_b
-    d_hb1 = dout32.sum(0, keepdim=True)
-    d_h1 = bf(torch.where(h1 > 0, dout_b @ W[depth + 1].t(), 0.0))
-    d_hw0 = h_last.t() @ d_h1
-    d_hb0 = d_h1.sum(0, keepdim=True)
-    d_h = d_h1 @ W[depth].t()
-    # ---- trunk backward
-    e_lanes = f.shape[1]
-    d_feat = torch.zeros_like(f)
-    dws: List[torch.Tensor] = [None] * depth
-    dbs: List[torch.Tensor] = [None] * depth
-    for li in reversed(range(depth)):
-        h_out = xins[li + 1][:, -W[li].shape[1]:] if li + 1 < depth else h_last
-        d_a = bf(torch.where(h_out > 0, d_h, 0.0))
-        dws[li] = xins[li].t() @ d_a
-        dbs[li] = d_a.sum(0, keepdim=True)
-        d_xin = d_a @ W[li].t()
-        if li in skips:
-            share, d_h = _split_skip_grad(d_xin, e_lanes)
-            d_feat = d_feat + share
-        else:
-            d_h = d_xin
-    d_feat = d_feat + d_h
-    return dws + [d_hw0, d_hw1], dbs + [d_hb0, d_hb1], d_feat, dbasis
+    # ---- heads and trunk backward
+    dws, dbs, d_feat = mlp_bwd_plain(ws, xins, h_last, h1, dout32.reshape(rays * s, OUT_COLS),
+                                     depth, skips)
+    return dws, dbs, d_feat, dbasis
 
 
 def _lib(name: str):

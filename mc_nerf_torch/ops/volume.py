@@ -3,14 +3,16 @@
 Semantics from the reference (``model/mc_nerf.py:682-736``): alpha =
 1 - exp(-softplus(sigma + noise) * delta); the rgb composite uses those
 (optionally noisy) weights; depth/opacity use the noise-free
-transmittance.  Random draws come in as tensors (``noise``, ``uniforms``)
-or from an explicit ``torch.Generator``, so the same draws can be handed
-to the JAX package in tests.
+transmittance.  The grid fine mode's bin selection is the JAX package's
+static-shape top-k (``select_fine_bins``, ``expand_bins_to_samples``).
+Random draws come in as tensors (``noise``, ``uniforms``) or from an
+explicit ``torch.Generator``, so the same draws can be handed to the JAX
+package in tests.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,6 +69,51 @@ def composite(z_vals: torch.Tensor, sigma: torch.Tensor, rgb: torch.Tensor,
     if white_back:
         rgb_out = rgb_out + (1.0 - torch.sum(weights, dim=-1, keepdim=True))
     return CompositeResult(rgb_out, depth, opacity, weights)
+
+
+def select_fine_bins(weights_coarse: torch.Tensor, k: int,
+                     weight_thresh: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Static-shape replacement for the reference's fine-bin selection
+    (mc_nerf.py:623-632; the JAX package's ``select_fine_bins``): keep the
+    FIRST k bins per ray in z order whose weight is at least
+    ``min(weight_thresh, max over the whole [R, S] batch)``.
+
+    The cutoff stays on the device (no host sync).  Each kept bin's slot is
+    the count of kept bins before it (a cumsum); one scatter writes the bin
+    indices into their slots, and every bin past the k-th goes to a spare
+    slot that is dropped.  Slots past a ray's count are invalid and hold
+    ``S - 1`` (safe to gather).
+
+    Args:
+      weights_coarse: [R, S] coarse compositing weights (no gradient).
+      k: static per-ray bin budget.
+      weight_thresh: the yaml ``weight_thresh`` (1e-3).
+
+    Returns:
+      (bin_idx [R, k] int64 ascending per ray, valid [R, k] bool).
+    """
+    r, num_bins = weights_coarse.shape
+    cutoff = torch.clamp(weights_coarse.max(), max=weight_thresh)
+    mask = weights_coarse >= cutoff                                 # [R, S]
+    pos = torch.cumsum(mask.to(torch.int64), dim=-1) - 1            # slot per kept bin
+    slot = torch.where(mask & (pos < k), pos, torch.full_like(pos, k))
+    bins = torch.arange(num_bins, device=weights_coarse.device).expand(r, num_bins)
+    bin_idx = torch.full((r, k + 1), num_bins - 1, dtype=torch.int64,
+                         device=weights_coarse.device).scatter_(1, slot, bins)[:, :k]
+    valid = torch.arange(k, device=weights_coarse.device)[None, :] < mask.sum(-1, keepdim=True)
+    return bin_idx, valid
+
+
+def expand_bins_to_samples(bin_idx: torch.Tensor, valid: torch.Tensor,
+                           sample_scale: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each selected coarse bin b owns fine-grid slots [b * scale,
+    (b + 1) * scale) (the reference's index arithmetic, mc_nerf.py:628).
+    [R, k] -> (sample_idx [R, k * scale], sample_valid [R, k * scale])."""
+    offsets = torch.arange(sample_scale, dtype=bin_idx.dtype, device=bin_idx.device)
+    sample_idx = bin_idx[..., None] * sample_scale + offsets        # [R, k, scale]
+    sample_valid = valid[..., None].expand(sample_idx.shape)
+    flat = (*sample_idx.shape[:-2], sample_idx.shape[-2] * sample_scale)
+    return sample_idx.reshape(flat), sample_valid.reshape(flat)
 
 
 def sample_pdf(

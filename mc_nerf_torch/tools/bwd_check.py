@@ -1,12 +1,12 @@
 """What the checks of the backward kernels share (``chip_smoke.py``,
-``tests/test_torch_gpu.py``): a loss-shaped cotangent, the relative L2
-error of each output, and planted faults of the plain backward, each of
+``tests/test_torch_gpu.py``): loss-shaped cotangents, the relative L2
+error of each output, and planted faults of the plain backwards, each of
 which a check must see.
 
-The plants that sit inside the plain backward (the composite's suffix sums
-taken one sample late, the skip layers' share of dfeat dropped) swap one
-of its helpers for the length of one call; the package's functions carry
-no fault switch.
+The plants that sit inside a plain backward (the composite's suffix sums
+taken one sample late, the skip layers' share of dfeat dropped, the
+sigmoid's derivative dropped on one channel) swap one of its helpers for
+the length of one call; the package's functions carry no fault switch.
 """
 
 from __future__ import annotations
@@ -16,9 +16,10 @@ from unittest import mock
 
 import torch
 
+from mc_nerf_torch.ops.cuda import fused_mlp as _fm
 from mc_nerf_torch.ops.cuda import fused_render as _fr
 
-_SUFFIX, _SPLIT = _fr._exclusive_suffix_sum, _fr._split_skip_grad
+_SUFFIX, _SPLIT, _SHADE = _fr._exclusive_suffix_sum, _fm._split_skip_grad, _fm._shade_grad
 
 
 def mse_cotangent(ray_out: torch.Tensor, far: float) -> torch.Tensor:
@@ -44,23 +45,53 @@ def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).norm() / b.double().norm().clamp_min(1e-300))
 
 
+def shaded_cotangent(out8: torch.Tensor, s: int) -> torch.Tensor:
+    """d loss / d out8 [P, 8] of a loss on a shaded MLP's outputs shaped as
+    a render's: an MSE of the per-ray mean rgb against white (rgb residuals
+    of one sign, so the weight gradients add up) and of the per-ray mean
+    softplus(sigma) against 1, averaged over rays and 4 columns; lanes 4..7
+    get 0."""
+    p = out8.shape[0]
+    rays = p // s
+    o = out8.detach().float().reshape(rays, s, 8)
+    d = torch.zeros((rays, s, 8), dtype=torch.float32, device=out8.device)
+    rgb_res = o[..., 1:4].mean(1, keepdim=True) - 1.0
+    d[..., 1:4] = (2.0 * rgb_res / (4 * rays * s)).expand(rays, s, 3)
+    sp = torch.nn.functional.softplus(o[..., 0])
+    d[..., 0] = 2.0 * (sp.mean(1, keepdim=True) - 1.0) * torch.sigmoid(o[..., 0]) / (4 * rays * s)
+    return d.reshape(p, 8)
+
+
+def mlp_cotangent(out32: torch.Tensor) -> torch.Tensor:
+    """d loss / d out32 [P, 32] of an MSE of the packed output's 28 live
+    lanes (sigma and 27 SH) against 1 (one-sign residuals, as a render's
+    loss gives), averaged; lanes 28..31 get 0."""
+    p = out32.shape[0]
+    d = torch.zeros((p, 32), dtype=torch.float32, device=out32.device)
+    d[:, :28] = 2.0 * (out32.detach().float()[:, :28] - 1.0) / (28 * p)
+    return d
+
+
 def bwd_errs(k, ref) -> Dict[str, float]:
     """Relative L2 error of each output of the backward against a
     reference: the worst weight and the worst bias of every layer but the
     last, the last layer's (the worse of its weight and bias), dfeat and
-    dbasis.  L2, not max: a ReLU mask or a bf16 rounding that falls the
+    (where the backward has one) dbasis.  L2, not max: a ReLU mask or a bf16 rounding that falls the
     other way moves a few entries a lot, and fp32 sums in another order
     alone do that; in a deep trunk each such flip moves the layers below
     it.  The last layer's gradients (h1^T dout and the fp32 sum of dout)
     sit before that cascade: they see the composite and shading backward
     at the fp32 noise of their own sums."""
-    dws, dbs, dfeat, dbasis = k
-    if not all(bool(torch.isfinite(t).all()) for t in (*dws, *dbs, dfeat, dbasis)):
+    dws, dbs, dfeat = k[:3]
+    if not all(bool(torch.isfinite(t).all()) for t in (*dws, *dbs, *k[2:])):
         raise AssertionError("the backward's output is not finite")
-    return {"dW": max(rel_l2(a, b) for a, b in zip(dws[:-1], ref[0][:-1])),
+    errs = {"dW": max(rel_l2(a, b) for a, b in zip(dws[:-1], ref[0][:-1])),
             "db": max(rel_l2(a, b) for a, b in zip(dbs[:-1], ref[1][:-1])),
             "last layer": max(rel_l2(dws[-1], ref[0][-1]), rel_l2(dbs[-1], ref[1][-1])),
-            "dfeat": rel_l2(dfeat, ref[2]), "dbasis": rel_l2(dbasis, ref[3])}
+            "dfeat": rel_l2(dfeat, ref[2])}
+    if len(k) > 3:
+        errs["dbasis"] = rel_l2(k[3], ref[3])
+    return errs
 
 
 def _suffix_late(x: torch.Tensor) -> torch.Tensor:
@@ -73,27 +104,72 @@ def _skip_share_dropped(d_xin: torch.Tensor, e_lanes: int):
     return torch.zeros_like(share), d_h
 
 
-def planted_errs(args, ref) -> Dict[str, Dict[str, float]]:
-    """For ``args`` of ``fused_render_bwd_plain`` and ``ref`` its result:
-    :func:`bwd_errs` of each planted fault against ``ref``: the last trunk
-    layer's dW written transposed, layer 1's dW zeroed, the skip layers'
-    share of dfeat dropped, another ray's SH basis, the composite's suffix
-    sums one sample late."""
-    dws, dbs, dfeat, dbasis = ref
-    depth = args[7]
+def _shade_grad_dropped(dout_rgb: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
+    g = _SHADE(dout_rgb, sig)
+    return torch.cat([dout_rgb[..., :1], g[..., 1:]], -1)
+
+
+def _weight_plants(ref, depth: int) -> Dict[str, Dict[str, float]]:
+    """The last trunk layer's dW written transposed, layer 1's dW zeroed,
+    and (given two points or more) the rows of dfeat mixed up: reversed in
+    each 128-point tile, or over all points below 128."""
+    dws, dfeat = ref[0], ref[2]
     last = depth - 1
     dws_t = list(dws)
     dws_t[last] = dws[last].t().reshape(dws[last].shape)
     dws_z = list(dws)
     dws_z[1] = torch.zeros_like(dws[1])
+    tile = min(128, dfeat.shape[0])
+    n = dfeat.shape[0] // tile * tile
+    mixed = torch.cat([dfeat[:n].reshape(-1, tile, dfeat.shape[1]).flip(1).reshape(n, -1),
+                       dfeat[n:]])
+    plants = {"a layer's dW transposed": bwd_errs((dws_t, *ref[1:]), ref),
+              "a layer's dW zeroed": bwd_errs((dws_z, *ref[1:]), ref)}
+    if dfeat.shape[0] > 1:
+        plants["points mixed in a tile"] = bwd_errs((dws, ref[1], mixed, *ref[3:]), ref)
+    return plants
+
+
+def _skip_plant(fn, args, ref) -> Dict[str, float]:
+    with mock.patch.object(_fm, "_split_skip_grad", _skip_share_dropped):
+        return bwd_errs(fn(*args), ref)
+
+
+def planted_errs(args, ref) -> Dict[str, Dict[str, float]]:
+    """For ``args`` of ``fused_render_bwd_plain`` and ``ref`` its result:
+    :func:`bwd_errs` of each planted fault against ``ref``: the last trunk
+    layer's dW written transposed, layer 1's dW zeroed, dfeat's points
+    mixed in a tile, the skip layers' share of dfeat dropped, another
+    ray's SH basis, the composite's suffix sums one sample late."""
     other = list(args)
     other[3] = args[3].roll(1, 0)
-    with mock.patch.object(_fr, "_split_skip_grad", _skip_share_dropped):
-        skip = _fr.fused_render_bwd_plain(*args)
     with mock.patch.object(_fr, "_exclusive_suffix_sum", _suffix_late):
         late = _fr.fused_render_bwd_plain(*args)
-    return {"a layer's dW transposed": bwd_errs((dws_t, dbs, dfeat, dbasis), ref),
-            "a layer's dW zeroed": bwd_errs((dws_z, dbs, dfeat, dbasis), ref),
-            "the skip's dfeat share dropped": bwd_errs(skip, ref),
+    return {**_weight_plants(ref, args[7]),
+            "the skip's dfeat share dropped": _skip_plant(_fr.fused_render_bwd_plain, args, ref),
             "another ray's basis": bwd_errs(_fr.fused_render_bwd_plain(*other), ref),
             "suffix scan shifted by one": bwd_errs(late, ref)}
+
+
+def planted_errs_shaded(args, ref) -> Dict[str, Dict[str, float]]:
+    """For ``args`` of ``fused_shaded_mlp_bwd_plain`` (ws, bs, feat,
+    basis16, dout8, depth, skips, s, nb) and ``ref`` its result: the weight
+    and point plants, the skip layers' share of dfeat dropped, another
+    ray's SH basis, the sigmoid's derivative dropped on the red channel."""
+    fn = _fm.fused_shaded_mlp_bwd_plain
+    other = list(args)
+    other[3] = args[3].roll(1, 0)
+    with mock.patch.object(_fm, "_shade_grad", _shade_grad_dropped):
+        dropped = fn(*args)
+    return {**_weight_plants(ref, args[5]),
+            "the skip's dfeat share dropped": _skip_plant(fn, args, ref),
+            "another ray's basis": bwd_errs(fn(*other), ref),
+            "sigmoid derivative dropped on one channel": bwd_errs(dropped, ref)}
+
+
+def planted_errs_mlp(args, ref) -> Dict[str, Dict[str, float]]:
+    """For ``args`` of ``fused_mlp_bwd_plain`` (ws, bs, feat, dout, depth,
+    skips) and ``ref`` its result: the weight and point plants and the skip
+    layers' share of dfeat dropped."""
+    return {**_weight_plants(ref, args[4]),
+            "the skip's dfeat share dropped": _skip_plant(_fm.fused_mlp_bwd_plain, args, ref)}

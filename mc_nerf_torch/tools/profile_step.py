@@ -1,6 +1,7 @@
 """Where one GLOBAL_OPTIM train step spends its time on the card.
 
-    python3 -m mc_nerf_torch.tools.profile_step [--steps N] [--top K] [--plain]
+    python3 -m mc_nerf_torch.tools.profile_step [--steps N] [--top K] [--plain] [--grid]
+                                                [--remat]
 
 Takes ``--steps`` stage-1 steps (after two warm-up steps) at the library's
 default ``Config()`` on the workload of ``tools/scene.train_workload``
@@ -9,8 +10,11 @@ culled 48 coarse + 32 fine samples) under ``torch.profiler``; prints the
 card's name and power limit, the wall time per step, the summed device
 time of every CUDA kernel by name (top K), and the device's busy share
 (summed kernel time over wall time; kernels on one stream do not
-overlap).  ``--plain`` profiles the plain route instead of the kernels.
-Needs a CUDA card.
+overlap).  ``--plain`` profiles the plain route instead of the kernels;
+``--grid`` the grid fine mode (128 uniform coarse samples, 26 bins x 5
+fine samples per ray, no occupancy map) instead of the importance mode;
+``--remat`` sets ``remat_shade`` (the shading passes recomputed in the
+backward).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -54,6 +58,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--plain", action="store_true")
+    ap.add_argument("--grid", action="store_true")
+    ap.add_argument("--remat", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -70,6 +76,10 @@ def main() -> None:
     cfg = Config()
     if args.plain:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, use_pallas=False))
+    if args.grid or args.remat:
+        cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, fine_mode="grid" if args.grid else cfg.train.fine_mode,
+            remat_shade=args.remat))
     params, data = train_workload(cfg, 0, dev)
     p_flat = flatten_params(params)
     txs, states = build_optimizers(cfg, params, p_flat, STEPS_PER_EPOCH)
@@ -79,21 +89,28 @@ def main() -> None:
     n_img = data.images_u8.shape[0]
 
     def step():
-        step_fn(state, data, draw_step(cfg, 1, n_img, 800, 800, True, gen))
+        step_fn(state, data, draw_step(cfg, 1, n_img, 800, 800, data.occ is not None, gen))
 
     for _ in range(2):
         step()
     wall, rows, host = profile_steps(step, args.steps)
     busy = sum(r[0] for r in rows)
     print(f"card: {card}")
-    print(f"step ({'plain' if args.plain else 'kernel'} route): {wall:.1f} ms wall, "
-          f"{busy:.1f} ms of CUDA kernels (busy share {busy / wall:.3f})")
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"step ({'plain' if args.plain else 'kernel'} route, {cfg.train.fine_mode} fine "
+          f"mode, remat_shade {cfg.train.remat_shade}): {wall:.1f} ms wall, "
+          f"{busy:.1f} ms of CUDA kernels (busy share {busy / wall:.3f}); peak device memory "
+          f"{peak:.2f} GiB")
     for ms, n, name in rows[: args.top]:
         print(f"{ms:10.3f} ms {n:6d} x  {name[:110]}")
     print("host operations by self CPU time:")
     for ms, n, name in host[:10]:
         print(f"{ms:10.3f} ms {n:6d} x  {name[:110]}")
     print(json.dumps({"step_ms": wall, "kernel_ms": busy, "busy_share": busy / wall,
+                      "peak_gib": peak, "fine_mode": cfg.train.fine_mode,
+                      "remat_shade": cfg.train.remat_shade, "plain": args.plain,
                       "card": card, "top": [{"ms": ms, "calls": n, "name": name}
                                             for ms, n, name in rows[: args.top]]}))
 

@@ -69,7 +69,8 @@ def train_workload(cfg: Config, seed: int, device=None, n_images: int = 110,
     """The workload ``bench.py:69-105`` times, built on the device: 110
     seeded uint8 images of 800x800, seeded detections (uniform in
     [10, 790] px, every tag visible), the all-occupied ``uniform_prior_map``
-    (culling changes where samples land, never how many), and
+    (culling changes where samples land, never how many; None in the grid
+    fine mode, which is never culled: ``Engine._occ_train``), and
     :func:`scene_params` weights.  The cameras start at ground truth on an
     orbit of radius 4 around the scene (the benchmark starts them at the
     all-ones init; here the rays cross the scene's box)."""
@@ -87,4 +88,5 @@ def train_workload(cfg: Config, seed: int, device=None, n_images: int = 110,
     pts = rng.uniform(10, min(img_h, img_w) - 10, size=(n_images, 6, 5, 2)).astype(np.float32)
     valid = np.ones((n_images, 6), bool)
     calib = calibration_from_numpy(pts, valid, pts, valid, device=dev)
-    return params, TrainData(images, calib, uniform_prior_map(cfg.nerf, dev))
+    occ = uniform_prior_map(cfg.nerf, dev) if cfg.train.fine_mode == "importance" else None
+    return params, TrainData(images, calib, occ)

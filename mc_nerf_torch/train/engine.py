@@ -71,10 +71,11 @@ def demo(nerf_params: NerfParams, test_split: SplitData, cfg: Config,
          device=None, cull: bool = True, out_dir: Optional[str] = None) -> dict:
     """Render every test view with its camera and score it.
 
-    With ``cull`` (and occupancy enabled in ``cfg``) the occupancy map is
-    rebuilt from the coarse MLP first and the coarse samples follow it;
-    otherwise the views render unculled.  With ``out_dir`` the pred, depth
-    and gt PNGs are written under it.
+    With ``cull`` (and occupancy enabled in ``cfg``, in the importance fine
+    mode: the grid mode stays unculled, as ``Engine._occ_eval`` has it) the
+    occupancy map is rebuilt from the coarse MLP first and the coarse
+    samples follow it; otherwise the views render unculled.  With
+    ``out_dir`` the pred, depth and gt PNGs are written under it.
 
     Returns {"psnr", "ssim", "lpips": None, "count"}, the means over views.
     """
@@ -82,7 +83,7 @@ def demo(nerf_params: NerfParams, test_split: SplitData, cfg: Config,
     test = test_split
     render = make_render_fn(cfg, test.img_h, test.img_w, device=dev)
     occ = None
-    if cull and cfg.nerf.occ_grid_size > 0:
+    if cull and cfg.nerf.occ_grid_size > 0 and cfg.eval.fine_mode == "importance":
         occ = refresh_occupancy(nerf_params, cfg, dev)
     dirs = None
     if out_dir is not None:

@@ -94,7 +94,8 @@ def draw_step(cfg: Config, stage: int, n_images: int, img_h: int, img_w: int,
         pix_idx = torch.randint(0, hw, (1, rays), generator=generator, device=dev)
     else:
         pix_idx = torch.randperm(hw, generator=generator, device=dev)[None, :rays]
-    render = draw_render(rays, cfg.nerf, cfg.train.importance_samples, culled, generator)
+    render = draw_render(rays, cfg.nerf, cfg.train.importance_samples, culled, generator,
+                         cfg.train.fine_mode)
     return StepDraws(u_int, u_ext, img_ids, pix_idx, render)
 
 
@@ -132,10 +133,12 @@ def make_loss_fn(cfg: Config, stage: int, img_h: int, img_w: int,
     """Per-stage loss: ``(params, data, draws, step) -> (loss, metrics)``.
 
     ``cfg.train.use_pallas`` picks the render route: None or True renders
-    through ``fused_render``, the hand-written kernels on CUDA (their plain
-    versions on CPU tensors); False through the plain PyTorch route.  The
-    JAX package defaults its train step to XLA because its fused backward
-    lost on a TPU; the port's choice rests on the H100 (PERF.md)."""
+    through the hand-written kernels on CUDA (their plain versions on CPU
+    tensors): ``fused_render`` in importance mode, ``fused_shaded_mlp`` in
+    grid mode (``cfg.train.fine_mode``); False through the plain PyTorch
+    route.  The JAX package defaults its train step to XLA because its
+    fused backward lost on a TPU; the port's choice rests on the H100
+    (PERF.md)."""
     barf_window = cfg.barf.global_window(cfg.stages)
     use_kernels = cfg.train.use_pallas is not False
     cd = _dtype(cfg.compute_dtype)
@@ -155,9 +158,9 @@ def make_loss_fn(cfg: Config, stage: int, img_h: int, img_w: int,
                             dtype=torch.float32, device=rays_d.device)
         rgb_c, rgb_f = render_rays_train(
             params.nerf, rays_d, rays_o, draws.render, step_r, cfg.nerf, barf_window,
-            barf_on=(stage == 1), compute_dtype=cd,
+            barf_on=(stage == 1), compute_dtype=cd, fine_mode=cfg.train.fine_mode,
             importance_samples=cfg.train.importance_samples, use_kernels=use_kernels,
-            occ=data.occ)
+            occ=data.occ, remat_shade=cfg.train.remat_shade)
         loss_c, loss_f = rgb_loss(rgb_c, gt), rgb_loss(rgb_f, gt)
         total = self_normalized(loss_int) + loss_c + loss_f
         return total, {"loss": total, "loss_intr": loss_int, "loss_extr": loss_ext,
@@ -220,8 +223,11 @@ def make_render_fn(cfg: Config, img_h: int, img_w: int,
 
     ``cfg.eval.use_pallas`` picks the route: None or True renders through
     the Hopper kernels (the weights are packed once per render), False
-    through the plain route in ``cfg.compute_dtype``.  ``occ`` is an
-    optional ``[G*G, G]`` binary occupancy map for culled coarse sampling.
+    through the plain route in ``cfg.compute_dtype``.  ``cfg.eval.fine_mode``
+    picks the fine mode; in grid mode the selection's cutoff is a max over
+    each chunk, padding rays included, as in the JAX package's ``lax.map``.
+    ``occ`` is an optional ``[G*G, G]`` binary occupancy map for culled
+    coarse sampling (importance mode only).
     """
     dev = resolve_device(device)
     chunk = rays_per_chunk or cfg.eval.rays_per_chunk
@@ -241,7 +247,7 @@ def make_render_fn(cfg: Config, img_h: int, img_w: int,
         outs = [
             render_rays_eval(
                 nerf_params, rays_d[i:i + chunk], rays_o[i:i + chunk], cfg.nerf, cd,
-                importance_samples=cfg.eval.importance_samples,
+                fine_mode=cfg.eval.fine_mode, importance_samples=cfg.eval.importance_samples,
                 packed=packed, occ=occ,
             )
             for i in range(0, padded, chunk)

@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain PyTorch versions, on a CUDA card.
+"""The CUDA kernels against their plain PyTorch versions, on a CUDA card:
+fused_mlp_apply, fused_render (forward and backward), fused_shaded_mlp
+(forward and backward) and the differentiable fused_mlp's backward.
 
 Every test here is marked ``gpu`` and skips without a card (the kernels
 have no CPU build).  The file imports nothing of JAX, so it runs on a
@@ -26,7 +28,14 @@ from mc_nerf_torch.ops.cuda.fused_mlp import (
     BASIS_LANES,
     _flat_weights,
     encode_kernel_order,
+    fused_mlp,
     fused_mlp_apply,
+    fused_mlp_bwd,
+    fused_mlp_bwd_plain,
+    fused_shaded_mlp,
+    fused_shaded_mlp_bwd,
+    fused_shaded_mlp_bwd_plain,
+    fused_shaded_mlp_plain,
     mlp_plain,
     pack_mlp_params,
 )
@@ -40,7 +49,15 @@ from mc_nerf_torch.ops.cuda.fused_render import (
     render_bwd_points,
     render_bwd_weights,
 )
-from mc_nerf_torch.tools.bwd_check import bwd_errs, mse_cotangent, planted_errs
+from mc_nerf_torch.tools.bwd_check import (
+    bwd_errs,
+    mlp_cotangent,
+    mse_cotangent,
+    planted_errs,
+    planted_errs_mlp,
+    planted_errs_shaded,
+    shaded_cotangent,
+)
 from mc_nerf_torch.tools.scene import scene_params
 
 NARROW = dict(emb_freqs_xyz=4, coarse_depth=2, coarse_width=32, coarse_skips=(1,),
@@ -63,6 +80,28 @@ BWD_TOL = {
                             "dbasis": 3.3e-3},
     ("default", "fine"): {"dW": 0.2, "db": 0.22, "last layer": 3.6e-3, "dfeat": 0.23,
                           "dbasis": 7.8e-3},
+}
+# fused_shaded_mlp: sigma as MLP_RTOL (measured 1.0e-2); rgb max abs
+# (measured 7.0e-3)
+SHADED_RGB_ATOL = 5e-2
+# its backward under tools/bwd_check.shaded_cotangent, and fused_mlp's
+# under mlp_cotangent: relative L2 per output, per (config, pass), about
+# 10x the largest error measured over the group's cases on an H100
+SHADED_BWD_TOL = {
+    ("narrow", "coarse"): {"dW": 1e-4, "db": 5e-5, "last layer": 1e-4, "dfeat": 1e-3,
+                           "dbasis": 1e-4},
+    ("narrow", "fine"): {"dW": 7e-4, "db": 5.4e-4, "last layer": 1.2e-4, "dfeat": 6.6e-3,
+                         "dbasis": 1.3e-4},
+    ("default", "coarse"): {"dW": 1.7e-3, "db": 1.3e-3, "last layer": 2.2e-4, "dfeat": 2.5e-2,
+                            "dbasis": 4.6e-4},
+    ("default", "fine"): {"dW": 6.7e-2, "db": 5.9e-2, "last layer": 1.5e-3, "dfeat": 0.21,
+                          "dbasis": 3.7e-3},
+}
+MLP_BWD_TOL = {
+    ("narrow", "coarse"): {"dW": 1e-4, "db": 1e-5, "last layer": 1.1e-4, "dfeat": 7.7e-4},
+    ("narrow", "fine"): {"dW": 1e-4, "db": 3e-5, "last layer": 1.1e-4, "dfeat": 5.7e-3},
+    ("default", "coarse"): {"dW": 5.3e-3, "db": 2.9e-3, "last layer": 1.2e-4, "dfeat": 5e-2},
+    ("default", "fine"): {"dW": 8.9e-3, "db": 5.3e-3, "last layer": 1.6e-4, "dfeat": 0.12},
 }
 
 
@@ -185,11 +224,11 @@ def _bwd_case(cfg, coarse, s, rays, with_noise, device, seed=0):
                     nc.white_back)
 
 
-def _bwd_close(k, ref, case, plants=None):
+def _bwd_close(k, ref, case, plants=None, tols=BWD_TOL):
     """Each output's relative L2 error within its tolerance for ``case``
     (cfg, pass); every planted fault (``tools/bwd_check.planted_errs``)
     beyond one of them."""
-    tol = BWD_TOL[case]
+    tol = tols[case]
     errs = bwd_errs(k, ref)
     caught = {n: max(e[o] / tol[o] for o in e) for n, e in (plants or {}).items()}
     print(f"measured backward {case} " + " ".join(f"{o} {v:.3e}" for o, v in errs.items())
@@ -272,3 +311,189 @@ def test_autograd_on_cuda_runs_the_backward_kernels(cuda):
     got[1].extend([leaves[2 * d + 1].grad, leaves[2 * d + 3].grad])
     # dfeat reaches feat rounded to feat's bf16, as in the JAX custom VJP
     _bwd_close(got, (*ref[:2], ref[2].to(torch.bfloat16).float(), ref[3]), ("narrow", "fine"))
+
+
+# ------------------------------------------- fused_shaded_mlp and fused_mlp
+
+def _pass(cfg, coarse, seed=0):
+    nc, params = _params(CFGS[cfg], seed)
+    mlp, depth, skips = ((params.coarse, nc.coarse_depth, nc.coarse_skips) if coarse else
+                         (params.fine, nc.fine_depth, nc.fine_skips))
+    return nc, mlp, depth, skips
+
+
+def _shaded_inputs(nc, rays, s, device):
+    """Features of points on seeded rays from (0, 0, -4) at depths in
+    [1, 8] (one sample per point, in any order: nothing here composites),
+    and the rays' SH basis padded to 16 lanes."""
+    nb = (nc.sh_deg + 1) ** 2
+    rng = np.random.default_rng(rays + s)
+    d = torch.as_tensor(rng.normal(size=(rays, 3)), dtype=torch.float32, device=device)
+    d = d / d.norm(dim=-1, keepdim=True)
+    z = torch.as_tensor(rng.uniform(1.0, 8.0, (rays, s)), dtype=torch.float32, device=device)
+    xyz = torch.tensor([0.0, 0.0, -4.0], device=device) + d[:, None] * z[..., None]
+    feat = encode_kernel_order(xyz.reshape(-1, 3), nc.emb_freqs_xyz)
+    basis16 = torch.nn.functional.pad(sh_basis(nc.sh_deg, d), (0, BASIS_LANES - nb)).contiguous()
+    return feat, basis16, nb
+
+
+SHADED_SHAPES = [(1, 130), (53, 7), (7, 1), (37, 130), (1000, 130)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", ["narrow", "default"])
+@pytest.mark.parametrize("coarse", [True, False], ids=["coarse", "fine"])
+@pytest.mark.parametrize("rays,s", SHADED_SHAPES)
+def test_fused_shaded_mlp_kernel_matches_plain(cuda, cfg, coarse, rays, s):
+    """K4 on both full packs: sigma's max abs error within MLP_RTOL of its
+    largest magnitude, rgb within SHADED_RGB_ATOL, lanes 4..7 zero; one
+    launch counted; another ray's basis (where there is one) and the skip
+    input dropped land outside the tolerances."""
+    nc, mlp, depth, skips = _pass(cfg, coarse)
+    packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+    feat, basis16, nb = _shaded_inputs(nc, rays, s, cuda)
+    before = fused_shaded_mlp.launches
+    ker = fused_shaded_mlp(packed, feat, basis16, depth, skips, s, nb)
+    assert fused_shaded_mlp.launches == before + 1
+    ref = fused_shaded_mlp_plain(packed, feat, basis16, depth, skips, s, nb)
+
+    def over(out):
+        return max(float((out[:, 0] - ref[:, 0]).abs().max() / ref[:, 0].abs().max()) / MLP_RTOL,
+                   float((out[:, 1:4] - ref[:, 1:4]).abs().max()) / SHADED_RGB_ATOL)
+
+    sig_rel = float((ker[:, 0] - ref[:, 0]).abs().max() / ref[:, 0].abs().max())
+    print(f"measured shaded sigma rel {sig_rel:.3e} "
+          f"rgb {float((ker[:, 1:4] - ref[:, 1:4]).abs().max()):.3e}")
+    assert over(ker) <= 1.0
+    assert float(ker[:, 4:].abs().max()) == 0.0
+    ws_skip = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+    for i in skips:
+        ws_skip.trunk_w[i][:feat.shape[1]] = 0
+    assert over(fused_shaded_mlp_plain(ws_skip, feat, basis16, depth, skips, s, nb)) > 1.0
+    if rays > 1:
+        assert over(fused_shaded_mlp_plain(packed, feat, basis16.roll(1, 0), depth, skips, s,
+                                           nb)) > 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", ["narrow", "default"])
+@pytest.mark.parametrize("coarse", [True, False], ids=["coarse", "fine"])
+@pytest.mark.parametrize("rays,s", SHADED_SHAPES)
+def test_shaded_backward_kernel_matches_plain(cuda, cfg, coarse, rays, s):
+    """K5 against ``fused_shaded_mlp_bwd_plain`` under a render-shaped
+    cotangent (``tools/bwd_check.shaded_cotangent``): relative L2 per output
+    within the case's tolerance, every planted fault outside it (another
+    ray's basis only where there is another ray), one launch counted, and
+    the same bits on a second run (fixed-order sums, no atomics)."""
+    nc, mlp, depth, skips = _pass(cfg, coarse)
+    packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+    feat, basis16, nb = _shaded_inputs(nc, rays, s, cuda)
+    ws, bs = _flat_weights(packed)
+    dout8 = shaded_cotangent(fused_shaded_mlp_plain(packed, feat, basis16, depth, skips, s, nb),
+                             s)
+    args = (ws, bs, feat, basis16, dout8, depth, skips, s, nb)
+    before = fused_shaded_mlp_bwd.launches
+    k = fused_shaded_mlp_bwd(*args)
+    assert fused_shaded_mlp_bwd.launches == before + 1
+    again = fused_shaded_mlp_bwd(*args)
+    for x, y in zip([*k[0], *k[1], k[2], k[3]], [*again[0], *again[1], again[2], again[3]]):
+        assert torch.equal(x, y)
+    ref = fused_shaded_mlp_bwd_plain(*args)
+    plants = planted_errs_shaded(args, ref)
+    if rays == 1:
+        plants.pop("another ray's basis")
+    _bwd_close(k, ref, (cfg, "coarse" if coarse else "fine"), plants, SHADED_BWD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg", ["narrow", "default"])
+@pytest.mark.parametrize("coarse", [True, False], ids=["coarse", "fine"])
+@pytest.mark.parametrize("n_points", [1, 4099, 224000])
+def test_fused_mlp_backward_kernel_matches_plain(cuda, cfg, coarse, n_points):
+    """K6 against ``fused_mlp_bwd_plain`` under an MSE of the packed output
+    (``tools/bwd_check.mlp_cotangent``): relative L2 per output within the
+    case's tolerance, the planted faults outside it, one launch counted,
+    the same bits twice."""
+    nc, mlp, depth, skips = _pass(cfg, coarse)
+    packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+    feat, _, _ = _shaded_inputs(nc, n_points, 1, cuda)
+    ws, bs = _flat_weights(packed)
+    args = (ws, bs, feat, mlp_cotangent(mlp_plain(packed, feat, depth, skips)), depth, skips)
+    before = fused_mlp_bwd.launches
+    k = fused_mlp_bwd(*args)
+    assert fused_mlp_bwd.launches == before + 1
+    again = fused_mlp_bwd(*args)
+    for x, y in zip([*k[0], *k[1], k[2]], [*again[0], *again[1], again[2]]):
+        assert torch.equal(x, y)
+    ref = fused_mlp_bwd_plain(*args)
+    _bwd_close(k, ref, (cfg, "coarse" if coarse else "fine"), planted_errs_mlp(args, ref),
+               MLP_BWD_TOL)
+
+
+@pytest.mark.gpu
+def test_autograd_on_cuda_runs_the_shaded_and_mlp_kernels(cuda):
+    """Autograd on CUDA tensors: ``fused_shaded_mlp`` on an fp32 training
+    pack launches K4 forward and K5 backward, ``fused_mlp`` launches K1
+    and K6; the leaf gradients equal the plain backwards' (cast to the
+    leaves, dfeat to feat's bf16) within the narrow fine tolerances."""
+    nc, mlp, depth, skips = _pass("narrow", False)
+    feat, basis16, nb = _shaded_inputs(nc, 77, 13, cuda)
+    for fwd, plain_bwd, counters, tols in (
+            ("shaded", fused_shaded_mlp_bwd_plain, (fused_shaded_mlp, fused_shaded_mlp_bwd),
+             SHADED_BWD_TOL),
+            ("mlp", fused_mlp_bwd_plain, (fused_mlp_apply, fused_mlp_bwd), MLP_BWD_TOL)):
+        packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips, dtype=torch.float32)
+        leaves = [*packed.trunk_w, *packed.trunk_b, packed.head_w0, packed.head_b0,
+                  packed.head_w1, packed.head_b1]
+        ws, bs = _flat_weights(packed)
+        f = feat.detach().clone().requires_grad_()
+        b = basis16.detach().clone().requires_grad_()
+        for leaf in leaves:
+            leaf.retain_grad()
+        before = [c.launches for c in counters]
+        if fwd == "shaded":
+            out = fused_shaded_mlp(packed, f, b, depth, skips, 13, nb)
+            cot = shaded_cotangent(out, 13)
+        else:
+            out = fused_mlp(packed, f, depth, skips)
+            cot = mlp_cotangent(out)
+        out.backward(cot)
+        assert [c.launches for c in counters] == [n + 1 for n in before]
+        ref = (plain_bwd(ws, bs, f.detach(), basis16, cot, depth, skips, 13, nb)
+               if fwd == "shaded" else plain_bwd(ws, bs, f.detach(), cot, depth, skips))
+        assert f.grad.dtype == torch.bfloat16
+        got = [[leaf.grad for leaf in leaves[:depth]] + [leaves[2 * depth].grad,
+                                                          leaves[2 * depth + 2].grad],
+               [leaf.grad for leaf in leaves[depth:2 * depth]] + [leaves[2 * depth + 1].grad,
+                                                                   leaves[2 * depth + 3].grad],
+               f.grad.float()]
+        want = [ref[0], ref[1], ref[2].to(torch.bfloat16).float()]
+        if fwd == "shaded":
+            assert b.grad.dtype == torch.float32
+            got.append(b.grad)
+            want.append(ref[3])
+        _bwd_close(got, want, ("narrow", "fine"), None, tols)
+
+
+@pytest.mark.gpu
+def test_grid_train_step_autograd_launches_k4_and_k5(cuda):
+    """A grid-mode training render on CUDA tensors through the kernel
+    route: forward and backward launch K4 and K5 once per pass (two each),
+    and nothing falls back to the plain versions."""
+    from mc_nerf_torch.models.nerf import draw_render, render_rays_train
+
+    nc = NerfConfig(**NARROW)
+    params = scene_params(nc, 0, device="cuda")
+    rng = np.random.default_rng(0)
+    d = torch.as_tensor(rng.normal(size=(300, 3)), dtype=torch.float32, device=cuda)
+    rays_d = d / d.norm(dim=-1, keepdim=True)
+    rays_o = torch.tensor([[0.0, 0.0, -4.0]], device=cuda).expand(300, 3)
+    draws = draw_render(300, nc, 32, False, torch.Generator(device=cuda).manual_seed(0), "grid")
+    before = (fused_shaded_mlp.launches, fused_shaded_mlp_bwd.launches)
+    rgb_c, rgb_f = render_rays_train(params, rays_d, rays_o, draws, torch.tensor(0.5, device=cuda),
+                                     nc, (0.1, 0.5), True, fine_mode="grid", use_kernels=True)
+    ((rgb_c - 1.0) ** 2).mean().add(((rgb_f - 1.0) ** 2).mean()).backward()
+    assert (fused_shaded_mlp.launches, fused_shaded_mlp_bwd.launches) == \
+        (before[0] + 2, before[1] + 2)
+    assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
+               for p in params.parameters())

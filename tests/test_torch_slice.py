@@ -94,16 +94,19 @@ def test_render_rays_eval_plain_route_fp32(culled):
 
 
 def test_unported_render_modes_refuse():
-    """The grid fine mode and the coarse-free branch are not ported: no
-    config field selects them and the renderer takes no switch for them."""
-    with pytest.raises(TypeError):
-        t_config.EvalConfig(fine_mode="grid")
+    """The coarse-free branch is not ported: no config field selects it and
+    the renderer takes no switch for it.  The grid fine mode is ported;
+    an unknown fine mode is refused."""
+    assert t_config.EvalConfig(fine_mode="grid").fine_mode == "grid"
     with pytest.raises(TypeError):
         t_config.NerfConfig(coarse_free=True)
+    with pytest.raises(TypeError):
+        t_config.EvalConfig(coarse_free=True)
     _, tc, _, tp, rd, ro, _ = _setup(4)
-    for kw in ({"fine_mode": "grid"}, {"coarse_free": True}):
-        with pytest.raises(TypeError):
-            render_rays_eval(tp, torch.as_tensor(rd), torch.as_tensor(ro), tc, **kw)
+    with pytest.raises(TypeError):
+        render_rays_eval(tp, torch.as_tensor(rd), torch.as_tensor(ro), tc, coarse_free=True)
+    with pytest.raises(ValueError):
+        render_rays_eval(tp, torch.as_tensor(rd), torch.as_tensor(ro), tc, fine_mode="dense")
 
 
 def _camera(h, w):
