@@ -135,6 +135,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def weight_stage_line(t: dict) -> str:
+    """The weight stage's numbers of a K5 or K6 pass, for its printed line."""
+    w = t.get("weight_stage")
+    return "" if w is None else (
+        f"; weight stage {w['ms']:.3f} ms (bf16 torch.mm chain {w['library_ms']:.3f}, bound "
+        f"{w['bound_ms']:.3f}, this design's floor {w['floor_ms']:.3f} by bytes)")
+
+
 def cuda_ms(fn, iters: int = 5) -> float:
     """Mean milliseconds per call on the card (CUDA events, after a warm-up)."""
     fn()
@@ -406,9 +414,13 @@ def time_backward(nc, bwd, rng, dev) -> dict:
     of the work each launch's share of the function needs: recompute + dX
     products and the function's inputs and dfeat/dbasis for the first;
     the dW products and the weight gradients written for the second.  The
-    workspace that design (a) passes between them is not needed work."""
+    workspace that design (a) passes between them is not needed work; the
+    second also gets ``floor_ms``, this design's floor: the bytes its
+    weight stage must move, each job's X and D read once and dW written
+    once (``tools/bwd_check.weight_stage_bytes``), over the memory rate."""
     from mc_nerf_torch.ops.cuda.fused_render import (
         _bwd_fns, fused_render_bwd_plain, render_bwd_points, render_bwd_weights)
+    from mc_nerf_torch.tools.bwd_check import weight_stage_bytes
 
     nb = (nc.sh_deg + 1) ** 2
     out = {"render_bwd_points": {}, "render_bwd_weights": {}}
@@ -438,9 +450,36 @@ def time_backward(nc, bwd, rng, dev) -> dict:
             "ms": cuda_ms(lambda: render_bwd_weights(ws, bs, feat, rays, s, skips, work)),
             "plain_ms": plain_ms,
             "library_ms": cuda_ms(lambda: library_bwd_dw(*saved, dout_b)),
-            "bound_ms": b_w[0], "bound_by": b_w[1]}
+            "bound_ms": b_w[0], "bound_by": b_w[1],
+            "floor_ms": weight_stage_bytes(enc, depth, width, skips, ws[-2].shape[1], p)
+            / PEAK_BYTES * 1e3}
         del work, saved
     return out
+
+
+def weight_stage_numbers(ws, bs, feat, skips, shaded: bool, fill, saved, dout_b, macs: int,
+                         pk) -> dict:
+    """The weight stage of K5 (``shaded``) or K6 timed apart at these
+    shapes: ``mlp_bwd_weights`` on a workspace that ``fill(work)`` (the
+    whole backward) filled, beside the bf16 torch.mm chain of the dW
+    products (``library_bwd_dw``), the needed-work bound of
+    ``render_bwd_weights`` (the dW products, the weight gradients written)
+    and ``floor_ms``, this design's floor: the stage's bytes (each job's X
+    and D read once, dW written once) over the memory rate."""
+    from mc_nerf_torch.ops.cuda.fused_mlp import _workspace, mlp_bwd_weights
+    from mc_nerf_torch.tools.bwd_check import weight_stage_bytes
+
+    p, enc = feat.shape
+    depth, width, head0 = len(ws) - 2, ws[0].shape[1], ws[-2].shape[1]
+    work = _workspace(p, enc, ws, skips, shaded, feat.device)
+    fill(work)
+    b_w = bound(2.0 * macs * p, 2 * pack_bytes(pk))
+    nums = {"ms": cuda_ms(lambda: mlp_bwd_weights(ws, bs, feat, skips, shaded, work)),
+            "library_ms": cuda_ms(lambda: library_bwd_dw(*saved, dout_b)),
+            "bound_ms": b_w[0], "bound_by": b_w[1],
+            "floor_ms": weight_stage_bytes(enc, depth, width, skips, head0, p) / PEAK_BYTES * 1e3}
+    del work
+    return nums
 
 
 def train_phase(cfg, dev, h: int, w: int, counters, n_steps: int, route_tol: dict) -> dict:
@@ -622,8 +661,8 @@ def check_shaded(nc, params, dev, rng, rays, errs) -> dict:
     of the kernels line (K4 and K5 at the training shapes) and K5's
     relative errors."""
     from mc_nerf_torch.ops.cuda.fused_mlp import (
-        _flat_weights, fused_shaded_mlp, fused_shaded_mlp_bwd, fused_shaded_mlp_bwd_plain,
-        fused_shaded_mlp_plain, pack_mlp_params)
+        _flat_weights, _shaded_bwd_launch, fused_shaded_mlp, fused_shaded_mlp_bwd,
+        fused_shaded_mlp_bwd_plain, fused_shaded_mlp_plain, pack_mlp_params)
     from mc_nerf_torch.tools.bwd_check import bwd_errs, planted_errs_shaded, shaded_cotangent
 
     nb = (nc.sh_deg + 1) ** 2
@@ -696,7 +735,11 @@ def check_shaded(nc, params, dev, rng, rays, errs) -> dict:
         bwd[label] = {"ms": cuda_ms(lambda: fused_shaded_mlp_bwd(*args), 3),
                       "plain_ms": cuda_ms(lambda: fused_shaded_mlp_bwd_plain(*args), 2),
                       "library_ms": cuda_ms(library_bwd, 3),
-                      "bound_ms": t_bwd[0], "bound_by": t_bwd[1]}
+                      "bound_ms": t_bwd[0], "bound_by": t_bwd[1],
+                      "weight_stage": weight_stage_numbers(
+                          ws, bs, feat, skips, True,
+                          lambda work: _shaded_bwd_launch(*args, work),
+                          library_bwd_dx(ws, bs, feat, dout_b, depth, skips), dout_b, macs, pk)}
         torch.cuda.reset_peak_memory_stats()
         fused_shaded_mlp_bwd(*args)
         print(f"shaded backward {label} pass ({rays} x {s_main} points): peak device memory "
@@ -713,8 +756,8 @@ def fused_mlp_vjp_phase(nc, params, dev, rng, rays, errs) -> dict:
     of the packed output (``tools/bwd_check.mlp_cotangent``), with planted
     faults, and its times."""
     from mc_nerf_torch.ops.cuda.fused_mlp import (
-        _flat_weights, fused_mlp, fused_mlp_apply, fused_mlp_bwd, fused_mlp_bwd_plain,
-        mlp_plain, pack_mlp_params)
+        _flat_weights, _mlp_bwd_launch, fused_mlp, fused_mlp_apply, fused_mlp_bwd,
+        fused_mlp_bwd_plain, mlp_plain, pack_mlp_params)
     from mc_nerf_torch.tools.bwd_check import bwd_errs, mlp_cotangent, planted_errs_mlp
 
     passes = (("coarse", params.coarse, nc.coarse_depth, nc.coarse_width, nc.coarse_skips,
@@ -772,7 +815,12 @@ def fused_mlp_vjp_phase(nc, params, dev, rng, rays, errs) -> dict:
         numbers[label] = {"ms": cuda_ms(lambda: fused_mlp_bwd(*args)),
                           "plain_ms": cuda_ms(lambda: fused_mlp_bwd_plain(*args), 3),
                           "library_ms": cuda_ms(library_bwd),
-                          "bound_ms": t_b[0], "bound_by": t_b[1]}
+                          "bound_ms": t_b[0], "bound_by": t_b[1],
+                          "weight_stage": weight_stage_numbers(
+                              ws, bs, feat, skips, False,
+                              lambda work: _mlp_bwd_launch(*args, work),
+                              library_bwd_dx(ws, bs, feat, dout_b, depth, skips), dout_b, macs,
+                              pk)}
     return {"launches": launches, "fused_mlp_bwd": numbers, "rel": rel}
 
 
@@ -1113,7 +1161,9 @@ def main() -> None:
         for label, t in passes.items():
             print(f"{name}, training {label} pass ({t_rays} rays): {t['ms']:.3f} ms (plain "
                   f"{t['plain_ms']:.3f}, bf16 torch chain {t['library_ms']:.3f}, bound "
-                  f"{t['bound_ms']:.3f} by {t['bound_by']})", flush=True)
+                  f"{t['bound_ms']:.3f} by {t['bound_by']}"
+                  + (f", floor {t['floor_ms']:.3f}" if "floor_ms" in t else "") + ")",
+                  flush=True)
 
     # ---- the GLOBAL_OPTIM train step at full width
     train = train_phase(cfg, dev, h, w, (fused_render, render_bwd_points, render_bwd_weights),
@@ -1126,12 +1176,12 @@ def main() -> None:
         for label, t in shaded[name].items():
             print(f"{name}, grid training {label} pass: {t['ms']:.3f} ms (plain "
                   f"{t['plain_ms']:.3f}, bf16 torch chain {t['library_ms']:.3f}, bound "
-                  f"{t['bound_ms']:.3f} by {t['bound_by']})", flush=True)
+                  f"{t['bound_ms']:.3f} by {t['bound_by']})" + weight_stage_line(t), flush=True)
     vjp = fused_mlp_vjp_phase(nc, params, dev, rng, t_rays, errs)
     for label, t in vjp["fused_mlp_bwd"].items():
         print(f"fused_mlp_bwd, {label} pack: {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}, bf16 "
               f"torch chain {t['library_ms']:.3f}, bound {t['bound_ms']:.3f} by "
-              f"{t['bound_by']})", flush=True)
+              f"{t['bound_by']})" + weight_stage_line(t), flush=True)
     grid_demo = grid_demo_phase(cfg, params, dev, split, poses, K, h, w, errs)
     cfg_grid = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, fine_mode="grid"))
     grid_train = train_phase(cfg_grid, dev, h, w, (fused_shaded_mlp, fused_shaded_mlp_bwd),

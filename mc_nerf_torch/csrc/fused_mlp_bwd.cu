@@ -212,3 +212,17 @@ extern "C" int mcn_mlp_bwd(const void* feat, const void* dout, void* dfeat, void
   return run_backward(false, feat, nullptr, dout, dfeat, nullptr, dw, db, workspace, points, 1,
                       1, enc, depth, skip_mask, width, head0, w, b, stream);
 }
+
+// The weight stage alone (launch_weight_grads: dW and db as the two calls
+// above give them), from a workspace that one of them filled at the same
+// shapes: its stage timed apart.
+extern "C" int mcn_mlp_bwd_weights(const void* feat, void* workspace, void* dw, void* db,
+                                   long long points, int enc, int depth, int skip_mask, int width,
+                                   int head0, int shaded, void* stream) {
+  if (depth < 1 || depth + 2 > MAX_LAYERS) return cudaErrorInvalidValue;
+  if (points <= 0) return 0;
+  const Layout L = flat_layout(points, enc, depth, skip_mask, width, head0, shaded != 0);
+  return launch_weight_grads(L, carve(L, workspace), static_cast<const bf16*>(feat), enc, depth,
+                             skip_mask, width, head0, static_cast<float*>(dw),
+                             static_cast<float*>(db), (cudaStream_t)stream);
+}

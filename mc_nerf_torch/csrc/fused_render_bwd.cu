@@ -27,9 +27,10 @@
 //    mlp_bwd_tile), reading activations back from the workspace for the
 //    ReLU masks, with bias partials per block.
 // 2. weight_grad_kernel and reduce_rows_kernel (mlp_bwd.cuh): dW = sum over
-//    points of xin^T @ d_a for every layer, split over chunks of 4096
-//    points, and the partials summed in a fixed order, so the result is the
-//    same run to run.
+//    points of xin^T @ d_a for every layer, split over at most 16 chunks of
+//    points (persistent blocks, a TMA-fed ring, wgmma from shared memory),
+//    and the partials summed in a fixed order, so the result is the same
+//    run to run.
 //
 // Rounding points follow fused_render.py:401-436: dout32 -> bf16 before
 // the head products; ReLU masks from the bf16 activations; d_h1 and every

@@ -15,10 +15,11 @@
 //
 // Weight gradients (launch_weight_grads): dW = sum over points of
 // xin^T @ d_a for every layer (xin = feat, the saved layer outputs, h1),
-// split over chunks of 4096 points; each block writes a 128 x N fp32
-// partial of its chunk, its X and D tiles of 64 points double-buffered with
-// cp.async.  reduce_rows_kernel then sums the partials (and the bias
-// partials) in a fixed order, so the result is the same run to run.
+// split over at most 16 large chunks of points; persistent blocks walk the
+// (split, job, tile) items, a ring of swizzled X and D stages feeding wgmma
+// with both operands in shared memory; reduce_rows_kernel then sums the
+// partials (and the bias partials) in a fixed order, so the result is the
+// same run to run (the section's own note below).
 //
 // Rounding points follow the Pallas backward bodies (fused_render.py:
 // 401-436, fused_mlp.py:495-535 and :783-824): bf16 operands, fp32
@@ -37,22 +38,28 @@
 namespace mcn {
 
 constexpr int DOUT_PITCH = OUT_COLS + 8;  // bf16 dout tile, the A operand of head layer 1
-constexpr int WG_CHUNK = 4096;            // points per split of the weight-gradient products
-constexpr int WKT = 64;                   // points per K step of the weight-gradient products
-constexpr int XS_PITCH = TILE_M + 8;      // bf16 X tile [WKT points][128 columns]
 constexpr int MAX_JOBS = 32;
 constexpr int DBP_LANES = 16;             // per-point dbasis partials (fused_mlp_bwd.cu)
+constexpr int WKT = 64;                   // points per stage (K step) of the weight gradients
+constexpr int WG_MIN_CHUNK = 4096;        // fewest points per weight-gradient split
+constexpr int WG_MAX_SPLITS = 16;         // most weight-gradient splits
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
+// Points per weight-gradient split at `points` points: ceil(points /
+// splits) rounded up to a whole stage, splits = ceil(points /
+// WG_MIN_CHUNK) capped at WG_MAX_SPLITS; every split but the last is whole
+// stages.  Shapes and constants only: the same splits, and so the same
+// bits, on any card.
+static inline long long weight_chunk(long long points) {
+  long long s = (points + WG_MIN_CHUNK - 1) / WG_MIN_CHUNK;
+  s = s < 1 ? 1 : (s > WG_MAX_SPLITS ? WG_MAX_SPLITS : s);
+  const long long c = (points + s - 1) / s;
+  return (c + WKT - 1) / WKT * WKT;
 }
 
 // ---------------------------------------------------------------- workspace
 
 struct Layout {
-  long long points, nweights;
+  long long points, nweights, chunk;  // chunk: points per weight-gradient split
   int blocks, splits, nbias;
   size_t h, h1, out32, dout, doutb, da, dh1, dbp, bias_part, w_part, bytes;
   long long w_off[MAX_LAYERS];  // offset of each layer's [K, N] block in the flat dW
@@ -68,7 +75,8 @@ static Layout make_layout(long long points, int blocks, int enc, int depth, int 
   Layout L;
   L.points = points;
   L.blocks = blocks;
-  L.splits = (int)((points + WG_CHUNK - 1) / WG_CHUNK);
+  L.chunk = weight_chunk(points);
+  L.splits = (int)((points + L.chunk - 1) / L.chunk);
   L.nbias = depth * width + head0 + OUT_COLS;
   long long off = 0;
   for (int l = 0; l < depth; ++l) {
@@ -356,140 +364,202 @@ __device__ void mlp_bwd_tile(const MLPParams& p, const Workspace& ws, long long 
 }
 
 // ----------------------------------------------------- weight gradients
+//
+// dW = sum over points of xin^T @ d_a for every layer: one GEMM per job
+// (M = X's columns, N = D's columns, K = points), X and D bf16 rows in the
+// workspace (or feat), fp32 sums.  Memory-bound: at the fine 8x256 pack a
+// point's jobs read 11,072 bytes of X and D for 638,976 MACs, 115 FLOP per
+// byte against the card's 295, so the design is about reading each byte
+// once and keeping enough of them in flight.
+//  * Work items: (split, job, m-tile of 128 rows, n-tile of up to 256
+//    columns), the tile index fastest.  A persistent grid hands them out
+//    round robin, so the tiles that share a job's D (its m-tiles) or X
+//    (head layer 0's two n-tiles) run at once on neighbouring blocks over
+//    the same points: the second read of an operand is served by L2.
+//  * Few, large splits: the split count comes from the point count and two
+//    compile-time constants (weight_chunk), never from the card, so the
+//    partials and their fixed-order sum give the same bits on any card.
+//    At 910,000 points: 16 splits of 56,896 points, 41 MB of partials.
+//  * A ring of WG_STAGES stages of WKT points: a stage holds X's two
+//    64-column boxes and D's NC / 64 boxes, each WKT rows of 128 bytes in
+//    the 128-byte swizzle (the layout a TMA box writes).  The two consumer
+//    warpgroups each multiply 64 rows of the tile with wgmma, both operands
+//    from shared memory (A = X^T and B = D, MN-major), wait_group 1 so one
+//    product stays in flight while the next stage is awaited.
+//  * An X row pitch that is not a multiple of 16 bytes (an encode width
+//    not a multiple of 8, e.g. 28 lanes) takes element loads.
+// reduce_rows_kernel then sums the splits' partials (and the points
+// kernels' bias partials) in row order.
 
-// One weight-gradient product: dW[r, n] (+ out, rows of ldo) = sum over
-// points p of x[p, r] * d[p, n], r < m, n < n_cols.
+constexpr int WG_STAGES = 4;           // ring depth
+constexpr int WG_PROMOTE = 64;         // stages per tensor-core accumulation (4096 points)
+constexpr int WG_BOX = WKT * 128;    // bytes of one 64-column box of a stage
+constexpr int WG_X_BOXES = TILE_M / 64;
+constexpr int WG_STAGE = (WG_X_BOXES + NC_MAX / 64) * WG_BOX;
+// Dynamic shared memory of weight_grad_kernel: the ring, plus slack to align
+// it to the swizzle atom's 1024 bytes.
+constexpr size_t WEIGHT_SMEM = size_t(WG_STAGES) * WG_STAGE + 1024;
+
+// One weight-gradient product: dW[r, c] (at `out`, rows of n) = sum over
+// points p of x[p, r] * d[p, c], r < m, c < n.
 struct WJob {
   const bf16* x;
   long long ldx;
   const bf16* d;
   long long out;
-  int m, n, ldo, nc, m_tiles, n_tiles, block0;
+  int m, n, nc, n_tiles, tile0;  // tile0: the job's first tile within a split
+  int x_vec;                     // X rows load as 16-byte vectors
 };
 
 struct WJobs {
   WJob j[MAX_JOBS];
-  long long points, nweights;
-  int count, splits;
+  long long points, chunk, nweights;
+  int count, splits, tiles;  // tiles: of all jobs, per split
 };
 
-// Stage points [p0, p0 + WKT) of a job into one buffer pair: the X tile
-// (WKT points x 128 columns from m0, row-major, pitch XS_PITCH) and the D
-// tile (WKT points x NC columns from n0) in wgmma's MN-major layout (as
-// stage_tile), with 16-byte cp.async copies that zero-fill past the data.
-// X rows that are not 16-byte aligned (an encode width that is not a
-// multiple of 8) take element loads instead.
+// Stage points [p0, p0 + WKT) of a job into ring stage `st`: X columns
+// [m0, m0 + 128) as two boxes (a box no warpgroup reads is skipped), D
+// columns [n0, n0 + NC) as NC / 64 boxes; row r of a box at r * 128 bytes,
+// its 16-byte chunk c at chunk c ^ (r % 8) (the 128-byte swizzle), zero
+// past the points and past the job's columns.
 template <int NC>
 __device__ __forceinline__ void stage_weight_tiles(const WJob& J, long long p0, long long p_end,
-                                                   int m0, int n0, bool x_vec, bf16* xs,
-                                                   bf16* ds) {
-  for (int idx = threadIdx.x; idx < WKT * (TILE_M / 8); idx += THREADS) {
-    const int kr = idx >> 4, c = idx & 15;
-    const long long pt = p0 + kr;
-    const int col = m0 + c * 8;
-    bf16* dst = xs + kr * XS_PITCH + c * 8;
+                                                   int m0, int n0, unsigned char* st) {
+  for (int idx = threadIdx.x; idx < WG_X_BOXES * WKT * 8; idx += THREADS) {
+    const int b = idx / (WKT * 8), r = (idx >> 3) % WKT, c = idx & 7;
+    if (m0 + 64 * b >= J.m) continue;
+    const long long pt = p0 + r;
+    const int col = m0 + 64 * b + 8 * c;
+    unsigned char* dst = st + b * WG_BOX + r * 128 + ((c ^ (r & 7)) << 4);
     const bf16* src = J.x + pt * J.ldx + col;
-    if (x_vec || pt >= p_end) {
-      const bool ok = pt < p_end && col + 8 <= J.m;
+    if (J.x_vec) {
+      const bool ok = pt < p_end && col < J.m;
       cp_async16(dst, ok ? src : J.x, ok ? 16 : 0);
     } else {
-      for (int q = 0; q < 8; ++q) dst[q] = col + q < J.m ? src[q] : __float2bfloat16_rn(0.f);
+      __align__(16) bf16 v[8];
+      for (int q = 0; q < 8; ++q)
+        v[q] = pt < p_end && col + q < J.m ? src[q] : __float2bfloat16_rn(0.f);
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(v);
     }
   }
-  for (int idx = threadIdx.x; idx < WKT * (NC / 8); idx += THREADS) {
-    const int r8 = idx & 7, rest = idx >> 3;
-    const int c = rest % (NC / 8), kg = rest / (NC / 8);
-    const long long pt = p0 + kg * 8 + r8;
-    const int col = n0 + c * 8;
+  for (int idx = threadIdx.x; idx < (NC / 64) * WKT * 8; idx += THREADS) {
+    const int b = idx / (WKT * 8), r = (idx >> 3) % WKT, c = idx & 7;
+    const long long pt = p0 + r;
+    const int col = n0 + 64 * b + 8 * c;
     const bool ok = pt < p_end && col < J.n;
-    cp_async16(reinterpret_cast<char*>(ds) + kg * (NC * 16) + c * 128 + r8 * 16,
+    cp_async16(st + (WG_X_BOXES + b) * WG_BOX + r * 128 + ((c ^ (r & 7)) << 4),
                ok ? J.d + pt * J.n + col : J.d, ok ? 16 : 0);
   }
-  cp_async_commit();
 }
 
-// One 128 x NC tile of a job's dW over one split's points, written to that
-// split's row of the partials (`part`).  The tiles of the next WKT points
-// load (cp.async, double-buffered) while the current ones multiply.
+// Add a consumer warpgroup's accumulators (rows r0 + 8h of its fragment,
+// columns c0 + 8j) into the split's partials at `out` (rows of n, bounds m
+// x n) and zero them: stored at an item's first flush, added after.  The
+// tensor cores' fp32 accumulation loses about one low bit per product it
+// adds (a one-sided error over long sums), so the products of at most
+// WG_PROMOTE stages (4096 points) go into one accumulation and the rest in
+// ordinary fp32 adds, in a fixed order.
 template <int NC>
-__device__ void weight_tile(const WJob& J, long long points, int mt, int nt, int split,
-                            float* part, bf16* smem) {
+__device__ __forceinline__ void flush_tile(float* acc, float* out, int m, int n, int r0, int c0,
+                                           bool first) {
+  constexpr int GROUP = NC / 8 < 8 ? NC / 8 : 8;
+#pragma unroll
+  for (int j0 = 0; j0 < NC / 8; j0 += GROUP) {
+    float2 old[GROUP][2];
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h, col = c0 + 8 * (j0 + j);
+        old[j][h] = make_float2(0.f, 0.f);
+        if (!first && r < m && col < n)
+          old[j][h] = *reinterpret_cast<const float2*>(out + (size_t)r * n + col);
+      }
+#pragma unroll
+    for (int j = 0; j < GROUP; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = r0 + 8 * h, col = c0 + 8 * (j0 + j);
+        float* a = acc + 4 * (j0 + j) + 2 * h;
+        if (r < m && col < n)
+          *reinterpret_cast<float2*>(out + (size_t)r * n + col) =
+              make_float2(old[j][h].x + a[0], old[j][h].y + a[1]);
+        a[0] = 0.f;
+        a[1] = 0.f;
+      }
+  }
+}
+
+// One 128 x NC tile of a job's dW over points [p_begin, p_end), into the
+// split's partials `part`.  Warpgroup w multiplies rows m0 + 64w ..
+// + 63 (idle where they lie past the job's rows).
+template <int NC>
+__device__ void weight_tile(const WJob& J, long long p_begin, long long p_end, int m0, int n0,
+                            float* part, unsigned char* ring) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3, row_w = warp * 16;
-  const long long p_begin = (long long)split * WG_CHUNK;
-  const long long p_end = min(points, p_begin + WG_CHUNK);
-  const int m0 = mt * TILE_M, n0 = nt * NC;
-  // a vector copy needs 16-byte aligned rows and every 8-column group
-  // whole or past the end (m a multiple of 8)
-  const bool x_vec = (J.ldx % 8) == 0 && (J.m % 8) == 0 &&
-                     (reinterpret_cast<uintptr_t>(J.x) % 16) == 0;
-  // ldmatrix.trans addressing: matrix i = lane / 8 holds points
-  // 8 * (i / 2) + lane % 8 and columns row_w + 8 * (i % 2) .. + 7
-  const int lt_k = (lane & 7) + ((lane >> 4) << 3);
-  const int lt_m = row_w + ((lane >> 3) & 1) * 8;
-  bf16* xs[2] = {smem, smem + WKT * XS_PITCH};
-  bf16* ds[2] = {smem + 2 * WKT * XS_PITCH, smem + 2 * WKT * XS_PITCH + WKT * NC_MAX};
+  const int g = lane >> 2, tig = lane & 3, row_w = warp * 16, wg = warp >> 2;
+  const bool active = m0 + 64 * wg < J.m;
+  const int n_steps = (int)((p_end - p_begin + WKT - 1) / WKT);
 
   float acc[NC / 2];
 #pragma unroll
   for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
 
-  stage_weight_tiles<NC>(J, p_begin, p_end, m0, n0, x_vec, xs[0], ds[0]);
-  int buf = 0;
-  for (long long p0 = p_begin; p0 < p_end; p0 += WKT, buf ^= 1) {
-    if (p0 + WKT < p_end) {
-      stage_weight_tiles<NC>(J, p0 + WKT, p_end, m0, n0, x_vec, xs[buf ^ 1], ds[buf ^ 1]);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    fence_async_shared();
-    __syncthreads();
-    const uint32_t stage = smem_u32(ds[buf]);
-    uint32_t a[WKT / 16][4];
 #pragma unroll
-    for (int k = 0; k < WKT / 16; ++k) ldsm_x4_trans(a[k], xs[buf] + (lt_k + 16 * k) * XS_PITCH + lt_m);
-    wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < WKT / 16; ++k)
-      wgmma_rs<NC, 1>(acc, a[k], make_desc(stage + k * 2 * NC * 16, NC * 16, 128));
-    wgmma_commit_and_wait();
-    __syncthreads();
+  for (int s = 0; s < WG_STAGES - 1; ++s) {
+    if (s < n_steps) stage_weight_tiles<NC>(J, p_begin + s * WKT, p_end, m0, n0, ring + s * WG_STAGE);
+    cp_async_commit();
   }
-  float* out = part + J.out;
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<WG_STAGES - 2>();  // this thread's copies of stage i have landed
+    fence_async_shared();
+    __syncthreads();                 // everyone's have
+    if (active) {
+      const uint32_t st = smem_u32(ring + (i % WG_STAGES) * WG_STAGE);
+      wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < NC / 8; ++j) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = m0 + row_w + g + 8 * h;
-      const int col = n0 + j * 8 + tig * 2;
-      if (r < J.m) {
-        if (col < J.n) out[(size_t)r * J.ldo + col] = acc[4 * j + 2 * h];
-        if (col + 1 < J.n) out[(size_t)r * J.ldo + col + 1] = acc[4 * j + 2 * h + 1];
-      }
+      for (int kk = 0; kk < WKT / 16; ++kk)
+        wgmma_ss<NC>(acc, make_desc_sw128(st + wg * WG_BOX + kk * 2048, WG_BOX, 1024),
+                     make_desc_sw128(st + WG_X_BOXES * WG_BOX + kk * 2048, WG_BOX, 1024));
+      wgmma_commit();
+      wgmma_wait<1>();  // the product of stage i - 1 is done
+    }
+    __syncthreads();    // in both warpgroups: its buffer is free
+    const int nx = i + WG_STAGES - 1;
+    if (nx < n_steps)
+      stage_weight_tiles<NC>(J, p_begin + (long long)nx * WKT, p_end, m0, n0,
+                             ring + (nx % WG_STAGES) * WG_STAGE);
+    cp_async_commit();
+    if (active && ((i + 1) % WG_PROMOTE == 0 || i + 1 == n_steps)) {
+      wgmma_wait<0>();
+      flush_tile<NC>(acc, part + J.out, J.m, J.n, m0 + row_w + g, n0 + tig * 2, i < WG_PROMOTE);
     }
   }
 }
 
-// Dynamic shared memory of weight_grad_kernel: two X and two D buffers.
-constexpr size_t WEIGHT_SMEM = sizeof(bf16) * 2 * (size_t(WKT) * XS_PITCH + size_t(WKT) * NC_MAX);
-
-__global__ void __launch_bounds__(THREADS) weight_grad_kernel(WJobs js, float* w_part) {
-  extern __shared__ __align__(128) unsigned char wsmem[];
-  int jb = 0;
-  while (jb + 1 < js.count && (int)blockIdx.x >= js.j[jb + 1].block0) ++jb;
-  const WJob& J = js.j[jb];
-  int t = blockIdx.x - J.block0;
-  const int split = t % js.splits;
-  t /= js.splits;
-  const int nt = t % J.n_tiles, mt = t / J.n_tiles;
-  float* part = w_part + (size_t)split * js.nweights;
-  bf16* sm = reinterpret_cast<bf16*>(wsmem);
-  switch (J.nc) {
-    case 256: weight_tile<256>(J, js.points, mt, nt, split, part, sm); break;
-    case 128: weight_tile<128>(J, js.points, mt, nt, split, part, sm); break;
-    case 64: weight_tile<64>(J, js.points, mt, nt, split, part, sm); break;
-    default: weight_tile<32>(J, js.points, mt, nt, split, part, sm); break;
+// Persistent: block b takes items b, b + gridDim.x, ...; item = split *
+// tiles + tile, a job's tiles m-major then n.
+__global__ void __launch_bounds__(THREADS, 1)
+    weight_grad_kernel(const __grid_constant__ WJobs js, float* w_part) {
+  extern __shared__ __align__(1024) unsigned char wsmem[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(wsmem) + 1023) & ~uintptr_t(1023));
+  const int items = js.splits * js.tiles;
+  for (int it = blockIdx.x; it < items; it += gridDim.x) {
+    const int split = it / js.tiles, t = it - split * js.tiles;
+    int jb = 0;
+    while (jb + 1 < js.count && t >= js.j[jb + 1].tile0) ++jb;
+    const WJob J = js.j[jb];
+    const int mt = (t - J.tile0) / J.n_tiles, nt = (t - J.tile0) - mt * J.n_tiles;
+    const long long p_begin = (long long)split * js.chunk;
+    const long long p_end = min(js.points, p_begin + js.chunk);
+    float* part = w_part + (size_t)split * js.nweights;
+    switch (J.nc) {
+      case 256: weight_tile<256>(J, p_begin, p_end, mt * TILE_M, nt * 256, part, ring); break;
+      case 128: weight_tile<128>(J, p_begin, p_end, mt * TILE_M, nt * 128, part, ring); break;
+      default: weight_tile<64>(J, p_begin, p_end, mt * TILE_M, nt * 64, part, ring); break;
+    }
+    __syncthreads();  // the ring is free for the next item
   }
 }
 
@@ -505,7 +575,8 @@ __global__ void reduce_rows_kernel(const float* __restrict__ in, int rows, long 
   }
 }
 
-static int round_nc(int n) { return n > 128 ? 256 : n > 64 ? 128 : n > 32 ? 64 : 32; }
+// Columns of a job's n-tile: 256, or the job's width rounded up to 64.
+static int round_nc(int n) { return n > 128 ? 256 : n > 64 ? 128 : 64; }
 
 // Host side: launch the weight gradients from the workspace the points
 // kernel filled: dW of every layer (flat, layer order, each [K, N]
@@ -518,11 +589,12 @@ static int launch_weight_grads(const Layout& L, const Workspace& ws, const bf16*
     return cudaErrorInvalidValue;
   WJobs js;
   js.points = L.points;
+  js.chunk = L.chunk;
   js.nweights = L.nweights;
   js.splits = L.splits;
   js.count = 0;
-  auto add = [&](const bf16* x, long long ldx, int m, const bf16* d, int n, long long out,
-                 int ldo) {
+  js.tiles = 0;
+  auto add = [&](const bf16* x, long long ldx, int m, const bf16* d, int n, long long out) {
     WJob& J = js.j[js.count++];
     J.x = x;
     J.ldx = ldx;
@@ -530,35 +602,35 @@ static int launch_weight_grads(const Layout& L, const Workspace& ws, const bf16*
     J.d = d;
     J.n = n;
     J.out = out;
-    J.ldo = ldo;
     J.nc = round_nc(n < NC_MAX ? n : NC_MAX);
-    J.m_tiles = (m + TILE_M - 1) / TILE_M;
     J.n_tiles = (n + J.nc - 1) / J.nc;
+    J.tile0 = js.tiles;
+    js.tiles += (m + TILE_M - 1) / TILE_M * J.n_tiles;
+    J.x_vec = ldx % 8 == 0 && m % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
   };
   const size_t lw = (size_t)L.points * width;
   for (int l = 0; l < depth; ++l) {
     const bf16* dl = ws.da + l * lw;
     if (l == 0) {
-      add(feat, enc, enc, dl, width, L.w_off[0], width);
+      add(feat, enc, enc, dl, width, L.w_off[0]);
     } else if ((skip_mask >> l) & 1) {
-      add(feat, enc, enc, dl, width, L.w_off[l], width);
-      add(ws.h + (l - 1) * lw, width, width, dl, width, L.w_off[l] + (long long)enc * width,
-          width);
+      add(feat, enc, enc, dl, width, L.w_off[l]);
+      add(ws.h + (l - 1) * lw, width, width, dl, width, L.w_off[l] + (long long)enc * width);
     } else {
-      add(ws.h + (l - 1) * lw, width, width, dl, width, L.w_off[l], width);
+      add(ws.h + (l - 1) * lw, width, width, dl, width, L.w_off[l]);
     }
   }
-  add(ws.h + (depth - 1) * lw, width, width, ws.dh1, head0, L.w_off[depth], head0);
-  add(ws.h1, head0, head0, ws.doutb, OUT_COLS, L.w_off[depth + 1], OUT_COLS);
-  int blocks = 0;
-  for (int i = 0; i < js.count; ++i) {
-    js.j[i].block0 = blocks;
-    blocks += js.j[i].m_tiles * js.j[i].n_tiles * L.splits;
-  }
-  int err = cudaFuncSetAttribute(weight_grad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)WEIGHT_SMEM);
+  add(ws.h + (depth - 1) * lw, width, width, ws.dh1, head0, L.w_off[depth]);
+  add(ws.h1, head0, head0, ws.doutb, OUT_COLS, L.w_off[depth + 1]);
+  int dev = 0, sms = 0;
+  int err = cudaGetDevice(&dev);
+  if (!err) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (!err) err = cudaFuncSetAttribute(weight_grad_kernel,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)WEIGHT_SMEM);
   if (err) return err;
-  weight_grad_kernel<<<blocks, THREADS, WEIGHT_SMEM, st>>>(js, ws.w_part);
+  const int items = js.splits * js.tiles;
+  weight_grad_kernel<<<items < sms ? items : sms, THREADS, WEIGHT_SMEM, st>>>(js, ws.w_part);
   err = cudaGetLastError();
   if (err) return err;
   reduce_rows_kernel<<<(int)((L.nweights + 255) / 256), 256, 0, st>>>(ws.w_part, L.splits,

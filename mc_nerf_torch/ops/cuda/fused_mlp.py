@@ -283,6 +283,11 @@ def _split_skip_grad(d_xin: torch.Tensor, e_lanes: int):
     return d_xin[:, :e_lanes], d_xin[:, e_lanes:]
 
 
+def _weight_grad(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """One layer's weight gradient summed over the points: x^T @ d."""
+    return x.t() @ d
+
+
 def mlp_bwd_plain(ws, xins, h_last, h1, dout32, depth: int, skips: Sequence[int]):
     """The heads and trunk backward of the Pallas backward bodies at their
     rounding points (``fused_render.py:401-436``, ``fused_mlp.py:495-531``,
@@ -297,10 +302,10 @@ def mlp_bwd_plain(ws, xins, h_last, h1, dout32, depth: int, skips: Sequence[int]
     bf = lambda t: t.to(torch.bfloat16).to(sd_t)
     W = [w.to(sd_t) for w in ws]
     dout_b = bf(dout32)
-    d_hw1 = h1.t() @ dout_b
+    d_hw1 = _weight_grad(h1, dout_b)
     d_hb1 = dout32.sum(0, keepdim=True)
     d_h1 = bf(torch.where(h1 > 0, dout_b @ W[depth + 1].t(), 0.0))
-    d_hw0 = h_last.t() @ d_h1
+    d_hw0 = _weight_grad(h_last, d_h1)
     d_hb0 = d_h1.sum(0, keepdim=True)
     d_h = d_h1 @ W[depth].t()
     e_lanes = xins[0].shape[1]
@@ -310,7 +315,7 @@ def mlp_bwd_plain(ws, xins, h_last, h1, dout32, depth: int, skips: Sequence[int]
     for li in reversed(range(depth)):
         h_out = xins[li + 1][:, -W[li].shape[1]:] if li + 1 < depth else h_last
         d_a = bf(torch.where(h_out > 0, d_h, 0.0))
-        dws[li] = xins[li].t() @ d_a
+        dws[li] = _weight_grad(xins[li], d_a)
         dbs[li] = d_a.sum(0, keepdim=True)
         d_xin = d_a @ W[li].t()
         if li in skips:
@@ -493,7 +498,8 @@ def _bwd_fns():
     from mc_nerf_torch.ops.cuda import _build
 
     lib = _build.load("fused_mlp_bwd")
-    ws_fn, shaded_fn, mlp_fn = lib.mcn_mlp_bwd_workspace, lib.mcn_shaded_bwd, lib.mcn_mlp_bwd
+    ws_fn, shaded_fn, mlp_fn, w_fn = (lib.mcn_mlp_bwd_workspace, lib.mcn_shaded_bwd,
+                                      lib.mcn_mlp_bwd, lib.mcn_mlp_bwd_weights)
     ws_fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 6
     ws_fn.restype = ctypes.c_longlong
     shaded_fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 7
@@ -502,7 +508,10 @@ def _bwd_fns():
     mlp_fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 5
                        + [ctypes.c_void_p] * 3)
     mlp_fn.restype = ctypes.c_int
-    return ws_fn, shaded_fn, mlp_fn
+    w_fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                     + [ctypes.c_void_p])
+    w_fn.restype = ctypes.c_int
+    return ws_fn, shaded_fn, mlp_fn, w_fn
 
 
 def _check_cuda(name: str, feat: torch.Tensor, **tensors) -> None:
@@ -563,10 +572,16 @@ def fused_shaded_mlp_bwd(ws, bs, feat, basis16, dout8, depth, skips, s, nb):
     skips = tuple(skips)
     if feat.device.type == "cpu":
         return fused_shaded_mlp_bwd_plain(ws, bs, feat, basis16, dout8, depth, skips, s, nb)
+    work = _workspace(feat.shape[0], feat.shape[1], ws, skips, True, feat.device)
+    return _shaded_bwd_launch(ws, bs, feat, basis16, dout8, depth, skips, s, nb, work)
+
+
+def _shaded_bwd_launch(ws, bs, feat, basis16, dout8, depth, skips, s, nb, work):
+    """:func:`fused_shaded_mlp_bwd`'s kernel call on CUDA tensors, into the
+    device workspace ``work`` (``_workspace(..., shaded=True)``)."""
     _check_cuda("fused_shaded_mlp_bwd", feat, basis16=basis16, dout8=dout8)
     _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, feat.device)
     p, enc = feat.shape
-    work = _workspace(p, enc, ws, skips, True, feat.device)
     dfeat = torch.empty((p, enc), dtype=torch.float32, device=feat.device)
     dbasis = torch.empty((p // s, BASIS_LANES), dtype=torch.float32, device=feat.device)
     dw, db, split = _grad_buffers(ws, bs, feat.device)
@@ -588,10 +603,16 @@ def fused_mlp_bwd(ws, bs, feat, dout, depth, skips):
     skips = tuple(skips)
     if feat.device.type == "cpu":
         return fused_mlp_bwd_plain(ws, bs, feat, dout, depth, skips)
+    work = _workspace(feat.shape[0], feat.shape[1], ws, skips, False, feat.device)
+    return _mlp_bwd_launch(ws, bs, feat, dout, depth, skips, work)
+
+
+def _mlp_bwd_launch(ws, bs, feat, dout, depth, skips, work):
+    """:func:`fused_mlp_bwd`'s kernel call on CUDA tensors, into the device
+    workspace ``work`` (``_workspace(..., shaded=False)``)."""
     _check_cuda("fused_mlp_bwd", feat, dout=dout)
     _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, feat.device)
     p, enc = feat.shape
-    work = _workspace(p, enc, ws, skips, False, feat.device)
     dfeat = torch.empty((p, enc), dtype=torch.float32, device=feat.device)
     dw, db, split = _grad_buffers(ws, bs, feat.device)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
@@ -605,8 +626,29 @@ def fused_mlp_bwd(ws, bs, feat, dout, depth, skips):
     return dws, dbs, dfeat
 
 
+def mlp_bwd_weights(ws, bs, feat, skips, shaded: bool, work):
+    """The weight stage of K5 (``shaded``) or K6 alone, ``mcn_mlp_bwd_weights``
+    on CUDA tensors: every layer's weight and bias gradient from the
+    workspace ``work`` that :func:`_shaded_bwd_launch` or
+    :func:`_mlp_bwd_launch` filled at the same shapes.  Returns (dws, dbs)
+    fp32.  It lets ``chip_smoke.py`` time the stage apart; no path of the
+    port calls it."""
+    _check_cuda("mlp_bwd_weights", feat)
+    p, enc = feat.shape
+    dw, db, split = _grad_buffers(ws, bs, feat.device)
+    stream = torch.cuda.current_stream(feat.device).cuda_stream
+    err = _bwd_fns()[3](feat.data_ptr(), work.data_ptr(), dw.data_ptr(), db.data_ptr(), p, enc,
+                        len(ws) - 2, sum(1 << i for i in skips), ws[0].shape[1],
+                        ws[-2].shape[1], int(shaded), stream)
+    if err:
+        raise RuntimeError(f"mlp_bwd_weights kernel launch failed: CUDA error {err}")
+    mlp_bwd_weights.launches += 1
+    return split()
+
+
 fused_shaded_mlp_bwd.launches = 0
 fused_mlp_bwd.launches = 0
+mlp_bwd_weights.launches = 0
 
 
 def _leaves(packed: PackedMLP):

@@ -1,12 +1,13 @@
 """What the checks of the backward kernels share (``chip_smoke.py``,
 ``tests/test_torch_gpu.py``): loss-shaped cotangents, the relative L2
-error of each output, and planted faults of the plain backwards, each of
-which a check must see.
+error of each output, planted faults of the plain backwards, each of
+which a check must see, and the bytes the weight-gradient stage reads.
 
 The plants that sit inside a plain backward (the composite's suffix sums
 taken one sample late, the skip layers' share of dfeat dropped, the
-sigmoid's derivative dropped on one channel) swap one of its helpers for
-the length of one call; the package's functions carry no fault switch.
+sigmoid's derivative dropped on one channel, dW without the last tile of
+points) swap one of its helpers for the length of one call; the
+package's functions carry no fault switch.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ from mc_nerf_torch.ops.cuda import fused_mlp as _fm
 from mc_nerf_torch.ops.cuda import fused_render as _fr
 
 _SUFFIX, _SPLIT, _SHADE = _fr._exclusive_suffix_sum, _fm._split_skip_grad, _fm._shade_grad
+_WGRAD = _fm._weight_grad
+WEIGHT_TILE = 64   # points per stage of the weight-gradient kernel (csrc/mlp_bwd.cuh WKT)
 
 
 def mse_cotangent(ray_out: torch.Tensor, far: float) -> torch.Tensor:
@@ -107,6 +110,42 @@ def _skip_share_dropped(d_xin: torch.Tensor, e_lanes: int):
 def _shade_grad_dropped(dout_rgb: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
     g = _SHADE(dout_rgb, sig)
     return torch.cat([dout_rgb[..., :1], g[..., 1:]], -1)
+
+
+def _last_tile_dropped(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    keep = (x.shape[0] - 1) // WEIGHT_TILE * WEIGHT_TILE
+    return _WGRAD(x[:keep], d[:keep])
+
+
+def planted_last_tile(fn, args, ref) -> Dict[str, float]:
+    """:func:`bwd_errs` against ``ref`` of the plain backward ``fn`` on
+    ``args`` whose every dW leaves out the points of the last WEIGHT_TILE
+    tile (the ragged one where the count is not a multiple of it): the
+    edge a split-K weight kernel most often drops."""
+    with mock.patch.object(_fm, "_weight_grad", _last_tile_dropped):
+        return bwd_errs(fn(*args), ref)
+
+
+def weight_stage_bytes(enc: int, depth: int, width: int, skips, head0: int,
+                       points: int) -> int:
+    """The bytes the weight-gradient stage must move at this pack and point
+    count, as ``launch_weight_grads`` (``csrc/mlp_bwd.cuh``) lists its
+    jobs: each job's X and D rows read once (bf16), every layer's fp32 dW
+    written once.  Per layer l: (feat [P, enc] or h[l-1] [P, width]) with
+    d_a[l] [P, width], a skip layer as two jobs (feat and h[l-1], each with
+    d_a[l]); head 0: h[depth-1] with d_h1 [P, head0]; head 1: h1 [P, head0]
+    with dout [P, 32]."""
+    jobs = []
+    for layer in range(depth):
+        if layer == 0 or layer in skips:
+            jobs.append((enc, width))
+        if layer > 0:
+            jobs.append((width, width))
+    jobs += [(width, head0), (head0, 32)]
+    read = sum(2 * (m + n) for m, n in jobs) * points
+    k_rows = [enc if i == 0 else width + (enc if i in skips else 0) for i in range(depth)]
+    dw = sum(k * width for k in k_rows) + width * head0 + head0 * 32
+    return read + 4 * dw
 
 
 def _weight_plants(ref, depth: int) -> Dict[str, Dict[str, float]]:

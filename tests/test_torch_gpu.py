@@ -50,12 +50,14 @@ from mc_nerf_torch.ops.cuda.fused_render import (
     render_bwd_weights,
 )
 from mc_nerf_torch.tools.bwd_check import (
+    WEIGHT_TILE,
     bwd_errs,
     mlp_cotangent,
     mse_cotangent,
     planted_errs,
     planted_errs_mlp,
     planted_errs_shaded,
+    planted_last_tile,
     shaded_cotangent,
 )
 from mc_nerf_torch.tools.scene import scene_params
@@ -497,3 +499,90 @@ def test_grid_train_step_autograd_launches_k4_and_k5(cuda):
         (before[0] + 2, before[1] + 2)
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                for p in params.parameters())
+
+
+# ------------------------------------------------- the weight-gradient stage
+
+# Point counts at the edges of the weight stage's splits (csrc/mlp_bwd.cuh
+# weight_chunk: ceil(P / 4096) splits, at most 16, each whole 64-point
+# stages but the last), as (rays, samples per ray): below one split; two
+# whole splits of 4096 (on a split boundary); one point past it (8193; for
+# fused_render 8194 = 34 x 241, since 8193 = 3 x 2731 is above its sample
+# ceiling); 224,000 = 7000 x 32, the importance fine pass, 16 splits.  1000
+# and 8193/8194 are no multiple of the 64-point stage.
+WEIGHT_EDGES = {"render": [(50, 20), (256, 32), (34, 241), (7000, 32)],
+                "shaded": [(40, 25), (64, 128), (2731, 3), (7000, 32)],
+                "mlp": [(1000, 1), (8192, 1), (8193, 1), (224000, 1)]}
+
+
+def _weight_edge_case(kind, cfg, coarse, rays, s, device):
+    """(kernel, plain version, args, tolerances) of one backward."""
+    if kind == "render":
+        return (fused_render_bwd, fused_render_bwd_plain,
+                _bwd_case(cfg, coarse, s, rays, True, device)[1], BWD_TOL)
+    nc, mlp, depth, skips = _pass(cfg, coarse)
+    packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+    feat, basis16, nb = _shaded_inputs(nc, rays, s, device)
+    ws, bs = _flat_weights(packed)
+    if kind == "shaded":
+        out8 = fused_shaded_mlp_plain(packed, feat, basis16, depth, skips, s, nb)
+        return (fused_shaded_mlp_bwd, fused_shaded_mlp_bwd_plain,
+                (ws, bs, feat, basis16, shaded_cotangent(out8, s), depth, skips, s, nb),
+                SHADED_BWD_TOL)
+    return (fused_mlp_bwd, fused_mlp_bwd_plain,
+            (ws, bs, feat, mlp_cotangent(mlp_plain(packed, feat, depth, skips)), depth, skips),
+            MLP_BWD_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["render", "shaded", "mlp"])
+@pytest.mark.parametrize("cfg", ["narrow", "default"])
+@pytest.mark.parametrize("coarse", [True, False], ids=["coarse", "fine"])
+@pytest.mark.parametrize("edge", range(4), ids=["below-split", "on-split", "past-split", "224000"])
+def test_weight_stage_edges(cuda, kind, cfg, coarse, edge):
+    """The three backwards (K3, K5, K6) at the weight stage's split edges,
+    in both configs (narrow: 56-byte encode rows, the element path): the
+    outputs of ``launch_weight_grads`` (every dW, every db, the last
+    layer's) within their unchanged tolerances.  dfeat and dbasis come from
+    the points kernels, which this stage leaves as they are; the tests
+    above hold them (at 256 x 32 and more, K3's narrow fine dbasis lands
+    above its tolerance, set at smaller shapes: a points-stage matter).
+    The planted fault ``planted_last_tile`` (dW without the last 64-point
+    tile) must land outside them where that tile holds 1/200 of the points
+    or more (1000 and 8192 points); one point past a whole tile, or 64 of
+    224,000, moves dW by 1e-4 to 3e-4, below the default config's
+    deep-trunk tolerances: printed there."""
+    rays, s = WEIGHT_EDGES[kind][edge]
+    kernel, plain, args, tols = _weight_edge_case(kind, cfg, coarse, rays, s, cuda)
+    k = kernel(*args)
+    ref = plain(*args)
+    p = rays * s
+    tail = p - (p - 1) // WEIGHT_TILE * WEIGHT_TILE
+    tol = tols[(cfg, "coarse" if coarse else "fine")]
+    stage = ("dW", "db", "last layer")
+    errs = {o: v for o, v in bwd_errs(k, ref).items() if o in stage}
+    plant = {o: v for o, v in planted_last_tile(plain, args, ref).items() if o in stage}
+    caught = max(plant[o] / tol[o] for o in stage)
+    print(f"measured {kind} {cfg} P={p}: " + " ".join(f"{o} {v:.3e}" for o, v in errs.items())
+          + f"; last tile {tail} points, the plant over tolerance {caught:.2f}")
+    assert all(errs[o] <= tol[o] for o in stage), errs
+    if tail * 200 >= p:
+        assert caught > 1.0, plant
+
+
+@pytest.mark.gpu
+def test_weight_stage_same_bits_at_the_grid_fine_shape(cuda):
+    """K5 at the grid step's fine pass, 7000 x 130 = 910,000 points (16
+    weight splits): two runs give the same bits (fixed-order sums, no
+    atomics)."""
+    nc, mlp, depth, skips = _pass("default", False)
+    packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+    feat, basis16, nb = _shaded_inputs(nc, 7000, 130, cuda)
+    ws, bs = _flat_weights(packed)
+    dout8 = shaded_cotangent(fused_shaded_mlp_plain(packed, feat, basis16, depth, skips, 130, nb),
+                             130)
+    args = (ws, bs, feat, basis16, dout8, depth, skips, 130, nb)
+    a = fused_shaded_mlp_bwd(*args)
+    b = fused_shaded_mlp_bwd(*args)
+    for x, y in zip([*a[0], *a[1], a[2], a[3]], [*b[0], *b[1], b[2], b[3]]):
+        assert torch.equal(x, y)
