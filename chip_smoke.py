@@ -20,7 +20,9 @@ in both fine modes.
    (coarse full 4x128, s=48, noise + wsel; fine 8x256, s=32, noise; 7000
    rays); the backward's two launches (``render_bwd_points``,
    ``render_bwd_weights``) against ``fused_render_bwd_plain`` at the same
-   shapes, beside the plain version's own fp32 spread; timings of each.
+   shapes, beside the plain version's own fp32 spread; timings of each,
+   the weight stage's also against ``floor_ms``, the bytes its design
+   must move over the memory rate (``tools/bwd_check.weight_stage_bytes``).
 5. The GLOBAL_OPTIM step at full width on the workload ``bench.py`` times
    (``tools/scene.train_workload``): the kernel route and the plain route
    timed in turns with CUDA events, the launch counts of the kernel route
@@ -36,6 +38,9 @@ in both fine modes.
    7, 7 rays x 1), with times; the differentiable ``fused_mlp`` driven
    through autograd (K1 forward, K6 backward; coarse full 4x128 over 7000
    x 48 points, fine 8x256 over 7000 x 32), K6 against its plain version;
+   K5's and K6's weight stage (``launch_weight_grads``) timed apart on a
+   filled workspace (``mlp_bwd_weights``) with its bound, ``floor_ms`` and
+   a bf16 torch.mm chain of the dW products, kept under ``per_pass``;
    the demo in grid mode over the two 800x800 views with K1 and K4 counted,
    a frame timed, one chunk against the plain route, K1 and K4 at one eval
    chunk's shapes; the grid GLOBAL_OPTIM step as in 5 (K4 and K5 twice

@@ -504,12 +504,13 @@ def test_grid_train_step_autograd_launches_k4_and_k5(cuda):
 # ------------------------------------------------- the weight-gradient stage
 
 # Point counts at the edges of the weight stage's splits (csrc/mlp_bwd.cuh
-# weight_chunk: ceil(P / 4096) splits, at most 16, each whole 64-point
-# stages but the last), as (rays, samples per ray): below one split; two
-# whole splits of 4096 (on a split boundary); one point past it (8193; for
-# fused_render 8194 = 34 x 241, since 8193 = 3 x 2731 is above its sample
-# ceiling); 224,000 = 7000 x 32, the importance fine pass, 16 splits.  1000
-# and 8193/8194 are no multiple of the 64-point stage.
+# weight_splits: ceil(P / 4096) splits below 65,536 points, at most 16,
+# each whole 64-point stages but the last), as (rays, samples per ray):
+# below one split; two whole splits of 4096 (on a split boundary); one
+# point past it (8193; for fused_render 8194 = 34 x 241, since 8193 = 3 x
+# 2731 is above its sample ceiling); 224,000 = 7000 x 32, the importance
+# fine pass, 14 or 15 splits.  1000 and 8193/8194 are no multiple of the
+# 64-point stage.
 WEIGHT_EDGES = {"render": [(50, 20), (256, 32), (34, 241), (7000, 32)],
                 "shaded": [(40, 25), (64, 128), (2731, 3), (7000, 32)],
                 "mlp": [(1000, 1), (8192, 1), (8193, 1), (224000, 1)]}
@@ -572,7 +573,7 @@ def test_weight_stage_edges(cuda, kind, cfg, coarse, edge):
 
 @pytest.mark.gpu
 def test_weight_stage_same_bits_at_the_grid_fine_shape(cuda):
-    """K5 at the grid step's fine pass, 7000 x 130 = 910,000 points (16
+    """K5 at the grid step's fine pass, 7000 x 130 = 910,000 points (15
     weight splits): two runs give the same bits (fixed-order sums, no
     atomics)."""
     nc, mlp, depth, skips = _pass("default", False)
