@@ -100,7 +100,6 @@ struct Layout {
   long long points, nweights, chunk;  // chunk: points per weight-gradient split
   int blocks, splits, nbias;
   size_t h, h1, out32, dout, doutb, da, dh1, dbp, bias_part, w_part, bytes;
-  long long w_off[MAX_LAYERS];  // offset of each layer's [K, N] block in the flat dW
 };
 
 static inline size_t align256(size_t x) { return (x + 255) / 256 * 256; }
@@ -114,24 +113,14 @@ static Layout make_layout(long long points, int blocks, int enc, int depth, int 
   L.points = points;
   L.blocks = blocks;
   int tiles = 0;
-  weight_jobs(enc, depth, skip_mask, width, head0, [&](int, int m, int, int n, long long) {
+  weight_jobs(enc, depth, skip_mask, width, head0, [&](int, int m, int, int n, long long out) {
     tiles += (m + TILE_M - 1) / TILE_M * ((n + round_nc(n) - 1) / round_nc(n));
+    L.nweights = out + (long long)m * n;
   });
   const int s = weight_splits(points, tiles);
   L.chunk = ((points + s - 1) / s + WKT - 1) / WKT * WKT;  // every split but the last whole stages
   L.splits = (int)((points + L.chunk - 1) / L.chunk);
   L.nbias = depth * width + head0 + OUT_COLS;
-  long long off = 0;
-  for (int l = 0; l < depth; ++l) {
-    const int k = l == 0 ? enc : (((skip_mask >> l) & 1) ? enc + width : width);
-    L.w_off[l] = off;
-    off += (long long)k * width;
-  }
-  L.w_off[depth] = off;
-  off += (long long)width * head0;
-  L.w_off[depth + 1] = off;
-  off += (long long)head0 * OUT_COLS;
-  L.nweights = off;
   const size_t P = (size_t)points;
   size_t at = 0;
   auto take = [&](size_t bytes) { const size_t o = at; at = align256(at + bytes); return o; };
@@ -421,7 +410,7 @@ __device__ void mlp_bwd_tile(const MLPParams& p, const Workspace& ws, long long 
 //    next reads of an operand are served by L2.  A 128 x 128 tile keeps
 //    64 fp32 accumulators a consumer thread, where a 128 x 256 tile left
 //    ptxas short of registers (it serialized the wgmma) and ran 1.3x
-//    slower at the fine pack (PERF.md, PR 5).
+//    slower at the fine pack (PERF.md, section 6).
 //  * Few, large splits: the split count comes from the point count, the
 //    tiles per split and compile-time constants (weight_splits), never
 //    from the card, so the partials and their fixed-order sum give the
@@ -445,8 +434,8 @@ __device__ void mlp_bwd_tile(const MLPParams& p, const Workspace& ws, long long 
 // Budget (ptxas -v, printed by chip_smoke.py): 384 threads at one block per
 // SM, 168 registers a thread and no spills, setmaxnreg moving registers
 // from the producer's warpgroup (40 a thread) to the consumers' (232);
-// shared memory 4 stages x 32 KB + barriers.  reduce_rows_kernel then sums the splits' partials (and the
-// points kernels' bias partials) in row order.
+// shared memory 4 stages x 32 KB + barriers.  reduce_rows_kernel then sums
+// the splits' partials (and the points kernels' bias partials) in row order.
 
 constexpr int WG_STAGES = 4;           // ring depth
 constexpr int WG_PROMOTE = 128;        // stages per tensor-core accumulation (8192 points)
@@ -459,10 +448,9 @@ constexpr int WG_THREADS = THREADS + 128;  // two consumer warpgroups + the prod
 constexpr size_t WEIGHT_SMEM = size_t(WG_STAGES) * WG_STAGE + 2 * WG_STAGES * 8 + 1024;
 
 // One weight-gradient product: dW[r, c] (at `out`, rows of n) = sum over
-// points p of x[p, r] * d[p, c], r < m, c < n.
+// points p of x[p, r] * d[p, c], r < m, c < n (x rows of m, d rows of n).
 struct WJob {
   const bf16* x;
-  long long ldx;
   long long out;
   int m, n, nc, n_tiles, tile0;  // tile0: the job's first tile within a split
   int x_tma;                     // X rows load by TMA (else element loads)
@@ -528,7 +516,7 @@ __device__ void stage_x_elements(const WJob& J, long long p0, long long p_end, i
     if (m0 + 64 * b >= J.m) continue;
     const long long pt = p0 + r;
     const int col = m0 + 64 * b + 8 * c;
-    const bf16* src = J.x + pt * J.ldx + col;
+    const bf16* src = J.x + pt * J.m + col;
     __align__(16) bf16 v[8];
     for (int q = 0; q < 8; ++q)
       v[q] = pt < p_end && col + q < J.m ? src[q] : __float2bfloat16_rn(0.f);
@@ -735,11 +723,10 @@ __global__ void reduce_rows_kernel(const float* __restrict__ in, int rows, long 
   }
 }
 
-
 typedef PFN_cuTensorMapEncodeTiled_v12000 TensorMapEncode;
 
-// The driver's cuTensorMapEncodeTiled, found once through the runtime (no
-// link against libcuda); null where the driver has none.
+// cuTensorMapEncodeTiled, found once through cudaGetDriverEntryPoint (no
+// link against libcuda); null where the installed CUDA has none.
 static TensorMapEncode tensor_map_encoder() {
   static TensorMapEncode fn = nullptr;
   if (!fn) {
@@ -753,12 +740,12 @@ static TensorMapEncode tensor_map_encoder() {
   return fn;
 }
 
-// A tensor map over bf16 rows [rows, cols] of `pitch` elements at base, in
-// boxes of 64 columns x WKT rows, 128-byte swizzle, zero out of bounds.
+// A tensor map over dense bf16 rows [rows, cols] at base, in boxes of 64
+// columns x WKT rows, 128-byte swizzle, zero out of bounds.
 static int encode_rows(TensorMapEncode encode, CUtensorMap* map, const bf16* base,
-                       long long rows, int cols, long long pitch) {
+                       long long rows, int cols) {
   cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)pitch * sizeof(bf16)};
+  cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
   cuuint32_t box[2] = {64, WKT};
   cuuint32_t elem[2] = {1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<bf16*>(base),
@@ -787,11 +774,14 @@ static int launch_weight_grads(const Layout& L, const Workspace& ws, const bf16*
   const TensorMapEncode encode = tensor_map_encoder();
   if (!encode) return cudaErrorNotSupported;
   int err = 0;
-  auto add = [&](const bf16* x, long long ldx, int m, const bf16* d, int n, long long out) {
+  const size_t lw = (size_t)L.points * width;
+  weight_jobs(enc, depth, skip_mask, width, head0,
+              [&](int xi, int m, int di, int n, long long out) {
+    const bf16* x = xi < 0 ? feat : xi < depth ? ws.h + xi * lw : ws.h1;
+    const bf16* d = di < depth ? ws.da + di * lw : di == depth ? ws.dh1 : ws.doutb;
     const int k = js.count++;
     WJob& J = js.j[k];
     J.x = x;
-    J.ldx = ldx;
     J.m = m;
     J.n = n;
     J.out = out;
@@ -799,24 +789,10 @@ static int launch_weight_grads(const Layout& L, const Workspace& ws, const bf16*
     J.n_tiles = (n + J.nc - 1) / J.nc;
     J.tile0 = js.tiles;
     js.tiles += (m + TILE_M - 1) / TILE_M * J.n_tiles;
-    J.x_tma = ldx % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-    if (J.x_tma && !err) err = encode_rows(encode, &js.xmap[k], x, L.points, m, ldx);
-    if (!err) err = encode_rows(encode, &js.dmap[k], d, L.points, n, n);
-  };
-  const size_t lw = (size_t)L.points * width;
-  for (int l = 0; l < depth; ++l) {
-    const bf16* dl = ws.da + l * lw;
-    if (l == 0) {
-      add(feat, enc, enc, dl, width, L.w_off[0]);
-    } else if ((skip_mask >> l) & 1) {
-      add(feat, enc, enc, dl, width, L.w_off[l]);
-      add(ws.h + (l - 1) * lw, width, width, dl, width, L.w_off[l] + (long long)enc * width);
-    } else {
-      add(ws.h + (l - 1) * lw, width, width, dl, width, L.w_off[l]);
-    }
-  }
-  add(ws.h + (depth - 1) * lw, width, width, ws.dh1, head0, L.w_off[depth]);
-  add(ws.h1, head0, head0, ws.doutb, OUT_COLS, L.w_off[depth + 1]);
+    J.x_tma = m % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+    if (J.x_tma && !err) err = encode_rows(encode, &js.xmap[k], x, L.points, m);
+    if (!err) err = encode_rows(encode, &js.dmap[k], d, L.points, n);
+  });
   if (err) return err;
   int dev = 0, sms = 0;
   err = cudaGetDevice(&dev);

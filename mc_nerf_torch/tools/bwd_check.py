@@ -129,8 +129,8 @@ def planted_last_tile(fn, args, ref) -> Dict[str, float]:
 def weight_stage_bytes(enc: int, depth: int, width: int, skips, head0: int,
                        points: int) -> int:
     """The bytes the weight-gradient stage must move at this pack and point
-    count, as ``launch_weight_grads`` (``csrc/mlp_bwd.cuh``) lists its
-    jobs: each job's X and D rows read once (bf16), every layer's fp32 dW
+    count, over the jobs ``launch_weight_grads`` runs (``weight_jobs`` in
+    ``csrc/mlp_bwd.cuh``): each job's X and D rows read once (bf16), every layer's fp32 dW
     written once.  Per layer l: (feat [P, enc] or h[l-1] [P, width]) with
     d_a[l] [P, width], a skip layer as two jobs (feat and h[l-1], each with
     d_a[l]); head 0: h[depth-1] with d_h1 [P, head0]; head 1: h1 [P, head0]
@@ -142,10 +142,8 @@ def weight_stage_bytes(enc: int, depth: int, width: int, skips, head0: int,
         if layer > 0:
             jobs.append((width, width))
     jobs += [(width, head0), (head0, 32)]
-    read = sum(2 * (m + n) for m, n in jobs) * points
-    k_rows = [enc if i == 0 else width + (enc if i in skips else 0) for i in range(depth)]
-    dw = sum(k * width for k in k_rows) + width * head0 + head0 * 32
-    return read + 4 * dw
+    # each job's [m, n] block of the flat dW is written once, in fp32
+    return sum(2 * (m + n) * points + 4 * m * n for m, n in jobs)
 
 
 def _weight_plants(ref, depth: int) -> Dict[str, Dict[str, float]]:

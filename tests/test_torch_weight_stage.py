@@ -1,7 +1,8 @@
 """The weight-gradient stage's byte count and its planted fault, on the CPU.
 
 ``tools/bwd_check.weight_stage_bytes`` follows the job list of
-``launch_weight_grads`` (``csrc/mlp_bwd.cuh``); ``chip_smoke.py`` divides it
+``launch_weight_grads`` (``weight_jobs`` in ``csrc/mlp_bwd.cuh``);
+``chip_smoke.py`` divides it
 by the card's memory rate for the stage's ``floor_ms``.  The counts below
 are summed by hand from that job list.  ``planted_last_tile`` is the fault
 the card tests hold the weight kernels against: dW without the points of
