@@ -133,31 +133,12 @@ static Layout flat_layout(long long points, int enc, int depth, int skip_mask, i
   return make_layout(points, blocks, enc, depth, skip_mask, width, head0, false, shaded);
 }
 
-// Both backwards: the points kernel, then (shaded) the per-ray dbasis sums,
-// then the weight gradients.
-static int run_backward(bool shaded, const void* feat, const void* basis16, const void* dout_in,
-                        void* dfeat, void* dbasis, void* dw, void* db, void* workspace,
-                        long long points, int s, int nb, int enc, int depth, int skip_mask,
-                        int width, int head0, const void* const* w, const void* const* b,
-                        void* stream) {
-  MLPParams p;
-  int err = make_params(&p, feat, depth, skip_mask, enc, width, head0, w, b);
-  if (err) return err;
-  if (shaded && (s < 1 || nb < 1 || nb > 9 || points % s)) return cudaErrorInvalidValue;
-  if (points <= 0) return 0;
-  const Layout L = flat_layout(points, enc, depth, skip_mask, width, head0, shaded);
-  FlatArgs a;
-  a.feat = static_cast<const bf16*>(feat);
-  a.basis16 = static_cast<const float*>(basis16);
-  a.dout_in = static_cast<const float*>(dout_in);
-  a.dfeat = static_cast<float*>(dfeat);
-  a.ws = carve(L, workspace);
-  a.points = points;
-  a.s = s;
-  a.nb = nb;
-  a.nbias = L.nbias;
-  cudaStream_t st = (cudaStream_t)stream;
+// The points stage of both backwards: the points kernel, then (shaded)
+// the per-ray dbasis sums.  Fills the workspace the weight stage reads.
+static int run_points(bool shaded, const MLPParams& p, const Layout& L, const FlatArgs& a,
+                      void* dbasis, cudaStream_t st) {
   const size_t smem = bwd_region_bytes(p);
+  int err;
   if (shaded) {
     err = cudaFuncSetAttribute(mlp_bwd_points_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -165,16 +146,54 @@ static int run_backward(bool shaded, const void* feat, const void* basis16, cons
     mlp_bwd_points_kernel<true><<<L.blocks, THREADS, smem, st>>>(p, a);
     err = cudaGetLastError();
     if (err) return err;
-    const long long n = points / s * BASIS_LANES;
+    const long long n = a.points / a.s * BASIS_LANES;
     ray_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-        a.ws.dbp, (int)(points / s), s, static_cast<float*>(dbasis));
+        a.ws.dbp, (int)(a.points / a.s), a.s, static_cast<float*>(dbasis));
   } else {
     err = cudaFuncSetAttribute(mlp_bwd_points_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err) return err;
     mlp_bwd_points_kernel<false><<<L.blocks, THREADS, smem, st>>>(p, a);
   }
-  err = cudaGetLastError();
+  return cudaGetLastError();
+}
+
+// The arguments of the points stage; returns 0 or an error for shapes the
+// kernels do not take.
+static int points_args(bool shaded, MLPParams* p, Layout* L, FlatArgs* a, const void* feat,
+                       const void* basis16, const void* dout_in, void* dfeat, void* workspace,
+                       long long points, int s, int nb, int enc, int depth, int skip_mask,
+                       int width, int head0, const void* const* w, const void* const* b) {
+  int err = make_params(p, feat, depth, skip_mask, enc, width, head0, w, b);
+  if (err) return err;
+  if (shaded && (s < 1 || nb < 1 || nb > 9 || points % s)) return cudaErrorInvalidValue;
+  *L = flat_layout(points, enc, depth, skip_mask, width, head0, shaded);
+  a->feat = static_cast<const bf16*>(feat);
+  a->basis16 = static_cast<const float*>(basis16);
+  a->dout_in = static_cast<const float*>(dout_in);
+  a->dfeat = static_cast<float*>(dfeat);
+  a->ws = carve(*L, workspace);
+  a->points = points;
+  a->s = s;
+  a->nb = nb;
+  a->nbias = L->nbias;
+  return 0;
+}
+
+// Both backwards: the points stage, then the weight gradients.
+static int run_backward(bool shaded, const void* feat, const void* basis16, const void* dout_in,
+                        void* dfeat, void* dbasis, void* dw, void* db, void* workspace,
+                        long long points, int s, int nb, int enc, int depth, int skip_mask,
+                        int width, int head0, const void* const* w, const void* const* b,
+                        void* stream) {
+  MLPParams p;
+  Layout L;
+  FlatArgs a;
+  int err = points_args(shaded, &p, &L, &a, feat, basis16, dout_in, dfeat, workspace, points, s,
+                        nb, enc, depth, skip_mask, width, head0, w, b);
+  if (err || points <= 0) return err;
+  cudaStream_t st = (cudaStream_t)stream;
+  err = run_points(shaded, p, L, a, dbasis, st);
   if (err) return err;
   return launch_weight_grads(L, a.ws, a.feat, enc, depth, skip_mask, width, head0,
                              static_cast<float*>(dw), static_cast<float*>(db), st);
@@ -225,4 +244,23 @@ extern "C" int mcn_mlp_bwd_weights(const void* feat, void* workspace, void* dw, 
   return launch_weight_grads(L, carve(L, workspace), static_cast<const bf16*>(feat), enc, depth,
                              skip_mask, width, head0, static_cast<float*>(dw),
                              static_cast<float*>(db), (cudaStream_t)stream);
+}
+
+// The points stage alone (what mcn_shaded_bwd, `shaded`, or mcn_mlp_bwd run
+// before the weight stage: dfeat, dbasis and the workspace), its time apart
+// from the weight stage's.  dout is dout8 (shaded) or dout [P, 32];
+// basis16 and dbasis are ignored unless shaded.
+extern "C" int mcn_mlp_bwd_points(const void* feat, const void* basis16, const void* dout,
+                                  void* dfeat, void* dbasis, void* workspace, long long points,
+                                  int s, int nb, int enc, int depth, int skip_mask, int width,
+                                  int head0, const void* const* w, const void* const* b,
+                                  int shaded, void* stream) {
+  MLPParams p;
+  Layout L;
+  FlatArgs a;
+  int err = points_args(shaded != 0, &p, &L, &a, feat, basis16, dout, dfeat, workspace, points,
+                        shaded ? s : 1, shaded ? nb : 1, enc, depth, skip_mask, width, head0, w,
+                        b);
+  if (err || points <= 0) return err;
+  return run_points(shaded != 0, p, L, a, dbasis, (cudaStream_t)stream);
 }

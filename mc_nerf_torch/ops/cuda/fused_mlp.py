@@ -498,8 +498,9 @@ def _bwd_fns():
     from mc_nerf_torch.ops.cuda import _build
 
     lib = _build.load("fused_mlp_bwd")
-    ws_fn, shaded_fn, mlp_fn, w_fn = (lib.mcn_mlp_bwd_workspace, lib.mcn_shaded_bwd,
-                                      lib.mcn_mlp_bwd, lib.mcn_mlp_bwd_weights)
+    ws_fn, shaded_fn, mlp_fn, w_fn, pts_fn = (
+        lib.mcn_mlp_bwd_workspace, lib.mcn_shaded_bwd, lib.mcn_mlp_bwd, lib.mcn_mlp_bwd_weights,
+        lib.mcn_mlp_bwd_points)
     ws_fn.argtypes = [ctypes.c_longlong] + [ctypes.c_int] * 6
     ws_fn.restype = ctypes.c_longlong
     shaded_fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_int] * 7
@@ -511,7 +512,10 @@ def _bwd_fns():
     w_fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 6
                      + [ctypes.c_void_p])
     w_fn.restype = ctypes.c_int
-    return ws_fn, shaded_fn, mlp_fn, w_fn
+    pts_fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    pts_fn.restype = ctypes.c_int
+    return ws_fn, shaded_fn, mlp_fn, w_fn, pts_fn
 
 
 def _check_cuda(name: str, feat: torch.Tensor, **tensors) -> None:
@@ -646,9 +650,39 @@ def mlp_bwd_weights(ws, bs, feat, skips, shaded: bool, work):
     return split()
 
 
+def mlp_bwd_points(ws, bs, feat, basis16, dout, depth, skips, s, nb, shaded: bool, work):
+    """The points stage of K5 (``shaded``: ``dout`` is dout8 [P, 8]) or K6
+    (``dout`` [P, 32]) alone, ``mcn_mlp_bwd_points`` on CUDA tensors: the
+    recompute, the heads-and-trunk backward and (K5) the per-ray dbasis
+    sums, into the workspace ``work`` (``_workspace`` at the same shapes),
+    with no weight stage.  Returns (dfeat, dbasis or None) fp32.  It lets
+    ``chip_smoke.py`` and ``tools/points_stage_time.py`` time the stage
+    apart; no path of the port calls it."""
+    skips = tuple(skips)
+    if shaded:
+        _check_cuda("mlp_bwd_points", feat, basis16=basis16, dout=dout)
+    else:
+        _check_cuda("mlp_bwd_points", feat, dout=dout)
+    _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, feat.device)
+    p, enc = feat.shape
+    dfeat = torch.empty((p, enc), dtype=torch.float32, device=feat.device)
+    dbasis = (torch.empty((p // s, BASIS_LANES), dtype=torch.float32, device=feat.device)
+              if shaded else None)
+    stream = torch.cuda.current_stream(feat.device).cuda_stream
+    err = _bwd_fns()[4](feat.data_ptr(), basis16.data_ptr() if shaded else None,
+                        dout.data_ptr(), dfeat.data_ptr(),
+                        dbasis.data_ptr() if shaded else None, work.data_ptr(), p, s, nb, enc,
+                        depth, skip_mask, width, head0, wp, bp, int(shaded), stream)
+    if err:
+        raise RuntimeError(f"mlp_bwd_points kernel launch failed: CUDA error {err}")
+    mlp_bwd_points.launches += 1
+    return dfeat, dbasis
+
+
 fused_shaded_mlp_bwd.launches = 0
 fused_mlp_bwd.launches = 0
 mlp_bwd_weights.launches = 0
+mlp_bwd_points.launches = 0
 
 
 def _leaves(packed: PackedMLP):

@@ -1,7 +1,8 @@
 """What the checks of the backward kernels share (``chip_smoke.py``,
 ``tests/test_torch_gpu.py``): loss-shaped cotangents, the relative L2
 error of each output, planted faults of the plain backwards, each of
-which a check must see, and the bytes the weight-gradient stage reads.
+which a check must see, the work the MLP needs and the bytes the
+backward's two stages move.
 
 The plants that sit inside a plain backward (the composite's suffix sums
 taken one sample late, the skip layers' share of dfeat dropped, the
@@ -117,6 +118,20 @@ def _last_tile_dropped(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return _WGRAD(x[:keep], d[:keep])
 
 
+def last_tile_cotangent(d: torch.Tensor, per: int = 1) -> torch.Tensor:
+    """``d`` with its rows zeroed outside the last WEIGHT_TILE-point tile
+    (the ragged one where the count is not a multiple of it).  Rows are
+    points (``per`` 1) or rays of ``per`` points each, a ray kept where
+    any of its points lies in that tile.  Under this cotangent dW comes
+    from that tile alone (for K5 and K6 exactly; for a ray-level one from
+    the rays that reach it), so :func:`planted_last_tile` lands far
+    outside any tolerance at any point count."""
+    first = (d.shape[0] * per - 1) // WEIGHT_TILE * WEIGHT_TILE
+    keep = torch.zeros(d.shape[0], dtype=d.dtype, device=d.device)
+    keep[first // per:] = 1
+    return d * keep[:, None]
+
+
 def planted_last_tile(fn, args, ref) -> Dict[str, float]:
     """:func:`bwd_errs` against ``ref`` of the plain backward ``fn`` on
     ``args`` whose every dW leaves out the points of the last WEIGHT_TILE
@@ -144,6 +159,50 @@ def weight_stage_bytes(enc: int, depth: int, width: int, skips, head0: int,
     jobs += [(width, head0), (head0, 32)]
     # each job's [m, n] block of the flat dW is written once, in fp32
     return sum(2 * (m + n) * points + 4 * m * n for m, n in jobs)
+
+
+def needed_macs(nc, depth: int, width: int, skips, sigma_only: bool) -> int:
+    """Multiply-adds per point that the MLP needs: the 3 + 6L real encode
+    lanes (not the pack's pad lane) at layer 0 and at each skip, the trunk,
+    head layer 0, and of the packed last head layer only its live blocks
+    (the sigma column; with SH also the SH block), not its zeros."""
+    enc = nc.embed_dim
+    trunk = sum(((enc if i == 0 else width) + (enc if i in skips else 0)) * width
+                for i in range(depth))
+    heads = width * width + width if sigma_only else width * 2 * width + width * (1 + nc.sh_dim)
+    return trunk + heads
+
+
+BIAS_GROUPS = 132   # bias-partial groups of the points stage (csrc/mlp_bwd_points.cuh)
+GROUP_ROWS = 8      # bias-partial rows per group: one per consumer warp
+
+
+def points_stage_bytes(enc: int, depth: int, width: int, skips, head0: int, points: int,
+                       shaded: bool = False, s: int = 1) -> int:
+    """The bytes the points stage of K5 (``shaded``, ``s`` points per ray)
+    or K6 moves at this pack and point count, as ``csrc/mlp_bwd_points.cuh``
+    reads and writes them, each once: feat (bf16) and the cotangent
+    (dout8 [P, 8] and the rays' basis [P / s, 16] for K5, dout [P, 32] for
+    K6, fp32) read; the recompute's h [depth, P, width] and h1 [P, head0]
+    and the backward's dout_b [P, 32], d_a [depth, P, width] and d_h1
+    [P, head0] written (bf16); dfeat [P, enc] written (fp32); the bias
+    partials (min(tiles, BIAS_GROUPS) groups of GROUP_ROWS rows, fp32)
+    written; the weights read once and their pre-tiled copies (one for the
+    recompute, one for the backward, in bf16) written and read once.  K5
+    also writes the per-point dbasis partials [P, 16] (fp32), which the
+    per-ray sum reads back before writing dbasis [P / s, 16].  The dout32
+    that the shipped PR 5 kernel wrote and read back is no longer moved."""
+    rays = points // s
+    tiles = (points + 127) // 128
+    nbias = depth * width + head0 + 32
+    w_in = sum(((enc if i == 0 else width) + (enc if i in skips else 0)) * width
+               for i in range(depth)) + width * head0 + head0 * 32
+    b_in = depth * width + head0 + 32
+    per_point = 2 * enc + 2 * (2 * depth * width + 2 * head0 + 32) + 4 * enc
+    per_point += (8 * 4 + 2 * 16 * 4) if shaded else 32 * 4
+    weights = 2 * (w_in + b_in) + 2 * 2 * 2 * w_in   # pack read; two copies written, read
+    return (per_point * points + (2 * 16 * 4 * rays if shaded else 0)
+            + min(tiles, BIAS_GROUPS) * GROUP_ROWS * nbias * 4 + weights)
 
 
 def _weight_plants(ref, depth: int) -> Dict[str, Dict[str, float]]:
