@@ -9,22 +9,18 @@
 // and the fp32 gradient of every packed weight and bias, summed over all
 // points.
 //
-// Design: mlp_bwd_points_kernel takes TILES_PER_BLOCK tiles of 128
-// consecutive points (no ray alignment: nothing here scans along a ray).
-// Per tile: (a) the recompute of mlp_tile.cuh, storing every trunk layer's
-// and head layer 0's bf16 output to the device workspace (mlp_bwd.cuh);
-// (b) the packed output's cotangent dout32 per point, into the workspace:
-//   * shaded (fused_mlp.py:479-493): draw8 = dout8 * (rgb lanes ?
-//     sig * (1 - sig) : 1), dout32[0] = draw8[0], dout32[1 + nb*c + b] =
-//     draw8[1 + c] * basis[b] (fp32), and the point's dbasis partial
-//     sum_c draw8[1 + c] * out32[1 + nb*c + b] to the workspace;
-//   * plain MLP (fused_mlp.py:761, :788): dout rounded to bf16 first, so
-//     d head_b1 sums the bf16-rounded values;
-// (c) mlp_bwd_tile: heads and trunk backward with the bias partials.
+// Two stages.  The points stage (mlp_bwd_points.cuh, mlp_points_kernel)
+// takes 128-point tiles in a persistent grid (no ray alignment: nothing
+// here scans along a ray): the recompute, the packed output's cotangent
+// (for the shaded one the shading backward, fused_mlp.py:479-493; for the
+// plain MLP dout rounded to bf16 first, :761, :788), the heads and trunk
+// backward, with the saved activations and every d_a written to the device
+// workspace (mlp_bwd.cuh) and the bias partials in a fixed order; its
+// weights come from images that weight_images_kernel tiles once per call.
 // Then, for the shaded backward, ray_sum_kernel sums each ray's s dbasis
-// partials in sample order, and launch_weight_grads (mlp_bwd.cuh) sums
-// the weight gradients by split-K with a fixed-order reduction: the same
-// bits run to run.  The TPU kernel keeps a block's activations in VMEM and
+// partials in sample order, and launch_weight_grads (mlp_bwd.cuh) sums the
+// weight gradients by split-K with a fixed-order reduction: the same bits
+// run to run.  The TPU kernel keeps a block's activations in VMEM and
 // carries the weight sums across its sequential grid; a block here has at
 // most 227 KB of shared memory (one fine tile's activations take ~688 KB)
 // and blocks run in no order, hence the workspace and the partials.
@@ -35,84 +31,11 @@
 // pack (>= 3.47 ms and 0.55 ms for the grid train passes at 7000 x 130
 // and 7000 x 128 points); chip_smoke.py counts them exactly.
 
-#include "mlp_bwd.cuh"
+#include "mlp_bwd_points.cuh"
 
 using namespace mcn;
 
 constexpr int BASIS_LANES = 16;
-constexpr int SHADED_COLS = 8;
-constexpr int TILES_PER_BLOCK = 4;  // 512 points per block: one bias-partial row each
-
-struct FlatArgs {
-  const bf16* feat;
-  const float* basis16;  // [P / s, 16] (shaded)
-  const float* dout_in;  // dout8 [P, 8] (shaded) or dout [P, 32]
-  float* dfeat;          // [P, enc]
-  Workspace ws;
-  long long points;
-  int s, nb, nbias;
-};
-
-template <bool SHADED>
-__global__ void __launch_bounds__(THREADS) mlp_bwd_points_kernel(MLPParams p, FlatArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* act = reinterpret_cast<bf16*>(smem);
-  bf16* h1 = act + TILE_M * p.act_pitch;
-  bf16* wst = h1 + TILE_M * p.h1_pitch;
-  float* outs = reinterpret_cast<float*>(wst + 2 * STAGE_ELEMS);
-  const Workspace& ws = a.ws;
-  float* part = ws.bias_part + (size_t)blockIdx.x * a.nbias;
-
-  for (int t = 0; t < TILES_PER_BLOCK; ++t) {
-    const long long row0 = ((long long)blockIdx.x * TILES_PER_BLOCK + t) * TILE_M;
-    if (row0 >= a.points) break;
-    const int n_rows = (int)min((long long)TILE_M, a.points - row0);
-    __syncthreads();  // the previous tile's backward is done with the shared buffers
-    load_feat_tile(p, a.feat, row0, a.points, act);
-    const ActSave save = {ws.h, ws.h1, nullptr, a.points, row0, n_rows};
-    mlp_tile(p, act, h1, wst, outs, &save);
-    for (int r = threadIdx.x; r < n_rows; r += THREADS) {
-      const long long pt = row0 + r;
-      float* dst = ws.dout + pt * OUT_COLS;
-      if (SHADED) {
-        const float* o = outs + r * OUT_PITCH;
-        const float* bas = a.basis16 + (pt / a.s) * BASIS_LANES;
-        const float* d8 = a.dout_in + pt * SHADED_COLS;
-        const int nb = a.nb;
-        float dr[3];
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          float acc = 0.f;
-#pragma unroll
-          for (int b = 0; b < 9; ++b)
-            if (b < nb) acc += o[1 + nb * c + b] * bas[b];
-          const float sg = sigmoidf(acc);
-          dr[c] = d8[1 + c] * (sg * (1.f - sg));
-        }
-        dst[0] = d8[0];
-        float* dbp = ws.dbp + pt * DBP_LANES;
-#pragma unroll
-        for (int b = 0; b < 9; ++b) {
-          float acc = 0.f;
-          if (b < nb) {
-#pragma unroll
-            for (int c = 0; c < 3; ++c) {
-              dst[1 + nb * c + b] = dr[c] * bas[b];
-              acc += dr[c] * o[1 + nb * c + b];
-            }
-          }
-          dbp[b] = acc;
-        }
-        for (int b = 9; b < DBP_LANES; ++b) dbp[b] = 0.f;
-        for (int l = 1 + 3 * nb; l < OUT_COLS; ++l) dst[l] = 0.f;
-      } else {
-        const float* d = a.dout_in + pt * OUT_COLS;
-        for (int c = 0; c < OUT_COLS; ++c) dst[c] = __bfloat162float(__float2bfloat16_rn(d[c]));
-      }
-    }
-    mlp_bwd_tile(p, ws, a.points, row0, n_rows, t == 0, part, a.dfeat, smem);
-  }
-}
 
 // dbasis[ray, b] = sum over the ray's s points, in order, of the partials.
 __global__ void ray_sum_kernel(const float* __restrict__ dbp, int rays, int s,
@@ -126,57 +49,91 @@ __global__ void ray_sum_kernel(const float* __restrict__ dbp, int rays, int s,
   dbasis[idx] = acc;
 }
 
-static Layout flat_layout(long long points, int enc, int depth, int skip_mask, int width,
-                          int head0, bool shaded) {
-  const long long tiles = (points + TILE_M - 1) / TILE_M;
-  const int blocks = (int)((tiles + TILES_PER_BLOCK - 1) / TILES_PER_BLOCK);
-  return make_layout(points, blocks, enc, depth, skip_mask, width, head0, false, shaded);
+// The workspace of a backward over `points` points: make_layout's regions
+// (one bias-partial row per consumer warp of each group) and, after them,
+// the weight images of the points stage.
+struct FlatPlan {
+  Layout L;
+  size_t img_at, bytes;
+  int groups, nch;
+};
+
+static FlatPlan flat_plan(const MLPParams& p, long long points, bool shaded, PtSchedule* sc,
+                          PtImages* im) {
+  FlatPlan f;
+  f.groups = pt_groups(points);
+  f.nch = pt_nch(p.head0);
+  f.L = make_layout(points, f.groups * GROUP_ROWS, p.enc, p.depth, p.skip_mask, p.width, p.head0,
+                    false, shaded);
+  const long long img = pt_schedule(p, shaded, f.nch, sc, im);
+  f.img_at = align256(f.L.bytes);
+  f.bytes = img < 0 ? 0 : f.img_at + align256((size_t)img);
+  return f;
 }
 
-// The points stage of both backwards: the points kernel, then (shaded)
-// the per-ray dbasis sums.  Fills the workspace the weight stage reads.
-static int run_points(bool shaded, const MLPParams& p, const Layout& L, const FlatArgs& a,
-                      void* dbasis, cudaStream_t st) {
-  const size_t smem = bwd_region_bytes(p);
-  int err;
+// The points stage of both backwards: the weight images, the points
+// kernel, then (shaded) the per-ray dbasis sums.  Fills the workspace the
+// weight stage reads; returns 0 or a CUDA error.
+static int run_points(bool shaded, const MLPParams& p, const FlatPlan& f, const PtSchedule& sc,
+                      const PtImages& im, PtArgs a, void* dbasis, cudaStream_t st) {
+  if (!f.bytes) return cudaErrorInvalidValue;
+  int dev = 0, limit = 0;
+  int err = cudaGetDevice(&dev);
+  if (!err) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err) return err;
+  a.slab = pt_slab_bytes(p, f.nch);
+  const long long room = (long long)limit - (long long)PT_WARPS * a.slab - 16 * PT_MAX_STAGES;
+  a.nst = (int)(room / PT_STAGE < PT_MAX_STAGES ? room / PT_STAGE : PT_MAX_STAGES);
+  if (a.nst < 2) return cudaErrorInvalidValue;
+  const size_t smem = (size_t)a.nst * PT_STAGE + (size_t)PT_WARPS * a.slab + 16 * a.nst;
+  a.tiles = (a.points + TILE_M - 1) / TILE_M;
+  a.nch = f.nch;
+  a.dbuf_pitch = p.head0 + 8;
+  a.mask_words = (p.depth * p.width + p.head0) / 32;
+  a.nbias = f.L.nbias;
+  unsigned char* img = const_cast<unsigned char*>(a.img);
+  weight_images_kernel<<<sc.stages, THREADS, 0, st>>>(im, sc, img);
+  err = cudaGetLastError();
+  if (err) return err;
   if (shaded) {
-    err = cudaFuncSetAttribute(mlp_bwd_points_kernel<true>,
+    err = cudaFuncSetAttribute(mlp_points_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err) return err;
-    mlp_bwd_points_kernel<true><<<L.blocks, THREADS, smem, st>>>(p, a);
+    mlp_points_kernel<true><<<f.groups, PT_THREADS, smem, st>>>(p, a, sc);
     err = cudaGetLastError();
     if (err) return err;
     const long long n = a.points / a.s * BASIS_LANES;
     ray_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
         a.ws.dbp, (int)(a.points / a.s), a.s, static_cast<float*>(dbasis));
   } else {
-    err = cudaFuncSetAttribute(mlp_bwd_points_kernel<false>,
+    err = cudaFuncSetAttribute(mlp_points_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err) return err;
-    mlp_bwd_points_kernel<false><<<L.blocks, THREADS, smem, st>>>(p, a);
+    mlp_points_kernel<false><<<f.groups, PT_THREADS, smem, st>>>(p, a, sc);
   }
   return cudaGetLastError();
 }
 
 // The arguments of the points stage; returns 0 or an error for shapes the
 // kernels do not take.
-static int points_args(bool shaded, MLPParams* p, Layout* L, FlatArgs* a, const void* feat,
-                       const void* basis16, const void* dout_in, void* dfeat, void* workspace,
-                       long long points, int s, int nb, int enc, int depth, int skip_mask,
-                       int width, int head0, const void* const* w, const void* const* b) {
+static int points_args(bool shaded, MLPParams* p, FlatPlan* f, PtSchedule* sc, PtImages* im,
+                       PtArgs* a, const void* feat, const void* basis16, const void* dout_in,
+                       void* dfeat, void* workspace, long long points, int s, int nb, int enc,
+                       int depth, int skip_mask, int width, int head0, const void* const* w,
+                       const void* const* b) {
   int err = make_params(p, feat, depth, skip_mask, enc, width, head0, w, b);
   if (err) return err;
   if (shaded && (s < 1 || nb < 1 || nb > 9 || points % s)) return cudaErrorInvalidValue;
-  *L = flat_layout(points, enc, depth, skip_mask, width, head0, shaded);
+  *f = flat_plan(*p, points, shaded, sc, im);
   a->feat = static_cast<const bf16*>(feat);
   a->basis16 = static_cast<const float*>(basis16);
   a->dout_in = static_cast<const float*>(dout_in);
   a->dfeat = static_cast<float*>(dfeat);
-  a->ws = carve(*L, workspace);
+  a->ws = carve(f->L, workspace);
+  a->img = static_cast<const unsigned char*>(workspace) + f->img_at;
   a->points = points;
   a->s = s;
   a->nb = nb;
-  a->nbias = L->nbias;
   return 0;
 }
 
@@ -187,15 +144,17 @@ static int run_backward(bool shaded, const void* feat, const void* basis16, cons
                         int width, int head0, const void* const* w, const void* const* b,
                         void* stream) {
   MLPParams p;
-  Layout L;
-  FlatArgs a;
-  int err = points_args(shaded, &p, &L, &a, feat, basis16, dout_in, dfeat, workspace, points, s,
-                        nb, enc, depth, skip_mask, width, head0, w, b);
+  FlatPlan f;
+  PtSchedule sc;
+  PtImages im;
+  PtArgs a;
+  int err = points_args(shaded, &p, &f, &sc, &im, &a, feat, basis16, dout_in, dfeat, workspace,
+                        points, s, nb, enc, depth, skip_mask, width, head0, w, b);
   if (err || points <= 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
-  err = run_points(shaded, p, L, a, dbasis, st);
+  err = run_points(shaded, p, f, sc, im, a, dbasis, st);
   if (err) return err;
-  return launch_weight_grads(L, a.ws, a.feat, enc, depth, skip_mask, width, head0,
+  return launch_weight_grads(f.L, a.ws, a.feat, enc, depth, skip_mask, width, head0,
                              static_cast<float*>(dw), static_cast<float*>(db), st);
 }
 
@@ -205,8 +164,12 @@ static int run_backward(bool shaded, const void* feat, const void* basis16, cons
 // none); `shaded` adds the per-point dbasis partials.
 extern "C" long long mcn_mlp_bwd_workspace(long long points, int enc, int depth, int skip_mask,
                                            int width, int head0, int shaded) {
-  if (points <= 0) return 0;
-  return (long long)flat_layout(points, enc, depth, skip_mask, width, head0, shaded != 0).bytes;
+  MLPParams p;
+  if (points <= 0 || set_shape(&p, depth, skip_mask, enc, width, head0)) return 0;
+  for (int l = 0; l < depth + 2; ++l) p.w[l] = p.b[l] = nullptr;
+  PtSchedule sc;
+  PtImages im;
+  return (long long)flat_plan(p, points, shaded != 0, &sc, &im).bytes;
 }
 
 // fused_shaded_mlp's backward.  feat [P, enc] bf16, basis16 [P / s, 16] and
@@ -238,9 +201,12 @@ extern "C" int mcn_mlp_bwd(const void* feat, const void* dout, void* dfeat, void
 extern "C" int mcn_mlp_bwd_weights(const void* feat, void* workspace, void* dw, void* db,
                                    long long points, int enc, int depth, int skip_mask, int width,
                                    int head0, int shaded, void* stream) {
-  if (depth < 1 || depth + 2 > MAX_LAYERS) return cudaErrorInvalidValue;
+  MLPParams p;
+  if (set_shape(&p, depth, skip_mask, enc, width, head0)) return cudaErrorInvalidValue;
   if (points <= 0) return 0;
-  const Layout L = flat_layout(points, enc, depth, skip_mask, width, head0, shaded != 0);
+  PtSchedule sc;
+  PtImages im;
+  const Layout L = flat_plan(p, points, shaded != 0, &sc, &im).L;
   return launch_weight_grads(L, carve(L, workspace), static_cast<const bf16*>(feat), enc, depth,
                              skip_mask, width, head0, static_cast<float*>(dw),
                              static_cast<float*>(db), (cudaStream_t)stream);
@@ -256,11 +222,13 @@ extern "C" int mcn_mlp_bwd_points(const void* feat, const void* basis16, const v
                                   int head0, const void* const* w, const void* const* b,
                                   int shaded, void* stream) {
   MLPParams p;
-  Layout L;
-  FlatArgs a;
-  int err = points_args(shaded != 0, &p, &L, &a, feat, basis16, dout, dfeat, workspace, points,
-                        shaded ? s : 1, shaded ? nb : 1, enc, depth, skip_mask, width, head0, w,
-                        b);
+  FlatPlan f;
+  PtSchedule sc;
+  PtImages im;
+  PtArgs a;
+  int err = points_args(shaded != 0, &p, &f, &sc, &im, &a, feat, basis16, dout, dfeat, workspace,
+                        points, shaded ? s : 1, shaded ? nb : 1, enc, depth, skip_mask, width,
+                        head0, w, b);
   if (err || points <= 0) return err;
-  return run_points(shaded != 0, p, L, a, dbasis, (cudaStream_t)stream);
+  return run_points(shaded != 0, p, f, sc, im, a, dbasis, (cudaStream_t)stream);
 }

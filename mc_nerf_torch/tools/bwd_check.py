@@ -177,6 +177,39 @@ BIAS_GROUPS = 132   # bias-partial groups of the points stage (csrc/mlp_bwd_poin
 GROUP_ROWS = 8      # bias-partial rows per group: one per consumer warp
 
 
+def points_stage_images(enc: int, depth: int, width: int, skips, head0: int,
+                        shaded: bool) -> int:
+    """Bytes of the points stage's weight images (``pt_schedule`` in
+    ``csrc/mlp_bwd_points.cuh``): every product of a tile's schedule as
+    32-row K tiles x its columns, bf16.  The recompute: each trunk layer
+    (K: the encode padded to 16, plus the width at a skip, or the width;
+    N: the width), head layer 0 in passes of 128 columns where head0 > 256
+    (else one pass), each followed for K5 by its head-layer-1 share (K: the
+    pass, N: 32); the backward: d_h1 in passes of up to 256 (K 32), head
+    layer 0 (K head0, N the width), then from the top trunk layer down its
+    feature rows (layer 0 and the skips; K the width, N the encode rounded
+    up to 32, 64, 128 or 256) and its hidden rows (layers above 0)."""
+    ep = (enc + 15) // 16 * 16
+    enc_nc = next(n for n in (32, 64, 128, 256) if enc <= n)
+    nch = 128 if head0 > 256 else head0
+    prods = []
+    for layer in range(depth):
+        tf = layer == 0 or layer in skips
+        prods.append((ep if layer == 0 else (ep + width if tf else width), width))
+    for c0 in range(0, head0, nch):
+        prods.append((width, min(nch, head0 - c0)))
+        if shaded:
+            prods.append((min(nch, head0 - c0), 32))
+    prods += [(32, min(256, head0 - c0)) for c0 in range(0, head0, 256)]
+    prods.append((head0, width))
+    for layer in reversed(range(depth)):
+        if layer == 0 or layer in skips:
+            prods.append((width, enc_nc))
+        if layer > 0:
+            prods.append((width, width))
+    return sum((k + 31) // 32 * 32 * n * 2 for k, n in prods)
+
+
 def points_stage_bytes(enc: int, depth: int, width: int, skips, head0: int, points: int,
                        shaded: bool = False, s: int = 1) -> int:
     """The bytes the points stage of K5 (``shaded``, ``s`` points per ray)
@@ -187,22 +220,21 @@ def points_stage_bytes(enc: int, depth: int, width: int, skips, head0: int, poin
     and the backward's dout_b [P, 32], d_a [depth, P, width] and d_h1
     [P, head0] written (bf16); dfeat [P, enc] written (fp32); the bias
     partials (min(tiles, BIAS_GROUPS) groups of GROUP_ROWS rows, fp32)
-    written; the weights read once and their pre-tiled copies (one for the
-    recompute, one for the backward, in bf16) written and read once.  K5
-    also writes the per-point dbasis partials [P, 16] (fp32), which the
-    per-ray sum reads back before writing dbasis [P / s, 16].  The dout32
-    that the shipped PR 5 kernel wrote and read back is no longer moved."""
-    rays = points // s
+    written; the weights and biases read (bf16) and the weight images
+    (:func:`points_stage_images`) written and read.  K5 also writes the
+    per-point dbasis partials [P, 16] (fp32), which the per-ray sum reads
+    back before writing dbasis [P / s, 16].  The fp32 dout32 that PR 5's
+    kernel wrote to the workspace and read back is no longer moved."""
     tiles = (points + 127) // 128
     nbias = depth * width + head0 + 32
     w_in = sum(((enc if i == 0 else width) + (enc if i in skips else 0)) * width
                for i in range(depth)) + width * head0 + head0 * 32
-    b_in = depth * width + head0 + 32
     per_point = 2 * enc + 2 * (2 * depth * width + 2 * head0 + 32) + 4 * enc
     per_point += (8 * 4 + 2 * 16 * 4) if shaded else 32 * 4
-    weights = 2 * (w_in + b_in) + 2 * 2 * 2 * w_in   # pack read; two copies written, read
-    return (per_point * points + (2 * 16 * 4 * rays if shaded else 0)
-            + min(tiles, BIAS_GROUPS) * GROUP_ROWS * nbias * 4 + weights)
+    per_ray = 2 * 16 * 4 if shaded else 0
+    return (per_point * points + per_ray * (points // s)
+            + min(tiles, BIAS_GROUPS) * GROUP_ROWS * nbias * 4 + 2 * (w_in + nbias)
+            + 2 * points_stage_images(enc, depth, width, skips, head0, shaded))
 
 
 def _weight_plants(ref, depth: int) -> Dict[str, Dict[str, float]]:
