@@ -141,11 +141,11 @@ def fail(msg: str) -> None:
 
 
 def weight_stage_line(t: dict) -> str:
-    """The weight stage's numbers of a K5 or K6 pass, for its printed line."""
-    w = t.get("weight_stage")
-    return "" if w is None else (
-        f"; weight stage {w['ms']:.3f} ms (bf16 torch.mm chain {w['library_ms']:.3f}, bound "
-        f"{w['bound_ms']:.3f}, this design's floor {w['floor_ms']:.3f} by bytes)")
+    """The two stages' numbers of a K5 or K6 pass, for its printed line."""
+    return "".join(
+        f"; {name.replace('_', ' ')} {w['ms']:.3f} ms (bf16 torch chain {w['library_ms']:.3f}, "
+        f"bound {w['bound_ms']:.3f}, this design's floor {w['floor_ms']:.3f} by bytes)"
+        for name, w in ((k, t.get(k)) for k in ("points_stage", "weight_stage")) if w)
 
 
 def cuda_ms(fn, iters: int = 5) -> float:
@@ -162,15 +162,11 @@ def cuda_ms(fn, iters: int = 5) -> float:
 
 
 def needed_macs(nc, depth: int, width: int, skips, sigma_only: bool) -> int:
-    """Multiply-adds per point that the MLP needs: the 3 + 6L real encode
-    lanes (not the pack's pad lane) at layer 0 and at each skip, the trunk,
-    head layer 0, and of the packed last head layer only its live blocks
-    (the sigma column; with SH also the SH block), not its zeros."""
-    enc = nc.embed_dim
-    trunk = sum(((enc if i == 0 else width) + (enc if i in skips else 0)) * width
-                for i in range(depth))
-    heads = width * width + width if sigma_only else width * 2 * width + width * (1 + nc.sh_dim)
-    return trunk + heads
+    """Multiply-adds per point that the MLP needs
+    (``tools/bwd_check.needed_macs``)."""
+    from mc_nerf_torch.tools.bwd_check import needed_macs as macs
+
+    return macs(nc, depth, width, skips, sigma_only)
 
 
 def pack_bytes(packed) -> int:
@@ -193,9 +189,10 @@ def over(errs: dict, tols: dict) -> float:
     return max(errs[k] / tols[k] for k in errs)
 
 
-def hold(label: str, errs: dict, tols: dict, plants: dict) -> None:
+def hold(label: str, errs: dict, tols: dict, plants: dict, bar: float = 1.0) -> None:
     """Fail unless every error is within its tolerance and every planted
-    fault (measured against the same plain version) breaks one of them."""
+    fault (measured against the same plain version) breaks one of them by
+    more than ``bar`` times."""
     caught = {name: over(e, tols) for name, e in plants.items()}
     print(f"{label}: " + ", ".join(f"{k} {v:.3e} (tol {tols[k]})" for k, v in errs.items())
           + ("; planted faults, error over tolerance: "
@@ -203,7 +200,7 @@ def hold(label: str, errs: dict, tols: dict, plants: dict) -> None:
           flush=True)
     if not over(errs, tols) <= 1.0:
         fail(f"{label}: the kernel disagrees with its plain version")
-    missed = [n for n, r in caught.items() if not r > 1.0]
+    missed = [n for n, r in caught.items() if not r > bar]
     if missed:
         fail(f"{label}: the check cannot see the planted faults {missed}")
 
@@ -487,6 +484,66 @@ def weight_stage_numbers(ws, bs, feat, skips, shaded: bool, fill, saved, dout_b,
     return nums
 
 
+def points_stage_numbers(args, shaded: bool, dout_b, macs: int) -> dict:
+    """The points stage of K5 (``shaded``; ``args`` those of
+    ``fused_shaded_mlp_bwd``) or K6 (``fused_mlp_bwd``'s) timed apart at
+    these shapes: ``mlp_bwd_points`` (the recompute, the heads-and-trunk
+    backward, K5's per-ray dbasis sums) beside the bf16 torch chain of the
+    same products (``library_bwd_dx``), ``bound_ms`` (the recompute and dX
+    products over the bf16 peak) and ``floor_ms``, this design's bytes
+    (``tools/bwd_check.points_stage_bytes``) over the memory rate."""
+    from mc_nerf_torch.ops.cuda.fused_mlp import _workspace, mlp_bwd_points
+    from mc_nerf_torch.tools.bwd_check import points_stage_bytes
+
+    if shaded:
+        ws, bs, feat, basis16, dout, depth, skips, s, nb = args
+    else:
+        (ws, bs, feat, dout, depth, skips), basis16, s, nb = args, None, 1, 1
+    p, enc = feat.shape
+    width, head0 = ws[0].shape[1], ws[-2].shape[1]
+    work = _workspace(p, enc, ws, skips, shaded, feat.device)
+    pts = (ws, bs, feat, basis16, dout, depth, skips, s, nb, shaded, work)
+    nums = {"ms": cuda_ms(lambda: mlp_bwd_points(*pts)),
+            "library_ms": cuda_ms(lambda: library_bwd_dx(ws, bs, feat, dout_b, depth, skips)),
+            "bound_ms": 2 * 2.0 * macs * p / PEAK_BF16_FLOPS * 1e3, "bound_by": "operations",
+            "floor_ms": points_stage_bytes(enc, depth, width, skips, head0, p, shaded, s)
+            / PEAK_BYTES * 1e3}
+    del work
+    return nums
+
+
+def masked_below(plain, args, ref) -> dict:
+    """The points stage's wrong-mask plant (``tools/bwd_check.planted_points``):
+    each trunk layer l > 0 masked with layer l - 1's ReLU mask."""
+    from mc_nerf_torch.tools.bwd_check import planted_points
+
+    name = "a layer masked with the one below's"
+    return {name: planted_points(plain, args, ref)[name]}
+
+
+def last_tile_hold(label: str, kernel, plain, args, cot_at: int) -> None:
+    """The backward under its cotangent zeroed outside the last 64-point
+    tile (``tools/bwd_check.last_tile_cotangent``): its weight and bias sums
+    within ``LAST_TILE_TOL``, and dW without that tile and the bias
+    gradients without the last 128-point tile both at 2x it or more, at any
+    point count."""
+    from mc_nerf_torch.tools.bwd_check import (
+        LAST_TILE_TOL, bwd_errs, last_tile_cotangent, planted_last_tile, planted_points)
+
+    args = list(args)
+    args[cot_at] = last_tile_cotangent(args[cot_at])
+    k = kernel(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    stage = lambda e: {o: e[o] for o in LAST_TILE_TOL}
+    hold(f"{label}, cotangent on the last tile only (relative L2)", stage(bwd_errs(k, ref)),
+         LAST_TILE_TOL, {
+             "dW without the last tile": stage(planted_last_tile(plain, args, ref)),
+             "bias partials of the last tile dropped": stage(
+                 planted_points(plain, args, ref)["bias partials of the last tile dropped"])},
+         2.0)
+
+
 def train_phase(cfg, dev, h: int, w: int, counters, n_steps: int, route_tol: dict) -> dict:
     """The GLOBAL_OPTIM step at full width on the workload bench.py times
     (``tools/scene.train_workload``; no occupancy map in the grid fine
@@ -708,8 +765,13 @@ def check_shaded(nc, params, dev, rng, rays, errs) -> dict:
                       flush=True)
                 rel[label] = e
             hold(f"shaded backward {label} rays={r} s={s} (relative L2)", e,
-                 SHADED_BWD_TOL[label], planted_errs_shaded(args, ref))
+                 SHADED_BWD_TOL[label],
+                 {**planted_errs_shaded(args, ref), **masked_below(
+                     fused_shaded_mlp_bwd_plain, args, ref)})
             del k, ref
+            if r == rays:
+                last_tile_hold(f"shaded backward {label} rays={r} s={s}", fused_shaded_mlp_bwd,
+                               fused_shaded_mlp_bwd_plain, args, 4)
         # times at the training shapes
         feat, basis16 = render_inputs(nc, rays, s_main, rng, dev)[:2]
         p = rays * s_main
@@ -741,6 +803,7 @@ def check_shaded(nc, params, dev, rng, rays, errs) -> dict:
                       "plain_ms": cuda_ms(lambda: fused_shaded_mlp_bwd_plain(*args), 2),
                       "library_ms": cuda_ms(library_bwd, 3),
                       "bound_ms": t_bwd[0], "bound_by": t_bwd[1],
+                      "points_stage": points_stage_numbers(args, True, dout_b, macs),
                       "weight_stage": weight_stage_numbers(
                           ws, bs, feat, skips, True,
                           lambda work: _shaded_bwd_launch(*args, work),
@@ -806,7 +869,10 @@ def fused_mlp_vjp_phase(nc, params, dev, rng, rays, errs) -> dict:
         rel[label] = bwd_errs(k, ref)
         errs["fused_mlp_bwd"] = max(errs["fused_mlp_bwd"], max_abs(k, ref))
         hold(f"fused_mlp backward {label} P={feat.shape[0]} (relative L2)", rel[label],
-             MLP_BWD_TOL[label], planted_errs_mlp(args, ref))
+             MLP_BWD_TOL[label],
+             {**planted_errs_mlp(args, ref), **masked_below(fused_mlp_bwd_plain, args, ref)})
+        last_tile_hold(f"fused_mlp backward {label} P={feat.shape[0]}", fused_mlp_bwd,
+                       fused_mlp_bwd_plain, args, 3)
         p, enc = feat.shape
         macs = needed_macs(nc, depth, width, skips, False)
         t_b = bound(3 * 2.0 * macs * p, p * enc * 2 + p * 32 * 4 + pack_bytes(pk) + p * enc * 4
@@ -821,6 +887,7 @@ def fused_mlp_vjp_phase(nc, params, dev, rng, rays, errs) -> dict:
                           "plain_ms": cuda_ms(lambda: fused_mlp_bwd_plain(*args), 3),
                           "library_ms": cuda_ms(library_bwd),
                           "bound_ms": t_b[0], "bound_by": t_b[1],
+                          "points_stage": points_stage_numbers(args, False, dout_b, macs),
                           "weight_stage": weight_stage_numbers(
                               ws, bs, feat, skips, False,
                               lambda work: _mlp_bwd_launch(*args, work),

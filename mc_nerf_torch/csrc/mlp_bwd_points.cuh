@@ -81,7 +81,7 @@ namespace mcn {
 constexpr int PT_THREADS = THREADS + 128;  // two consumer warpgroups + the producer's
 constexpr int PT_WARPS = THREADS / 32;     // consumer warps, 16 rows each
 constexpr int PT_STAGE = KT * NC_MAX * 2;  // bytes of one ring slot (32 K rows x 256 columns)
-constexpr int PT_MAX_STAGES = 4;
+constexpr int PT_MAX_STAGES = 6;
 constexpr int PT_MAX_GEMMS = 64;
 constexpr int GROUP_ROWS = PT_WARPS;       // bias-partial rows per group
 
@@ -188,19 +188,27 @@ struct Ring {
   }
 };
 
+// K tiles of a product of `nc` columns that one ring slot holds: as many as
+// fit in PT_STAGE bytes (1 at 256 columns, 8 at 32).
+__host__ __device__ constexpr int tiles_per_slot(int nc) { return PT_STAGE / (KT * nc * 2); }
+
 // The producer warp: every stage of every product of every tile of the
-// block, in schedule order, into the next free slot.
+// block, in schedule order, into the next free slot; a stage holds up to
+// tiles_per_slot(nc) consecutive K tiles of one product.
 __device__ void pt_produce(const PtSchedule& sc, const unsigned char* img, long long tiles,
                            Ring rg) {
   if ((threadIdx.x & 31) != 0) return;
   for (long long t = blockIdx.x; t < tiles; t += gridDim.x)
     for (int g = 0; g < sc.count; ++g) {
-      const uint32_t bytes = (uint32_t)KT * sc.g[g].nc * 2;
+      const int nc = sc.g[g].nc, per = tiles_per_slot(nc);
       const unsigned char* src = img + sc.g[g].off;
-      for (int kt = 0; kt < sc.g[g].k_tiles; ++kt, src += bytes) {
+      for (int kt = 0; kt < sc.g[g].k_tiles; kt += per) {
+        const int n = sc.g[g].k_tiles - kt < per ? sc.g[g].k_tiles - kt : per;
+        const uint32_t bytes = (uint32_t)n * KT * nc * 2;
         mbar_wait(rg.empty + rg.stage, rg.phase ^ 1);  // free (at once on the first lap)
         mbar_expect_tx(rg.full + rg.stage, bytes);
         bulk_load(rg.slots + (size_t)rg.stage * PT_STAGE, src, bytes, rg.full + rg.stage);
+        src += bytes;
         rg.advance();
       }
     }
@@ -215,13 +223,24 @@ __device__ __forceinline__ void stage_mma(float* acc, const uint32_t* a, uint32_
   wgmma_commit();
 }
 
-// Wait for the product before this stage's, release its slot (the
-// warpgroup's lead thread arrives), and step the ring.
-__device__ __forceinline__ void stage_done(Ring& rg, int& prev, bool lead) {
+// One K tile of a product: wait for its slot where the tile opens one,
+// issue its two products, then wait for the previous tile's and release
+// the slot that tile closed (the warpgroup's lead thread arrives); a slot
+// this tile closes is released by the next call or the product's end.
+template <int NC>
+__device__ __forceinline__ void k_step(float* acc, const uint32_t* a, int kt, int k_tiles,
+                                       Ring& rg, int& pending, bool lead) {
+  constexpr int PER = tiles_per_slot(NC);
+  const int j = kt % PER;
+  if (j == 0) mbar_wait(rg.full + rg.stage, rg.phase);
+  stage_mma<NC>(acc, a, smem_u32(rg.slots + (size_t)rg.stage * PT_STAGE) + j * KT * NC * 2);
   wgmma_wait<1>();
-  if (prev >= 0 && lead) mbar_arrive(rg.empty + prev);
-  prev = rg.stage;
-  rg.advance();
+  if (pending >= 0 && lead) mbar_arrive(rg.empty + pending);
+  pending = -1;
+  if (j == PER - 1 || kt == k_tiles - 1) {
+    pending = rg.stage;
+    rg.advance();
+  }
 }
 
 // The warp's A fragments of K columns [k0, k0 + 32) (zero for a second
@@ -240,8 +259,8 @@ __device__ __forceinline__ void load_a(uint32_t* a, const bf16* a_lane, int k0, 
 // shared buffer (pitch in elements).  On return every product is done and
 // every slot released.
 template <int NC>
-__device__ __forceinline__ void ring_gemm(const PtGemm& G, int K, const bf16* a_rows, int a_pitch, int a_col,
-                          float* acc, Ring& rg) {
+__device__ __forceinline__ void ring_gemm(const PtGemm& G, int K, const bf16* a_rows,
+                                          int a_pitch, int a_col, float* acc, Ring& rg) {
   const int lane = threadIdx.x & 31;
   const bool lead = (threadIdx.x & 127) == 0;
   const bf16* a_lane =
@@ -249,22 +268,18 @@ __device__ __forceinline__ void ring_gemm(const PtGemm& G, int K, const bf16* a_
 #pragma unroll
   for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
   uint32_t a0[8], a1[8];
-  int prev = -1;
+  int pending = -1;
   load_a(a0, a_lane, 0, K);
   for (int kt = 0; kt < G.k_tiles; kt += 2) {
-    mbar_wait(rg.full + rg.stage, rg.phase);
-    stage_mma<NC>(acc, a0, smem_u32(rg.slots + (size_t)rg.stage * PT_STAGE));
-    stage_done(rg, prev, lead);
+    k_step<NC>(acc, a0, kt, G.k_tiles, rg, pending, lead);
     if (kt + 1 < G.k_tiles) {
       load_a(a1, a_lane, (kt + 1) * KT, K);
-      mbar_wait(rg.full + rg.stage, rg.phase);
-      stage_mma<NC>(acc, a1, smem_u32(rg.slots + (size_t)rg.stage * PT_STAGE));
-      stage_done(rg, prev, lead);
+      k_step<NC>(acc, a1, kt + 1, G.k_tiles, rg, pending, lead);
       if (kt + 2 < G.k_tiles) load_a(a0, a_lane, (kt + 2) * KT, K);
     }
   }
   wgmma_wait<0>();
-  if (lead) mbar_arrive(rg.empty + prev);
+  if (lead) mbar_arrive(rg.empty + pending);
 }
 
 // The same for a one-stage product whose A fragments are already in
@@ -290,44 +305,28 @@ struct Frag {
   __device__ __forceinline__ Frag() : g((threadIdx.x & 31) >> 2), tig(threadIdx.x & 3) {}
 };
 
-// Set the mask bits of one product's output: bit (col0 + c) % 32 of word
-// (col0 + c) / 32 of each of the warp's rows, for the NC columns the
-// fragment `v` (bf16 pairs, [NC / 8][2] per lane) holds; col0 a multiple
-// of 32.
-template <int NC>
-__device__ __forceinline__ void set_masks(const __nv_bfloat162* v, uint32_t* masks, int words,
-                                          int col0, const Frag& f) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-#pragma unroll
-    for (int q = 0; q < (NC + 31) / 32; ++q) {
-      uint32_t bits = 0;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = 4 * q + jj;
-        if (j < NC / 8) {
-          const __nv_bfloat162 p = v[2 * j + h];
-          const uint32_t b0 = __bfloat162float(p.x) > 0.f, b1 = __bfloat162float(p.y) > 0.f;
-          bits |= (b0 | (b1 << 1)) << (8 * jj + 2 * f.tig);
-        }
-      }
-      bits |= __shfl_xor_sync(0xffffffffu, bits, 1);
-      bits |= __shfl_xor_sync(0xffffffffu, bits, 2);
-      if (f.tig == 0) masks[(f.g + 8 * h) * words + col0 / 32 + q] = bits;
-    }
+// Copy the warp's first nr rows x ncols (a multiple of 8) of a bf16 shared
+// buffer to global rows of `ld` elements with TMA bulk copies, one row a
+// lane, and go on: the copies read shared memory while the next product
+// runs.  store_wait() before the buffer is written again.
+__device__ __forceinline__ void store_warp_rows(const bf16* src, int pitch, int ncols, bf16* dst,
+                                                long long ld, int nr) {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the rows, to the async proxy
+  __syncwarp();
+  const int r = threadIdx.x & 31;
+  if (r < nr) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst + r * ld),
+                 "r"(smem_u32(src + r * pitch)), "r"(ncols * 2)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
   }
 }
 
-// Copy the warp's first nr rows x ncols (a multiple of 8) of a bf16 shared
-// buffer to global rows of `ld` elements, 16 bytes a lane at a time.
-__device__ __forceinline__ void store_warp_rows(const bf16* src, int pitch, int ncols, bf16* dst,
-                                                long long ld, int nr) {
-  const int per_row = ncols >> 3;
-  for (int idx = threadIdx.x & 31; idx < nr * per_row; idx += 32) {
-    const int r = idx / per_row, c = idx - r * per_row;
-    *reinterpret_cast<uint4*>(dst + r * ld + c * 8) =
-        *reinterpret_cast<const uint4*>(src + r * pitch + c * 8);
-  }
+// Wait until this lane's bulk stores have read their shared rows, and let
+// the warp write them again.
+__device__ __forceinline__ void store_wait() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  __syncwarp();
 }
 
 // The warp's column sums of one product's output (per lane: v[2 j + e] =
@@ -379,59 +378,77 @@ __device__ __forceinline__ void bias_sums(float* v, float* part, int col0, bool 
 }
 
 // Recompute epilogue of a ReLU layer: bf16(relu(acc + bias)) into the
-// warp's rows of `dst` (columns dst_col on), its mask bits, then the rows
-// to the workspace.
+// warp's rows of `dst`, its mask bits (per 32 columns: the lane's bits,
+// or-ed over the quad), then the rows to the workspace.  Written per group
+// of 32 columns, so that no second copy of the fragment is held.
 template <int NC>
 __device__ __forceinline__ void relu_epilogue(const float* acc, const bf16* __restrict__ bias,
                                               bf16* dst, int pitch, uint32_t* masks, int words,
                                               int mask_col, bf16* g_dst, long long ld, int nr,
                                               const Frag& f) {
-  __nv_bfloat162 v[NC / 4];
+  store_wait();
 #pragma unroll
-  for (int j = 0; j < NC / 8; ++j) {
-    const int col = 8 * j + 2 * f.tig;
-    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(bias + col);
+  for (int q = 0; q < (NC + 31) / 32; ++q) {
+    uint32_t bits[2] = {0u, 0u};
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int j = 4 * q + jj;
+      if (j < NC / 8) {
+        const int col = 8 * j + 2 * f.tig;
+        const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(bias + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          __nv_bfloat162 v;
+          v.x = __float2bfloat16_rn(fmaxf(acc[4 * j + 2 * h] + __bfloat162float(b.x), 0.f));
+          v.y = __float2bfloat16_rn(fmaxf(acc[4 * j + 2 * h + 1] + __bfloat162float(b.y), 0.f));
+          *reinterpret_cast<__nv_bfloat162*>(dst + (f.g + 8 * h) * pitch + col) = v;
+          const uint32_t b0 = __bfloat162float(v.x) > 0.f, b1 = __bfloat162float(v.y) > 0.f;
+          bits[h] |= (b0 | (b1 << 1)) << (8 * jj + 2 * f.tig);
+        }
+      }
+    }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      __nv_bfloat162 p;
-      p.x = __float2bfloat16_rn(fmaxf(acc[4 * j + 2 * h] + __bfloat162float(b.x), 0.f));
-      p.y = __float2bfloat16_rn(fmaxf(acc[4 * j + 2 * h + 1] + __bfloat162float(b.y), 0.f));
-      v[2 * j + h] = p;
-      *reinterpret_cast<__nv_bfloat162*>(dst + (f.g + 8 * h) * pitch + col) = p;
+      bits[h] |= __shfl_xor_sync(0xffffffffu, bits[h], 1);
+      bits[h] |= __shfl_xor_sync(0xffffffffu, bits[h], 2);
+      if (f.tig == 0) masks[(f.g + 8 * h) * words + mask_col / 32 + q] = bits[h];
     }
   }
-  set_masks<NC>(v, masks, words, mask_col, f);
-  __syncwarp();
   store_warp_rows(dst, pitch, NC, g_dst, ld, nr);
 }
 
 // Backward epilogue of a masked layer: d = bf16(mask ? acc : 0) into the
-// warp's rows of `dst` (columns dst_col on) and the workspace, and its
-// column sums into the bias partials.
+// warp's rows of `dst` and the workspace, and its column sums into the bias
+// partials, per group of 64 columns (so that the sums of at most 16
+// columns a lane are held at once).
 template <int NC>
 __device__ __forceinline__ void mask_epilogue(const float* acc, bf16* dst, int pitch,
                                               const uint32_t* masks, int words, int mask_col,
                                               bf16* g_dst, long long ld, int nr, float* part,
                                               int part_col, bool first, const Frag& f) {
-  float sums[NC / 4];
+  store_wait();
+  constexpr int CJ = NC / 8 < 8 ? NC / 8 : 8;
 #pragma unroll
-  for (int j = 0; j < NC / 8; ++j) {
-    const int col = 8 * j + 2 * f.tig;
-    sums[2 * j] = sums[2 * j + 1] = 0.f;
+  for (int c = 0; c < NC / 8 / CJ; ++c) {
+    float sums[2 * CJ];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint32_t word = masks[(f.g + 8 * h) * words + (mask_col + col) / 32];
-      const int bit = (mask_col + col) & 31;
-      __nv_bfloat162 p;
-      p.x = __float2bfloat16_rn((word >> bit) & 1u ? acc[4 * j + 2 * h] : 0.f);
-      p.y = __float2bfloat16_rn((word >> (bit + 1)) & 1u ? acc[4 * j + 2 * h + 1] : 0.f);
-      *reinterpret_cast<__nv_bfloat162*>(dst + (f.g + 8 * h) * pitch + col) = p;
-      sums[2 * j] += __bfloat162float(p.x);
-      sums[2 * j + 1] += __bfloat162float(p.y);
+    for (int jj = 0; jj < CJ; ++jj) {
+      const int j = c * CJ + jj, col = 8 * j + 2 * f.tig;
+      sums[2 * jj] = sums[2 * jj + 1] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t word = masks[(f.g + 8 * h) * words + (mask_col + col) / 32];
+        const int bit = (mask_col + col) & 31;
+        __nv_bfloat162 v;
+        v.x = __float2bfloat16_rn((word >> bit) & 1u ? acc[4 * j + 2 * h] : 0.f);
+        v.y = __float2bfloat16_rn((word >> (bit + 1)) & 1u ? acc[4 * j + 2 * h + 1] : 0.f);
+        *reinterpret_cast<__nv_bfloat162*>(dst + (f.g + 8 * h) * pitch + col) = v;
+        sums[2 * jj] += __bfloat162float(v.x);
+        sums[2 * jj + 1] += __bfloat162float(v.y);
+      }
     }
+    bias_sums<8 * CJ>(sums, part, part_col + 64 * c, first, f);
   }
-  bias_sums<NC>(sums, part, part_col, first, f);
-  __syncwarp();
   store_warp_rows(dst, pitch, NC, g_dst, ld, nr);
 }
 
@@ -679,6 +696,7 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a, 
     const long long left = P - row0;
     const int nr = left <= 0 ? 0 : (left >= 16 ? 16 : (int)left);
     int gi = 0;
+    store_wait();
     load_feat_rows(p, a.feat, row0, nr, act);
     __syncwarp();
     // recompute: trunk
@@ -765,12 +783,17 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a, 
       }
     }
   }
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");  // every store done
 }
 
 // Persistent: block b takes tiles b, b + gridDim.x, ...; warpgroups 0 and
-// 1 consume (16 rows a warp), warp 8 produces.  Roles as in
-// weight_grad_kernel (mlp_bwd.cuh): through a shuffle, never reconverging,
-// registers moved by setmaxnreg.
+// 1 consume (16 rows a warp), warp 8 of warpgroup 2 produces (its other
+// warps idle).  Roles as in weight_grad_kernel (mlp_bwd.cuh): through a
+// shuffle, so that the compiler sees them uniform over each warp, never
+// reconverging, registers moved by setmaxnreg from the producer's
+// warpgroup (40 a thread) to the consumers' (232): a 256-column product
+// keeps 128 fp32 accumulators a thread, and short of registers ptxas
+// serializes the wgmma (C7512).
 template <bool SHADED>
 __global__ void __launch_bounds__(PT_THREADS, 1)
     mlp_points_kernel(const __grid_constant__ MLPParams p, const __grid_constant__ PtArgs a,

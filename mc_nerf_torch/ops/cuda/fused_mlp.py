@@ -288,6 +288,19 @@ def _weight_grad(x: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
     return x.t() @ d
 
 
+def _bias_grad(d: torch.Tensor) -> torch.Tensor:
+    """One layer's bias gradient summed over the points: [1, N]."""
+    return d.sum(0, keepdim=True)
+
+
+def _trunk_masks(xins, h_last, widths):
+    """Each trunk layer's ReLU mask from its bf16 output: layer li's output
+    is the hidden lanes of layer li + 1's input (the last layer's, h_last)."""
+    depth = len(xins)
+    return [(xins[li + 1][:, -widths[li]:] if li + 1 < depth else h_last) > 0
+            for li in range(depth)]
+
+
 def mlp_bwd_plain(ws, xins, h_last, h1, dout32, depth: int, skips: Sequence[int]):
     """The heads and trunk backward of the Pallas backward bodies at their
     rounding points (``fused_render.py:401-436``, ``fused_mlp.py:495-531``,
@@ -303,20 +316,20 @@ def mlp_bwd_plain(ws, xins, h_last, h1, dout32, depth: int, skips: Sequence[int]
     W = [w.to(sd_t) for w in ws]
     dout_b = bf(dout32)
     d_hw1 = _weight_grad(h1, dout_b)
-    d_hb1 = dout32.sum(0, keepdim=True)
+    d_hb1 = _bias_grad(dout32)
     d_h1 = bf(torch.where(h1 > 0, dout_b @ W[depth + 1].t(), 0.0))
     d_hw0 = _weight_grad(h_last, d_h1)
-    d_hb0 = d_h1.sum(0, keepdim=True)
+    d_hb0 = _bias_grad(d_h1)
     d_h = d_h1 @ W[depth].t()
     e_lanes = xins[0].shape[1]
     d_feat = torch.zeros_like(xins[0])
     dws: List[torch.Tensor] = [None] * depth
     dbs: List[torch.Tensor] = [None] * depth
+    masks = _trunk_masks(xins, h_last, [w.shape[1] for w in W[:depth]])
     for li in reversed(range(depth)):
-        h_out = xins[li + 1][:, -W[li].shape[1]:] if li + 1 < depth else h_last
-        d_a = bf(torch.where(h_out > 0, d_h, 0.0))
+        d_a = bf(torch.where(masks[li], d_h, 0.0))
         dws[li] = _weight_grad(xins[li], d_a)
-        dbs[li] = d_a.sum(0, keepdim=True)
+        dbs[li] = _bias_grad(d_a)
         d_xin = d_a @ W[li].t()
         if li in skips:
             share, d_h = _split_skip_grad(d_xin, e_lanes)

@@ -22,8 +22,16 @@ from mc_nerf_torch.ops.cuda import fused_mlp as _fm
 from mc_nerf_torch.ops.cuda import fused_render as _fr
 
 _SUFFIX, _SPLIT, _SHADE = _fr._exclusive_suffix_sum, _fm._split_skip_grad, _fm._shade_grad
-_WGRAD = _fm._weight_grad
+_WGRAD, _BGRAD, _MASKS = _fm._weight_grad, _fm._bias_grad, _fm._trunk_masks
 WEIGHT_TILE = 64   # points per stage of the weight-gradient kernel (csrc/mlp_bwd.cuh WKT)
+POINTS_TILE = 128  # points per tile of the points stage (csrc/mlp_bwd_points.cuh)
+# A backward's weight and bias sums under last_tile_cotangent against the
+# plain version's (relative L2): with 64 points left, one bf16 rounding or
+# ReLU mask that falls the other way moves them more than a loss over all
+# points does, so the bound is its own: ~10x the largest measured on an
+# H100 over tests/test_torch_gpu.py's cases (dW 6.7e-3, db 5.1e-3, last
+# layer 2.7e-4, PERF.md); the plants land at exactly 1
+LAST_TILE_TOL = {"dW": 7e-2, "db": 7e-2, "last layer": 3e-3}
 
 
 def mse_cotangent(ray_out: torch.Tensor, far: float) -> torch.Tensor:
@@ -159,6 +167,31 @@ def weight_stage_bytes(enc: int, depth: int, width: int, skips, head0: int,
     jobs += [(width, head0), (head0, 32)]
     # each job's [m, n] block of the flat dW is written once, in fp32
     return sum(2 * (m + n) * points + 4 * m * n for m, n in jobs)
+
+
+def _masks_shifted(xins, h_last, widths):
+    m = _MASKS(xins, h_last, widths)
+    return [m[max(li - 1, 0)] for li in range(len(m))]
+
+
+def _bias_last_tile_dropped(d: torch.Tensor) -> torch.Tensor:
+    keep = (d.shape[0] - 1) // POINTS_TILE * POINTS_TILE
+    return _BGRAD(d[:keep])
+
+
+def planted_points(fn, args, ref) -> Dict[str, Dict[str, float]]:
+    """The points stage's own plants on the plain backward ``fn`` (K5's or
+    K6's) at ``args``: each trunk layer l > 0 masked with layer l - 1's
+    ReLU mask, and every bias gradient without the points of the last
+    128-point tile (the ragged one where the count is not a multiple of
+    it), the partials a persistent tile loop most often drops.  The
+    second shows at any point count under :func:`last_tile_cotangent`."""
+    with mock.patch.object(_fm, "_trunk_masks", _masks_shifted):
+        shifted = bwd_errs(fn(*args), ref)
+    with mock.patch.object(_fm, "_bias_grad", _bias_last_tile_dropped):
+        dropped = bwd_errs(fn(*args), ref)
+    return {"a layer masked with the one below's": shifted,
+            "bias partials of the last tile dropped": dropped}
 
 
 def needed_macs(nc, depth: int, width: int, skips, sigma_only: bool) -> int:

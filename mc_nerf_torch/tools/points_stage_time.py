@@ -133,9 +133,16 @@ def main() -> None:
     trees = [ROOT] + [Path(t).resolve() for t in args.against]
     builds = [subprocess.Popen([sys.executable, "-c",
                                 "from mc_nerf_torch.ops.cuda import _build; _build.build_all()"],
-                               cwd=t, env={**os.environ, "PYTHONPATH": str(t)}) for t in trees]
-    if any(b.wait() for b in builds):
-        raise SystemExit("points_stage_time: a checkout's kernels did not build")
+                               cwd=t, env={**os.environ, "PYTHONPATH": str(t)},
+                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+              for t in trees]
+    logs = [b.communicate()[0] for b in builds]
+    failed = [(t, log) for t, b, log in zip(trees, builds, logs) if b.returncode]
+    for t, log in failed:
+        print(f"points_stage_time: {t} did not build, left out:\n{log[-3000:]}", flush=True)
+    if any(t == ROOT for t, _ in failed):
+        raise SystemExit("points_stage_time: this tree's kernels did not build")
+    trees = [t for t in trees if t not in {f for f, _ in failed}]
     bounds = _bounds()
     order = trees + trees[::-1] if len(trees) > 1 else trees
     runs = []

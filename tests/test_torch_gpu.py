@@ -51,13 +51,16 @@ from mc_nerf_torch.ops.cuda.fused_render import (
 )
 from mc_nerf_torch.tools.bwd_check import (
     WEIGHT_TILE,
+    LAST_TILE_TOL,
     bwd_errs,
+    last_tile_cotangent,
     mlp_cotangent,
     mse_cotangent,
     planted_errs,
     planted_errs_mlp,
     planted_errs_shaded,
     planted_last_tile,
+    planted_points,
     rel_l2,
     shaded_cotangent,
 )
@@ -519,22 +522,29 @@ WEIGHT_EDGES = {"render": [(50, 20), (256, 32), (34, 241), (7000, 32)],
                 "mlp": [(1000, 1), (8192, 1), (8193, 1), (224000, 1)]}
 
 
-def _weight_edge_case(kind, cfg, coarse, rays, s, device):
-    """(kernel, plain version, args, tolerances) of one backward."""
+def _weight_edge_case(kind, cfg, coarse, rays, s, device, last_tile=False):
+    """(kernel, plain version, args, tolerances) of one backward; with
+    ``last_tile`` its cotangent is zero outside the last 64-point tile
+    (``tools/bwd_check.last_tile_cotangent``; for K3 outside the rays that
+    reach it)."""
     if kind == "render":
-        return (fused_render_bwd, fused_render_bwd_plain,
-                _bwd_case(cfg, coarse, s, rays, True, device)[1], BWD_TOL)
+        args = list(_bwd_case(cfg, coarse, s, rays, True, device)[1])
+        if last_tile:
+            args[6] = last_tile_cotangent(args[6], s)
+        return fused_render_bwd, fused_render_bwd_plain, tuple(args), BWD_TOL
     nc, mlp, depth, skips = _pass(cfg, coarse)
     packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
     feat, basis16, nb = _shaded_inputs(nc, rays, s, device)
     ws, bs = _flat_weights(packed)
+    cut = last_tile_cotangent if last_tile else (lambda d: d)
     if kind == "shaded":
         out8 = fused_shaded_mlp_plain(packed, feat, basis16, depth, skips, s, nb)
         return (fused_shaded_mlp_bwd, fused_shaded_mlp_bwd_plain,
-                (ws, bs, feat, basis16, shaded_cotangent(out8, s), depth, skips, s, nb),
+                (ws, bs, feat, basis16, cut(shaded_cotangent(out8, s)), depth, skips, s, nb),
                 SHADED_BWD_TOL)
     return (fused_mlp_bwd, fused_mlp_bwd_plain,
-            (ws, bs, feat, mlp_cotangent(mlp_plain(packed, feat, depth, skips)), depth, skips),
+            (ws, bs, feat, cut(mlp_cotangent(mlp_plain(packed, feat, depth, skips))), depth,
+             skips),
             MLP_BWD_TOL)
 
 
@@ -548,14 +558,18 @@ def test_weight_stage_edges(cuda, kind, cfg, coarse, edge):
     in both configs (narrow: 56-byte encode rows, the element path): the
     outputs of ``launch_weight_grads`` (every dW, every db, the last
     layer's) within their unchanged tolerances.  dfeat and dbasis come from
-    the points kernels, which this stage leaves as they are; the tests
-    above hold them (at 256 x 32 and more, K3's narrow fine dbasis lands
-    above its tolerance, set at smaller shapes: a points-stage matter).
-    The planted fault ``planted_last_tile`` (dW without the last 64-point
-    tile) must land outside them where that tile holds 1/200 of the points
-    or more (1000 and 8192 points); one point past a whole tile, or 64 of
-    224,000, moves dW by 1e-4 to 3e-4, below the default config's
-    deep-trunk tolerances: printed there."""
+    the points kernels, which the tests above hold.  The planted fault
+    ``planted_last_tile`` (dW without the last 64-point tile) must land
+    outside them where that tile holds 1/200 of the points or more (1000
+    and 8192 points); one point past a whole tile, or 64 of 224,000, moves
+    dW by 1e-4 to 3e-4 under a loss over all points, below the default
+    config's deep-trunk tolerances: printed there.  So at 8193 (K3: 8194)
+    and 224,000 points the stage is held again under a cotangent zero
+    outside the last tile, where dW comes from that tile alone: within
+    ``LAST_TILE_TOL``, and the plant at 2x it or more.  Not for K3 at 8194
+    = 34 x 241: its last tile is the last 2 samples of a 241-sample ray,
+    behind the ray's opacity, whose points carry no gradient at all (the
+    plant moves dW by ~1e-11 there: printed)."""
     rays, s = WEIGHT_EDGES[kind][edge]
     kernel, plain, args, tols = _weight_edge_case(kind, cfg, coarse, rays, s, cuda)
     k = kernel(*args)
@@ -572,6 +586,93 @@ def test_weight_stage_edges(cuda, kind, cfg, coarse, edge):
     assert all(errs[o] <= tol[o] for o in stage), errs
     if tail * 200 >= p:
         assert caught > 1.0, plant
+    if edge >= 2:
+        kernel, plain, args, tols = _weight_edge_case(kind, cfg, coarse, rays, s, cuda, True)
+        k = kernel(*args)
+        ref = plain(*args)
+        errs = {o: v for o, v in bwd_errs(k, ref).items() if o in stage}
+        plant = {o: v for o, v in planted_last_tile(plain, args, ref).items() if o in stage}
+        caught = max(plant[o] / LAST_TILE_TOL[o] for o in stage)
+        print(f"measured {kind} {cfg} P={p}, cotangent on the last tile only: "
+              + " ".join(f"{o} {v:.3e}" for o, v in errs.items())
+              + f"; the plant over tolerance {caught:.2f}")
+        assert all(errs[o] <= LAST_TILE_TOL[o] for o in stage), errs
+        if kind != "render" or edge == 3:
+            assert caught >= 2.0, plant
+
+
+# The points stage (csrc/mlp_bwd_points.cuh) of K5 and K6 at the edges of
+# its 128-point tiles and of its persistent grid (132 groups: 224,000 points
+# are 1,750 tiles, 13 or 14 a block)
+POINTS_EDGES = [1, 127, 128, 129, 4099, 224000]
+
+
+def _points_case(kind, cfg, coarse, p, device, last_tile=False):
+    """K5 (one ray of p samples) or K6 at p points: (kernel, plain, args,
+    tolerances of the pass).  K5's points go through the stage one by one
+    whatever their rays; the rays only group its dbasis sums.  At one
+    sample per ray, 4099 rays, the PR 5 kernel and this one alike land
+    above SHADED_BWD_TOL, which was measured at 7 samples a ray or more
+    (default coarse dW 2.8e-3, narrow fine dbasis 2.0e-4, the same bits in
+    both kernels; PERF.md)."""
+    rays, s = (1, p) if kind == "shaded" else (p, 1)
+    kernel, plain, args, tols = _weight_edge_case(kind, cfg, coarse, rays, s, device, last_tile)
+    return kernel, plain, args, tols[(cfg, "coarse" if coarse else "fine")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["shaded", "mlp"], ids=["K5", "K6"])
+@pytest.mark.parametrize("cfg", ["narrow", "default"])
+@pytest.mark.parametrize("coarse", [True, False], ids=["coarse", "fine"])
+@pytest.mark.parametrize("p", POINTS_EDGES)
+def test_points_stage_matches_plain(cuda, kind, cfg, coarse, p):
+    """K5 and K6 at the points stage's edges: every output within the
+    pass's tolerance of the plain backward, one launch counted, the
+    planted faults outside (the weight and point plants, the skip's dfeat
+    share, for K5 the sigmoid's derivative) and the points
+    stage's own: a trunk layer masked with the layer below's mask, at 2x
+    the tolerance or more."""
+    kernel, plain, args, tol = _points_case(kind, cfg, coarse, p, cuda)
+    before = kernel.launches
+    k = kernel(*args)
+    assert kernel.launches == before + 1
+    ref = plain(*args)
+    plants = planted_errs_shaded(args, ref) if kind == "shaded" else planted_errs_mlp(args, ref)
+    plants.pop("another ray's basis", None)   # K5 takes one ray here
+    own = planted_points(plain, args, ref)["a layer masked with the one below's"]
+    errs = bwd_errs(k, ref)
+    print(f"measured points stage {kind} {cfg} P={p}: "
+          + " ".join(f"{o} {v:.3e}" for o, v in errs.items())
+          + f"; wrong mask over tolerance {max(own[o] / tol[o] for o in own):.1f}")
+    _bwd_close(k, ref, (cfg, "coarse" if coarse else "fine"), plants,
+               SHADED_BWD_TOL if kind == "shaded" else MLP_BWD_TOL)
+    assert max(own[o] / tol[o] for o in own) >= 2.0, own
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["shaded", "mlp"], ids=["K5", "K6"])
+@pytest.mark.parametrize("cfg", ["narrow", "default"])
+@pytest.mark.parametrize("coarse", [True, False], ids=["coarse", "fine"])
+@pytest.mark.parametrize("p", [4099, 224000])
+def test_points_stage_last_tile(cuda, kind, cfg, coarse, p):
+    """Under a cotangent zero outside the last 64-point tile, K5's and K6's
+    weight and bias sums within ``LAST_TILE_TOL``, and the bias gradients
+    without the last 128-point tile (the partials a persistent tile loop
+    drops) and dW without the last 64-point tile both at 2x it or more."""
+    kernel, plain, args, _ = _points_case(kind, cfg, coarse, p, cuda, True)
+    k = kernel(*args)
+    ref = plain(*args)
+    tol = LAST_TILE_TOL
+    errs = {o: v for o, v in bwd_errs(k, ref).items() if o in tol}
+    caught = {"bias partials of the last tile dropped":
+              planted_points(plain, args, ref)["bias partials of the last tile dropped"],
+              "dW without the last tile": planted_last_tile(plain, args, ref)}
+    over = {n: max(e[o] / tol[o] for o in tol) for n, e in caught.items()}
+    print(f"measured points stage {kind} {cfg} P={p}, last tile only: "
+          + " ".join(f"{o} {v:.3e}" for o, v in errs.items())
+          + "; plants over tolerance " + " ".join(f"{n}: {r:.1f}" for n, r in over.items()))
+    assert all(errs[o] <= tol[o] for o in errs), errs
+    assert all(r >= 2.0 for r in over.values()), over
 
 
 @pytest.mark.gpu

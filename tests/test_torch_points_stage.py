@@ -35,6 +35,7 @@ from mc_nerf_torch.tools.bwd_check import (
     last_tile_cotangent,
     mlp_cotangent,
     planted_last_tile,
+    planted_points,
     points_stage_bytes,
     points_stage_images,
     shaded_cotangent,
@@ -148,6 +149,24 @@ def test_last_tile_plant_is_caught_at_any_size(kind, coarse, rays, s):
     assert errs["dW"] == pytest.approx(1.0) and errs["last layer"] == pytest.approx(1.0)
     assert errs["db"] == 0.0 and errs["dfeat"] == 0.0
     assert bwd_errs(ref, ref)["dW"] == 0.0
+
+
+@pytest.mark.parametrize("kind,coarse,rays,s", [("shaded", False, 2731, 3), ("mlp", True, 8193, 1)],
+                         ids=["K5-fine-8193", "K6-coarse-8193"])
+def test_points_plants(kind, coarse, rays, s):
+    """The points stage's plants through the plain versions, under a
+    cotangent zero outside the last 64-point tile: the bias gradients
+    without the last 128-point tile are all zero (relative error exactly
+    1 on db and the last layer), nothing else moves; a trunk layer masked
+    with the mask of the layer below moves dW, db and dfeat."""
+    fn, args = _case(kind, coarse, rays, s)
+    ref = fn(*args)
+    plants = planted_points(fn, args, ref)
+    dropped = plants["bias partials of the last tile dropped"]
+    assert dropped["db"] == pytest.approx(1.0) and dropped["last layer"] == pytest.approx(1.0)
+    assert dropped["dW"] == 0.0 and dropped["dfeat"] == 0.0
+    shifted = plants["a layer masked with the one below's"]
+    assert min(shifted["dW"], shifted["db"], shifted["dfeat"]) > 1e-2
 
 
 def test_depth_colormap_matches_the_jax_package():
