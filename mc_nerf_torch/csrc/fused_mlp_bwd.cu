@@ -81,14 +81,15 @@ static int run_points(bool shaded, const MLPParams& p, const FlatPlan& f, const 
   int err = cudaGetDevice(&dev);
   if (!err) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err) return err;
-  a.slab = pt_slab_bytes(p, f.nch);
-  const long long room = (long long)limit - (long long)PT_WARPS * a.slab - 16 * PT_MAX_STAGES;
+  a.half = pt_half_bytes(p, f.nch, &a.h1_off, &a.mask_off);
+  a.ep = pt_ep(p);
+  const long long slabs = (long long)PT_WARPS * 2 * a.half;
+  const long long room = (long long)limit - slabs - 16 * PT_MAX_STAGES;
   a.nst = (int)(room / PT_STAGE < PT_MAX_STAGES ? room / PT_STAGE : PT_MAX_STAGES);
   if (a.nst < 2) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)a.nst * PT_STAGE + (size_t)PT_WARPS * a.slab + 16 * a.nst;
+  const size_t smem = (size_t)a.nst * PT_STAGE + (size_t)slabs + 16 * a.nst;
   a.tiles = (a.points + TILE_M - 1) / TILE_M;
   a.nch = f.nch;
-  a.dbuf_pitch = p.head0 + 8;
   a.mask_words = (p.depth * p.width + p.head0) / 32;
   a.nbias = f.L.nbias;
   unsigned char* img = const_cast<unsigned char*>(a.img);

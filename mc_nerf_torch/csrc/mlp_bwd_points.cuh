@@ -14,26 +14,29 @@
 //
 // Design (one persistent block of 384 threads per SM):
 //  * Rows are independent.  Each of the eight consumer warps owns 16 rows
-//    of the tile through every product, from the recompute to dfeat, and
-//    keeps them in its own slab of shared memory (below).  The A operand of
-//    every product comes from the warp's own rows by ldmatrix, so no block
-//    barrier sits anywhere in the tile loop: a __syncwarp orders a layer's
-//    epilogue before the next layer's loads.
+//    of the tile through every product, from the recompute to dfeat, in its
+//    own slab of shared memory; a warpgroup's four slabs form the 64-row A
+//    operand of its wgmma, read from shared memory in the K-major
+//    core-matrix layout (each 8 x 8 block of bf16 128 contiguous bytes, the
+//    blocks of a row group along K 128 bytes apart, the row groups one
+//    half-slab apart).  A warpgroup barrier after each epilogue is the only
+//    synchronization in the tile loop; no block barrier.
 //  * Weights as pre-tiled images.  weight_images_kernel writes every B
 //    operand of the tile's schedule once per call into the workspace, each
 //    32-row K tile already in wgmma's no-swizzle MN-major layout: the
 //    recompute's W and the backward's W^T alike, the skip layers' zero gap
 //    rows and the rows past K as zeros.  So one primitive (ring_gemm) serves
-//    both directions, and a stage is one contiguous bulk copy.
-//  * A ring of NST stages of 16 KB fed by TMA bulk copies
-//    (cp.async.bulk ... mbarrier::complete_tx) from one producer warp, which
-//    walks the same schedule, tile after tile, as far ahead as the ring
-//    allows.  Consumer warpgroups (64 rows each) issue two wgmma per stage
-//    (A from registers, double-buffered so that the next stage's ldmatrix
-//    does not overwrite the operands of the product in flight) and wait
-//    with wait_group 1, so one product is in flight while the next stage is
-//    awaited; a stage is released to the producer once both warpgroups'
-//    products on it are done (its `empty` mbarrier counts two arrivals).
+//    both directions, and a ring slot is one contiguous bulk copy.
+//  * A ring of NST slots of 16 KB (up to 8 consecutive K tiles of a narrow
+//    product in one slot) fed by TMA bulk copies (cp.async.bulk ...
+//    mbarrier::complete_tx) from one producer warp, which walks the same
+//    schedule, tile after tile, as far ahead as the ring allows.  Consumer
+//    warpgroups (64 rows each) issue two wgmma per K tile and wait with
+//    wait_group 1, so one product is in flight while the next is issued (A
+//    comes from shared memory, so no operand register of a product in
+//    flight is rewritten); a slot goes back to the producer once both
+//    warpgroups' products on it are done (its `empty` mbarrier counts two
+//    arrivals).
 //  * ReLU masks as bits in shared memory: the recompute's epilogues set one
 //    bit per activation (bf16 > 0) for every trunk layer and head layer 0;
 //    the backward's epilogues read them.  No activation is read back from
@@ -41,8 +44,8 @@
 //  * The packed output's cotangent stays in registers: the head-1 products
 //    accumulate into 16 fp32 registers a thread, the shading backward (K5)
 //    works on that fragment with quad shuffles, and the bf16 dout becomes
-//    the A operand of d_h1's product as it stands (the wgmma accumulator
-//    layout of an 8-column block is the A layout of a k16 slice).
+//    the A operand of d_h1's product as it stands (the accumulator layout
+//    of an 8-column block is the register A layout of a k16 slice).
 //  * Bias partials from registers in a fixed order: the warp's 16 rows are
 //    summed by a reduce-scatter shuffle butterfly (each lane ends with a
 //    few columns), then added to the warp's own row of the partials
@@ -52,21 +55,20 @@
 //    tiles b, b + G, ...; the partial rows, and which tiles feed each, come
 //    from the shapes and compile-time constants only, so the result has the
 //    same bits on any card.
-//  * Workspace stores: each warp copies its rows of a layer from shared
-//    memory with 16-byte stores right after the epilogue, and goes on to the
-//    next product without waiting for them.
+//  * Workspace stores: after each epilogue the warp copies its rows from
+//    shared memory with 16-byte stores, eight lanes on one 128-byte block.
 //
-// Shared memory (bytes; a slab per consumer warp, 16 rows):
-//   forward:  act [16][enc_pad + width + 8] + h1 [16][nch + 8]   (bf16)
-//   backward: dbuf [16][head0 + 8] (bf16), overlapping the forward's
-//   masks:    [16][(depth * width + head0) / 32] words, kept from the
+// Shared memory (bytes; a half-slab holds 8 rows, a warp's slab two):
+//   forward:  act [ep + width] + h1 [nch] columns x 16 bytes (bf16, 8 rows)
+//   backward: dbuf [head0] columns x 16 bytes, overlapping the forward's
+//   masks:    8 rows x (depth * width + head0) / 32 words, kept from the
 //             recompute to the backward
 //   ring:     NST x 16 KB, and 2 x NST mbarriers
-// At the fine 8x256 pack (enc_pad 64, head0 512, nch 128): slab
-// max(14,848, 16,640) + 5,120 = 21,760, 8 slabs 174,080, ring 3 x 16,384:
-// 223,232 of the 232,448 a block may have.  At the coarse 4x128 full pack
-// (head0 256, nch 256): slab 14,848 + 1,536 = 16,384, 8 slabs 131,072,
-// ring 4 x 16,384: 196,608.
+// ep is the encode padded to 32.  At the fine 8x256 pack (ep 64, head0 512,
+// nch 128): half-slab max(7,168, 8,192) + 2,560 = 10,752, 16 of them
+// 172,032, ring 3 x 16,384: 221,216 of the 232,448 a block may have.  At
+// the coarse 4x128 full pack (head0 256, nch 256): half-slab 7,168 + 768 =
+// 7,936, 16 of them 126,976, ring 6 x 16,384: 225,376.
 //
 // Bound (H100 SXM): the recompute and dX products need 2 x 629,248 MAC a
 // point at the fine pack (2.3 ms of tensor-core time at 7000 x 130 points),
@@ -84,6 +86,59 @@ constexpr int PT_STAGE = KT * NC_MAX * 2;  // bytes of one ring slot (32 K rows 
 constexpr int PT_MAX_STAGES = 6;
 constexpr int PT_MAX_GEMMS = 64;
 constexpr int GROUP_ROWS = PT_WARPS;       // bias-partial rows per group
+
+// wgmma with both operands in shared memory, A K-major and B MN-major,
+// neither swizzled (imm-trans-a 0, imm-trans-b 1): A is the warpgroup's 64
+// rows of an activation buffer in the core-matrix layout below, B a ring
+// slot of a weight image.
+__device__ __forceinline__ void wgmma_ss_ka_32(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_ka_64(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_ka_128(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_ka_256(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]), "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss_ka(float* d, uint64_t da, uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "wgmma_ss_ka: N");
+  if constexpr (N == 32) wgmma_ss_ka_32(d, da, db);
+  else if constexpr (N == 64) wgmma_ss_ka_64(d, da, db);
+  else if constexpr (N == 128) wgmma_ss_ka_128(d, da, db);
+  else wgmma_ss_ka_256(d, da, db);
+}
 
 // One product of the tile's schedule, as the producer and the consumers see
 // it: k_tiles stages of 32 K rows x nc columns, the first at `off` bytes
@@ -124,8 +179,10 @@ struct PtArgs {
   Workspace ws;
   long long points, tiles;
   int s, nb, nbias, nch, nst;
-  int slab;              // bytes of one warp's slab
-  int dbuf_pitch, mask_words;
+  int ep;                // encode lanes padded to 32: the act buffer's feature columns
+  int half;              // bytes of one half-slab (8 rows; a warp's slab holds two)
+  int h1_off, mask_off;  // offsets in a half-slab (act and dbuf at 0)
+  int mask_words;
 };
 
 // ------------------------------------------------------------ the images
@@ -214,12 +271,15 @@ __device__ void pt_produce(const PtSchedule& sc, const unsigned char* img, long 
     }
 }
 
-// One stage's two k16 products: acc += a (two A fragments) x the slot.
+// One K tile's two k16 products: acc += A (the warpgroup's rows at
+// a_addr, K-major, 8-row groups `half` bytes apart) x the slot's rows.
 template <int NC>
-__device__ __forceinline__ void stage_mma(float* acc, const uint32_t* a, uint32_t slot) {
+__device__ __forceinline__ void stage_mma(float* acc, uint32_t a_addr, uint32_t half,
+                                          uint32_t slot) {
   wgmma_fence();
-  wgmma_rs<NC>(acc, a, make_desc(slot, NC * 16, 128));
-  wgmma_rs<NC>(acc, a + 4, make_desc(slot + 2 * NC * 16, NC * 16, 128));
+  wgmma_ss_ka<NC>(acc, make_desc(a_addr, 128, half), make_desc(slot, NC * 16, 128));
+  wgmma_ss_ka<NC>(acc, make_desc(a_addr + 256, 128, half),
+                  make_desc(slot + 2 * NC * 16, NC * 16, 128));
   wgmma_commit();
 }
 
@@ -228,12 +288,13 @@ __device__ __forceinline__ void stage_mma(float* acc, const uint32_t* a, uint32_
 // the slot that tile closed (the warpgroup's lead thread arrives); a slot
 // this tile closes is released by the next call or the product's end.
 template <int NC>
-__device__ __forceinline__ void k_step(float* acc, const uint32_t* a, int kt, int k_tiles,
-                                       Ring& rg, int& pending, bool lead) {
+__device__ __forceinline__ void k_step(float* acc, uint32_t a_addr, uint32_t half, int kt,
+                                       int k_tiles, Ring& rg, int& pending, bool lead) {
   constexpr int PER = tiles_per_slot(NC);
   const int j = kt % PER;
   if (j == 0) mbar_wait(rg.full + rg.stage, rg.phase);
-  stage_mma<NC>(acc, a, smem_u32(rg.slots + (size_t)rg.stage * PT_STAGE) + j * KT * NC * 2);
+  stage_mma<NC>(acc, a_addr, half,
+                smem_u32(rg.slots + (size_t)rg.stage * PT_STAGE) + j * KT * NC * 2);
   wgmma_wait<1>();
   if (pending >= 0 && lead) mbar_arrive(rg.empty + pending);
   pending = -1;
@@ -243,41 +304,21 @@ __device__ __forceinline__ void k_step(float* acc, const uint32_t* a, int kt, in
   }
 }
 
-// The warp's A fragments of K columns [k0, k0 + 32) (zero for a second
-// k16 half past K) from its 16 rows at `a` (the lane's ldmatrix address).
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* a_lane, int k0, int K) {
-  ldsm_x4(a, a_lane + k0);
-  if (k0 + 16 < K) {
-    ldsm_x4(a + 4, a_lane + k0 + 16);
-  } else {
-    a[4] = a[5] = a[6] = a[7] = 0u;
-  }
-}
-
-// acc[16 rows of the warp x NC] = A[rows, a_col + k] x B_g[k, n] over the
-// product's K (its stages from the ring), A from the warp's rows of a
-// shared buffer (pitch in elements).  On return every product is done and
-// every slot released.
+// acc[the warpgroup's 64 rows x NC] = A[rows, k] x B_g[k, n] over the
+// product's K (a multiple of 32; its stages from the ring), A the columns
+// from a_addr on of a K-major buffer (32 columns = 512 bytes).  One product
+// stays in flight while the next is issued (wait_group 1): A is read from
+// shared memory, so no register of a product in flight is rewritten.  On
+// return every product is done and every slot released.
 template <int NC>
-__device__ __forceinline__ void ring_gemm(const PtGemm& G, int K, const bf16* a_rows,
-                                          int a_pitch, int a_col, float* acc, Ring& rg) {
-  const int lane = threadIdx.x & 31;
+__device__ __forceinline__ void ring_gemm(const PtGemm& G, uint32_t a_addr, uint32_t half,
+                                          float* acc, Ring& rg) {
   const bool lead = (threadIdx.x & 127) == 0;
-  const bf16* a_lane =
-      a_rows + ((lane & 7) + ((lane >> 3) & 1) * 8) * a_pitch + a_col + (lane >> 4) * 8;
 #pragma unroll
   for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
-  uint32_t a0[8], a1[8];
   int pending = -1;
-  load_a(a0, a_lane, 0, K);
-  for (int kt = 0; kt < G.k_tiles; kt += 2) {
-    k_step<NC>(acc, a0, kt, G.k_tiles, rg, pending, lead);
-    if (kt + 1 < G.k_tiles) {
-      load_a(a1, a_lane, (kt + 1) * KT, K);
-      k_step<NC>(acc, a1, kt + 1, G.k_tiles, rg, pending, lead);
-      if (kt + 2 < G.k_tiles) load_a(a0, a_lane, (kt + 2) * KT, K);
-    }
-  }
+  for (int kt = 0; kt < G.k_tiles; ++kt)
+    k_step<NC>(acc, a_addr + kt * 512, half, kt, G.k_tiles, rg, pending, lead);
   wgmma_wait<0>();
   if (lead) mbar_arrive(rg.empty + pending);
 }
@@ -290,7 +331,11 @@ __device__ __forceinline__ void ring_gemm_regs(const uint32_t* a, float* acc, Ri
 #pragma unroll
   for (int i = 0; i < NC / 2; ++i) acc[i] = 0.f;
   mbar_wait(rg.full + rg.stage, rg.phase);
-  stage_mma<NC>(acc, a, smem_u32(rg.slots + (size_t)rg.stage * PT_STAGE));
+  const uint32_t slot = smem_u32(rg.slots + (size_t)rg.stage * PT_STAGE);
+  wgmma_fence();
+  wgmma_rs<NC>(acc, a, make_desc(slot, NC * 16, 128));
+  wgmma_rs<NC>(acc, a + 4, make_desc(slot + 2 * NC * 16, NC * 16, 128));
+  wgmma_commit();
   wgmma_wait<0>();
   if (lead) mbar_arrive(rg.empty + rg.stage);
   rg.advance();
@@ -305,28 +350,30 @@ struct Frag {
   __device__ __forceinline__ Frag() : g((threadIdx.x & 31) >> 2), tig(threadIdx.x & 3) {}
 };
 
-// Copy the warp's first nr rows x ncols (a multiple of 8) of a bf16 shared
-// buffer to global rows of `ld` elements with TMA bulk copies, one row a
-// lane, and go on: the copies read shared memory while the next product
-// runs.  store_wait() before the buffer is written again.
-__device__ __forceinline__ void store_warp_rows(const bf16* src, int pitch, int ncols, bf16* dst,
-                                                long long ld, int nr) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // the rows, to the async proxy
-  __syncwarp();
-  const int r = threadIdx.x & 31;
-  if (r < nr) {
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst + r * ld),
-                 "r"(smem_u32(src + r * pitch)), "r"(ncols * 2)
-                 : "memory");
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+// Copy the warp's first nr rows x ncols (a multiple of 8) of a buffer in
+// the core-matrix layout (buf: its first half-slab; row r at half r / 8,
+// 16-byte chunk c of it at c * 128 + (r % 8) * 16) to global rows of `ld`
+// elements, 16 bytes a lane: eight lanes take one chunk of eight rows (128
+// contiguous bytes of shared memory), and each row gets 64 bytes per
+// instruction.
+__device__ __forceinline__ void store_core_rows(const unsigned char* buf, int half, int ncols,
+                                                bf16* dst, long long ld, int nr) {
+  const int chunks = ncols >> 3;
+  for (int idx = threadIdx.x & 31; idx < 16 * chunks; idx += 32) {
+    const int r8 = idx & 7, rest = idx >> 3;
+    const int c = rest % chunks, hh = rest / chunks, r = 8 * hh + r8;
+    if (r < nr)
+      *reinterpret_cast<uint4*>(dst + r * ld + c * 8) =
+          *reinterpret_cast<const uint4*>(buf + hh * half + c * 128 + r8 * 16);
   }
 }
 
-// Wait until this lane's bulk stores have read their shared rows, and let
-// the warp write them again.
-__device__ __forceinline__ void store_wait() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-  __syncwarp();
+// The warpgroup's A rows, written by its four warps, visible to its next
+// wgmma: each thread's writes to the async proxy, then a barrier of the
+// warpgroup's 128 threads (named barrier 1 + warpgroup).
+__device__ __forceinline__ void wg_sync() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + ((int)threadIdx.x >> 7)) : "memory");
 }
 
 // The warp's column sums of one product's output (per lane: v[2 j + e] =
@@ -377,16 +424,22 @@ __device__ __forceinline__ void bias_sums(float* v, float* part, int col0, bool 
   }
 }
 
+// Where the lane's fragment element (row g + 8 h, columns 8 j + 2 tig, +1)
+// lives in a core-matrix buffer (buf: its first half-slab).
+__device__ __forceinline__ unsigned char* frag_at(unsigned char* buf, int half, int j, int h,
+                                                  const Frag& f) {
+  return buf + h * half + j * 128 + f.g * 16 + f.tig * 4;
+}
+
 // Recompute epilogue of a ReLU layer: bf16(relu(acc + bias)) into the
-// warp's rows of `dst`, its mask bits (per 32 columns: the lane's bits,
-// or-ed over the quad), then the rows to the workspace.  Written per group
-// of 32 columns, so that no second copy of the fragment is held.
+// warp's rows of the buffer at `buf`, its mask bits (per 32 columns: the
+// lane's bits, or-ed over the quad; word w of fragment row g + 8 h at
+// masks + h * half + g * 4 words + 4 w), then the rows to the workspace.
 template <int NC>
 __device__ __forceinline__ void relu_epilogue(const float* acc, const bf16* __restrict__ bias,
-                                              bf16* dst, int pitch, uint32_t* masks, int words,
-                                              int mask_col, bf16* g_dst, long long ld, int nr,
-                                              const Frag& f) {
-  store_wait();
+                                              unsigned char* buf, int half, unsigned char* masks,
+                                              int words, int mask_col, bf16* g_dst, long long ld,
+                                              int nr, const Frag& f) {
 #pragma unroll
   for (int q = 0; q < (NC + 31) / 32; ++q) {
     uint32_t bits[2] = {0u, 0u};
@@ -394,14 +447,13 @@ __device__ __forceinline__ void relu_epilogue(const float* acc, const bf16* __re
     for (int jj = 0; jj < 4; ++jj) {
       const int j = 4 * q + jj;
       if (j < NC / 8) {
-        const int col = 8 * j + 2 * f.tig;
-        const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(bias + col);
+        const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(bias + 8 * j + 2 * f.tig);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           __nv_bfloat162 v;
           v.x = __float2bfloat16_rn(fmaxf(acc[4 * j + 2 * h] + __bfloat162float(b.x), 0.f));
           v.y = __float2bfloat16_rn(fmaxf(acc[4 * j + 2 * h + 1] + __bfloat162float(b.y), 0.f));
-          *reinterpret_cast<__nv_bfloat162*>(dst + (f.g + 8 * h) * pitch + col) = v;
+          *reinterpret_cast<__nv_bfloat162*>(frag_at(buf, half, j, h, f)) = v;
           const uint32_t b0 = __bfloat162float(v.x) > 0.f, b1 = __bfloat162float(v.y) > 0.f;
           bits[h] |= (b0 | (b1 << 1)) << (8 * jj + 2 * f.tig);
         }
@@ -411,45 +463,51 @@ __device__ __forceinline__ void relu_epilogue(const float* acc, const bf16* __re
     for (int h = 0; h < 2; ++h) {
       bits[h] |= __shfl_xor_sync(0xffffffffu, bits[h], 1);
       bits[h] |= __shfl_xor_sync(0xffffffffu, bits[h], 2);
-      if (f.tig == 0) masks[(f.g + 8 * h) * words + mask_col / 32 + q] = bits[h];
+      if (f.tig == 0)
+        reinterpret_cast<uint32_t*>(masks + h * half)[f.g * words + mask_col / 32 + q] = bits[h];
     }
   }
-  store_warp_rows(dst, pitch, NC, g_dst, ld, nr);
+  __syncwarp();
+  store_core_rows(buf, half, NC, g_dst, ld, nr);
+  wg_sync();
 }
 
 // Backward epilogue of a masked layer: d = bf16(mask ? acc : 0) into the
-// warp's rows of `dst` and the workspace, and its column sums into the bias
-// partials, per group of 64 columns (so that the sums of at most 16
-// columns a lane are held at once).
+// warp's rows of the buffer at `buf` and the workspace, and its column sums
+// into the bias partials, per group of 64 columns (so that the sums of at
+// most 16 columns a lane are held at once).
 template <int NC>
-__device__ __forceinline__ void mask_epilogue(const float* acc, bf16* dst, int pitch,
-                                              const uint32_t* masks, int words, int mask_col,
-                                              bf16* g_dst, long long ld, int nr, float* part,
-                                              int part_col, bool first, const Frag& f) {
-  store_wait();
+__device__ __forceinline__ void mask_epilogue(const float* acc, unsigned char* buf, int half,
+                                              const unsigned char* masks, int words,
+                                              int mask_col, bf16* g_dst, long long ld, int nr,
+                                              float* part, int part_col, bool first,
+                                              const Frag& f) {
   constexpr int CJ = NC / 8 < 8 ? NC / 8 : 8;
 #pragma unroll
   for (int c = 0; c < NC / 8 / CJ; ++c) {
     float sums[2 * CJ];
 #pragma unroll
     for (int jj = 0; jj < CJ; ++jj) {
-      const int j = c * CJ + jj, col = 8 * j + 2 * f.tig;
+      const int j = c * CJ + jj, col = mask_col + 8 * j + 2 * f.tig;
       sums[2 * jj] = sums[2 * jj + 1] = 0.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const uint32_t word = masks[(f.g + 8 * h) * words + (mask_col + col) / 32];
-        const int bit = (mask_col + col) & 31;
+        const uint32_t word =
+            reinterpret_cast<const uint32_t*>(masks + h * half)[f.g * words + col / 32];
+        const int bit = col & 31;
         __nv_bfloat162 v;
         v.x = __float2bfloat16_rn((word >> bit) & 1u ? acc[4 * j + 2 * h] : 0.f);
         v.y = __float2bfloat16_rn((word >> (bit + 1)) & 1u ? acc[4 * j + 2 * h + 1] : 0.f);
-        *reinterpret_cast<__nv_bfloat162*>(dst + (f.g + 8 * h) * pitch + col) = v;
+        *reinterpret_cast<__nv_bfloat162*>(frag_at(buf, half, j, h, f)) = v;
         sums[2 * jj] += __bfloat162float(v.x);
         sums[2 * jj + 1] += __bfloat162float(v.y);
       }
     }
     bias_sums<8 * CJ>(sums, part, part_col + 64 * c, first, f);
   }
-  store_warp_rows(dst, pitch, NC, g_dst, ld, nr);
+  __syncwarp();
+  store_core_rows(buf, half, NC, g_dst, ld, nr);
+  wg_sync();
 }
 
 // dfeat[row, col] (+)= acc for col < enc, rows below nr: a skip layer's
@@ -476,35 +534,35 @@ __device__ __forceinline__ void feat_epilogue(const float* acc, float* dfeat, in
 // Run ring_gemm at the product's width (32, 64, 128 or 256) and hand the
 // accumulators to `epi`.
 template <class Epi>
-__device__ __forceinline__ void gemm_at(int nc, const PtGemm& G, int K, const bf16* a_rows,
-                                        int a_pitch, int a_col, Ring& rg, const Epi& epi) {
+__device__ __forceinline__ void gemm_at(int nc, const PtGemm& G, uint32_t a_addr, uint32_t half,
+                                        Ring& rg, const Epi& epi) {
   switch (nc) {
-    case 256: { float acc[128]; ring_gemm<256>(G, K, a_rows, a_pitch, a_col, acc, rg); epi.template run<256>(acc); break; }
-    case 128: { float acc[64]; ring_gemm<128>(G, K, a_rows, a_pitch, a_col, acc, rg); epi.template run<128>(acc); break; }
-    case 64: { float acc[32]; ring_gemm<64>(G, K, a_rows, a_pitch, a_col, acc, rg); epi.template run<64>(acc); break; }
-    default: { float acc[16]; ring_gemm<32>(G, K, a_rows, a_pitch, a_col, acc, rg); epi.template run<32>(acc); break; }
+    case 256: { float acc[128]; ring_gemm<256>(G, a_addr, half, acc, rg); epi.template run<256>(acc); break; }
+    case 128: { float acc[64]; ring_gemm<128>(G, a_addr, half, acc, rg); epi.template run<128>(acc); break; }
+    case 64: { float acc[32]; ring_gemm<64>(G, a_addr, half, acc, rg); epi.template run<64>(acc); break; }
+    default: { float acc[16]; ring_gemm<32>(G, a_addr, half, acc, rg); epi.template run<32>(acc); break; }
   }
 }
 
 struct ReluEpi {
   const bf16* bias;
-  bf16* dst;
-  int pitch;
-  uint32_t* masks;
+  unsigned char* buf;
+  int half;
+  unsigned char* masks;
   int words, mask_col;
   bf16* g_dst;
   long long ld;
   int nr;
   template <int NC>
   __device__ __forceinline__ void run(const float* acc) const {
-    relu_epilogue<NC>(acc, bias, dst, pitch, masks, words, mask_col, g_dst, ld, nr, Frag());
+    relu_epilogue<NC>(acc, bias, buf, half, masks, words, mask_col, g_dst, ld, nr, Frag());
   }
 };
 
 struct MaskEpi2 {
-  bf16* dst;
-  int pitch;
-  const uint32_t* masks;
+  unsigned char* buf;
+  int half;
+  const unsigned char* masks;
   int words, mask_col;
   bf16* g_dst;
   long long ld;
@@ -514,7 +572,7 @@ struct MaskEpi2 {
   bool first;
   template <int NC>
   __device__ __forceinline__ void run(const float* acc) const {
-    mask_epilogue<NC>(acc, dst, pitch, masks, words, mask_col, g_dst, ld, nr, part, part_col,
+    mask_epilogue<NC>(acc, buf, half, masks, words, mask_col, g_dst, ld, nr, part, part_col,
                       first, Frag());
   }
 };
@@ -650,43 +708,48 @@ __device__ __forceinline__ void out_cotangent(const float* o, const PtArgs& a, l
   bias_sums<32>(sums, part, 0, first, f);
 }
 
-// A warp's rows [16 w, 16 w + 16) of feat rows [row0, row0 + 128) into its
-// act rows, lanes past enc and rows at or past nr zero.
+// The warp's 16 feat rows from row0 into the feature columns [0, ep) of
+// its act buffer (core-matrix layout, `act` its first half-slab), lanes
+// past enc and rows at or past nr zero.
 __device__ __forceinline__ void load_feat_rows(const MLPParams& p, const bf16* __restrict__ feat,
-                                               long long row0, int nr, bf16* act) {
-  const int lane = threadIdx.x & 31;
-  if (p.feat_vec) {
-    const int per_row = p.enc >> 3;
-    for (int idx = lane; idx < 16 * per_row; idx += 32) {
-      const int r = idx / per_row, c = idx - r * per_row;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (r < nr) v = *reinterpret_cast<const uint4*>(feat + (row0 + r) * p.enc + c * 8);
-      *reinterpret_cast<uint4*>(act + r * p.act_pitch + c * 8) = v;
+                                               long long row0, int nr, unsigned char* act,
+                                               int half, int ep) {
+  const int lane = threadIdx.x & 31, chunks = ep >> 3;
+  for (int idx = lane; idx < 16 * chunks; idx += 32) {
+    const int r8 = idx & 7, rest = idx >> 3;
+    const int c = rest % chunks, hh = rest / chunks, r = 8 * hh + r8;
+    __align__(16) bf16 v[8];
+    if (p.feat_vec && 8 * c < p.enc) {
+      *reinterpret_cast<uint4*>(v) =
+          r < nr ? *reinterpret_cast<const uint4*>(feat + (row0 + r) * p.enc + 8 * c)
+                 : make_uint4(0, 0, 0, 0);
+    } else {
+      for (int e = 0; e < 8; ++e)
+        v[e] = r < nr && 8 * c + e < p.enc ? feat[(row0 + r) * p.enc + 8 * c + e]
+                                           : __float2bfloat16_rn(0.f);
     }
-    return;
-  }
-  for (int idx = lane; idx < 16 * p.enc_pad; idx += 32) {
-    const int r = idx / p.enc_pad, c = idx - r * p.enc_pad;
-    act[r * p.act_pitch + c] =
-        (r < nr && c < p.enc) ? feat[(row0 + r) * p.enc + c] : __float2bfloat16_rn(0.f);
+    *reinterpret_cast<uint4*>(act + hh * half + c * 128 + r8 * 16) =
+        *reinterpret_cast<const uint4*>(v);
   }
 }
 
-// One consumer warp's share of every tile of the block.
+// One consumer warp's share of every tile of the block: its 16 rows in its
+// slab (two half-slabs of 8 rows), the warpgroup's products reading the
+// four slabs of its warps as one K-major A operand.
 template <bool SHADED>
-__device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a, const PtSchedule& sc,
-                           unsigned char* slab, Ring& rg) {
+__device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a,
+                                           const PtSchedule& sc, unsigned char* slab, Ring& rg) {
   const int warp = threadIdx.x >> 5;
-  const int ep = p.enc_pad, wd = p.width, depth = p.depth, words = a.mask_words;
+  const int ep = a.ep, wd = p.width, depth = p.depth, words = a.mask_words, half = a.half;
   const Frag f;
-  bf16* act = reinterpret_cast<bf16*>(slab);
-  const int h1_pitch = a.nch + 8;
-  bf16* h1 = act + 16 * p.act_pitch;
-  bf16* dbuf = reinterpret_cast<bf16*>(slab);
-  const int dp = a.dbuf_pitch;
-  const int fwd_bytes = 32 * (p.act_pitch + h1_pitch), bwd_bytes = 32 * dp;
-  uint32_t* masks = reinterpret_cast<uint32_t*>(slab + (fwd_bytes > bwd_bytes ? fwd_bytes
-                                                                              : bwd_bytes));
+  unsigned char* act = slab;
+  unsigned char* h1 = slab + a.h1_off;
+  unsigned char* dbuf = slab;
+  unsigned char* masks = slab + a.mask_off;
+  // the warpgroup's A operands: its first warp's slab
+  const uint32_t wg_slab = smem_u32(slab) - (uint32_t)((warp & 3) * 2 * half);
+  const uint32_t a_act = wg_slab, a_h = wg_slab + ep * 16, a_h1 = wg_slab + a.h1_off;
+  const uint32_t a_d = wg_slab, uhalf = (uint32_t)half;
   float* part = a.ws.bias_part + ((size_t)blockIdx.x * GROUP_ROWS + warp) * a.nbias;
   const Workspace& ws = a.ws;
   const long long P = a.points;
@@ -696,17 +759,14 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a, 
     const long long left = P - row0;
     const int nr = left <= 0 ? 0 : (left >= 16 ? 16 : (int)left);
     int gi = 0;
-    store_wait();
-    load_feat_rows(p, a.feat, row0, nr, act);
-    __syncwarp();
-    // recompute: trunk
+    load_feat_rows(p, a.feat, row0, nr, act, half, ep);
+    wg_sync();
+    // recompute: trunk, h written over the act buffer's hidden columns
     for (int l = 0; l < depth; ++l) {
       const bool takes_feat = l == 0 || ((p.skip_mask >> l) & 1);
-      const int K = l == 0 ? ep : (takes_feat ? ep + wd : wd);
-      const ReluEpi e = {p.b[l], act + ep, p.act_pitch, masks, words, l * wd,
+      const ReluEpi e = {p.b[l], act + ep * 16, half, masks, words, l * wd,
                          ws.h + ((size_t)l * P + row0) * wd, wd, nr};
-      gemm_at(wd, sc.g[gi++], K, act, p.act_pitch, takes_feat ? 0 : ep, rg, e);
-      __syncwarp();
+      gemm_at(wd, sc.g[gi++], takes_feat ? a_act : a_h, uhalf, rg, e);
     }
     // recompute: head layer 0 in passes of nch columns, each followed (K5)
     // by its share of head layer 1 into the output fragment
@@ -715,13 +775,12 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a, 
     for (int i = 0; i < 16; ++i) o[i] = 0.f;
     for (int c0 = 0; c0 < p.head0; c0 += a.nch) {
       const int nc = min(a.nch, p.head0 - c0);
-      const ReluEpi e = {p.b[depth] + c0, h1, h1_pitch, masks, words, depth * wd + c0,
+      const ReluEpi e = {p.b[depth] + c0, h1, half, masks, words, depth * wd + c0,
                          ws.h1 + row0 * p.head0 + c0, p.head0, nr};
-      gemm_at(nc, sc.g[gi++], wd, act + ep, p.act_pitch, 0, rg, e);
-      __syncwarp();
+      gemm_at(nc, sc.g[gi++], a_h, uhalf, rg, e);
       if (SHADED) {
         float acc[16];
-        ring_gemm<32>(sc.g[gi++], nc, h1, h1_pitch, 0, acc, rg);
+        ring_gemm<32>(sc.g[gi++], a_h1, uhalf, acc, rg);
 #pragma unroll
         for (int i = 0; i < 16; ++i) o[i] += acc[i];
       }
@@ -744,7 +803,7 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a, 
     // head layer 1: d_h1 = mask(h1) * (dout_b @ hw1^T), passes of <= 256
     for (int c0 = 0; c0 < p.head0; c0 += NC_MAX) {
       const int nc = min(NC_MAX, p.head0 - c0);
-      const MaskEpi2 e = {dbuf + c0, dp, masks, words, depth * wd + c0,
+      const MaskEpi2 e = {dbuf + c0 * 16, half, masks, words, depth * wd + c0,
                           ws.dh1 + row0 * p.head0 + c0, p.head0, nr, part, depth * wd + c0,
                           first};
       ++gi;
@@ -754,14 +813,12 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a, 
         default: { float acc[32]; ring_gemm_regs<64>(da, acc, rg); e.run<64>(acc); break; }
       }
     }
-    __syncwarp();
     // head layer 0: d_a of the last trunk layer = mask(h_last) * (d_h1 @ hw0^T)
     {
-      const MaskEpi2 e = {dbuf, dp, masks, words, (depth - 1) * wd,
+      const MaskEpi2 e = {dbuf, half, masks, words, (depth - 1) * wd,
                           ws.da + ((size_t)(depth - 1) * P + row0) * wd, wd, nr, part,
                           (depth - 1) * wd, first};
-      gemm_at(wd, sc.g[gi++], p.head0, dbuf, dp, 0, rg, e);
-      __syncwarp();
+      gemm_at(wd, sc.g[gi++], a_d, uhalf, rg, e);
     }
     // trunk, top down: the feature rows to dfeat, the hidden rows (masked
     // by the layer below) become that layer's d_a, in place
@@ -770,20 +827,18 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a, 
       const bool skip = l > 0 && ((p.skip_mask >> l) & 1);
       if (l == 0 || skip) {
         const FeatEpi2 e = {a.dfeat + row0 * p.enc, p.enc, nr, feat_done};
-        gemm_at(sc.g[gi].nc, sc.g[gi], wd, dbuf, dp, 0, rg, e);
+        gemm_at(sc.g[gi].nc, sc.g[gi], a_d, uhalf, rg, e);
         ++gi;
         feat_done = true;
       }
       if (l > 0) {
-        const MaskEpi2 e = {dbuf, dp, masks, words, (l - 1) * wd,
+        const MaskEpi2 e = {dbuf, half, masks, words, (l - 1) * wd,
                             ws.da + ((size_t)(l - 1) * P + row0) * wd, wd, nr, part,
                             (l - 1) * wd, first};
-        gemm_at(wd, sc.g[gi++], wd, dbuf, dp, 0, rg, e);
-        __syncwarp();
+        gemm_at(wd, sc.g[gi++], a_d, uhalf, rg, e);
       }
     }
   }
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");  // every store done
 }
 
 // Persistent: block b takes tiles b, b + gridDim.x, ...; warpgroups 0 and
@@ -805,7 +860,7 @@ __global__ void __launch_bounds__(PT_THREADS, 1)
   rg.stage = 0;
   rg.phase = 0;
   unsigned char* slabs = psmem + (size_t)a.nst * PT_STAGE;
-  rg.full = reinterpret_cast<uint64_t*>(slabs + (size_t)PT_WARPS * a.slab);
+  rg.full = reinterpret_cast<uint64_t*>(slabs + (size_t)PT_WARPS * 2 * a.half);
   rg.empty = rg.full + a.nst;
   if (threadIdx.x == 0) {
     for (int s = 0; s < a.nst; ++s) {
@@ -821,11 +876,15 @@ __global__ void __launch_bounds__(PT_THREADS, 1)
     if (threadIdx.x < THREADS + 32) pt_produce(sc, a.img, a.tiles, rg);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    pt_consume<SHADED>(p, a, sc, slabs + (size_t)(threadIdx.x >> 5) * a.slab, rg);
+    pt_consume<SHADED>(p, a, sc, slabs + (size_t)(threadIdx.x >> 5) * 2 * a.half, rg);
   }
 }
 
 // ------------------------------------------------------------ host side
+
+// Feature columns of the act buffer: the encode padded to 32, so that
+// every product's K is a whole number of 32-row K tiles.
+static inline int pt_ep(const MLPParams& p) { return (p.enc + 31) / 32 * 32; }
 
 // The tile's schedule of products, in the order the consumers run them,
 // with each product's image: the recompute (trunk; head layer 0 in passes
@@ -835,7 +894,7 @@ __global__ void __launch_bounds__(PT_THREADS, 1)
 // the images; returns their total size, or -1 past PT_MAX_GEMMS.
 static long long pt_schedule(const MLPParams& p, bool shaded, int nch, PtSchedule* sc,
                              PtImages* im) {
-  const int ep = p.enc_pad, wd = p.width, depth = p.depth;
+  const int ep = pt_ep(p), wd = p.width, depth = p.depth;
   long long off = 0;
   int stages = 0;
   sc->count = 0;
@@ -890,10 +949,14 @@ static long long pt_schedule(const MLPParams& p, bool shaded, int nch, PtSchedul
 // (the fine pack: its slab then leaves room for a third ring slot).
 static inline int pt_nch(int head0) { return head0 > NC_MAX ? NC_MAX / 2 : head0; }
 
-// Bytes of one consumer warp's slab (see the header comment).
-static inline int pt_slab_bytes(const MLPParams& p, int nch) {
-  const int fwd = 32 * (p.act_pitch + nch + 8), bwd = 32 * (p.head0 + 8);
-  return (fwd > bwd ? fwd : bwd) + 16 * ((p.depth * p.width + p.head0) / 32) * 4;
+// Bytes of one half-slab (8 rows; see the header comment) and its offsets:
+// act (and, over it, dbuf) at 0, h1 after act, the masks after the larger.
+static inline int pt_half_bytes(const MLPParams& p, int nch, int* h1_off, int* mask_off) {
+  const int ep = pt_ep(p);
+  *h1_off = (ep + p.width) * 16;
+  const int fwd = *h1_off + nch * 16, bwd = p.head0 * 16;
+  *mask_off = fwd > bwd ? fwd : bwd;
+  return *mask_off + 8 * ((p.depth * p.width + p.head0) / 32) * 4;
 }
 
 // Bias-partial groups of a pass over `points` points: one per tile up to

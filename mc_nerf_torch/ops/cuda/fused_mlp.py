@@ -452,7 +452,16 @@ def fused_shaded_mlp_plain(packed: PackedMLP, feat, basis16, depth, skips, s, nb
     return _shaded_plain_flat(*_flat_weights(packed), feat, basis16, depth, tuple(skips), s, nb)
 
 
-def fused_shaded_mlp_bwd_plain(ws, bs, feat, basis16, dout8, depth, skips, s, nb):
+def _recompute_or(acts, ws, bs, feat, depth, skips, dtype):
+    """:func:`mlp_recompute_plain`, or the given activations (xins, h_last,
+    h1) in ``dtype`` with the packed output computed from h1."""
+    if acts is None:
+        return mlp_recompute_plain(ws, bs, feat, depth, skips, dtype)
+    xins, h_last, h1 = ([x.to(dtype) for x in acts[0]], acts[1].to(dtype), acts[2].to(dtype))
+    return xins, h_last, h1, h1 @ ws[depth + 1].to(dtype) + bs[depth + 1].to(dtype)
+
+
+def fused_shaded_mlp_bwd_plain(ws, bs, feat, basis16, dout8, depth, skips, s, nb, acts=None):
     """The shaded backward kernel's arithmetic in plain PyTorch, at the
     Pallas body's rounding points (``fused_mlp.py:440-535``): recompute,
     the shading backward (the sigmoid's derivative on the rgb lanes only;
@@ -462,11 +471,13 @@ def fused_shaded_mlp_bwd_plain(ws, bs, feat, basis16, dout8, depth, skips, s, nb
 
     Args: ``ws``/``bs`` the bf16 layer weights and biases
     (:func:`_flat_weights`), ``dout8`` [P, 8] the cotangent of the output;
-    the rest as :func:`fused_shaded_mlp`.  Returns (dws, dbs, dfeat [P, E],
-    dbasis [P / s, 16]) in ``dout8``'s dtype."""
+    the rest as :func:`fused_shaded_mlp`; ``acts``, where given, the
+    activations (xins, h_last, h1) to use instead of the recompute.
+    Returns (dws, dbs, dfeat [P, E], dbasis [P / s, 16]) in ``dout8``'s
+    dtype."""
     skips = tuple(skips)
     sd_t = dout8.dtype
-    xins, h_last, h1, out32 = mlp_recompute_plain(ws, bs, feat, depth, skips, sd_t)
+    xins, h_last, h1, out32 = _recompute_or(acts, ws, bs, feat, depth, skips, sd_t)
     p = out32.shape[0]
     rays = p // s
     sh = out32[:, 1:1 + 3 * nb].reshape(rays, s, 3, nb)
@@ -484,15 +495,16 @@ def fused_shaded_mlp_bwd_plain(ws, bs, feat, basis16, dout8, depth, skips, s, nb
     return dws, dbs, dfeat, dbasis
 
 
-def fused_mlp_bwd_plain(ws, bs, feat, dout, depth, skips):
+def fused_mlp_bwd_plain(ws, bs, feat, dout, depth, skips, acts=None):
     """K6's arithmetic in plain PyTorch, at the Pallas ``_bwd_kernel``'s
     rounding points (``fused_mlp.py:760-824``): the cotangent ``dout``
     [P, 32] rounds to bf16 first, so d_hb1 sums the rounded values; then
-    recompute and :func:`mlp_bwd_plain`.  Returns (dws, dbs, dfeat [P, E])
-    in ``dout``'s dtype."""
+    recompute (or ``acts``, as :func:`fused_shaded_mlp_bwd_plain`) and
+    :func:`mlp_bwd_plain`.  Returns (dws, dbs, dfeat [P, E]) in ``dout``'s
+    dtype."""
     skips = tuple(skips)
     sd_t = dout.dtype
-    xins, h_last, h1, _ = mlp_recompute_plain(ws, bs, feat, depth, skips, sd_t)
+    xins, h_last, h1, _ = _recompute_or(acts, ws, bs, feat, depth, skips, sd_t)
     dout_b = dout.detach().to(torch.bfloat16).to(sd_t)
     return mlp_bwd_plain(ws, xins, h_last, h1, dout_b, depth, skips)
 

@@ -194,6 +194,26 @@ def planted_points(fn, args, ref) -> Dict[str, Dict[str, float]]:
             "bias partials of the last tile dropped": dropped}
 
 
+def workspace_acts(work: torch.Tensor, feat: torch.Tensor, depth: int, skips, width: int,
+                   head0: int):
+    """The recompute's activations as a K5 or K6 backward left them in its
+    workspace ``work`` (``make_layout`` in ``csrc/mlp_bwd.cuh``: h [depth,
+    P, width] at byte 0, then h1 [P, head0] at the next 256-byte boundary,
+    bf16): (xins, h_last, h1) for the plain backwards' ``acts``, float32.
+    The plain backward from these runs on the kernel's own bf16
+    activations, so that a value its fp32 sums round the other way (a ReLU
+    mask flipped between the two) does not stand between them."""
+    p = feat.shape[0]
+    n_h = 2 * p * depth * width
+    h = work[:n_h].view(torch.bfloat16).view(depth, p, width).float()
+    at = (n_h + 255) // 256 * 256
+    h1 = work[at:at + 2 * p * head0].view(torch.bfloat16).view(p, head0).float()
+    f = feat.to(torch.bfloat16).float()
+    xins = [f] + [torch.cat([f, h[i - 1]], 1) if i in skips else h[i - 1]
+                  for i in range(1, depth)]
+    return xins, h[depth - 1], h1
+
+
 def needed_macs(nc, depth: int, width: int, skips, sigma_only: bool) -> int:
     """Multiply-adds per point that the MLP needs: the 3 + 6L real encode
     lanes (not the pack's pad lane) at layer 0 and at each skip, the trunk,
@@ -215,14 +235,14 @@ def points_stage_images(enc: int, depth: int, width: int, skips, head0: int,
     """Bytes of the points stage's weight images (``pt_schedule`` in
     ``csrc/mlp_bwd_points.cuh``): every product of a tile's schedule as
     32-row K tiles x its columns, bf16.  The recompute: each trunk layer
-    (K: the encode padded to 16, plus the width at a skip, or the width;
+    (K: the encode padded to 32, plus the width at a skip, or the width;
     N: the width), head layer 0 in passes of 128 columns where head0 > 256
     (else one pass), each followed for K5 by its head-layer-1 share (K: the
     pass, N: 32); the backward: d_h1 in passes of up to 256 (K 32), head
     layer 0 (K head0, N the width), then from the top trunk layer down its
     feature rows (layer 0 and the skips; K the width, N the encode rounded
     up to 32, 64, 128 or 256) and its hidden rows (layers above 0)."""
-    ep = (enc + 15) // 16 * 16
+    ep = (enc + 31) // 32 * 32
     enc_nc = next(n for n in (32, 64, 128, 256) if enc <= n)
     nch = 128 if head0 > 256 else head0
     prods = []

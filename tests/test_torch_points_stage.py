@@ -25,6 +25,7 @@ from mc_nerf_torch.ops.cuda.fused_mlp import (
     fused_shaded_mlp_bwd_plain,
     fused_shaded_mlp_plain,
     mlp_plain,
+    mlp_recompute_plain,
     pack_mlp_params,
 )
 from mc_nerf_torch.tools.bwd_check import (
@@ -167,6 +168,23 @@ def test_points_plants(kind, coarse, rays, s):
     assert dropped["dW"] == 0.0 and dropped["dfeat"] == 0.0
     shifted = plants["a layer masked with the one below's"]
     assert min(shifted["dW"], shifted["db"], shifted["dfeat"]) > 1e-2
+
+
+@pytest.mark.parametrize("kind", ["shaded", "mlp"], ids=["K5", "K6"])
+def test_plain_backward_on_given_activations(kind):
+    """The plain backwards on activations handed to them (``acts``, what the
+    card tests pass from a kernel's workspace) give the same bits as their
+    own recompute when handed that recompute's activations, and other
+    activations move them."""
+    fn, args = _case(kind, False, 300, 1)
+    ws, bs, feat = args[:3]
+    depth, skips = (args[5], args[6]) if kind == "shaded" else (args[4], args[5])
+    xins, h_last, h1, _ = mlp_recompute_plain(ws, bs, feat, depth, skips)
+    own, given = fn(*args), fn(*args, acts=(xins, h_last, h1))
+    flat = lambda r: [*r[0], *r[1], *r[2:]]
+    assert all(torch.equal(a, b) for a, b in zip(flat(own), flat(given)))
+    moved = fn(*args, acts=(xins, h_last, h1.roll(1, 0)))
+    assert not torch.equal(moved[0][-1], own[0][-1])
 
 
 def test_depth_colormap_matches_the_jax_package():
