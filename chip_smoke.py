@@ -161,14 +161,6 @@ def cuda_ms(fn, iters: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def needed_macs(nc, depth: int, width: int, skips, sigma_only: bool) -> int:
-    """Multiply-adds per point that the MLP needs
-    (``tools/bwd_check.needed_macs``)."""
-    from mc_nerf_torch.tools.bwd_check import needed_macs as macs
-
-    return macs(nc, depth, width, skips, sigma_only)
-
-
 def pack_bytes(packed) -> int:
     leaves = [*packed.trunk_w, *packed.trunk_b, packed.head_w0, packed.head_b0,
               packed.head_w1, packed.head_b1]
@@ -328,6 +320,7 @@ def check_train_forward(nc, params, dev, rng, rays, errs, render_tol):
     s=48, noise + wsel; fine 8x256, s=32, noise) against the plain forward,
     with planted faults.  Returns per pass the kernel's ms, the plain
     version's, a bf16 matmul chain's and the bound at these shapes."""
+    from mc_nerf_torch.tools.bwd_check import needed_macs
     from mc_nerf_torch.ops.cuda.fused_mlp import pack_mlp_params
     from mc_nerf_torch.ops.cuda.fused_render import fused_render, fused_render_plain
 
@@ -420,6 +413,7 @@ def time_backward(nc, bwd, rng, dev) -> dict:
     second also gets ``floor_ms``, this design's floor: the bytes its
     weight stage must move, each job's X and D read once and dW written
     once (``tools/bwd_check.weight_stage_bytes``), over the memory rate."""
+    from mc_nerf_torch.tools.bwd_check import needed_macs
     from mc_nerf_torch.ops.cuda.fused_render import (
         _bwd_fns, fused_render_bwd_plain, render_bwd_points, render_bwd_weights)
     from mc_nerf_torch.tools.bwd_check import weight_stage_bytes
@@ -722,6 +716,7 @@ def check_shaded(nc, params, dev, rng, rays, errs) -> dict:
     (``tools/bwd_check.shaded_cotangent``).  Returns per pass the numbers
     of the kernels line (K4 and K5 at the training shapes) and K5's
     relative errors."""
+    from mc_nerf_torch.tools.bwd_check import needed_macs
     from mc_nerf_torch.ops.cuda.fused_mlp import (
         _flat_weights, _shaded_bwd_launch, fused_shaded_mlp, fused_shaded_mlp_bwd,
         fused_shaded_mlp_bwd_plain, fused_shaded_mlp_plain, pack_mlp_params)
@@ -823,6 +818,7 @@ def fused_mlp_vjp_phase(nc, params, dev, rng, rays, errs) -> dict:
     then K6 against ``fused_mlp_bwd_plain`` at the same shapes under an MSE
     of the packed output (``tools/bwd_check.mlp_cotangent``), with planted
     faults, and its times."""
+    from mc_nerf_torch.tools.bwd_check import needed_macs
     from mc_nerf_torch.ops.cuda.fused_mlp import (
         _flat_weights, _mlp_bwd_launch, fused_mlp, fused_mlp_apply, fused_mlp_bwd,
         fused_mlp_bwd_plain, mlp_plain, pack_mlp_params)
@@ -905,6 +901,7 @@ def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> 
     against the kernel route; K1 and K4 at one eval chunk's shapes
     (16384 x 128 coarse, 16384 x 130 fine) against their plain versions,
     and their times."""
+    from mc_nerf_torch.tools.bwd_check import needed_macs
     from mc_nerf_torch.cameras.rays import pixel_grid, rays_for_pixels
     from mc_nerf_torch.models.nerf import pack_eval_params, render_rays_eval
     from mc_nerf_torch.ops.cuda.fused_mlp import (
@@ -1014,6 +1011,7 @@ def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> 
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    from mc_nerf_torch.tools.bwd_check import needed_macs
     from mc_nerf_torch.config import Config
     from mc_nerf_torch.data.blender import SplitData
     from mc_nerf_torch.models.nerf import pack_eval_params, render_rays_eval

@@ -64,11 +64,12 @@
 //   masks:    8 rows x (depth * width + head0) / 32 words, kept from the
 //             recompute to the backward
 //   ring:     NST x 16 KB, and 2 x NST mbarriers
-// ep is the encode padded to 32.  At the fine 8x256 pack (ep 64, head0 512,
-// nch 128): half-slab max(7,168, 8,192) + 2,560 = 10,752, 16 of them
-// 172,032, ring 3 x 16,384: 221,216 of the 232,448 a block may have.  At
-// the coarse 4x128 full pack (head0 256, nch 256): half-slab 7,168 + 768 =
-// 7,936, 16 of them 126,976, ring 6 x 16,384: 225,376.
+// ep is the encode padded to 32, nch the head-0 pass (128 at most).  At
+// the fine 8x256 pack (ep 64, head0 512): half-slab max(7,168, 8,192) +
+// 2,560 = 10,752, 16 of them 172,032, ring 3 x 16,384 and its barriers:
+// 221,232 of the 232,448 a block may have.  At the coarse 4x128 full pack
+// (head0 256): half-slab max(5,120, 4,096) + 768 = 5,888, 16 of them
+// 94,208, ring 6 x 16,384: 192,608.
 //
 // Bound (H100 SXM): the recompute and dX products need 2 x 629,248 MAC a
 // point at the fine pack (2.3 ms of tensor-core time at 7000 x 130 points),
@@ -162,12 +163,12 @@ struct PtImage {
 
 struct PtSchedule {
   PtGemm g[PT_MAX_GEMMS];
-  int count, stages;  // products, stages of one tile
+  int count, stages;  // products, and their K tiles (of one tile of points)
 };
 
 struct PtImages {
   PtImage m[PT_MAX_GEMMS];
-  int count, stages;
+  int count;
 };
 
 struct PtArgs {
@@ -941,13 +942,13 @@ static long long pt_schedule(const MLPParams& p, bool shaded, int nch, PtSchedul
   }
   sc->stages = stages;
   im->count = sc->count;
-  im->stages = stages;
   return sc->count >= PT_MAX_GEMMS ? -1 : off;
 }
 
-// Width of the recompute's head-0 passes: 256, or 128 where head0 is wider
-// (the fine pack: its slab then leaves room for a third ring slot).
-static inline int pt_nch(int head0) { return head0 > NC_MAX ? NC_MAX / 2 : head0; }
+// Width of the recompute's head-0 passes: head0, or 128 where it is wider
+// (the fine pack's slab then leaves room for a third ring slot; at the
+// coarse pack 128 ran 7-9% faster than 256 on an H100, PERF.md).
+static inline int pt_nch(int head0) { return head0 > NC_MAX / 2 ? NC_MAX / 2 : head0; }
 
 // Bytes of one half-slab (8 rows; see the header comment) and its offsets:
 // act (and, over it, dbuf) at 0, h1 after act, the masks after the larger.

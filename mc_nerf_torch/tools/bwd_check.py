@@ -236,7 +236,7 @@ def points_stage_images(enc: int, depth: int, width: int, skips, head0: int,
     ``csrc/mlp_bwd_points.cuh``): every product of a tile's schedule as
     32-row K tiles x its columns, bf16.  The recompute: each trunk layer
     (K: the encode padded to 32, plus the width at a skip, or the width;
-    N: the width), head layer 0 in passes of 128 columns where head0 > 256
+    N: the width), head layer 0 in passes of 128 columns where head0 > 128
     (else one pass), each followed for K5 by its head-layer-1 share (K: the
     pass, N: 32); the backward: d_h1 in passes of up to 256 (K 32), head
     layer 0 (K head0, N the width), then from the top trunk layer down its
@@ -244,7 +244,7 @@ def points_stage_images(enc: int, depth: int, width: int, skips, head0: int,
     up to 32, 64, 128 or 256) and its hidden rows (layers above 0)."""
     ep = (enc + 31) // 32 * 32
     enc_nc = next(n for n in (32, 64, 128, 256) if enc <= n)
-    nch = 128 if head0 > 256 else head0
+    nch = 128 if head0 > 128 else head0
     prods = []
     for layer in range(depth):
         tf = layer == 0 or layer in skips
@@ -276,8 +276,8 @@ def points_stage_bytes(enc: int, depth: int, width: int, skips, head0: int, poin
     written; the weights and biases read (bf16) and the weight images
     (:func:`points_stage_images`) written and read.  K5 also writes the
     per-point dbasis partials [P, 16] (fp32), which the per-ray sum reads
-    back before writing dbasis [P / s, 16].  The fp32 dout32 that PR 5's
-    kernel wrote to the workspace and read back is no longer moved."""
+    back before writing dbasis [P / s, 16].  The fp32 dout32 region of the
+    workspace is neither written nor read."""
     tiles = (points + 127) // 128
     nbias = depth * width + head0 + 32
     w_in = sum(((enc if i == 0 else width) + (enc if i in skips else 0)) * width

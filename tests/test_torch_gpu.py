@@ -619,7 +619,7 @@ def _points_run(kind, cfg, coarse, p, device, last_tile=False):
     (``tools/bwd_check.workspace_acts``): at these shapes a bf16 value that
     the two recomputes' fp32 sums round the other way flips a ReLU mask in
     a few points, and one flipped point out of a few moves the sums by up
-    to 14% (one ray of 4099 samples) in the PR 5 kernel and this one alike,
+    to 14% (one ray of 4099 samples; the previous points kernel alike),
     past the tolerances measured at the main path's shapes.  Returns
     (kernel outputs, reference, plain backward bound to those activations,
     args, the pass's tolerances, launches counted)."""

@@ -79,8 +79,9 @@ def test_points_stage_bytes_per_point(pack, want, shaded):
 #   head 0 512 x 256 (262,144), seven hidden 256 x 256, two feature blocks
 #   256 x 64 (32,768 each) = 1,277,952
 #   coarse, recompute: 64 x 128 (16,384), 128 x 128 (32,768) twice, the
-#   skip 192 x 128 (49,152), head 0 one pass 128 x 256 (65,536), K5's
-#   head-1 256 x 32 (16,384) = 212,992 (K6 196,608); backward: 32 x 256
+#   skip 192 x 128 (49,152), head 0 two passes 128 x 128 (32,768 each),
+#   K5's head-1 shares two 128 x 32 (8,192 each) = 212,992 (K6 196,608);
+#   backward: 32 x 256
 #   (16,384), 256 x 128 (65,536), three hidden 128 x 128, two feature
 #   blocks 128 x 64 (16,384 each) = 212,992
 @pytest.mark.parametrize("pack,shaded,want", [("fine", True, 2555904), ("fine", False, 2523136),
