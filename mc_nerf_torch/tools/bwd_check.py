@@ -231,7 +231,7 @@ GROUP_ROWS = 8      # bias-partial rows per group: one per consumer warp
 
 
 def points_stage_images(enc: int, depth: int, width: int, skips, head0: int,
-                        shaded: bool) -> int:
+                        shaded: bool, recompute_only: bool = False) -> int:
     """Bytes of the points stage's weight images (``pt_schedule`` in
     ``csrc/mlp_bwd_points.cuh``): every product of a tile's schedule as
     32-row K tiles x its columns, bf16.  The recompute: each trunk layer
@@ -241,7 +241,8 @@ def points_stage_images(enc: int, depth: int, width: int, skips, head0: int,
     pass, N: 32); the backward: d_h1 in passes of up to 256 (K 32), head
     layer 0 (K head0, N the width), then from the top trunk layer down its
     feature rows (layer 0 and the skips; K the width, N the encode rounded
-    up to 32, 64, 128 or 256) and its hidden rows (layers above 0)."""
+    up to 32, 64, 128 or 256) and its hidden rows (layers above 0).
+    ``recompute_only``: the recompute's products alone."""
     ep = (enc + 31) // 32 * 32
     enc_nc = next(n for n in (32, 64, 128, 256) if enc <= n)
     nch = 128 if head0 > 128 else head0
@@ -253,6 +254,8 @@ def points_stage_images(enc: int, depth: int, width: int, skips, head0: int,
         prods.append((width, min(nch, head0 - c0)))
         if shaded:
             prods.append((min(nch, head0 - c0), 32))
+    if recompute_only:
+        return sum((k + 31) // 32 * 32 * n * 2 for k, n in prods)
     prods += [(32, min(256, head0 - c0)) for c0 in range(0, head0, 256)]
     prods.append((head0, width))
     for layer in reversed(range(depth)):
@@ -288,6 +291,24 @@ def points_stage_bytes(enc: int, depth: int, width: int, skips, head0: int, poin
     return (per_point * points + per_ray * (points // s)
             + min(tiles, BIAS_GROUPS) * GROUP_ROWS * nbias * 4 + 2 * (w_in + nbias)
             + 2 * points_stage_images(enc, depth, width, skips, head0, shaded))
+
+
+def render_points_stage_bytes(enc: int, depth: int, width: int, skips, head0: int,
+                              points: int, s: int) -> int:
+    """The bytes K3's points stage (``render_bwd_points``, three steps over
+    one set of weight images) moves at this pack, ``points`` points and
+    ``s`` samples per ray, with noise, each once: the forward
+    (``mlp_points_kernel`` in its forward mode) reads feat (bf16), the
+    rays' basis [P / s, 16] and the recompute's weight images, and writes
+    sigma and rgb [P, 4] (fp32); the composite backward reads them, z and
+    the noise [P] and dray [P / s, 8], writes its two prefix sums [P, 2]
+    and reads them back, and writes dout8 [P, 8] (fp32); then K5's points
+    stage (:func:`points_stage_bytes`, shaded) from that dout8."""
+    rays = points // s
+    fwd = 2 * enc * points + 16 * 4 * rays + 4 * 4 * points + points_stage_images(
+        enc, depth, width, skips, head0, True, recompute_only=True)
+    composite = (4 * 4 + 2 * 4) * points + 8 * 4 * rays + 2 * 2 * 4 * points + 8 * 4 * points
+    return fwd + composite + points_stage_bytes(enc, depth, width, skips, head0, points, True, s)
 
 
 def _weight_plants(ref, depth: int) -> Dict[str, Dict[str, float]]:
