@@ -21,8 +21,11 @@ in both fine modes.
    rays); the backward's two launches (``render_bwd_points``,
    ``render_bwd_weights``) against ``fused_render_bwd_plain`` at the same
    shapes, beside the plain version's own fp32 spread; timings of each,
-   the weight stage's also against ``floor_ms``, the bytes its design
-   must move over the memory rate (``tools/bwd_check.weight_stage_bytes``).
+   each also against ``floor_ms``, the bytes its design must move over the
+   memory rate (``tools/bwd_check.render_points_stage_bytes``,
+   ``weight_stage_bytes``); ``render_bwd_points`` is K3's points stage
+   (its forward, composite backward and K5's points stage), its numbers
+   also kept under ``points_stage`` as K5's and K6's are.
 5. The GLOBAL_OPTIM step at full width on the workload ``bench.py`` times
    (``tools/scene.train_workload``): the kernel route and the plain route
    timed in turns with CUDA events, the launch counts of the kernel route
@@ -55,7 +58,8 @@ Every kernel check also measures planted faults against the same plain
 version (points mixed up, the skip input dropped, the first layer lost,
 another ray's SH basis; for the backwards also a layer's dW transposed or
 zeroed, the skip's dfeat share dropped, the suffix scan shifted by one,
-the sigmoid's derivative dropped on one channel: ``tools/bwd_check.py``)
+one sample's dout8 moved to its neighbour, the sigmoid's derivative
+dropped on one channel: ``tools/bwd_check.py``)
 and fails if one of them would pass.  Bounds
 count only the work the function needs (not the pad lane, the packed
 head's zero blocks or the backward's workspace).  The weights are the seeded test
@@ -409,14 +413,17 @@ def time_backward(nc, bwd, rng, dev) -> dict:
     of the work each launch's share of the function needs: recompute + dX
     products and the function's inputs and dfeat/dbasis for the first;
     the dW products and the weight gradients written for the second.  The
-    workspace that design (a) passes between them is not needed work; the
-    second also gets ``floor_ms``, this design's floor: the bytes its
-    weight stage must move, each job's X and D read once and dW written
-    once (``tools/bwd_check.weight_stage_bytes``), over the memory rate."""
-    from mc_nerf_torch.tools.bwd_check import needed_macs
+    workspace that the design passes between them is not needed work;
+    each also gets ``floor_ms``, this design's floor: the bytes its stage
+    must move (``tools/bwd_check.render_points_stage_bytes``: the points
+    stage's workspace and dfeat, the forward's and the composite's buffer;
+    ``weight_stage_bytes``: each job's X and D read once and dW written
+    once), over the memory rate.  The first's numbers are K3's points
+    stage, also kept under ``points_stage`` as K5's and K6's are."""
     from mc_nerf_torch.ops.cuda.fused_render import (
         _bwd_fns, fused_render_bwd_plain, render_bwd_points, render_bwd_weights)
-    from mc_nerf_torch.tools.bwd_check import weight_stage_bytes
+    from mc_nerf_torch.tools.bwd_check import (
+        needed_macs, render_points_stage_bytes, weight_stage_bytes)
 
     nb = (nc.sh_deg + 1) ** 2
     out = {"render_bwd_points": {}, "render_bwd_weights": {}}
@@ -438,10 +445,12 @@ def time_backward(nc, bwd, rng, dev) -> dict:
                       p * enc * 2 + 2 * p * 4 + rays * (basis16.shape[1] + 8) * 4
                       + pack_bytes(pk) + p * enc * 4 + rays * basis16.shape[1] * 4)
         b_w = bound(2.0 * macs * p, 2 * pack_bytes(pk))
-        out["render_bwd_points"][label] = {
-            "ms": cuda_ms(lambda: render_bwd_points(*pts_args)), "plain_ms": plain_ms,
-            "library_ms": cuda_ms(lambda: library_bwd_dx(ws, bs, feat, dout_b, depth, skips)),
-            "bound_ms": b_pts[0], "bound_by": b_pts[1]}
+        pts = {"ms": cuda_ms(lambda: render_bwd_points(*pts_args)),
+               "library_ms": cuda_ms(lambda: library_bwd_dx(ws, bs, feat, dout_b, depth, skips)),
+               "bound_ms": b_pts[0], "bound_by": b_pts[1],
+               "floor_ms": render_points_stage_bytes(enc, depth, width, skips, ws[-2].shape[1],
+                                                     p, s) / PEAK_BYTES * 1e3}
+        out["render_bwd_points"][label] = {**pts, "plain_ms": plain_ms, "points_stage": pts}
         out["render_bwd_weights"][label] = {
             "ms": cuda_ms(lambda: render_bwd_weights(ws, bs, feat, rays, s, skips, work)),
             "plain_ms": plain_ms,
@@ -1050,8 +1059,8 @@ def main() -> None:
     nc = cfg.nerf
     params = scene_params(nc, SEED, device=dev)
     packed_c, packed_f = pack_eval_params(params, nc)
-    print(f"samples per ray at the fine pack, at most: forward {max_samples(packed_f)}, "
-          f"backward {max_samples_bwd(packed_f)} (the kernels' shared-memory layout)")
+    print(f"samples per ray at the fine pack, at most: forward {max_samples(packed_f)} (its "
+          f"shared-memory layout), backward {max_samples_bwd(packed_f)} (2**31 - 1: no limit)")
     nb = (nc.sh_deg + 1) ** 2
     rng = np.random.default_rng(SEED)
     errs = {"fused_mlp_apply": 0.0, "fused_render": 0.0}   # max abs, for the kernels line

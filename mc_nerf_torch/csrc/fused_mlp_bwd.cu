@@ -35,107 +35,17 @@
 
 using namespace mcn;
 
-constexpr int BASIS_LANES = 16;
-
-// dbasis[ray, b] = sum over the ray's s points, in order, of the partials.
-__global__ void ray_sum_kernel(const float* __restrict__ dbp, int rays, int s,
-                               float* __restrict__ dbasis) {
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (long long)rays * BASIS_LANES) return;
-  const long long ray = idx / BASIS_LANES;
-  const int b = (int)(idx % BASIS_LANES);
-  float acc = 0.f;
-  for (int i = 0; i < s; ++i) acc += dbp[(ray * s + i) * DBP_LANES + b];
-  dbasis[idx] = acc;
-}
-
-// The workspace of a backward over `points` points: make_layout's regions
-// (one bias-partial row per consumer warp of each group) and, after them,
-// the weight images of the points stage.
-struct FlatPlan {
-  Layout L;
-  size_t img_at, bytes;
-  int groups, nch;
-};
-
-static FlatPlan flat_plan(const MLPParams& p, long long points, bool shaded, PtSchedule* sc,
-                          PtImages* im) {
-  FlatPlan f;
-  f.groups = pt_groups(points);
-  f.nch = pt_nch(p.head0);
-  f.L = make_layout(points, f.groups * GROUP_ROWS, p.enc, p.depth, p.skip_mask, p.width, p.head0,
-                    false, shaded);
-  const long long img = pt_schedule(p, shaded, f.nch, sc, im);
-  f.img_at = align256(f.L.bytes);
-  f.bytes = img < 0 ? 0 : f.img_at + align256((size_t)img);
-  return f;
-}
-
 // The points stage of both backwards: the weight images, the points
 // kernel, then (shaded) the per-ray dbasis sums.  Fills the workspace the
 // weight stage reads; returns 0 or a CUDA error.
 static int run_points(bool shaded, const MLPParams& p, const FlatPlan& f, const PtSchedule& sc,
                       const PtImages& im, PtArgs a, void* dbasis, cudaStream_t st) {
-  if (!f.bytes) return cudaErrorInvalidValue;
-  int dev = 0, limit = 0;
-  int err = cudaGetDevice(&dev);
-  if (!err) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  size_t smem = 0;
+  int err = points_setup(p, f, sc, im, false, &a, &smem, st);
   if (err) return err;
-  a.half = pt_half_bytes(p, f.nch, &a.h1_off, &a.mask_off);
-  a.ep = pt_ep(p);
-  const long long slabs = (long long)PT_WARPS * 2 * a.half;
-  const long long room = (long long)limit - slabs - 16 * PT_MAX_STAGES;
-  a.nst = (int)(room / PT_STAGE < PT_MAX_STAGES ? room / PT_STAGE : PT_MAX_STAGES);
-  if (a.nst < 2) return cudaErrorInvalidValue;
-  const size_t smem = (size_t)a.nst * PT_STAGE + (size_t)slabs + 16 * a.nst;
-  a.tiles = (a.points + TILE_M - 1) / TILE_M;
-  a.nch = f.nch;
-  a.mask_words = (p.depth * p.width + p.head0) / 32;
-  a.nbias = f.L.nbias;
-  unsigned char* img = const_cast<unsigned char*>(a.img);
-  weight_images_kernel<<<sc.stages, THREADS, 0, st>>>(im, sc, img);
-  err = cudaGetLastError();
-  if (err) return err;
-  if (shaded) {
-    err = cudaFuncSetAttribute(mlp_points_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err) return err;
-    mlp_points_kernel<true><<<f.groups, PT_THREADS, smem, st>>>(p, a, sc);
-    err = cudaGetLastError();
-    if (err) return err;
-    const long long n = a.points / a.s * BASIS_LANES;
-    ray_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
-        a.ws.dbp, (int)(a.points / a.s), a.s, static_cast<float*>(dbasis));
-  } else {
-    err = cudaFuncSetAttribute(mlp_points_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err) return err;
-    mlp_points_kernel<false><<<f.groups, PT_THREADS, smem, st>>>(p, a, sc);
-  }
-  return cudaGetLastError();
-}
-
-// The arguments of the points stage; returns 0 or an error for shapes the
-// kernels do not take.
-static int points_args(bool shaded, MLPParams* p, FlatPlan* f, PtSchedule* sc, PtImages* im,
-                       PtArgs* a, const void* feat, const void* basis16, const void* dout_in,
-                       void* dfeat, void* workspace, long long points, int s, int nb, int enc,
-                       int depth, int skip_mask, int width, int head0, const void* const* w,
-                       const void* const* b) {
-  int err = make_params(p, feat, depth, skip_mask, enc, width, head0, w, b);
-  if (err) return err;
-  if (shaded && (s < 1 || nb < 1 || nb > 9 || points % s)) return cudaErrorInvalidValue;
-  *f = flat_plan(*p, points, shaded, sc, im);
-  a->feat = static_cast<const bf16*>(feat);
-  a->basis16 = static_cast<const float*>(basis16);
-  a->dout_in = static_cast<const float*>(dout_in);
-  a->dfeat = static_cast<float*>(dfeat);
-  a->ws = carve(f->L, workspace);
-  a->img = static_cast<const unsigned char*>(workspace) + f->img_at;
-  a->points = points;
-  a->s = s;
-  a->nb = nb;
-  return 0;
+  if (!shaded) return launch_points<PT_MLP>(p, a, sc, f.groups, smem, st);
+  err = launch_points<PT_SHADED>(p, a, sc, f.groups, smem, st);
+  return err ? err : launch_ray_sums(a, dbasis, st);
 }
 
 // Both backwards: the points stage, then the weight gradients.
@@ -150,7 +60,8 @@ static int run_backward(bool shaded, const void* feat, const void* basis16, cons
   PtImages im;
   PtArgs a;
   int err = points_args(shaded, &p, &f, &sc, &im, &a, feat, basis16, dout_in, dfeat, workspace,
-                        points, s, nb, enc, depth, skip_mask, width, head0, w, b);
+                        points, pt_tiles(points), s, nb, enc, depth, skip_mask, width, head0, w,
+                        b);
   if (err || points <= 0) return err;
   cudaStream_t st = (cudaStream_t)stream;
   err = run_points(shaded, p, f, sc, im, a, dbasis, st);
@@ -170,7 +81,7 @@ extern "C" long long mcn_mlp_bwd_workspace(long long points, int enc, int depth,
   for (int l = 0; l < depth + 2; ++l) p.w[l] = p.b[l] = nullptr;
   PtSchedule sc;
   PtImages im;
-  return (long long)flat_plan(p, points, shaded != 0, &sc, &im).bytes;
+  return (long long)flat_plan(p, points, pt_tiles(points), shaded != 0, &sc, &im).bytes;
 }
 
 // fused_shaded_mlp's backward.  feat [P, enc] bf16, basis16 [P / s, 16] and
@@ -207,7 +118,7 @@ extern "C" int mcn_mlp_bwd_weights(const void* feat, void* workspace, void* dw, 
   if (points <= 0) return 0;
   PtSchedule sc;
   PtImages im;
-  const Layout L = flat_plan(p, points, shaded != 0, &sc, &im).L;
+  const Layout L = flat_plan(p, points, pt_tiles(points), shaded != 0, &sc, &im).L;
   return launch_weight_grads(L, carve(L, workspace), static_cast<const bf16*>(feat), enc, depth,
                              skip_mask, width, head0, static_cast<float*>(dw),
                              static_cast<float*>(db), (cudaStream_t)stream);
@@ -228,8 +139,8 @@ extern "C" int mcn_mlp_bwd_points(const void* feat, const void* basis16, const v
   PtImages im;
   PtArgs a;
   int err = points_args(shaded != 0, &p, &f, &sc, &im, &a, feat, basis16, dout, dfeat, workspace,
-                        points, shaded ? s : 1, shaded ? nb : 1, enc, depth, skip_mask, width,
-                        head0, w, b);
+                        points, pt_tiles(points), shaded ? s : 1, shaded ? nb : 1, enc, depth,
+                        skip_mask, width, head0, w, b);
   if (err || points <= 0) return err;
   return run_points(shaded != 0, p, f, sc, im, a, dbasis, (cudaStream_t)stream);
 }

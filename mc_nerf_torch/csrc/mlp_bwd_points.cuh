@@ -1,11 +1,16 @@
-// The points stage of the flat MLP backwards (fused_mlp_bwd.cu: K5, the
-// backward of fused_shaded_mlp, and K6, the fused_mlp VJP), designed for
-// Hopper: per 128-point tile the recompute of the MLP, the packed output's
-// cotangent (K5: the SH shading's backward) and the heads-and-trunk
-// backward, writing dfeat, the per-point dbasis partials (K5), the bias
-// partials and the workspace that the weight stage (mlp_bwd.cuh,
-// launch_weight_grads) reads: h, h1, doutb, d_a, d_h1, at the offsets of
-// make_layout / carve.
+// The points stage of the MLP backwards (fused_mlp_bwd.cu: K5, the
+// backward of fused_shaded_mlp, and K6, the fused_mlp VJP;
+// fused_render_bwd.cu: K3, fused_render's), designed for Hopper: per tile
+// the recompute of the MLP, the packed output's cotangent (K5, K3: the SH
+// shading's backward) and the heads-and-trunk backward, writing dfeat, the
+// per-point dbasis partials (K5, K3), the bias partials and the workspace
+// that the weight stage (mlp_bwd.cuh, launch_weight_grads) reads: h, h1,
+// doutb, d_a, d_h1, at the offsets of make_layout / carve.  The kernel's
+// MODE (PT_MLP, PT_SHADED, PT_FORWARD, PT_RENDER) picks the work: K3 runs
+// PT_RENDER (tiles of whole rays, the composite backward of each ray,
+// composite_ray, in shared memory between the recompute and the shading
+// backward) or PT_FORWARD (the recompute alone, sigma and rgb out), then
+// its composite kernel, then PT_SHADED.
 //
 // Rounding points are the Pallas bodies' (fused_mlp.py:495-535, :783-824):
 // bf16 operands, fp32 accumulation, ReLU masks from the bf16 activations,
@@ -64,12 +69,13 @@
 //   masks:    8 rows x (depth * width + head0) / 32 words, kept from the
 //             recompute to the backward
 //   ring:     NST x 16 KB, and 2 x NST mbarriers
+//   PT_RENDER: the composite's buffer, 2 x 64 rows x 32 bytes
 // ep is the encode padded to 32, nch the head-0 pass (128 at most).  At
 // the fine 8x256 pack (ep 64, head0 512): half-slab max(7,168, 8,192) +
 // 2,560 = 10,752, 16 of them 172,032, ring 3 x 16,384 and its barriers:
-// 221,232 of the 232,448 a block may have.  At the coarse 4x128 full pack
-// (head0 256): half-slab max(5,120, 4,096) + 768 = 5,888, 16 of them
-// 94,208, ring 6 x 16,384: 192,608.
+// 221,232 of the 232,448 a block may have (PT_RENDER 225,328).  At the
+// coarse 4x128 full pack (head0 256): half-slab max(5,120, 4,096) + 768 =
+// 5,888, 16 of them 94,208, ring 6 x 16,384: 192,608.
 //
 // Bound (H100 SXM): the recompute and dX products need 2 x 629,248 MAC a
 // point at the fine pack (2.3 ms of tensor-core time at 7000 x 130 points),
@@ -87,6 +93,18 @@ constexpr int PT_STAGE = KT * NC_MAX * 2;  // bytes of one ring slot (32 K rows 
 constexpr int PT_MAX_STAGES = 6;
 constexpr int PT_MAX_GEMMS = 64;
 constexpr int GROUP_ROWS = PT_WARPS;       // bias-partial rows per group
+constexpr int BASIS_LANES = 16;            // a ray's SH basis, padded
+
+// What mlp_points_kernel runs per tile (its template argument):
+constexpr int PT_MLP = 0;      // K6: the recompute, then the backward from dout [P, 32]
+constexpr int PT_SHADED = 1;   // K5, K3: the recompute, then the shading backward from
+                               // dout8 [P, 8] and the heads-and-trunk backward
+constexpr int PT_FORWARD = 2;  // K3's forward: the recompute alone, sigma and the shaded
+                               // rgb out; nothing to the workspace
+constexpr int PT_RENDER = 3;   // K3 fused: tiles of whole rays, the recompute, the
+                               // composite backward in shared memory, then as PT_SHADED
+constexpr int RAY_ROWS = 64;   // PT_RENDER: a warpgroup's rows, whole rays of s <= 64
+constexpr int IO_FLOATS = 8;   // a row of the composite's buffer (sigma, rgb, dout8, scratch)
 
 // wgmma with both operands in shared memory, A K-major and B MN-major,
 // neither swizzled (imm-trans-a 0, imm-trans-b 1): A is the warpgroup's 64
@@ -175,7 +193,13 @@ struct PtArgs {
   const bf16* feat;
   const float* basis16;  // [P / s, 16] (shaded)
   const float* dout_in;  // dout8 [P, 8] (shaded) or dout [P, 32]
+  float* out8;           // PT_FORWARD: sigma, rgb into columns 0..3 of [P, 8]
   float* dfeat;          // [P, enc]
+  const float* z;        // PT_RENDER: the composite's inputs, [rays, s], [rays, s] or
+  const float* noise;    //   null, [rays, 8]
+  const float* dray;
+  long long rays;
+  int ray_k, white_back;  // PT_RENDER: rays per warpgroup
   const unsigned char* img;
   Workspace ws;
   long long points, tiles;
@@ -435,8 +459,10 @@ __device__ __forceinline__ unsigned char* frag_at(unsigned char* buf, int half, 
 // Recompute epilogue of a ReLU layer: bf16(relu(acc + bias)) into the
 // warp's rows of the buffer at `buf`, its mask bits (per 32 columns: the
 // lane's bits, or-ed over the quad; word w of fragment row g + 8 h at
-// masks + h * half + g * 4 words + 4 w), then the rows to the workspace.
-template <int NC>
+// masks + h * half + g * 4 words + 4 w), then (STORE) the rows to the
+// workspace.  STORE is a template argument: as a run-time test of g_dst it
+// cost K5's coarse pass 2.5% on an H100 (PERF.md).
+template <int NC, bool STORE>
 __device__ __forceinline__ void relu_epilogue(const float* acc, const bf16* __restrict__ bias,
                                               unsigned char* buf, int half, unsigned char* masks,
                                               int words, int mask_col, bf16* g_dst, long long ld,
@@ -469,7 +495,7 @@ __device__ __forceinline__ void relu_epilogue(const float* acc, const bf16* __re
     }
   }
   __syncwarp();
-  store_core_rows(buf, half, NC, g_dst, ld, nr);
+  if constexpr (STORE) store_core_rows(buf, half, NC, g_dst, ld, nr);
   wg_sync();
 }
 
@@ -530,6 +556,111 @@ __device__ __forceinline__ void feat_epilogue(const float* acc, float* dfeat, in
   }
 }
 
+// ------------------------------------------------ the composite backward
+
+__device__ __forceinline__ float softplus(float x) {
+  return fmaxf(x, 0.f) + logf(1.f + expf(-fabsf(x)));
+}
+
+__device__ __forceinline__ float warp_exclusive_scan(float x, float& carry) {
+  const int lane = threadIdx.x & 31;
+  float v = __shfl_up_sync(0xffffffffu, x, 1);
+  if (lane == 0) v = 0.f;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += y;
+  }
+  const float excl = v + carry;
+  carry += __shfl_sync(0xffffffffu, v + x, 31);
+  return excl;
+}
+
+// Exclusive suffix sum across the warp (lanes above this one), plus
+// `carry`, the sum of every later chunk; updates carry.
+__device__ __forceinline__ float warp_exclusive_suffix(float x, float& carry) {
+  const int lane = threadIdx.x & 31;
+  float v = __shfl_down_sync(0xffffffffu, x, 1);
+  if (lane == 31) v = 0.f;
+  for (int off = 1; off < 32; off <<= 1) {
+    const float y = __shfl_down_sync(0xffffffffu, v, off);
+    if (lane + off < 32) v += y;
+  }
+  const float excl = v + carry;
+  carry += __shfl_sync(0xffffffffu, v + x, 0);
+  return excl;
+}
+
+// The backward of the composite and of the sigmoid rgb outputs of one ray
+// (fused_render.py:343-404), by one warp, a lane per sample, 32 at a time.
+// io: the ray's s rows of IO_FLOATS floats, in shared or device memory; on
+// entry columns 0..3 of row i hold sample i's raw sigma and shaded rgb; on
+// return they hold its dout8 (d sigma, w * d rgb_c), and columns 4..5 the
+// exclusive prefix sums the forward scan parked there.  z and noise (or
+// null) point at the ray's s samples, dr at its dray row (d rgb, d depth,
+// d opacity).  A forward __shfl_up_sync scan of softplus(sigma [+ noise])
+// * delta (noise-free for depth and opacity, noisy for rgb; the last delta
+// 1e10, where exp(-sd) is 0 and no inf * 0 arises), then a reverse
+// __shfl_down_sync scan of the exclusive suffix sums of d(cum) (the TPU
+// kernel's seg^T @ dcum); the white background subtracts sum(d rgb).
+__device__ __forceinline__ void composite_ray(float* io, const float* z, const float* noise,
+                                              const float* dr, int s, int white_back) {
+  const int lane = threadIdx.x & 31;
+  const float dR = dr[0], dG = dr[1], dB = dr[2], dDepth = dr[3], dOpac = dr[4];
+  const float dbg = white_back ? dR + dG + dB : 0.f;
+  float c_nf = 0.f, c_n = 0.f;
+  for (int i0 = 0; i0 < s; i0 += 32) {
+    const int i = i0 + lane;
+    const bool valid = i < s;
+    float d = 0.f, sg = 0.f, nz = 0.f;
+    if (valid) {
+      d = i < s - 1 ? z[i + 1] - z[i] : 1e10f;
+      sg = io[i * IO_FLOATS];
+      if (noise) nz = noise[i];
+    }
+    const float sd_nf = valid ? softplus(sg) * d : 0.f;
+    const float sd_n = (valid && noise) ? softplus(sg + nz) * d : 0.f;
+    const float cum_nf = warp_exclusive_scan(sd_nf, c_nf);
+    const float cum_n = noise ? warp_exclusive_scan(sd_n, c_n) : 0.f;
+    if (valid) *reinterpret_cast<float2*>(io + i * IO_FLOATS + 4) = make_float2(cum_nf, cum_n);
+  }
+  float r_nf = 0.f, r_n = 0.f;
+  for (int i0 = (s - 1) / 32 * 32; i0 >= 0; i0 -= 32) {
+    const int i = i0 + lane;
+    const bool valid = i < s;
+    float zi = 0.f, d = 0.f, nz = 0.f;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+    float2 cum = make_float2(0.f, 0.f);
+    if (valid) {
+      zi = z[i];
+      d = i < s - 1 ? z[i + 1] - zi : 1e10f;
+      if (noise) nz = noise[i];
+      o = *reinterpret_cast<const float4*>(io + i * IO_FLOATS);
+      cum = *reinterpret_cast<const float2*>(io + i * IO_FLOATS + 4);
+    }
+    const float sg = o.x;
+    const float dw = dR * o.y + dG * o.z + dB * o.w - dbg;
+    const float dprob = dDepth * zi + dOpac;
+    const float sd_nf = softplus(sg) * d;
+    const float e_nf = expf(-sd_nf), t_nf = expf(-cum.x), al_nf = 1.f - e_nf;
+    const float dwc_nf = noise ? dprob : dprob + dw;
+    const float dcum_nf = valid ? -(dwc_nf * al_nf) * t_nf : 0.f;
+    const float dsd_nf = warp_exclusive_suffix(dcum_nf, r_nf) + dwc_nf * t_nf * e_nf;
+    float dsig = dsd_nf * d * sigmoidf(sg);
+    float w = al_nf * t_nf;
+    if (noise) {
+      const float sgn = sg + nz;
+      const float sd_n = softplus(sgn) * d;
+      const float e_n = expf(-sd_n), t_n = expf(-cum.y), al_n = 1.f - e_n;
+      const float dcum_n = valid ? -(dw * al_n) * t_n : 0.f;
+      const float dsd_n = warp_exclusive_suffix(dcum_n, r_n) + dw * t_n * e_n;
+      dsig += dsd_n * d * sigmoidf(sgn);
+      w = al_n * t_n;
+    }
+    if (valid)
+      *reinterpret_cast<float4*>(io + i * IO_FLOATS) = make_float4(dsig, w * dR, w * dG, w * dB);
+  }
+}
+
 // ------------------------------------------------- the consumer warps
 
 // Run ring_gemm at the product's width (32, 64, 128 or 256) and hand the
@@ -545,6 +676,7 @@ __device__ __forceinline__ void gemm_at(int nc, const PtGemm& G, uint32_t a_addr
   }
 }
 
+template <bool STORE>
 struct ReluEpi {
   const bf16* bias;
   unsigned char* buf;
@@ -556,7 +688,8 @@ struct ReluEpi {
   int nr;
   template <int NC>
   __device__ __forceinline__ void run(const float* acc) const {
-    relu_epilogue<NC>(acc, bias, buf, half, masks, words, mask_col, g_dst, ld, nr, Frag());
+    relu_epilogue<NC, STORE>(acc, bias, buf, half, masks, words, mask_col, g_dst, ld, nr,
+                             Frag());
   }
 };
 
@@ -588,6 +721,50 @@ struct FeatEpi2 {
   }
 };
 
+// The shaded rgb of fragment row g + 8 h, in every lane of the quad:
+// sg[c] = sigmoid(sum_b out32[1 + nb c + b] * bas[b]) from the output
+// fragment `o` (fused_mlp.py:408-418).
+__device__ __forceinline__ void shade_rgb(const float* o, const float* bas, int nb, int h,
+                                          const Frag& f, float* sg) {
+  float part_c[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + 2 * f.tig + e;
+      const int lane_sh = col - 1;
+      if (col >= 1 && lane_sh < 3 * nb) {
+        const int c = lane_sh / nb, b = lane_sh - c * nb;
+        const float t = o[4 * j + 2 * h + e] * bas[b];
+        part_c[0] += c == 0 ? t : 0.f;
+        part_c[1] += c == 1 ? t : 0.f;
+        part_c[2] += c == 2 ? t : 0.f;
+      }
+    }
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float acc = part_c[c];
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    sg[c] = sigmoidf(acc);
+  }
+}
+
+// The raw sigma (column 0 of the fragment, lane tig 0) and the shaded rgb
+// of the warp's live rows into columns 0..3 of rows of IO_FLOATS floats
+// (`io` the warp's first row): PT_FORWARD's output, PT_RENDER's staging.
+__device__ __forceinline__ void forward_out(const float* o, const PtArgs& a, long long row0,
+                                            int nr, float* io, const Frag& f) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = f.g + 8 * h;
+    float sg[3];
+    shade_rgb(o, a.basis16 + (r < nr ? (row0 + r) / a.s : 0) * BASIS_LANES, a.nb, h, f, sg);
+    if (r < nr && f.tig == 0)
+      *reinterpret_cast<float4*>(io + r * IO_FLOATS) = make_float4(o[2 * h], sg[0], sg[1], sg[2]);
+  }
+}
+
 // The packed output's cotangent of the warp's rows, from the fragment
 // `o` (the recompute's out32, 16 registers: rows g, g + 8, columns 8 j +
 // 2 tig + e) and, for K5, the shading backward (fused_mlp.py:479-493):
@@ -602,8 +779,8 @@ struct FeatEpi2 {
 // cotangent.
 template <bool SHADED>
 __device__ __forceinline__ void out_cotangent(const float* o, const PtArgs& a, long long row0,
-                                              int nr, uint32_t* afrag, float* part, bool first,
-                                              const Frag& f) {
+                                              int nr, const float* d8rows, uint32_t* afrag,
+                                              float* part, bool first, const Frag& f) {
   float d[16];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -612,32 +789,12 @@ __device__ __forceinline__ void out_cotangent(const float* o, const PtArgs& a, l
     const bool live = r < nr;
     if (SHADED) {
       const int nb = a.nb;
-      const float* bas = a.basis16 + (live ? pt / a.s : 0) * 16;
-      float part_c[3] = {0.f, 0.f, 0.f};
+      const float* bas = a.basis16 + (live ? pt / a.s : 0) * BASIS_LANES;
+      float sg[3], draw[3];
+      shade_rgb(o, bas, nb, h, f, sg);
+      const float* d8 = d8rows + (live ? r : 0) * IO_FLOATS;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * j + 2 * f.tig + e;
-          const int lane_sh = col - 1;
-          if (col >= 1 && lane_sh < 3 * nb) {
-            const int c = lane_sh / nb, b = lane_sh - c * nb;
-            const float t = o[4 * j + 2 * h + e] * bas[b];
-            part_c[0] += c == 0 ? t : 0.f;
-            part_c[1] += c == 1 ? t : 0.f;
-            part_c[2] += c == 2 ? t : 0.f;
-          }
-        }
-      float draw[3];
-      const float* d8 = a.dout_in + (live ? pt : 0) * 8;
-#pragma unroll
-      for (int c = 0; c < 3; ++c) {
-        float acc = part_c[c];
-        acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-        acc += __shfl_xor_sync(0xffffffffu, acc, 2);
-        const float sg = sigmoidf(acc);
-        draw[c] = live ? d8[1 + c] * (sg * (1.f - sg)) : 0.f;
-      }
+      for (int c = 0; c < 3; ++c) draw[c] = live ? d8[1 + c] * (sg[c] * (1.f - sg[c])) : 0.f;
       float dbp[9];
 #pragma unroll
       for (int b = 0; b < 9; ++b) dbp[b] = 0.f;
@@ -734,12 +891,26 @@ __device__ __forceinline__ void load_feat_rows(const MLPParams& p, const bf16* _
   }
 }
 
+// A barrier of the warpgroup's 128 threads (the named barrier wg_sync
+// uses), for the composite's buffer in shared memory.
+__device__ __forceinline__ void wg_bar() {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + ((int)threadIdx.x >> 7)) : "memory");
+}
+
 // One consumer warp's share of every tile of the block: its 16 rows in its
 // slab (two half-slabs of 8 rows), the warpgroup's products reading the
-// four slabs of its warps as one K-major A operand.
-template <bool SHADED>
+// four slabs of its warps as one K-major A operand.  Tiles are 128 points
+// in a row, or (PT_RENDER) 2 x ray_k whole rays, ray_k to a warpgroup, its
+// rows past ray_k x s dead.  PT_FORWARD stops after the recompute (its
+// schedule holds the recompute's products only); PT_RENDER stages each
+// row's sigma and rgb in `io` (the warpgroup's 64 rows of IO_FLOATS), runs
+// the composite backward of each of its rays there (a warp per ray), and
+// takes each row's dout8 from there.
+template <int MODE>
 __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a,
-                                           const PtSchedule& sc, unsigned char* slab, Ring& rg) {
+                                           const PtSchedule& sc, unsigned char* slab, float* io,
+                                           Ring& rg) {
+  constexpr bool SHADED = MODE != PT_MLP, FWD = MODE == PT_FORWARD, RENDER = MODE == PT_RENDER;
   const int warp = threadIdx.x >> 5;
   const int ep = a.ep, wd = p.width, depth = p.depth, words = a.mask_words, half = a.half;
   const Frag f;
@@ -756,8 +927,19 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a,
   const long long P = a.points;
   bool first = true;
   for (long long t = blockIdx.x; t < a.tiles; t += gridDim.x, first = false) {
-    const long long row0 = t * TILE_M + 16 * warp;  // the warp's first point
-    const long long left = P - row0;
+    long long row0, left;  // the warp's first point, and the points from it on
+    long long ray0 = 0;
+    int n_rays = 0;        // PT_RENDER: the warpgroup's first ray and its ray count
+    if constexpr (RENDER) {
+      ray0 = (2 * t + (warp >> 2)) * a.ray_k;
+      const long long rl = a.rays - ray0;
+      n_rays = rl <= 0 ? 0 : (rl < a.ray_k ? (int)rl : a.ray_k);
+      row0 = ray0 * a.s + 16 * (warp & 3);
+      left = (long long)n_rays * a.s - 16 * (warp & 3);
+    } else {
+      row0 = t * TILE_M + 16 * warp;
+      left = P - row0;
+    }
     const int nr = left <= 0 ? 0 : (left >= 16 ? 16 : (int)left);
     int gi = 0;
     load_feat_rows(p, a.feat, row0, nr, act, half, ep);
@@ -765,8 +947,8 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a,
     // recompute: trunk, h written over the act buffer's hidden columns
     for (int l = 0; l < depth; ++l) {
       const bool takes_feat = l == 0 || ((p.skip_mask >> l) & 1);
-      const ReluEpi e = {p.b[l], act + ep * 16, half, masks, words, l * wd,
-                         ws.h + ((size_t)l * P + row0) * wd, wd, nr};
+      const ReluEpi<!FWD> e = {p.b[l], act + ep * 16, half, masks, words, l * wd,
+                               ws.h + ((size_t)l * P + row0) * wd, wd, nr};
       gemm_at(wd, sc.g[gi++], takes_feat ? a_act : a_h, uhalf, rg, e);
     }
     // recompute: head layer 0 in passes of nch columns, each followed (K5)
@@ -776,8 +958,8 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a,
     for (int i = 0; i < 16; ++i) o[i] = 0.f;
     for (int c0 = 0; c0 < p.head0; c0 += a.nch) {
       const int nc = min(a.nch, p.head0 - c0);
-      const ReluEpi e = {p.b[depth] + c0, h1, half, masks, words, depth * wd + c0,
-                         ws.h1 + row0 * p.head0 + c0, p.head0, nr};
+      const ReluEpi<!FWD> e = {p.b[depth] + c0, h1, half, masks, words, depth * wd + c0,
+                               ws.h1 + row0 * p.head0 + c0, p.head0, nr};
       gemm_at(nc, sc.g[gi++], a_h, uhalf, rg, e);
       if (SHADED) {
         float acc[16];
@@ -798,9 +980,26 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a,
         }
       }
     }
+    if constexpr (FWD) {
+      forward_out(o, a, row0, nr, a.out8 + row0 * IO_FLOATS, f);
+      continue;
+    }
+    const float* d8rows = RENDER ? io + 16 * (warp & 3) * IO_FLOATS
+                                 : a.dout_in + row0 * IO_FLOATS;
+    if constexpr (RENDER) {
+      forward_out(o, a, row0, nr, io + 16 * (warp & 3) * IO_FLOATS, f);
+      wg_bar();
+      for (int j = warp & 3; j < n_rays; j += 4) {
+        const long long ray = ray0 + j;
+        composite_ray(io + j * a.s * IO_FLOATS, a.z + ray * a.s,
+                      a.noise ? a.noise + ray * a.s : nullptr, a.dray + ray * 8, a.s,
+                      a.white_back);
+      }
+      wg_bar();
+    }
     // the packed output's cotangent: d head_b1, doutb, dbasis partials
     uint32_t da[8];
-    out_cotangent<SHADED>(o, a, row0, nr, da, part + depth * wd + p.head0, first, f);
+    out_cotangent<SHADED>(o, a, row0, nr, d8rows, da, part + depth * wd + p.head0, first, f);
     // head layer 1: d_h1 = mask(h1) * (dout_b @ hw1^T), passes of <= 256
     for (int c0 = 0; c0 < p.head0; c0 += NC_MAX) {
       const int nc = min(NC_MAX, p.head0 - c0);
@@ -850,7 +1049,7 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a,
 // warpgroup (40 a thread) to the consumers' (232): a 256-column product
 // keeps 128 fp32 accumulators a thread, and short of registers ptxas
 // serializes the wgmma (C7512).
-template <bool SHADED>
+template <int MODE>
 __global__ void __launch_bounds__(PT_THREADS, 1)
     mlp_points_kernel(const __grid_constant__ MLPParams p, const __grid_constant__ PtArgs a,
                       const __grid_constant__ PtSchedule sc) {
@@ -863,6 +1062,9 @@ __global__ void __launch_bounds__(PT_THREADS, 1)
   unsigned char* slabs = psmem + (size_t)a.nst * PT_STAGE;
   rg.full = reinterpret_cast<uint64_t*>(slabs + (size_t)PT_WARPS * 2 * a.half);
   rg.empty = rg.full + a.nst;
+  // PT_RENDER: the composite's buffer, RAY_ROWS rows a warpgroup
+  float* io = reinterpret_cast<float*>(rg.empty + a.nst) +
+              (threadIdx.x >> 7) * RAY_ROWS * IO_FLOATS;
   if (threadIdx.x == 0) {
     for (int s = 0; s < a.nst; ++s) {
       mbar_init(rg.full + s, 1);   // the producer's arrive, plus the bulk bytes
@@ -877,7 +1079,7 @@ __global__ void __launch_bounds__(PT_THREADS, 1)
     if (threadIdx.x < THREADS + 32) pt_produce(sc, a.img, a.tiles, rg);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    pt_consume<SHADED>(p, a, sc, slabs + (size_t)(threadIdx.x >> 5) * 2 * a.half, rg);
+    pt_consume<MODE>(p, a, sc, slabs + (size_t)(threadIdx.x >> 5) * 2 * a.half, io, rg);
   }
 }
 
@@ -960,11 +1162,129 @@ static inline int pt_half_bytes(const MLPParams& p, int nch, int* h1_off, int* m
   return *mask_off + 8 * ((p.depth * p.width + p.head0) / 32) * 4;
 }
 
-// Bias-partial groups of a pass over `points` points: one per tile up to
+// Tiles of a pass over `points` points in rows of TILE_M.
+static inline long long pt_tiles(long long points) { return (points + TILE_M - 1) / TILE_M; }
+
+// Bias-partial groups of a pass over `tiles` tiles: one per tile up to
 // WG_WAVE, the block count of the persistent grid (shapes only).
-static inline int pt_groups(long long points) {
-  const long long tiles = (points + TILE_M - 1) / TILE_M;
+static inline int pt_groups(long long tiles) {
   return (int)(tiles < WG_WAVE ? (tiles < 1 ? 1 : tiles) : WG_WAVE);
+}
+
+// The recompute's products at the head of pt_schedule's list: the trunk,
+// then each head-0 pass (with, shaded, its head-1 share).
+static inline int pt_recompute_products(const MLPParams& p, int nch, bool shaded) {
+  return p.depth + (p.head0 + nch - 1) / nch * (shaded ? 2 : 1);
+}
+
+// dbasis[ray, b] = sum over the ray's s points, in order, of the partials.
+__global__ void ray_sum_kernel(const float* __restrict__ dbp, int rays, int s,
+                               float* __restrict__ dbasis) {
+  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long long)rays * BASIS_LANES) return;
+  const long long ray = idx / BASIS_LANES;
+  const int b = (int)(idx % BASIS_LANES);
+  float acc = 0.f;
+  for (int i = 0; i < s; ++i) acc += dbp[(ray * s + i) * DBP_LANES + b];
+  dbasis[idx] = acc;
+}
+
+// The workspace of a points stage over `points` points: make_layout's
+// regions (one bias-partial row per consumer warp of each group) and, after
+// them, the weight images.
+struct FlatPlan {
+  Layout L;
+  size_t img_at, bytes;
+  long long tiles;
+  int groups, nch;
+};
+
+static FlatPlan flat_plan(const MLPParams& p, long long points, long long tiles, bool shaded,
+                          PtSchedule* sc, PtImages* im) {
+  FlatPlan f;
+  f.tiles = tiles;
+  f.groups = pt_groups(tiles);
+  f.nch = pt_nch(p.head0);
+  f.L = make_layout(points, f.groups * GROUP_ROWS, p.enc, p.depth, p.skip_mask, p.width, p.head0,
+                    shaded);
+  const long long img = pt_schedule(p, shaded, f.nch, sc, im);
+  f.img_at = align256(f.L.bytes);
+  f.bytes = img < 0 ? 0 : f.img_at + align256((size_t)img);
+  return f;
+}
+
+// The arguments of a points stage over `tiles` tiles; returns 0 or an
+// error for shapes the kernels do not take.
+static int points_args(bool shaded, MLPParams* p, FlatPlan* f, PtSchedule* sc, PtImages* im,
+                       PtArgs* a, const void* feat, const void* basis16, const void* dout_in,
+                       void* dfeat, void* workspace, long long points, long long tiles, int s,
+                       int nb, int enc, int depth, int skip_mask, int width, int head0,
+                       const void* const* w, const void* const* b) {
+  int err = make_params(p, feat, depth, skip_mask, enc, width, head0, w, b);
+  if (err) return err;
+  if (shaded && (s < 1 || nb < 1 || nb > 9 || points % s)) return cudaErrorInvalidValue;
+  *f = flat_plan(*p, points, tiles, shaded, sc, im);
+  if (!f->bytes) return cudaErrorInvalidValue;
+  a->feat = static_cast<const bf16*>(feat);
+  a->basis16 = static_cast<const float*>(basis16);
+  a->dout_in = static_cast<const float*>(dout_in);
+  a->out8 = nullptr;
+  a->z = a->noise = a->dray = nullptr;
+  a->rays = 0;
+  a->ray_k = a->white_back = 0;
+  a->dfeat = static_cast<float*>(dfeat);
+  a->ws = carve(f->L, workspace);
+  a->img = static_cast<const unsigned char*>(workspace) + f->img_at;
+  a->points = points;
+  a->s = s;
+  a->nb = nb;
+  return 0;
+}
+
+// The shared-memory layout of mlp_points_kernel at this pack (the slabs'
+// offsets and the ring's depth into `a`; `render`: with PT_RENDER's
+// composite buffer) and its bytes into *smem; then the weight images,
+// written once per call for every product of the schedule.
+static int points_setup(const MLPParams& p, const FlatPlan& f, const PtSchedule& sc,
+                        const PtImages& im, bool render, PtArgs* a, size_t* smem,
+                        cudaStream_t st) {
+  int dev = 0, limit = 0;
+  int err = cudaGetDevice(&dev);
+  if (!err) err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err) return err;
+  a->half = pt_half_bytes(p, f.nch, &a->h1_off, &a->mask_off);
+  a->ep = pt_ep(p);
+  const long long slabs = (long long)PT_WARPS * 2 * a->half;
+  const long long io = render ? (long long)sizeof(float) * 2 * RAY_ROWS * IO_FLOATS : 0;
+  const long long room = (long long)limit - slabs - io - 16 * PT_MAX_STAGES;
+  a->nst = (int)(room / PT_STAGE < PT_MAX_STAGES ? room / PT_STAGE : PT_MAX_STAGES);
+  if (a->nst < 2) return cudaErrorInvalidValue;
+  *smem = (size_t)a->nst * PT_STAGE + (size_t)slabs + 16 * a->nst + (size_t)io;
+  a->tiles = f.tiles;
+  a->nch = f.nch;
+  a->mask_words = (p.depth * p.width + p.head0) / 32;
+  a->nbias = f.L.nbias;
+  weight_images_kernel<<<sc.stages, THREADS, 0, st>>>(im, sc, const_cast<unsigned char*>(a->img));
+  return cudaGetLastError();
+}
+
+// One launch of mlp_points_kernel<MODE> over the persistent grid.
+template <int MODE>
+static int launch_points(const MLPParams& p, const PtArgs& a, const PtSchedule& sc, int groups,
+                         size_t smem, cudaStream_t st) {
+  int err = cudaFuncSetAttribute(mlp_points_kernel<MODE>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err) return err;
+  mlp_points_kernel<MODE><<<groups, PT_THREADS, smem, st>>>(p, a, sc);
+  return cudaGetLastError();
+}
+
+// K5's per-ray dbasis: the sums of the per-point partials in sample order.
+static int launch_ray_sums(const PtArgs& a, void* dbasis, cudaStream_t st) {
+  const long long n = a.points / a.s * BASIS_LANES;
+  ray_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      a.ws.dbp, (int)(a.points / a.s), a.s, static_cast<float*>(dbasis));
+  return cudaGetLastError();
 }
 
 }  // namespace mcn

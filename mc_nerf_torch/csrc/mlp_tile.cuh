@@ -225,39 +225,11 @@ __device__ __forceinline__ void relu_pass(int nc, const bf16* A, int a_pitch, in
   }
 }
 
-// Where mlp_tile also stores a tile's activations (the training
-// backward's recompute): the bf16 output of every trunk layer and of head
-// layer 0, and (unless out32 is null) the fp32 packed output, for the
-// tile's first n_rows rows.
-struct ActSave {
-  bf16* h;          // [depth][points][width]
-  bf16* h1;         // [points][head0]
-  float* out32;     // [points][32], or null
-  long long points; // rows of one layer's block of h
-  long long row0;   // the tile's first point
-  int n_rows;
-};
-
-// Copy rows [0, n) x cols [0, ncols) (a multiple of 8) of a bf16 shared
-// tile to global rows of `ld` elements, 16 bytes at a time.
-__device__ inline void store_rows(const bf16* src, int pitch, int ncols, bf16* dst, long long ld,
-                                  int n) {
-  const int per_row = ncols >> 3;
-  for (int idx = threadIdx.x; idx < n * per_row; idx += THREADS) {
-    const int r = idx / per_row, c = idx - r * per_row;
-    *reinterpret_cast<uint4*>(dst + r * ld + c * 8) =
-        *reinterpret_cast<const uint4*>(src + r * pitch + c * 8);
-  }
-}
-
 // The whole MLP over one tile.  On entry act[:, 0:enc_pad] holds the
 // tile's features (zero past enc and in rows past the data); on return
 // outs[m, 0:32] holds the packed fp32 output (col 0 raw sigma, cols 1..
-// SH), visible to every thread.  With `save`, the activations also go to
-// global memory (the copies read shared buffers that the next GEMM only
-// rewrites after its own barriers).
-__device__ void mlp_tile(const MLPParams& p, bf16* act, bf16* h1, bf16* wst,
-                         float* outs, const ActSave* save = nullptr) {
+// SH), visible to every thread.
+__device__ void mlp_tile(const MLPParams& p, bf16* act, bf16* h1, bf16* wst, float* outs) {
   const int ep = p.enc_pad, wd = p.width;
   for (int l = 0; l < p.depth; ++l) {
     const bool takes_feat = l == 0 || ((p.skip_mask >> l) & 1);
@@ -265,21 +237,11 @@ __device__ void mlp_tile(const MLPParams& p, bf16* act, bf16* h1, bf16* wst,
     const WeightRows wr = {p.w[l], wd, 0, 0, takes_feat ? p.enc : 0, takes_feat ? ep : 0};
     relu_pass(wd, act, p.act_pitch, takes_feat ? 0 : ep, K, wr, p.b[l], act, p.act_pitch, ep,
               wst);
-    if (save) {
-      __syncthreads();
-      store_rows(act + ep, p.act_pitch, wd, save->h + (l * save->points + save->row0) * wd, wd,
-                 save->n_rows);
-    }
   }
   for (int c0 = 0; c0 < p.head0; c0 += NC_MAX) {
     const int nc = min(NC_MAX, p.head0 - c0);
     const WeightRows w0 = {p.w[p.depth], p.head0, 0, c0, 0, 0};
     relu_pass(nc, act, p.act_pitch, ep, wd, w0, p.b[p.depth], h1, p.h1_pitch, 0, wst);
-    if (save) {
-      __syncthreads();
-      store_rows(h1, p.h1_pitch, nc, save->h1 + save->row0 * p.head0 + c0, p.head0,
-                 save->n_rows);
-    }
     const WeightRows w1 = {p.w[p.depth + 1], OUT_COLS, c0, 0, 0, 0};
     if (c0 == 0) {
       gemm_pass<OUT_ASSIGN, OUT_COLS>(h1, p.h1_pitch, 0, nc, w1, p.b[p.depth + 1], nullptr, 0,
@@ -290,12 +252,6 @@ __device__ void mlp_tile(const MLPParams& p, bf16* act, bf16* h1, bf16* wst,
     }
   }
   __syncthreads();
-  if (save && save->out32) {
-    for (int idx = threadIdx.x; idx < save->n_rows * OUT_COLS; idx += THREADS) {
-      const int r = idx / OUT_COLS, c = idx - r * OUT_COLS;
-      save->out32[(save->row0 + r) * OUT_COLS + c] = outs[r * OUT_PITCH + c];
-    }
-  }
 }
 
 // Load rows [first, first + 128) of feat [*, enc] (bf16) into

@@ -12,10 +12,13 @@ Counterpart of ``mc_nerf_tpu/ops/pallas/fused_render.py``.  Two kernels:
 * ``csrc/fused_render_bwd.cu`` replaces ``_render_bwd_kernel``
   (``fused_render.py:290``, via ``_render_bwd_call`` ``:559`` and the
   custom VJP ``_fused_render_bwd`` ``:697``) in two launches:
-  :func:`render_bwd_points` (recompute into a device workspace, composite,
-  shading and MLP backward per point) and :func:`render_bwd_weights` (the
-  weight gradients summed over all points, split over chunks of points
-  and reduced in a fixed order).
+  :func:`render_bwd_points` (the points stage: a forward giving each
+  point's sigma and rgb, the composite backward per ray giving each
+  point's cotangent dout8, then ``fused_shaded_mlp``'s points stage from
+  it: shading and MLP backward per point into a device workspace) and
+  :func:`render_bwd_weights` (the weight gradients summed over all points,
+  split over chunks of points and reduced in a fixed order).
+  :func:`render_composite_bwd_plain` is the composite step's oracle.
 
 Bound on an H100 SXM (989 TFLOP/s dense bf16): compute.  The eval fine
 pass (8x256, 629,248 MAC per point needed) over a 16384 x 32 chunk is
@@ -108,6 +111,59 @@ def _render_plain_flat(ws, bs, feat, basis16, z, noise, noise_sel, depth, skips,
     return ray_out, (weights(sigma + noise_sel) if with_noise else prob)
 
 
+def _composite_bwd(sigma, rgb, z, noise, dray, white_back):
+    """The composite's backward per ray (``fused_render.py:343-392``): from
+    the raw sigma [R, s], the sigmoid rgb [R, s, 3] and the cotangent dray
+    [R, 8] of (rgb, depth, opacity), d sigma [R, s] and the rgb-path
+    weights w [R, s] (noisy where ``noise`` is given); exclusive suffix
+    sums of d(cum), the last delta 1e10, the white background's -sum(drgb)."""
+    rays, s = sigma.shape
+    d = _deltas_flat(z).reshape(rays, s)
+    drgb = dray[:, None, 0:3]
+    dw = (drgb * rgb).sum(-1)
+    if white_back:
+        dw = dw - drgb.sum(-1)
+    dprob = dray[:, 3:4] * z + dray[:, 4:5]
+    cols = [(sigma, dprob), (sigma + noise, dw)] if noise is not None else [(sigma, dprob + dw)]
+    dsigma = torch.zeros_like(sigma)
+    for sig_c, dwc in cols:
+        sd = _softplus(sig_c) * d
+        t_ex = torch.exp(-_exclusive_cumsum(sd))
+        e = torch.exp(-sd)
+        alpha = 1.0 - e
+        w = alpha * t_ex
+        dcum = -(dwc * alpha) * t_ex
+        dsd = _exclusive_suffix_sum(dcum) + dwc * t_ex * e
+        dsigma = dsigma + dsd * d * torch.sigmoid(sig_c)
+    # w is the rgb-path weight: the last column's (noisy under noise)
+    return dsigma, w
+
+
+def render_composite_bwd_plain(sigma, rgb, z, noise, dray, white_back=True):
+    """The composite backward kernel's arithmetic (``composite_bwd_kernel``
+    in ``csrc/fused_render_bwd.cu``) in plain PyTorch: the per-point
+    cotangent of ``fused_shaded_mlp``'s outputs that the render's
+    composite hands back.
+
+    Args: ``sigma`` [rays, s] the raw sigma, ``rgb`` [rays, s, 3] the
+    sigmoid rgb, ``z`` [rays, s] sorted depths, ``noise`` [rays, s] or None
+    (noisy rgb weights, noise-free depth and opacity), ``dray`` [rays, 8]
+    the cotangent of the rays' (rgb, depth, opacity).  Returns dout8
+    [rays * s, 8] in ``dray``'s dtype: d sigma, w * d rgb_c (w the rgb-path
+    weight of the point), zeros; :func:`fused_shaded_mlp_bwd_plain` on it
+    gives :func:`fused_render_bwd_plain`'s gradients."""
+    rays, s = sigma.shape
+    sd_t = dray.dtype
+    dray = dray.detach()
+    noise = None if noise is None else noise.detach().to(sd_t)
+    dsigma, w = _composite_bwd(sigma.detach().to(sd_t), rgb.detach().to(sd_t),
+                               z.detach().to(sd_t), noise, dray, white_back)
+    dout8 = torch.zeros((rays, s, 8), dtype=sd_t, device=dray.device)
+    dout8[..., 0] = dsigma
+    dout8[..., 1:4] = w[..., None] * dray[:, None, 0:3]
+    return dout8.reshape(rays * s, 8)
+
+
 def fused_render_bwd_plain(ws, bs, feat, basis16, z, noise, dray, depth, skips, s, nb,
                            with_noise, white_back=True):
     """The backward kernels' arithmetic in plain PyTorch, with the Pallas
@@ -139,27 +195,10 @@ def fused_render_bwd_plain(ws, bs, feat, basis16, z, noise, dray, depth, skips, 
     sh = out[..., 1:1 + 3 * nb].reshape(rays, s, 3, nb)
     bas = basis16[:, None, None, :nb]
     rgb = torch.sigmoid((sh * bas).sum(-1))                           # [R, s, 3]
-    d = _deltas_flat(z).reshape(rays, s)
 
     # ---- composite backward
-    drgb = dray[:, None, 0:3]
-    dw = (drgb * rgb).sum(-1)
-    if white_back:
-        dw = dw - drgb.sum(-1)
-    dprob = dray[:, 3:4] * z + dray[:, 4:5]
-    cols = [(sigma, dprob), (sigma + noise, dw)] if with_noise else [(sigma, dprob + dw)]
-    dsigma = torch.zeros_like(sigma)
-    for sig_c, dwc in cols:
-        sd = _softplus(sig_c) * d
-        t_ex = torch.exp(-_exclusive_cumsum(sd))
-        e = torch.exp(-sd)
-        alpha = 1.0 - e
-        w = alpha * t_ex
-        dcum = -(dwc * alpha) * t_ex
-        dsd = _exclusive_suffix_sum(dcum) + dwc * t_ex * e
-        dsigma = dsigma + dsd * d * torch.sigmoid(sig_c)
-    # w is the rgb-path weight: the last column's (noisy under with_noise)
-    draw = w[..., None] * drgb * rgb * (1.0 - rgb)                     # [R, s, 3]
+    dsigma, w = _composite_bwd(sigma, rgb, z, noise if with_noise else None, dray, white_back)
+    draw = w[..., None] * dray[:, None, 0:3] * rgb * (1.0 - rgb)      # [R, s, 3]
     dout32 = torch.zeros((rays, s, OUT_COLS), dtype=sd_t, device=z.device)
     dout32[..., 0] = dsigma
     dout32[..., 1:1 + 3 * nb] = (draw[..., None] * bas).reshape(rays, s, 3 * nb)
@@ -195,10 +234,10 @@ def max_samples(packed: PackedMLP) -> int:
 
 
 def max_samples_bwd(packed: PackedMLP) -> int:
-    """The most samples per ray the backward kernel takes with this pack on
-    the current CUDA device (1,301 for the fine 8x256 pack at 10 octaves
-    on an H100), as ``csrc/fused_render_bwd.cu`` lays out its shared
-    memory; builds the kernels at first use."""
+    """The most samples per ray the backward kernels take with this pack
+    (``mcn_render_bwd_max_samples`` in ``csrc/fused_render_bwd.cu``): no
+    limit (2**31 - 1) for any pack they take, so every ray the forward
+    takes; builds the kernels at first use."""
     return _ceiling("fused_render_bwd", "mcn_render_bwd_max_samples", packed)
 
 
@@ -274,9 +313,11 @@ def _bwd_shapes(ws, bs):
 
 def render_bwd_points(ws, bs, feat, basis16, z, noise, dray, depth, skips, s, nb,
                       white_back, workspace) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch stage 1 of ``csrc/fused_render_bwd.cu`` (recompute, composite,
-    shading and MLP backward per point; bias partials) into ``workspace``.
-    Returns (dfeat [rays*s, E] fp32, dbasis [rays, 16] fp32)."""
+    """Launch stage 1 of ``csrc/fused_render_bwd.cu`` into ``workspace``:
+    the forward's sigma and rgb, the composite backward's dout8, then the
+    shading and MLP backward per point (``fused_shaded_mlp``'s points
+    stage; bias partials, the per-ray dbasis sums), one call counted as
+    one launch.  Returns (dfeat [rays*s, E] fp32, dbasis [rays, 16] fp32)."""
     rays, enc = basis16.shape[0], feat.shape[1]
     _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, feat.device)
     dfeat = torch.empty((rays * s, enc), dtype=torch.float32, device=feat.device)

@@ -267,7 +267,7 @@ def points_stage_images(enc: int, depth: int, width: int, skips, head0: int,
 
 
 def points_stage_bytes(enc: int, depth: int, width: int, skips, head0: int, points: int,
-                       shaded: bool = False, s: int = 1) -> int:
+                       shaded: bool = False, s: int = 1, tiles=None) -> int:
     """The bytes the points stage of K5 (``shaded``, ``s`` points per ray)
     or K6 moves at this pack and point count, as ``csrc/mlp_bwd_points.cuh``
     reads and writes them, each once: feat (bf16) and the cotangent
@@ -279,9 +279,9 @@ def points_stage_bytes(enc: int, depth: int, width: int, skips, head0: int, poin
     written; the weights and biases read (bf16) and the weight images
     (:func:`points_stage_images`) written and read.  K5 also writes the
     per-point dbasis partials [P, 16] (fp32), which the per-ray sum reads
-    back before writing dbasis [P / s, 16].  The fp32 dout32 region of the
-    workspace is neither written nor read."""
-    tiles = (points + 127) // 128
+    back before writing dbasis [P / s, 16].  ``tiles``: the stage's tiles,
+    128 points each where not given."""
+    tiles = (points + 127) // 128 if tiles is None else tiles
     nbias = depth * width + head0 + 32
     w_in = sum(((enc if i == 0 else width) + (enc if i in skips else 0)) * width
                for i in range(depth)) + width * head0 + head0 * 32
@@ -293,21 +293,41 @@ def points_stage_bytes(enc: int, depth: int, width: int, skips, head0: int, poin
             + 2 * points_stage_images(enc, depth, width, skips, head0, shaded))
 
 
+RAY_ROWS = 64   # rows of a warpgroup of K3's fused path (csrc/fused_render_bwd.cu)
+
+
+def render_fused_rays(s: int) -> int:
+    """Rays per warpgroup of K3's fused path, or 0 for its composed path, as
+    ``fused_rays`` in ``csrc/fused_render_bwd.cu`` picks them: fused where
+    whole rays of s samples fill at least 7/8 of RAY_ROWS rows."""
+    k = RAY_ROWS // s if s <= RAY_ROWS else 0
+    return k if 8 * k * s >= 7 * RAY_ROWS else 0
+
+
 def render_points_stage_bytes(enc: int, depth: int, width: int, skips, head0: int,
                               points: int, s: int) -> int:
-    """The bytes K3's points stage (``render_bwd_points``, three steps over
-    one set of weight images) moves at this pack, ``points`` points and
-    ``s`` samples per ray, with noise, each once: the forward
-    (``mlp_points_kernel`` in its forward mode) reads feat (bf16), the
-    rays' basis [P / s, 16] and the recompute's weight images, and writes
-    sigma and rgb [P, 4] (fp32); the composite backward reads them, z and
-    the noise [P] and dray [P / s, 8], writes its two prefix sums [P, 2]
-    and reads them back, and writes dout8 [P, 8] (fp32); then K5's points
-    stage (:func:`points_stage_bytes`, shaded) from that dout8."""
+    """The bytes K3's points stage (``render_bwd_points``) moves at this
+    pack, ``points`` points and ``s`` samples per ray, with noise, each
+    once.  The fused path (:func:`render_fused_rays` k > 0: one launch,
+    tiles of 2k whole rays): K5's points stage (:func:`points_stage_bytes`,
+    shaded, over those tiles) without its dout8 read, plus the composite's
+    inputs z and the noise [P] and dray [P / s, 8] (fp32); dout8 lives in
+    shared memory.  The composed path (over one set of weight images): the
+    forward (``mlp_points_kernel`` in its forward mode) reads
+    feat (bf16), the rays' basis [P / s, 16] and the recompute's weight
+    images, and writes sigma and rgb [P, 4] (fp32); the composite backward
+    reads them, z, the noise and dray, writes its two prefix sums [P, 2]
+    and reads them back, and writes dout8 [P, 4] over sigma and rgb; then
+    K5's points stage from that dout8."""
     rays = points // s
+    inputs = 2 * 4 * points + 8 * 4 * rays   # z and noise, dray
+    k = render_fused_rays(s)
+    if k:
+        return inputs - 8 * 4 * points + points_stage_bytes(
+            enc, depth, width, skips, head0, points, True, s, tiles=-(-rays // (2 * k)))
     fwd = 2 * enc * points + 16 * 4 * rays + 4 * 4 * points + points_stage_images(
         enc, depth, width, skips, head0, True, recompute_only=True)
-    composite = (4 * 4 + 2 * 4) * points + 8 * 4 * rays + 2 * 2 * 4 * points + 8 * 4 * points
+    composite = inputs + 4 * 4 * points + 2 * 2 * 4 * points + 4 * 4 * points
     return fwd + composite + points_stage_bytes(enc, depth, width, skips, head0, points, True, s)
 
 
@@ -337,12 +357,41 @@ def _skip_plant(fn, args, ref) -> Dict[str, float]:
         return bwd_errs(fn(*args), ref)
 
 
+def dout8_moved(dout8: torch.Tensor, s: int) -> torch.Tensor:
+    """``dout8`` [rays * s, 8] with, in every ray, the row of the sample of
+    the largest |d sigma| swapped with its neighbour's (the next sample's;
+    the last sample's with the one before): a composite that writes one
+    sample's cotangent one row off."""
+    d = dout8.reshape(-1, s, dout8.shape[1]).clone()
+    r = torch.arange(d.shape[0], device=d.device)
+    j = d[..., 0].abs().argmax(1)
+    k = torch.where(j == s - 1, j - 1, j + 1)
+    dj, dk = d[r, j].clone(), d[r, k].clone()
+    d[r, j], d[r, k] = dk, dj
+    return d.reshape(dout8.shape)
+
+
+def planted_dout8_moved(args, ref) -> Dict[str, float]:
+    """:func:`bwd_errs` against ``ref`` of K3's plain decomposition
+    (``render_composite_bwd_plain`` on the plain forward's sigma and rgb,
+    then ``fused_shaded_mlp_bwd_plain``) on ``args`` of
+    ``fused_render_bwd_plain``, with :func:`dout8_moved` between the two."""
+    ws, bs, feat, basis16, z, noise, dray, depth, skips, s, nb, with_noise, white_back = args
+    rays = basis16.shape[0]
+    out8 = _fm._shaded_plain_flat(ws, bs, feat, basis16, depth, skips, s, nb).reshape(rays, s, 8)
+    dout8 = _fr.render_composite_bwd_plain(out8[..., 0], out8[..., 1:4], z,
+                                           noise if with_noise else None, dray, white_back)
+    return bwd_errs(_fm.fused_shaded_mlp_bwd_plain(ws, bs, feat, basis16, dout8_moved(dout8, s),
+                                                   depth, skips, s, nb), ref)
+
+
 def planted_errs(args, ref) -> Dict[str, Dict[str, float]]:
     """For ``args`` of ``fused_render_bwd_plain`` and ``ref`` its result:
     :func:`bwd_errs` of each planted fault against ``ref``: the last trunk
     layer's dW written transposed, layer 1's dW zeroed, dfeat's points
     mixed in a tile, the skip layers' share of dfeat dropped, another
-    ray's SH basis, the composite's suffix sums one sample late."""
+    ray's SH basis, the composite's suffix sums one sample late, one
+    sample's dout8 moved to its neighbour (:func:`planted_dout8_moved`)."""
     other = list(args)
     other[3] = args[3].roll(1, 0)
     with mock.patch.object(_fr, "_exclusive_suffix_sum", _suffix_late):
@@ -350,7 +399,8 @@ def planted_errs(args, ref) -> Dict[str, Dict[str, float]]:
     return {**_weight_plants(ref, args[7]),
             "the skip's dfeat share dropped": _skip_plant(_fr.fused_render_bwd_plain, args, ref),
             "another ray's basis": bwd_errs(_fr.fused_render_bwd_plain(*other), ref),
-            "suffix scan shifted by one": bwd_errs(late, ref)}
+            "suffix scan shifted by one": bwd_errs(late, ref),
+            "one sample's dout8 moved to its neighbour": planted_dout8_moved(args, ref)}
 
 
 def planted_errs_shaded(args, ref) -> Dict[str, Dict[str, float]]:

@@ -139,8 +139,8 @@ def test_fused_render_refuses_bad_shapes(rng):
 
 
 def test_fused_render_sample_ceiling(rng):
-    """The kernels' shared-memory ceiling on samples per ray (1,952 forward
-    and 1,301 backward at the default fine pack on an H100) is the CUDA
+    """The forward kernel's shared-memory ceiling on samples per ray (1,952
+    at the default fine pack on an H100; the backward has none) is the CUDA
     sources' and is held on the card (tests/test_torch_gpu.py); the plain
     versions on CPU tensors have none: a 1,953-sample ray at that pack
     renders and takes its gradients, and nothing launches."""

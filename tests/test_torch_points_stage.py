@@ -39,6 +39,7 @@ from mc_nerf_torch.tools.bwd_check import (
     planted_points,
     points_stage_bytes,
     points_stage_images,
+    render_points_stage_bytes,
     shaded_cotangent,
 )
 from mc_nerf_torch.tools.scene import scene_params
@@ -71,6 +72,29 @@ def test_points_stage_bytes_per_point(pack, want, shaded):
     assert got == want[shaded]
 
 
+# K3 (render_points_stage_bytes), bytes of one more ray past the bias
+# groups' 132, by hand.  K5's stage per point without its per-ray terms:
+# fine 10,688 + dout8 32 + the dbasis partials 128 = 10,848, coarse 3,680;
+# per ray the basis read and dbasis written, 128.  Fused (rays filling 7/8
+# of 64 rows or more: s = 32, 20): less the dout8 read (32), plus z and
+# noise (8) a point and dray (32) a ray:
+#   fine, s = 32: 32 x 10,824 + 160 = 346,528
+#   coarse, s = 20: 20 x 3,656 + 160 = 73,280
+# Composed (s = 48: 48 of 64 rows; s = 130): plus the forward (feat 128,
+# sigma and rgb written 16) and the composite (z and noise 8, sigma and
+# rgb read 16, the prefix sums written and read back 16, dout8 written 16)
+# a point, and the forward's basis read 64 and dray 32 a ray:
+#   coarse, s = 48: 48 x 3,880 + 224 = 186,464
+#   fine, s = 130: 130 x 11,048 + 224 = 1,436,464
+@pytest.mark.parametrize("pack,s,want", [("fine", 32, 346528), ("coarse", 20, 73280),
+                                         ("coarse", 48, 186464), ("fine", 130, 1436464)])
+def test_render_points_stage_bytes_per_ray(pack, s, want):
+    rays = 100_000
+    got = (render_points_stage_bytes(*PACKS[pack], (rays + 1) * s, s)
+           - render_points_stage_bytes(*PACKS[pack], rays * s, s))
+    assert got == want
+
+
 # The weight images, by hand (bytes = K rounded to 32 x N x 2 per product):
 #   fine, recompute: layer 0 64 x 256 (32,768), six 256 x 256 (131,072
 #   each), the skip 320 x 256 (163,840), head 0 four passes 256 x 128
@@ -89,6 +113,34 @@ def test_points_stage_bytes_per_point(pack, want, shaded):
                                               ("coarse", False, 409600)])
 def test_points_stage_images(pack, shaded, want):
     assert points_stage_images(*PACKS[pack], shaded) == want
+
+
+# The recompute's images alone (K3's forward reads them once more): fine
+# 1,277,952, coarse 212,992, as summed above; narrow coarse: layer 0 32 x
+# 32 (2,048), the skip 64 x 32 (4,096), head 0 32 x 64 (4,096), its head-1
+# share 64 x 32 (4,096) = 14,336
+@pytest.mark.parametrize("pack,want", [("fine", 1277952), ("coarse", 212992),
+                                       ("narrow-coarse", 14336)])
+def test_points_stage_images_recompute(pack, want):
+    assert points_stage_images(*PACKS[pack], True, recompute_only=True) == want
+
+
+def test_render_points_stage_bytes_at_the_importance_shapes():
+    """K3's count beside K5's stage at the same points and 7000 rays, the
+    importance step's passes: fused at the fine pass (s = 32; 1750 tiles,
+    past the 132 bias groups): z and noise 8 a point and dray 32 a ray for
+    the dout8 read, 32 a point; composed at the coarse pass (s = 48) and
+    at s = 130: the forward's and the composite's bytes, and the
+    recompute's images read once more."""
+    p = 7000 * 32
+    assert render_points_stage_bytes(*PACKS["fine"], p, 32) == (
+        points_stage_bytes(*PACKS["fine"], p, True, 32) - 24 * p + 32 * 7000)
+    for pack, s, images in (("coarse", 48, 212992), ("fine", 130, 1277952),
+                            ("coarse", 130, 212992)):
+        enc, p = PACKS[pack][0], 7000 * s
+        assert render_points_stage_bytes(*PACKS[pack], p, s) == (
+            points_stage_bytes(*PACKS[pack], p, True, s)
+            + (2 * enc + 16 + 8 + 16 + 16 + 16) * p + (64 + 32) * 7000 + images)
 
 
 def test_points_stage_bytes_fixed_part():
