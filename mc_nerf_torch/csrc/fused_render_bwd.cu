@@ -88,37 +88,30 @@ static int fused_rays(int s) {
   return 8 * k * s >= 7 * RAY_ROWS ? k : 0;
 }
 
+// Tiles of the points stage: of 2 x fused_rays(s) whole rays, or of 128
+// points.
+static long long render_tiles(int rays, int s) {
+  const int k = fused_rays(s);
+  return k ? (rays + 2LL * k - 1) / (2LL * k) : pt_tiles((long long)rays * s);
+}
+
 // The workspace of a backward over rays x s points: K5's points stage's
 // (flat_plan, shaded: the regions the weight stage reads, the per-point
-// dbasis partials, the weight images; its tiles 2 x fused_rays(s) whole
-// rays, or 128 points), then, for path A, the [P, 8] buffer of the
-// forward's outputs and the composite's dout8.
-struct RenderPlan {
-  FlatPlan f;
-  int ray_k;
-  size_t io_at, bytes;
-};
-
-static RenderPlan render_plan(const MLPParams& p, int rays, int s, PtSchedule* sc,
-                              PtImages* im) {
-  RenderPlan r;
-  const long long points = (long long)rays * s;
-  r.ray_k = fused_rays(s);
-  const long long tiles = r.ray_k ? (rays + 2LL * r.ray_k - 1) / (2LL * r.ray_k)
-                                  : pt_tiles(points);
-  r.f = flat_plan(p, points, tiles, true, sc, im);
-  r.io_at = r.f.bytes;
-  r.bytes = !r.f.bytes ? 0
-            : r.io_at + (r.ray_k ? 0 : align256((size_t)points * IO_FLOATS * sizeof(float)));
-  return r;
+// dbasis partials, the weight images; f.bytes of them), then, for the
+// composed path, the [P, 8] buffer of the forward's outputs and the
+// composite's dout8.
+static size_t render_bytes(const FlatPlan& f, int rays, int s) {
+  if (!f.bytes || fused_rays(s)) return f.bytes;
+  return f.bytes + align256((size_t)rays * s * IO_FLOATS * sizeof(float));
 }
 
 // ------------------------------------------------------------- C interface
 
 // The most samples per ray the backward takes with this pack shape: no
-// limit (the composite keeps its carries in registers and its prefix sums
-// in device memory; the points stage takes flat tiles), so any ray the
-// forward takes (mcn_render_max_samples); 0 for a shape it does not take.
+// limit (rays longer than the fused path's tiles take the composed path,
+// whose composite keeps its carries in registers and its prefix sums in
+// device memory, over flat tiles), so any ray the forward takes
+// (mcn_render_max_samples); 0 for a shape it does not take.
 extern "C" int mcn_render_bwd_max_samples(int enc, int depth, int width, int head0) {
   MLPParams p;
   if (set_shape(&p, depth, 0, enc, width, head0)) return 0;
@@ -133,11 +126,13 @@ extern "C" long long mcn_render_bwd_workspace(int rays, int s, int enc, int dept
   for (int l = 0; l < depth + 2; ++l) p.w[l] = p.b[l] = nullptr;
   PtSchedule sc;
   PtImages im;
-  return (long long)render_plan(p, rays, s, &sc, &im).bytes;
+  const FlatPlan f = flat_plan(p, (long long)rays * s, render_tiles(rays, s), true, &sc, &im);
+  return (long long)render_bytes(f, rays, s);
 }
 
-// Stage 1: the forward, the composite backward, K5's points stage (dX
-// chain, dbasis, bias partials, the workspace).  feat [rays*s, enc] bf16;
+// Stage 1: the recompute and the composite backward, fused or composed,
+// then K5's shading and MLP backward (dX chain, dbasis, bias partials, the
+// workspace).  feat [rays*s, enc] bf16;
 // basis16 [rays, 16], z [rays, s], noise [rays, s] or null, dray [rays, 8]
 // fp32; dfeat [rays*s, enc], dbasis [rays, 16] fp32 out.  Returns
 // cudaGetLastError() (0 on success).
@@ -149,35 +144,31 @@ extern "C" int mcn_render_bwd_points(const void* feat, const void* basis16, cons
                                      const void* const* b, void* stream) {
   if (s < 2) return cudaErrorInvalidValue;
   MLPParams p;
-  int err = set_shape(&p, depth, skip_mask, enc, width, head0);
-  if (err) return err;
-  if (rays <= 0) return 0;
+  FlatPlan f;
   PtSchedule sc;
   PtImages im;
-  for (int l = 0; l < depth + 2; ++l) p.w[l] = p.b[l] = nullptr;
-  const RenderPlan r = render_plan(p, rays, s, &sc, &im);
-  FlatPlan f;
   PtArgs a;
-  err = points_args(true, &p, &f, &sc, &im, &a, feat, basis16, nullptr, dfeat, workspace,
-                    (long long)rays * s, r.f.tiles, s, nb, enc, depth, skip_mask, width, head0,
-                    w, b);
-  if (err) return err;
+  int err = points_args(true, &p, &f, &sc, &im, &a, feat, basis16, nullptr, dfeat, workspace,
+                        (long long)rays * s, render_tiles(rays, s), s, nb, enc, depth,
+                        skip_mask, width, head0, w, b);
+  if (err || rays <= 0) return err;
+  const int ray_k = fused_rays(s);
   cudaStream_t st = (cudaStream_t)stream;
   size_t smem = 0;
-  err = points_setup(p, f, sc, im, r.ray_k != 0, &a, &smem, st);
+  err = points_setup(p, f, sc, im, ray_k != 0, &a, &smem, st);
   if (err) return err;
-  if (r.ray_k) {  // B: one launch, the composite between recompute and backward
+  if (ray_k) {  // fused: one launch, the composite between recompute and backward
     a.z = static_cast<const float*>(z);
     a.noise = static_cast<const float*>(noise);
     a.dray = static_cast<const float*>(dray);
     a.rays = rays;
-    a.ray_k = r.ray_k;
+    a.ray_k = ray_k;
     a.white_back = white_back;
     err = launch_points<PT_RENDER>(p, a, sc, f.groups, smem, st);
     return err ? err : launch_ray_sums(a, dbasis, st);
   }
-  // A: the forward, the composite, then K5's points stage from dout8
-  float* io = reinterpret_cast<float*>(static_cast<char*>(workspace) + r.io_at);
+  // composed: the forward, the composite, then K5's points stage from dout8
+  float* io = reinterpret_cast<float*>(static_cast<char*>(workspace) + f.bytes);
   a.out8 = io;
   a.dout_in = io;
   PtSchedule fwd = sc;  // the recompute's products, at the head of the schedule
@@ -205,7 +196,7 @@ extern "C" int mcn_render_bwd_weights(const void* feat, void* workspace, void* d
   for (int l = 0; l < depth + 2; ++l) p.w[l] = p.b[l] = nullptr;
   PtSchedule sc;
   PtImages im;
-  const Layout L = render_plan(p, rays, s, &sc, &im).f.L;
+  const Layout L = flat_plan(p, (long long)rays * s, render_tiles(rays, s), true, &sc, &im).L;
   return launch_weight_grads(L, carve(L, workspace), static_cast<const bf16*>(feat), enc, depth,
                              skip_mask, width, head0, static_cast<float*>(dw),
                              static_cast<float*>(db), (cudaStream_t)stream);

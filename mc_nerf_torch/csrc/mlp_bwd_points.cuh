@@ -395,7 +395,8 @@ __device__ __forceinline__ void store_core_rows(const unsigned char* buf, int ha
 
 // The warpgroup's A rows, written by its four warps, visible to its next
 // wgmma: each thread's writes to the async proxy, then a barrier of the
-// warpgroup's 128 threads (named barrier 1 + warpgroup).
+// warpgroup's 128 threads (named barrier 1 + warpgroup); PT_RENDER's
+// composite buffer is handed between the warps by it too.
 __device__ __forceinline__ void wg_sync() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   asm volatile("bar.sync %0, 128;\n" ::"r"(1 + ((int)threadIdx.x >> 7)) : "memory");
@@ -891,12 +892,6 @@ __device__ __forceinline__ void load_feat_rows(const MLPParams& p, const bf16* _
   }
 }
 
-// A barrier of the warpgroup's 128 threads (the named barrier wg_sync
-// uses), for the composite's buffer in shared memory.
-__device__ __forceinline__ void wg_bar() {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + ((int)threadIdx.x >> 7)) : "memory");
-}
-
 // One consumer warp's share of every tile of the block: its 16 rows in its
 // slab (two half-slabs of 8 rows), the warpgroup's products reading the
 // four slabs of its warps as one K-major A operand.  Tiles are 128 points
@@ -988,14 +983,14 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a,
                                  : a.dout_in + row0 * IO_FLOATS;
     if constexpr (RENDER) {
       forward_out(o, a, row0, nr, io + 16 * (warp & 3) * IO_FLOATS, f);
-      wg_bar();
+      wg_sync();
       for (int j = warp & 3; j < n_rays; j += 4) {
         const long long ray = ray0 + j;
         composite_ray(io + j * a.s * IO_FLOATS, a.z + ray * a.s,
                       a.noise ? a.noise + ray * a.s : nullptr, a.dray + ray * 8, a.s,
                       a.white_back);
       }
-      wg_bar();
+      wg_sync();
     }
     // the packed output's cotangent: d head_b1, doutb, dbasis partials
     uint32_t da[8];

@@ -12,12 +12,13 @@ Counterpart of ``mc_nerf_tpu/ops/pallas/fused_render.py``.  Two kernels:
 * ``csrc/fused_render_bwd.cu`` replaces ``_render_bwd_kernel``
   (``fused_render.py:290``, via ``_render_bwd_call`` ``:559`` and the
   custom VJP ``_fused_render_bwd`` ``:697``) in two launches:
-  :func:`render_bwd_points` (the points stage: a forward giving each
-  point's sigma and rgb, the composite backward per ray giving each
-  point's cotangent dout8, then ``fused_shaded_mlp``'s points stage from
-  it: shading and MLP backward per point into a device workspace) and
-  :func:`render_bwd_weights` (the weight gradients summed over all points,
-  split over chunks of points and reduced in a fixed order).
+  :func:`render_bwd_points` (the points stage: the composite backward per
+  ray gives each point's cotangent dout8 from its sigma and rgb, and
+  ``fused_shaded_mlp``'s points stage runs the shading and MLP backward
+  per point from it into a device workspace; in one kernel where whole
+  rays fill a tile, else as a forward, a composite kernel and that stage)
+  and :func:`render_bwd_weights` (the weight gradients summed over all
+  points, split over chunks of points and reduced in a fixed order).
   :func:`render_composite_bwd_plain` is the composite step's oracle.
 
 Bound on an H100 SXM (989 TFLOP/s dense bf16): compute.  The eval fine
@@ -314,10 +315,10 @@ def _bwd_shapes(ws, bs):
 def render_bwd_points(ws, bs, feat, basis16, z, noise, dray, depth, skips, s, nb,
                       white_back, workspace) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch stage 1 of ``csrc/fused_render_bwd.cu`` into ``workspace``:
-    the forward's sigma and rgb, the composite backward's dout8, then the
-    shading and MLP backward per point (``fused_shaded_mlp``'s points
-    stage; bias partials, the per-ray dbasis sums), one call counted as
-    one launch.  Returns (dfeat [rays*s, E] fp32, dbasis [rays, 16] fp32)."""
+    the recompute, the composite backward's dout8, then the shading and
+    MLP backward per point (``fused_shaded_mlp``'s points stage; bias
+    partials, the per-ray dbasis sums), one call counted as one launch.
+    Returns (dfeat [rays*s, E] fp32, dbasis [rays, 16] fp32)."""
     rays, enc = basis16.shape[0], feat.shape[1]
     _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, feat.device)
     dfeat = torch.empty((rays * s, enc), dtype=torch.float32, device=feat.device)

@@ -259,15 +259,21 @@ def _bwd_close(k, ref, case, plants=None, tols=BWD_TOL):
 def test_backward_kernels_match_plain(cuda, cfg, coarse, s, rays, with_noise):
     """dW, db, dfeat and dbasis of the two backward launches against
     ``fused_render_bwd_plain``, relative L2 per output within the case's
-    tolerance, and every planted fault outside it; each launch counted
-    once."""
+    tolerance, and every planted fault outside it, one sample's dout8
+    moved to its neighbour at 2x or more; each launch counted once.  s =
+    2, 32 and 64 take the fused path (rays fill a warpgroup's 64 rows),
+    17, 48 and 300 the composed one."""
     _, args = _bwd_case(cfg, coarse, s, rays, with_noise, cuda)
     before = (render_bwd_points.launches, render_bwd_weights.launches)
     k = fused_render_bwd(*args)
     assert (render_bwd_points.launches, render_bwd_weights.launches) == \
         (before[0] + 1, before[1] + 1)
     ref = fused_render_bwd_plain(*args)
-    _bwd_close(k, ref, (cfg, "coarse" if coarse else "fine"), planted_errs(args, ref))
+    case = (cfg, "coarse" if coarse else "fine")
+    plants = planted_errs(args, ref)
+    _bwd_close(k, ref, case, plants)
+    moved = plants["one sample's dout8 moved to its neighbour"]
+    assert max(moved[o] / BWD_TOL[case][o] for o in moved) >= 2.0, moved
 
 
 @pytest.mark.gpu
