@@ -141,10 +141,10 @@ def _composite_bwd(sigma, rgb, z, noise, dray, white_back):
 
 
 def render_composite_bwd_plain(sigma, rgb, z, noise, dray, white_back=True):
-    """The composite backward kernel's arithmetic (``composite_bwd_kernel``
-    in ``csrc/fused_render_bwd.cu``) in plain PyTorch: the per-point
-    cotangent of ``fused_shaded_mlp``'s outputs that the render's
-    composite hands back.
+    """The composite backward's arithmetic (``composite_ray`` in
+    ``csrc/mlp_bwd_points.cuh``, which both paths of ``render_bwd_points``
+    run) in plain PyTorch: the per-point cotangent of
+    ``fused_shaded_mlp``'s outputs that the render's composite hands back.
 
     Args: ``sigma`` [rays, s] the raw sigma, ``rgb`` [rays, s, 3] the
     sigmoid rgb, ``z`` [rays, s] sorted depths, ``noise`` [rays, s] or None
