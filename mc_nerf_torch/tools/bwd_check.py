@@ -293,6 +293,32 @@ def points_stage_bytes(enc: int, depth: int, width: int, skips, head0: int, poin
             + 2 * points_stage_images(enc, depth, width, skips, head0, shaded))
 
 
+def shaded_forward_bytes(enc: int, depth: int, width: int, skips, head0: int, points: int,
+                         s: int) -> int:
+    """The bytes K4 (``fused_shaded_mlp``'s forward, ``csrc/fused_shaded.cu``)
+    moves at this pack and point count, each once: feat (bf16) and the rays'
+    basis [P / s, 16] (fp32) read, the output [P, 8] (fp32) written, the
+    pack's weights and biases read (bf16), and the recompute's weight images
+    (:func:`points_stage_images`, recompute only) written and read."""
+    w_in = sum(((enc if i == 0 else width) + (enc if i in skips else 0)) * width
+               for i in range(depth)) + width * head0 + head0 * 32
+    nbias = depth * width + head0 + 32
+    return (2 * enc * points + 16 * 4 * (points // s) + 8 * 4 * points + 2 * (w_in + nbias)
+            + 2 * points_stage_images(enc, depth, width, skips, head0, True,
+                                      recompute_only=True))
+
+
+def forward_l2_bytes_per_point(enc: int, depth: int, width: int, skips, head0: int,
+                               rows_per_read: int) -> float:
+    """Bytes of weight images that K4's ring brings from L2 into shared
+    memory per point, when one read of the recompute's images
+    (:func:`points_stage_images`, recompute only) serves ``rows_per_read``
+    points: 128 for a block's tile, 256 for a 2-CTA cluster whose weight
+    slots are multicast into both blocks."""
+    return points_stage_images(enc, depth, width, skips, head0, True,
+                               recompute_only=True) / rows_per_read
+
+
 RAY_ROWS = 64   # rows of a warpgroup of K3's fused path (csrc/fused_render_bwd.cu)
 
 

@@ -1,6 +1,7 @@
-"""Time the points stage of the K3, K5 and K6 backwards alone on a CUDA card.
+"""Time the points stage of the K3, K5 and K6 backwards alone, and K4's
+forward, on a CUDA card.
 
-    python3 -m mc_nerf_torch.tools.points_stage_time [--iters N] [--only K3 ...]
+    python3 -m mc_nerf_torch.tools.points_stage_time [--iters N] [--only K3 K4 ...]
         [--against DIR ...]
 
 The points stage of K5 and K6 (``mcn_mlp_bwd_points`` in
@@ -13,12 +14,18 @@ through ``mlp_bwd_points``, K3's (``fused_render``'s backward) through
 over 7000 x 128 points and fine 8x256 pack over 7000 x 130; K6
 (``fused_mlp``'s) and K3 at the importance step's, the coarse pack over
 7000 x 48 and the fine over 7000 x 32, K3 with noise and the white
-background on, as the train step runs it.  Weights: the seeded scene
+background on, as the train step runs it.  K4 (``fused_shaded_mlp``'s
+forward, ``csrc/fused_shaded.cu``) is timed whole through
+``fused_shaded_mlp`` at its three shapes: the grid step's coarse full
+4x128 pass over 7000 x 128 points and fine 8x256 pass over 7000 x 130,
+and the grid demo's eval chunk, 16384 x 130 at the fine pack.  Weights: the seeded scene
 (``tools/scene.scene_params``); cotangents: ``tools/bwd_check``'s (K3's an
 MSE's of the plain forward's rays).  Beside each time: ``bound_ms``, the
-recompute and dX products the function needs over the bf16 peak, and
-``floor_ms``, this design's bytes (``tools/bwd_check.points_stage_bytes``,
-``render_points_stage_bytes``) over the memory rate.  ``--only`` keeps the
+recompute and dX products the function needs over the bf16 peak (K4: its
+forward products, and its shading over the fp32 peak), and ``floor_ms``,
+this design's bytes (``tools/bwd_check.points_stage_bytes``,
+``render_points_stage_bytes``, ``shaded_forward_bytes``) over the memory
+rate.  ``--only`` keeps the
 shapes whose label starts with one of its words.
 
 ``--against DIR`` adds other checkouts of the repository (unpacked into a
@@ -40,12 +47,17 @@ from pathlib import Path
 
 PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
+PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 RAYS = 7000
-# (label, pack, samples per ray, kind): K5 at the grid step's passes, K6
-# and K3 at the importance step's shapes
-SHAPES = (("K5 coarse", "coarse", 128, "shaded"), ("K5 fine", "fine", 130, "shaded"),
-          ("K6 coarse", "coarse", 48, "mlp"), ("K6 fine", "fine", 32, "mlp"),
-          ("K3 coarse", "coarse", 48, "render"), ("K3 fine", "fine", 32, "render"))
+EVAL_RAYS = 16384          # rays of one eval chunk of the grid demo
+# (label, pack, samples per ray, kind, rays): K5 and K4 at the grid step's
+# passes, K6 and K3 at the importance step's shapes, K4 also at the grid
+# demo's eval chunk
+SHAPES = (("K5 coarse", "coarse", 128, "shaded", RAYS), ("K5 fine", "fine", 130, "shaded", RAYS),
+          ("K6 coarse", "coarse", 48, "mlp", RAYS), ("K6 fine", "fine", 32, "mlp", RAYS),
+          ("K3 coarse", "coarse", 48, "render", RAYS), ("K3 fine", "fine", 32, "render", RAYS),
+          ("K4 coarse", "coarse", 128, "forward", RAYS), ("K4 fine", "fine", 130, "forward", RAYS),
+          ("K4 eval", "fine", 130, "forward", EVAL_RAYS))
 ROOT = Path(__file__).resolve().parents[2]
 
 
@@ -62,8 +74,8 @@ def _time_here(iters: int, only) -> dict:
     from mc_nerf_torch.config import NerfConfig
     from mc_nerf_torch.models.sh import sh_basis
     from mc_nerf_torch.ops.cuda.fused_mlp import (
-        BASIS_LANES, _flat_weights, _workspace, encode_kernel_order, fused_shaded_mlp_plain,
-        mlp_bwd_points, mlp_plain, pack_mlp_params)
+        BASIS_LANES, _flat_weights, _workspace, encode_kernel_order, fused_shaded_mlp,
+        fused_shaded_mlp_plain, mlp_bwd_points, mlp_plain, pack_mlp_params)
     from mc_nerf_torch.ops.cuda.fused_render import (
         _bwd_fns, fused_render_plain, render_bwd_points)
     from mc_nerf_torch.tools.bwd_check import mlp_cotangent, mse_cotangent, shaded_cotangent
@@ -74,13 +86,13 @@ def _time_here(iters: int, only) -> dict:
     params = scene_params(nc, 0, device=dev)
     nb = (nc.sh_deg + 1) ** 2
     out = {}
-    for label, pack, s, kind in _shapes(only):
+    for label, pack, s, kind, rays in _shapes(only):
         mlp, depth, skips = ((params.coarse, nc.coarse_depth, nc.coarse_skips) if pack == "coarse"
                              else (params.fine, nc.fine_depth, nc.fine_skips))
         rng = np.random.default_rng(s)
-        d = torch.as_tensor(rng.normal(size=(RAYS, 3)), dtype=torch.float32, device=dev)
+        d = torch.as_tensor(rng.normal(size=(rays, 3)), dtype=torch.float32, device=dev)
         d = d / d.norm(dim=-1, keepdim=True)
-        z = torch.as_tensor(np.sort(rng.uniform(1.0, 8.0, (RAYS, s)), axis=-1),
+        z = torch.as_tensor(np.sort(rng.uniform(1.0, 8.0, (rays, s)), axis=-1),
                             dtype=torch.float32, device=dev)
         xyz = torch.tensor([0.0, 0.0, -4.0], device=dev) + d[:, None] * z[..., None]
         feat = encode_kernel_order(xyz.reshape(-1, 3), nc.emb_freqs_xyz)
@@ -88,12 +100,16 @@ def _time_here(iters: int, only) -> dict:
                                           (0, BASIS_LANES - nb)).contiguous()
         packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
         ws, bs = _flat_weights(packed)
-        if kind == "render":
-            noise = torch.as_tensor(rng.normal(size=(RAYS, s)), dtype=torch.float32, device=dev)
+        work = None
+        if kind == "forward":
+            fn = fused_shaded_mlp
+            args = (packed, feat, basis16, depth, skips, s, nb)
+        elif kind == "render":
+            noise = torch.as_tensor(rng.normal(size=(rays, s)), dtype=torch.float32, device=dev)
             dray = mse_cotangent(fused_render_plain(packed, feat, basis16, z, noise, None, depth,
                                                     skips, s, nb, True, False,
                                                     nc.white_back)[0], nc.far)
-            nbytes = _bwd_fns()[0](RAYS, s, feat.shape[1], depth, sum(1 << i for i in skips),
+            nbytes = _bwd_fns()[0](rays, s, feat.shape[1], depth, sum(1 << i for i in skips),
                                    ws[0].shape[1], ws[-2].shape[1])
             work = torch.empty(nbytes, dtype=torch.uint8, device=dev)
             fn = render_bwd_points
@@ -126,17 +142,23 @@ def _bounds(only) -> dict:
     """{label: (bound_ms, floor_ms)} of this tree's count of the work."""
     from mc_nerf_torch.config import NerfConfig
     from mc_nerf_torch.tools.bwd_check import (
-        needed_macs, points_stage_bytes, render_points_stage_bytes)
+        needed_macs, points_stage_bytes, render_points_stage_bytes, shaded_forward_bytes)
 
     nc = NerfConfig()
     enc = 4 + 6 * nc.emb_freqs_xyz
+    nb = (nc.sh_deg + 1) ** 2
     out = {}
-    for label, pack, s, kind in _shapes(only):
+    for label, pack, s, kind, rays in _shapes(only):
         depth, width, skips = ((nc.coarse_depth, nc.coarse_width, nc.coarse_skips)
                                if pack == "coarse" else
                                (nc.fine_depth, nc.fine_width, nc.fine_skips))
-        p = RAYS * s
+        p = rays * s
         macs = needed_macs(nc, depth, width, skips, False)
+        if kind == "forward":
+            nbytes = shaded_forward_bytes(enc, depth, width, skips, 2 * width, p, s)
+            ops_ms = (2.0 * macs * p / PEAK_BF16_FLOPS + 2.0 * 3 * nb * p / PEAK_FP32_FLOPS) * 1e3
+            out[label] = (max(ops_ms, nbytes / PEAK_BYTES * 1e3), nbytes / PEAK_BYTES * 1e3)
+            continue
         nbytes = (render_points_stage_bytes(enc, depth, width, skips, 2 * width, p, s)
                   if kind == "render" else
                   points_stage_bytes(enc, depth, width, skips, 2 * width, p, kind == "shaded", s))
@@ -149,7 +171,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--iters", type=int, default=10)
     ap.add_argument("--only", nargs="*", default=[],
-                    help="shapes whose label starts with one of these (e.g. K3)")
+                    help="shapes whose label starts with one of these (e.g. K3, K4)")
     ap.add_argument("--against", nargs="*", default=[],
                     help="other checkouts of the repository to time in turns with this one")
     ap.add_argument("--one", action="store_true", help=argparse.SUPPRESS)
