@@ -700,6 +700,15 @@ def mixed_in_tiles(out):
     return torch.cat([out[:n].view(-1, tile, out.shape[1]).flip(1).reshape(n, -1), out[n:]])
 
 
+def pair_swapped(out):
+    """The rows of every pair of consecutive 128-point tiles swapped (of
+    halves of the rows, below 256): tiles handed to the wrong block of a
+    2-CTA cluster."""
+    tile = 128 if out.shape[0] >= 256 else out.shape[0] // 2
+    n = out.shape[0] // (2 * tile) * 2 * tile
+    return torch.cat([out[:n].view(-1, 2, tile, out.shape[1]).flip(1).reshape(n, -1), out[n:]])
+
+
 def grid_passes(nc, params):
     """The two shading passes of a grid-mode training step: (label, module,
     depth, width, skips, samples per ray)."""
@@ -750,10 +759,11 @@ def check_shaded(nc, params, dev, rng, rays, errs) -> dict:
                                            float((k_out - p_out).abs().max()))
             hold(f"fused_shaded_mlp {label} rays={r} s={s}", e, SHADED_TOL, {
                 "points mixed in a tile": shaded_errs(mixed_in_tiles(k_out), p_out),
+                "a pair's tiles swapped": shaded_errs(pair_swapped(k_out), p_out),
                 "skip input dropped": shaded_errs(
                     fused_shaded_mlp_plain(*fargs(p=drop_skip(pk, skips))), p_out),
                 "another ray's basis": shaded_errs(
-                    fused_shaded_mlp_plain(*fargs(b=basis16.roll(1, 0))), p_out)})
+                    fused_shaded_mlp_plain(*fargs(b=basis16.roll(1, 0))), p_out)}, 2.0)
             dout8 = shaded_cotangent(p_out, s)
             args = (ws, bs, feat, basis16, dout8, depth, skips, s, nb)
             k = fused_shaded_mlp_bwd(*args)
@@ -989,7 +999,8 @@ def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> 
     ker_f, ref_f = fused_shaded_mlp(*sh_args), fused_shaded_mlp_plain(*sh_args)
     errs["fused_shaded_mlp"] = max(errs["fused_shaded_mlp"], float((ker_f - ref_f).abs().max()))
     hold(f"fused_shaded_mlp grid eval chunk ({chunk} x {sf})", shaded_errs(ker_f, ref_f),
-         SHADED_TOL, {"points mixed in a tile": shaded_errs(mixed_in_tiles(ker_f), ref_f)})
+         SHADED_TOL, {"points mixed in a tile": shaded_errs(mixed_in_tiles(ker_f), ref_f),
+                      "a pair's tiles swapped": shaded_errs(pair_swapped(ker_f), ref_f)}, 2.0)
     del ker_c, ref_c, ker_f, ref_f
     emb = feat_c.shape[1]
     p_c, p_f = chunk * sc, chunk * sf

@@ -32,11 +32,12 @@
 //      on into K5's shading and MLP backward from its rows' dout8.  One
 //      recompute, nothing between the steps in device memory;
 //    * composed, for every other s (the coarse pass, s = 48, whose rays
-//      would leave a quarter of the rows idle; rays of any length):
-//      mlp_points_kernel<PT_FORWARD> (the recompute alone, sigma and rgb
-//      out, 16 bytes a point, into a [P, 8] buffer), composite_bwd_kernel
-//      (dout8 in place over it; no shared memory, so no ceiling on s), then
-//      K5's mlp_points_kernel<PT_SHADED> from that dout8;
+//      would leave a quarter of the rows idle; rays of any length): K4's
+//      forward kernel (shaded_fwd.cuh, shaded_fwd_kernel: the recompute
+//      alone on its forward-only plan, sigma and rgb out into a [P, 8]
+//      buffer), composite_bwd_kernel (dout8 in place over it; no shared
+//      memory, so no ceiling on s), then K5's mlp_points_kernel<PT_SHADED>
+//      from that dout8;
 //    then ray_sum_kernel: dbasis as each ray's per-point partials summed
 //    in order.  Either path writes dfeat, the bias partials and the
 //    workspace that the weight stage reads.
@@ -56,7 +57,7 @@
 
 #include <climits>
 
-#include "mlp_bwd_points.cuh"
+#include "shaded_fwd.cuh"
 
 using namespace mcn;
 
@@ -171,9 +172,9 @@ extern "C" int mcn_render_bwd_points(const void* feat, const void* basis16, cons
   float* io = reinterpret_cast<float*>(static_cast<char*>(workspace) + f.bytes);
   a.out8 = io;
   a.dout_in = io;
-  PtSchedule fwd = sc;  // the recompute's products, at the head of the schedule
+  PtSchedule fwd = sc;  // the recompute's products (head-0 passes of a.nch), at its head
   fwd.count = pt_recompute_products(p, f.nch, true);
-  err = launch_points<PT_FORWARD>(p, a, fwd, f.groups, smem, st);
+  err = launch_shaded_fwd(p, a, fwd, st);
   if (err) return err;
   const int per_block = COMPOSITE_THREADS / 32;
   composite_bwd_kernel<<<(rays + per_block - 1) / per_block, COMPOSITE_THREADS, 0, st>>>(

@@ -6,11 +6,11 @@
 // per-point dbasis partials (K5, K3), the bias partials and the workspace
 // that the weight stage (mlp_bwd.cuh, launch_weight_grads) reads: h, h1,
 // doutb, d_a, d_h1, at the offsets of make_layout / carve.  The kernel's
-// MODE (PT_MLP, PT_SHADED, PT_FORWARD, PT_RENDER) picks the work: K3 runs
-// PT_RENDER (tiles of whole rays, the composite backward of each ray,
-// composite_ray, in shared memory between the recompute and the shading
-// backward) or PT_FORWARD (the recompute alone, sigma and rgb out), then
-// its composite kernel, then PT_SHADED.
+// MODE (PT_MLP, PT_SHADED, PT_RENDER) picks the work: K3 runs PT_RENDER
+// (tiles of whole rays, the composite backward of each ray, composite_ray,
+// in shared memory between the recompute and the shading backward) or K4's
+// forward kernel (shaded_fwd.cuh, on this file's recompute), then its
+// composite kernel, then PT_SHADED.
 //
 // Rounding points are the Pallas bodies' (fused_mlp.py:495-535, :783-824):
 // bf16 operands, fp32 accumulation, ReLU masks from the bf16 activations,
@@ -99,8 +99,6 @@ constexpr int BASIS_LANES = 16;            // a ray's SH basis, padded
 constexpr int PT_MLP = 0;      // K6: the recompute, then the backward from dout [P, 32]
 constexpr int PT_SHADED = 1;   // K5, K3: the recompute, then the shading backward from
                                // dout8 [P, 8] and the heads-and-trunk backward
-constexpr int PT_FORWARD = 2;  // K3's forward: the recompute alone, sigma and the shaded
-                               // rgb out; nothing to the workspace
 constexpr int PT_RENDER = 3;   // K3 fused: tiles of whole rays, the recompute, the
                                // composite backward in shared memory, then as PT_SHADED
 constexpr int RAY_ROWS = 64;   // PT_RENDER: a warpgroup's rows, whole rays of s <= 64
@@ -193,7 +191,7 @@ struct PtArgs {
   const bf16* feat;
   const float* basis16;  // [P / s, 16] (shaded)
   const float* dout_in;  // dout8 [P, 8] (shaded) or dout [P, 32]
-  float* out8;           // PT_FORWARD: sigma, rgb into columns 0..3 of [P, 8]
+  float* out8;           // K4's forward (shaded_fwd.cuh): its [P, 8] output
   float* dfeat;          // [P, enc]
   const float* z;        // PT_RENDER: the composite's inputs, [rays, s], [rays, s] or
   const float* noise;    //   null, [rays, 8]
@@ -460,10 +458,8 @@ __device__ __forceinline__ unsigned char* frag_at(unsigned char* buf, int half, 
 // Recompute epilogue of a ReLU layer: bf16(relu(acc + bias)) into the
 // warp's rows of the buffer at `buf`, its mask bits (per 32 columns: the
 // lane's bits, or-ed over the quad; word w of fragment row g + 8 h at
-// masks + h * half + g * 4 words + 4 w), then (STORE) the rows to the
-// workspace.  STORE is a template argument: as a run-time test of g_dst it
-// cost K5's coarse pass 2.5% on an H100 (PERF.md).
-template <int NC, bool STORE>
+// masks + h * half + g * 4 words + 4 w), then the rows to the workspace.
+template <int NC>
 __device__ __forceinline__ void relu_epilogue(const float* acc, const bf16* __restrict__ bias,
                                               unsigned char* buf, int half, unsigned char* masks,
                                               int words, int mask_col, bf16* g_dst, long long ld,
@@ -496,7 +492,7 @@ __device__ __forceinline__ void relu_epilogue(const float* acc, const bf16* __re
     }
   }
   __syncwarp();
-  if constexpr (STORE) store_core_rows(buf, half, NC, g_dst, ld, nr);
+  store_core_rows(buf, half, NC, g_dst, ld, nr);
   wg_sync();
 }
 
@@ -677,7 +673,6 @@ __device__ __forceinline__ void gemm_at(int nc, const PtGemm& G, uint32_t a_addr
   }
 }
 
-template <bool STORE>
 struct ReluEpi {
   const bf16* bias;
   unsigned char* buf;
@@ -689,8 +684,7 @@ struct ReluEpi {
   int nr;
   template <int NC>
   __device__ __forceinline__ void run(const float* acc) const {
-    relu_epilogue<NC, STORE>(acc, bias, buf, half, masks, words, mask_col, g_dst, ld, nr,
-                             Frag());
+    relu_epilogue<NC>(acc, bias, buf, half, masks, words, mask_col, g_dst, ld, nr, Frag());
   }
 };
 
@@ -753,7 +747,7 @@ __device__ __forceinline__ void shade_rgb(const float* o, const float* bas, int 
 
 // The raw sigma (column 0 of the fragment, lane tig 0) and the shaded rgb
 // of the warp's live rows into columns 0..3 of rows of IO_FLOATS floats
-// (`io` the warp's first row): PT_FORWARD's output, PT_RENDER's staging.
+// (`io` the warp's first row): K4's output rows, PT_RENDER's staging.
 __device__ __forceinline__ void forward_out(const float* o, const PtArgs& a, long long row0,
                                             int nr, float* io, const Frag& f) {
 #pragma unroll
@@ -896,16 +890,15 @@ __device__ __forceinline__ void load_feat_rows(const MLPParams& p, const bf16* _
 // slab (two half-slabs of 8 rows), the warpgroup's products reading the
 // four slabs of its warps as one K-major A operand.  Tiles are 128 points
 // in a row, or (PT_RENDER) 2 x ray_k whole rays, ray_k to a warpgroup, its
-// rows past ray_k x s dead.  PT_FORWARD stops after the recompute (its
-// schedule holds the recompute's products only); PT_RENDER stages each
-// row's sigma and rgb in `io` (the warpgroup's 64 rows of IO_FLOATS), runs
-// the composite backward of each of its rays there (a warp per ray), and
-// takes each row's dout8 from there.
+// rows past ray_k x s dead.  PT_RENDER stages each row's sigma and rgb in
+// `io` (the warpgroup's 64 rows of IO_FLOATS), runs the composite backward
+// of each of its rays there (a warp per ray), and takes each row's dout8
+// from there.
 template <int MODE>
 __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a,
                                            const PtSchedule& sc, unsigned char* slab, float* io,
                                            Ring& rg) {
-  constexpr bool SHADED = MODE != PT_MLP, FWD = MODE == PT_FORWARD, RENDER = MODE == PT_RENDER;
+  constexpr bool SHADED = MODE != PT_MLP, RENDER = MODE == PT_RENDER;
   const int warp = threadIdx.x >> 5;
   const int ep = a.ep, wd = p.width, depth = p.depth, words = a.mask_words, half = a.half;
   const Frag f;
@@ -942,8 +935,8 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a,
     // recompute: trunk, h written over the act buffer's hidden columns
     for (int l = 0; l < depth; ++l) {
       const bool takes_feat = l == 0 || ((p.skip_mask >> l) & 1);
-      const ReluEpi<!FWD> e = {p.b[l], act + ep * 16, half, masks, words, l * wd,
-                               ws.h + ((size_t)l * P + row0) * wd, wd, nr};
+      const ReluEpi e = {p.b[l], act + ep * 16, half, masks, words, l * wd,
+                         ws.h + ((size_t)l * P + row0) * wd, wd, nr};
       gemm_at(wd, sc.g[gi++], takes_feat ? a_act : a_h, uhalf, rg, e);
     }
     // recompute: head layer 0 in passes of nch columns, each followed (K5)
@@ -953,8 +946,8 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a,
     for (int i = 0; i < 16; ++i) o[i] = 0.f;
     for (int c0 = 0; c0 < p.head0; c0 += a.nch) {
       const int nc = min(a.nch, p.head0 - c0);
-      const ReluEpi<!FWD> e = {p.b[depth] + c0, h1, half, masks, words, depth * wd + c0,
-                               ws.h1 + row0 * p.head0 + c0, p.head0, nr};
+      const ReluEpi e = {p.b[depth] + c0, h1, half, masks, words, depth * wd + c0,
+                         ws.h1 + row0 * p.head0 + c0, p.head0, nr};
       gemm_at(nc, sc.g[gi++], a_h, uhalf, rg, e);
       if (SHADED) {
         float acc[16];
@@ -974,10 +967,6 @@ __device__ __forceinline__ void pt_consume(const MLPParams& p, const PtArgs& a,
           o[4 * j + 2 * h + 1] += __bfloat162float(b.y);
         }
       }
-    }
-    if constexpr (FWD) {
-      forward_out(o, a, row0, nr, a.out8 + row0 * IO_FLOATS, f);
-      continue;
     }
     const float* d8rows = RENDER ? io + 16 * (warp & 3) * IO_FLOATS
                                  : a.dout_in + row0 * IO_FLOATS;

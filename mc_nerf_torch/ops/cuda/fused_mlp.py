@@ -10,9 +10,11 @@ kernels replace its four Pallas bodies:
   pre-encoded points through every trunk layer and both heads with
   ``wgmma`` bf16 tiles and fp32 accumulation, and only the packed
   ``[P, 32]`` fp32 output reaches device memory;
-* ``csrc/fused_shaded.cu``, ``_shaded_fwd_kernel`` (``:381``, via
-  ``fused_shaded_mlp`` at ``:686``): the same tile with the SH shading per
-  point, ``[P, 8]`` out;
+* ``csrc/fused_shaded.cu`` (+ ``shaded_fwd.cuh``), ``_shaded_fwd_kernel``
+  (``:381``, via ``fused_shaded_mlp`` at ``:686``): the MLP with the SH
+  shading per point, ``[P, 8]`` out, as the points stage's recompute
+  (``csrc/mlp_bwd_points.cuh``) on a forward-only plan: persistent blocks,
+  a TMA ring of weight images the wrapper allocates, A from shared memory;
 * ``csrc/fused_mlp_bwd.cu``, ``_shaded_bwd_kernel`` (``:423``) and
   ``_bwd_kernel`` (``:739``, the ``fused_mlp`` custom VJP at ``:901``):
   recompute into a device workspace, the shading backward (shaded only),
@@ -509,14 +511,17 @@ def fused_mlp_bwd_plain(ws, bs, feat, dout, depth, skips, acts=None):
     return mlp_bwd_plain(ws, xins, h_last, h1, dout_b, depth, skips)
 
 
-def _shaded_fwd_fn():
+def _shaded_fwd_fns():
     from mc_nerf_torch.ops.cuda import _build
 
-    fn = _build.load("fused_shaded").mcn_fused_shaded
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+    lib = _build.load("fused_shaded")
+    ws_fn, fn = lib.mcn_fused_shaded_workspace, lib.mcn_fused_shaded
+    ws_fn.argtypes = [ctypes.c_int] * 5
+    ws_fn.restype = ctypes.c_longlong
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 7
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
-    return fn
+    return ws_fn, fn
 
 
 def _bwd_fns():
@@ -582,11 +587,16 @@ def _shaded_fwd(ws, bs, feat, basis16, depth, skips, s, nb) -> torch.Tensor:
         return _shaded_plain_flat(ws, bs, feat, basis16, depth, skips, s, nb)
     _check_cuda("fused_shaded_mlp", feat, basis16=basis16)
     _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, feat.device)
-    p = feat.shape[0]
+    p, enc = feat.shape
+    ws_fn, fn = _shaded_fwd_fns()
+    # the weight images, written anew by every call (the weights may have
+    # been updated in place since the last)
+    images = torch.empty(max(ws_fn(enc, depth, skip_mask, width, head0), 1), dtype=torch.uint8,
+                         device=feat.device)
     out = torch.empty((p, SHADED_COLS), dtype=torch.float32, device=feat.device)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
-    err = _shaded_fwd_fn()(feat.data_ptr(), basis16.data_ptr(), out.data_ptr(), p, s, nb,
-                           feat.shape[1], depth, skip_mask, width, head0, wp, bp, stream)
+    err = fn(feat.data_ptr(), basis16.data_ptr(), out.data_ptr(), images.data_ptr(), p, s, nb,
+             enc, depth, skip_mask, width, head0, wp, bp, stream)
     if err:
         raise RuntimeError(f"fused_shaded_mlp kernel launch failed: CUDA error {err}")
     fused_shaded_mlp.launches += 1

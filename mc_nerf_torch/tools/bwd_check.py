@@ -339,19 +339,19 @@ def render_points_stage_bytes(enc: int, depth: int, width: int, skips, head0: in
     shaded, over those tiles) without its dout8 read, plus the composite's
     inputs z and the noise [P] and dray [P / s, 8] (fp32); dout8 lives in
     shared memory.  The composed path (over one set of weight images): the
-    forward (``mlp_points_kernel`` in its forward mode) reads
-    feat (bf16), the rays' basis [P / s, 16] and the recompute's weight
-    images, and writes sigma and rgb [P, 4] (fp32); the composite backward
-    reads them, z, the noise and dray, writes its two prefix sums [P, 2]
-    and reads them back, and writes dout8 [P, 4] over sigma and rgb; then
-    K5's points stage from that dout8."""
+    forward (K4's kernel, ``csrc/shaded_fwd.cuh``) reads feat (bf16), the
+    rays' basis [P / s, 16] and the recompute's weight images, and writes
+    rows of [P, 8] (fp32: sigma, rgb and four zeros); the composite
+    backward reads sigma and rgb, z, the noise and dray, writes its two
+    prefix sums [P, 2] and reads them back, and writes dout8 [P, 4] over
+    sigma and rgb; then K5's points stage from that dout8."""
     rays = points // s
     inputs = 2 * 4 * points + 8 * 4 * rays   # z and noise, dray
     k = render_fused_rays(s)
     if k:
         return inputs - 8 * 4 * points + points_stage_bytes(
             enc, depth, width, skips, head0, points, True, s, tiles=-(-rays // (2 * k)))
-    fwd = 2 * enc * points + 16 * 4 * rays + 4 * 4 * points + points_stage_images(
+    fwd = 2 * enc * points + 16 * 4 * rays + 8 * 4 * points + points_stage_images(
         enc, depth, width, skips, head0, True, recompute_only=True)
     composite = inputs + 4 * 4 * points + 2 * 2 * 4 * points + 4 * 4 * points
     return fwd + composite + points_stage_bytes(enc, depth, width, skips, head0, points, True, s)

@@ -1,10 +1,12 @@
 """Where one 800x800 demo frame spends its time on the card.
 
-    python3 -m mc_nerf_torch.tools.profile_frame [--frames N] [--top K]
+    python3 -m mc_nerf_torch.tools.profile_frame [--frames N] [--top K] [--grid]
 
 Renders ``--frames`` frames (after a warm-up frame) with the library's
 default ``Config()``, the seeded test scene and the occupancy refresh, as
-``chip_smoke.py`` does, under ``torch.profiler``; prints the card's name
+``chip_smoke.py`` does, under ``torch.profiler`` (``--grid``: the grid fine
+mode, 128 uniform coarse and 130 fine samples per ray, no occupancy map,
+as ``chip_smoke.py``'s grid demo); prints the card's name
 and power limit, the wall time per frame, the summed device time of every
 CUDA kernel by name (top K), and the device's busy share (summed kernel
 time over wall time; kernels on one stream do not overlap).  Needs a CUDA
@@ -14,6 +16,7 @@ card.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import time
@@ -25,6 +28,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--grid", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
@@ -42,12 +46,14 @@ def main() -> None:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     cfg = Config()
+    if args.grid:
+        cfg = dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval, fine_mode="grid"))
     params = scene_params(cfg.nerf, 0, device=dev)
     h = w = 800
     poses, K = orbit_views((0.3,), h, w)
     pose = poses[0]
     render = make_render_fn(cfg, h, w, device=dev)
-    occ = refresh_occupancy(params, cfg, dev)
+    occ = None if args.grid else refresh_occupancy(params, cfg, dev)
     render(params, pose, K, occ)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -64,11 +70,11 @@ def main() -> None:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     print(f"card: {card}")
-    print(f"frame: {wall * 1e3:.1f} ms wall, {busy:.1f} ms of CUDA kernels "
-          f"(busy share {busy / (wall * 1e3):.3f})")
+    print(f"frame ({cfg.eval.fine_mode} fine mode): {wall * 1e3:.1f} ms wall, {busy:.1f} ms of "
+          f"CUDA kernels (busy share {busy / (wall * 1e3):.3f})")
     for ms, n, name in rows[: args.top]:
         print(f"{ms:10.3f} ms {n:6d} x  {name[:110]}")
-    print(json.dumps({"frame_ms": wall * 1e3, "kernel_ms": busy,
+    print(json.dumps({"frame_ms": wall * 1e3, "kernel_ms": busy, "fine_mode": cfg.eval.fine_mode,
                       "busy_share": busy / (wall * 1e3), "card": card,
                       "top": [{"ms": ms, "calls": n, "name": name}
                               for ms, n, name in rows[: args.top]]}))

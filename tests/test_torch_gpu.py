@@ -31,6 +31,7 @@ from mc_nerf_torch.ops.cuda.fused_mlp import (
     _flat_weights,
     _mlp_bwd_launch,
     _shaded_bwd_launch,
+    _shaded_fwd,
     _workspace,
     encode_kernel_order,
     fused_mlp,
@@ -361,12 +362,17 @@ def _shaded_inputs(nc, rays, s, device):
 
 
 SHADED_SHAPES = [(1, 130), (53, 7), (7, 1), (37, 130), (1000, 130)]
+# K4's edges beyond those: one tile (1 and 7 points), an odd tile count
+# (301 points in 3 tiles: a 2-CTA cluster's second block idle in the last
+# pair), rays straddling tiles (390 points), more tiles than the
+# persistent grid with a ragged last round (an eval chunk, 16640 tiles)
+K4_SHAPES = SHADED_SHAPES + [(1, 1), (7, 43), (3, 130), (16384, 130)]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg", ["narrow", "default"])
 @pytest.mark.parametrize("coarse", [True, False], ids=["coarse", "fine"])
-@pytest.mark.parametrize("rays,s", SHADED_SHAPES)
+@pytest.mark.parametrize("rays,s", K4_SHAPES)
 def test_fused_shaded_mlp_kernel_matches_plain(cuda, cfg, coarse, rays, s):
     """K4 on both full packs: sigma's max abs error within MLP_RTOL of its
     largest magnitude, rgb within SHADED_RGB_ATOL, lanes 4..7 zero; one
@@ -396,6 +402,33 @@ def test_fused_shaded_mlp_kernel_matches_plain(cuda, cfg, coarse, rays, s):
     if rays > 1:
         assert over(fused_shaded_mlp_plain(packed, feat, basis16.roll(1, 0), depth, skips, s,
                                            nb)) > 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("coarse", [True, False], ids=["coarse", "fine"])
+def test_fused_shaded_mlp_same_bits_twice(cuda, coarse):
+    """K4 at 1000 x 130 on the default packs gives the same bits on a
+    second call: each row comes from one warpgroup in an order fixed by
+    the shapes, whatever block or cluster took its tile."""
+    nc, mlp, depth, skips = _pass("default", coarse)
+    packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+    feat, basis16, nb = _shaded_inputs(nc, 1000, 130, cuda)
+    a = fused_shaded_mlp(packed, feat, basis16, depth, skips, 130, nb)
+    b = fused_shaded_mlp(packed, feat, basis16, depth, skips, 130, nb)
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_fused_shaded_mlp_refused_launch_raises(cuda):
+    """A call the kernel refuses (points not a whole number of rays) raises
+    and counts no launch: nothing falls back to the plain version."""
+    nc, mlp, depth, skips = _pass("narrow", False)
+    ws, bs = _flat_weights(pack_mlp_params(mlp, nc.emb_freqs_xyz, skips))
+    feat, basis16, nb = _shaded_inputs(nc, 7, 43, cuda)
+    before = fused_shaded_mlp.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _shaded_fwd(ws, bs, feat[:300].contiguous(), basis16, depth, tuple(skips), 43, nb)
+    assert fused_shaded_mlp.launches == before
 
 
 @pytest.mark.gpu

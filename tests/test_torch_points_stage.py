@@ -81,13 +81,13 @@ def test_points_stage_bytes_per_point(pack, want, shaded):
 #   fine, s = 32: 32 x 10,824 + 160 = 346,528
 #   coarse, s = 20: 20 x 3,656 + 160 = 73,280
 # Composed (s = 48: 48 of 64 rows; s = 130): plus the forward (feat 128,
-# sigma and rgb written 16) and the composite (z and noise 8, sigma and
+# its [P, 8] rows written 32) and the composite (z and noise 8, sigma and
 # rgb read 16, the prefix sums written and read back 16, dout8 written 16)
 # a point, and the forward's basis read 64 and dray 32 a ray:
-#   coarse, s = 48: 48 x 3,880 + 224 = 186,464
-#   fine, s = 130: 130 x 11,048 + 224 = 1,436,464
+#   coarse, s = 48: 48 x 3,896 + 224 = 187,232
+#   fine, s = 130: 130 x 11,064 + 224 = 1,438,544
 @pytest.mark.parametrize("pack,s,want", [("fine", 32, 346528), ("coarse", 20, 73280),
-                                         ("coarse", 48, 186464), ("fine", 130, 1436464)])
+                                         ("coarse", 48, 187232), ("fine", 130, 1438544)])
 def test_render_points_stage_bytes_per_ray(pack, s, want):
     rays = 100_000
     got = (render_points_stage_bytes(*PACKS[pack], (rays + 1) * s, s)
@@ -130,8 +130,8 @@ def test_render_points_stage_bytes_at_the_importance_shapes():
     importance step's passes: fused at the fine pass (s = 32; 1750 tiles,
     past the 132 bias groups): z and noise 8 a point and dray 32 a ray for
     the dout8 read, 32 a point; composed at the coarse pass (s = 48) and
-    at s = 130: the forward's and the composite's bytes, and the
-    recompute's images read once more."""
+    at s = 130: the forward's (feat, its [P, 8] rows) and the composite's
+    bytes, and the recompute's images read once more."""
     p = 7000 * 32
     assert render_points_stage_bytes(*PACKS["fine"], p, 32) == (
         points_stage_bytes(*PACKS["fine"], p, True, 32) - 24 * p + 32 * 7000)
@@ -140,7 +140,7 @@ def test_render_points_stage_bytes_at_the_importance_shapes():
         enc, p = PACKS[pack][0], 7000 * s
         assert render_points_stage_bytes(*PACKS[pack], p, s) == (
             points_stage_bytes(*PACKS[pack], p, True, s)
-            + (2 * enc + 16 + 8 + 16 + 16 + 16) * p + (64 + 32) * 7000 + images)
+            + (2 * enc + 32 + 8 + 16 + 16 + 16) * p + (64 + 32) * 7000 + images)
 
 
 def test_points_stage_bytes_fixed_part():
