@@ -55,8 +55,9 @@ in both fine modes.
    last.
 
 Every kernel check also measures planted faults against the same plain
-version (points mixed up, the skip input dropped, the first layer lost,
-another ray's SH basis; for the backwards also a layer's dW transposed or
+version (points mixed up, K4's tiles swapped in pairs, the skip input
+dropped, the first layer lost, another ray's SH basis; for the backwards
+also a layer's dW transposed or
 zeroed, the skip's dfeat share dropped, the suffix scan shifted by one,
 one sample's dout8 moved to its neighbour, the sigmoid's derivative
 dropped on one channel: ``tools/bwd_check.py``)
@@ -702,8 +703,9 @@ def mixed_in_tiles(out):
 
 def pair_swapped(out):
     """The rows of every pair of consecutive 128-point tiles swapped (of
-    halves of the rows, below 256): tiles handed to the wrong block of a
-    2-CTA cluster."""
+    halves of the rows, below 256): neighbouring tiles written to each
+    other's rows, as a block or a pair of blocks that took the wrong tile
+    would."""
     tile = 128 if out.shape[0] >= 256 else out.shape[0] // 2
     n = out.shape[0] // (2 * tile) * 2 * tile
     return torch.cat([out[:n].view(-1, 2, tile, out.shape[1]).flip(1).reshape(n, -1), out[n:]])

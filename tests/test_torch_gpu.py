@@ -363,9 +363,9 @@ def _shaded_inputs(nc, rays, s, device):
 
 SHADED_SHAPES = [(1, 130), (53, 7), (7, 1), (37, 130), (1000, 130)]
 # K4's edges beyond those: one tile (1 and 7 points), an odd tile count
-# (301 points in 3 tiles: a 2-CTA cluster's second block idle in the last
-# pair), rays straddling tiles (390 points), more tiles than the
-# persistent grid with a ragged last round (an eval chunk, 16640 tiles)
+# (301 points in 3 tiles), rays straddling tiles (390 points), more tiles
+# than the persistent grid with a ragged last round (an eval chunk, 16640
+# tiles)
 K4_SHAPES = SHADED_SHAPES + [(1, 1), (7, 43), (3, 130), (16384, 130)]
 
 
@@ -409,7 +409,7 @@ def test_fused_shaded_mlp_kernel_matches_plain(cuda, cfg, coarse, rays, s):
 def test_fused_shaded_mlp_same_bits_twice(cuda, coarse):
     """K4 at 1000 x 130 on the default packs gives the same bits on a
     second call: each row comes from one warpgroup in an order fixed by
-    the shapes, whatever block or cluster took its tile."""
+    the shapes, whatever block took its tile."""
     nc, mlp, depth, skips = _pass("default", coarse)
     packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
     feat, basis16, nb = _shaded_inputs(nc, 1000, 130, cuda)
