@@ -4,8 +4,8 @@ error of each output, planted faults of the plain backwards, each of
 which a check must see, the work the MLP needs and the bytes the
 backward's two stages move.
 
-The plants that sit inside a plain backward (the composite's suffix sums
-taken one sample late, the skip layers' share of dfeat dropped, the
+The plants that sit inside a plain version (the composite's prefix sums
+in the forward, or its suffix sums in the backward, taken one sample late, the skip layers' share of dfeat dropped, the
 sigmoid's derivative dropped on one channel, dW without the last tile of
 points) swap one of its helpers for the length of one call; the
 package's functions carry no fault switch.
@@ -22,6 +22,7 @@ from mc_nerf_torch.ops.cuda import fused_mlp as _fm
 from mc_nerf_torch.ops.cuda import fused_render as _fr
 
 _SUFFIX, _SPLIT, _SHADE = _fr._exclusive_suffix_sum, _fm._split_skip_grad, _fm._shade_grad
+_PREFIX = _fr._exclusive_cumsum
 _WGRAD, _BGRAD, _MASKS = _fm._weight_grad, _fm._bias_grad, _fm._trunk_masks
 WEIGHT_TILE = 64   # points per stage of the weight-gradient kernel (csrc/mlp_bwd.cuh WKT)
 POINTS_TILE = 128  # points per tile of the points stage (csrc/mlp_bwd_points.cuh)
@@ -109,6 +110,20 @@ def bwd_errs(k, ref) -> Dict[str, float]:
 def _suffix_late(x: torch.Tensor) -> torch.Tensor:
     s = _SUFFIX(x)
     return torch.cat([s[:, 1:], torch.zeros_like(s[:, :1])], 1)
+
+
+def _prefix_late(x: torch.Tensor) -> torch.Tensor:
+    p = _PREFIX(x)
+    return torch.cat([torch.zeros_like(p[:, :1]), p[:, :-1]], 1)
+
+
+def render_scan_late(*args):
+    """``fused_render_plain(*args)`` with the composite's exclusive prefix
+    sums taken one sample late (each sample's transmittance misses the
+    sample before it): a scan shifted by one, which a check of the forward
+    must see."""
+    with mock.patch.object(_fr, "_exclusive_cumsum", _prefix_late):
+        return _fr.fused_render_plain(*args)
 
 
 def _skip_share_dropped(d_xin: torch.Tensor, e_lanes: int):
@@ -293,19 +308,50 @@ def points_stage_bytes(enc: int, depth: int, width: int, skips, head0: int, poin
             + 2 * points_stage_images(enc, depth, width, skips, head0, shaded))
 
 
-def shaded_forward_bytes(enc: int, depth: int, width: int, skips, head0: int, points: int,
-                         s: int) -> int:
-    """The bytes K4 (``fused_shaded_mlp``'s forward, ``csrc/fused_shaded.cu``)
-    moves at this pack and point count, each once: feat (bf16) and the rays'
-    basis [P / s, 16] (fp32) read, the output [P, 8] (fp32) written, the
-    pack's weights and biases read (bf16), and the recompute's weight images
+def _forward_weight_bytes(enc: int, depth: int, width: int, skips, head0: int) -> int:
+    """The bytes of weights a forward on the ring moves: the pack's weights
+    and biases read (bf16), and the recompute's weight images
     (:func:`points_stage_images`, recompute only) written and read."""
     w_in = sum(((enc if i == 0 else width) + (enc if i in skips else 0)) * width
                for i in range(depth)) + width * head0 + head0 * 32
     nbias = depth * width + head0 + 32
-    return (2 * enc * points + 16 * 4 * (points // s) + 8 * 4 * points + 2 * (w_in + nbias)
-            + 2 * points_stage_images(enc, depth, width, skips, head0, True,
-                                      recompute_only=True))
+    return 2 * (w_in + nbias) + 2 * points_stage_images(enc, depth, width, skips, head0, True,
+                                                        recompute_only=True)
+
+
+def shaded_forward_bytes(enc: int, depth: int, width: int, skips, head0: int, points: int,
+                         s: int) -> int:
+    """The bytes K4 (``fused_shaded_mlp``'s forward, ``csrc/fused_shaded.cu``)
+    moves at this pack and point count, each once: feat (bf16) and the rays'
+    basis [P / s, 16] (fp32) read, the output [P, 8] (fp32) written, and the
+    weights (:func:`_forward_weight_bytes`)."""
+    return (2 * enc * points + 16 * 4 * (points // s) + 8 * 4 * points
+            + _forward_weight_bytes(enc, depth, width, skips, head0))
+
+
+def render_forward_bytes(enc: int, depth: int, width: int, skips, head0: int, points: int,
+                         s: int, draws: int = 0, wsel: bool = False) -> int:
+    """The bytes K2 (``fused_render``'s forward, ``csrc/fused_render.cu``)
+    moves at this pack and point count, each once: feat (bf16), the rays'
+    basis [P / s, 16], z [P] and ``draws`` noise draws [P] (noise, and
+    noise_sel with wsel; fp32) read, ray_out [P / s, 8] and, with ``wsel``,
+    wsel [P] written (fp32), the weights (:func:`_forward_weight_bytes`),
+    and the round trip between its two kernels: the forward's [P, 8] fp32
+    rows written, and the 32-byte sector of each that holds sigma and rgb
+    read back by the composite (64 bytes a point)."""
+    rays = points // s
+    return (2 * enc * points + 16 * 4 * rays + 4 * (1 + draws) * points + 8 * 4 * rays
+            + (4 * points if wsel else 0) + 64 * points
+            + _forward_weight_bytes(enc, depth, width, skips, head0))
+
+
+def mlp_forward_bytes(enc: int, depth: int, width: int, skips, head0: int, points: int) -> int:
+    """The bytes K1 (``fused_mlp_apply``, ``csrc/fused_mlp.cu``) moves at
+    this pack (sigma-only: head0 = width) and point count, each once: feat
+    (bf16) read, the raw rows [P, 32] (fp32) written, and the weights
+    (:func:`_forward_weight_bytes`)."""
+    return (2 * enc * points + 32 * 4 * points
+            + _forward_weight_bytes(enc, depth, width, skips, head0))
 
 
 def forward_l2_bytes_per_point(enc: int, depth: int, width: int, skips, head0: int,

@@ -1,5 +1,5 @@
-"""Time the points stage of the K3, K5 and K6 backwards alone, and K4's
-forward, on a CUDA card.
+"""Time the points stage of the K3, K5 and K6 backwards alone, and the
+forwards K1, K2 and K4, on a CUDA card.
 
     python3 -m mc_nerf_torch.tools.points_stage_time [--iters N] [--only K3 K4 ...]
         [--against DIR ...]
@@ -18,15 +18,26 @@ background on, as the train step runs it.  K4 (``fused_shaded_mlp``'s
 forward, ``csrc/fused_shaded.cu``) is timed whole through
 ``fused_shaded_mlp`` at its three shapes: the grid step's coarse full
 4x128 pass over 7000 x 128 points and fine 8x256 pass over 7000 x 130,
-and the grid demo's eval chunk, 16384 x 130 at the fine pack.  Weights: the seeded scene
+and the grid demo's eval chunk, 16384 x 130 at the fine pack; "K4 at K2"
+runs it at K2's three shapes (the MLP and shading half of K2).  K2
+(``fused_render``'s forward, ``csrc/fused_render.cu``) is timed whole
+through ``fused_render`` at the importance step's coarse full 4x128 pass
+over 7000 x 48 (noise, noise_sel and wsel, as the train step runs it) and
+fine 8x256 pass over 7000 x 32 (noise), and at the importance demo's eval
+chunk, 16384 x 32 (no noise).  K1 (``fused_mlp_apply``,
+``csrc/fused_mlp.cu``) at the demos' sigma-only coarse 4x128 pass over an
+eval chunk, 16384 x 128 (grid) and 16384 x 48 (importance), and as the
+``fused_mlp`` VJP's forward, the coarse full pack over 7000 x 48 and the
+fine over 7000 x 32.  Weights: the seeded scene
 (``tools/scene.scene_params``); cotangents: ``tools/bwd_check``'s (K3's an
 MSE's of the plain forward's rays).  Beside each time: ``bound_ms``, the
-recompute and dX products the function needs over the bf16 peak (K4: its
-forward products, and its shading over the fp32 peak), and ``floor_ms``,
-this design's bytes (``tools/bwd_check.points_stage_bytes``,
-``render_points_stage_bytes``, ``shaded_forward_bytes``) over the memory
-rate.  ``--only`` keeps the
-shapes whose label starts with one of its words.
+recompute and dX products the function needs over the bf16 peak (the
+forwards: their forward products, and K2's and K4's shading over the fp32
+peak; or their inputs and outputs over the memory rate, if longer), and
+``floor_ms``, this design's bytes (``tools/bwd_check.points_stage_bytes``,
+``render_points_stage_bytes``, ``shaded_forward_bytes``,
+``render_forward_bytes``, ``mlp_forward_bytes``) over the memory rate.
+``--only`` keeps the shapes whose label starts with one of its words.
 
 ``--against DIR`` adds other checkouts of the repository (unpacked into a
 git-ignored directory, e.g. ``build/parent``): every checkout builds its
@@ -50,14 +61,29 @@ PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12    # H100 SXM fp32 outside the tensor cores
 RAYS = 7000
 EVAL_RAYS = 16384          # rays of one eval chunk of the grid demo
-# (label, pack, samples per ray, kind, rays): K5 and K4 at the grid step's
-# passes, K6 and K3 at the importance step's shapes, K4 also at the grid
-# demo's eval chunk
-SHAPES = (("K5 coarse", "coarse", 128, "shaded", RAYS), ("K5 fine", "fine", 130, "shaded", RAYS),
-          ("K6 coarse", "coarse", 48, "mlp", RAYS), ("K6 fine", "fine", 32, "mlp", RAYS),
-          ("K3 coarse", "coarse", 48, "render", RAYS), ("K3 fine", "fine", 32, "render", RAYS),
-          ("K4 coarse", "coarse", 128, "forward", RAYS), ("K4 fine", "fine", 130, "forward", RAYS),
-          ("K4 eval", "fine", 130, "forward", EVAL_RAYS))
+# (label, pack, samples per ray, kind, rays, noise draws): K5 and K4 at the
+# grid step's passes, K6 and K3 at the importance step's shapes, K4 also at
+# the grid demo's eval chunk and at K2's shapes; K2 at the importance step's
+# and demo's; K1 at both demos' (the sigma-only "coarse-sigma" pack) and
+# the fused_mlp VJP's.  K2 with 2 draws (noise, noise_sel) emits wsel.
+SHAPES = (("K5 coarse", "coarse", 128, "shaded", RAYS, 0),
+          ("K5 fine", "fine", 130, "shaded", RAYS, 0),
+          ("K6 coarse", "coarse", 48, "mlp", RAYS, 0), ("K6 fine", "fine", 32, "mlp", RAYS, 0),
+          ("K3 coarse", "coarse", 48, "render", RAYS, 1),
+          ("K3 fine", "fine", 32, "render", RAYS, 1),
+          ("K4 coarse", "coarse", 128, "forward", RAYS, 0),
+          ("K4 fine", "fine", 130, "forward", RAYS, 0),
+          ("K4 eval", "fine", 130, "forward", EVAL_RAYS, 0),
+          ("K4 at K2 coarse", "coarse", 48, "forward", RAYS, 0),
+          ("K4 at K2 fine", "fine", 32, "forward", RAYS, 0),
+          ("K4 at K2 eval", "fine", 32, "forward", EVAL_RAYS, 0),
+          ("K2 coarse", "coarse", 48, "render_fwd", RAYS, 2),
+          ("K2 fine", "fine", 32, "render_fwd", RAYS, 1),
+          ("K2 eval", "fine", 32, "render_fwd", EVAL_RAYS, 0),
+          ("K1 grid eval", "coarse-sigma", 128, "mlp_fwd", EVAL_RAYS, 0),
+          ("K1 eval", "coarse-sigma", 48, "mlp_fwd", EVAL_RAYS, 0),
+          ("K1 vjp coarse", "coarse", 48, "mlp_fwd", RAYS, 0),
+          ("K1 vjp fine", "fine", 32, "mlp_fwd", RAYS, 0))
 ROOT = Path(__file__).resolve().parents[2]
 
 
@@ -74,10 +100,10 @@ def _time_here(iters: int, only) -> dict:
     from mc_nerf_torch.config import NerfConfig
     from mc_nerf_torch.models.sh import sh_basis
     from mc_nerf_torch.ops.cuda.fused_mlp import (
-        BASIS_LANES, _flat_weights, _workspace, encode_kernel_order, fused_shaded_mlp,
-        fused_shaded_mlp_plain, mlp_bwd_points, mlp_plain, pack_mlp_params)
+        BASIS_LANES, _flat_weights, _workspace, encode_kernel_order, fused_mlp_apply,
+        fused_shaded_mlp, fused_shaded_mlp_plain, mlp_bwd_points, mlp_plain, pack_mlp_params)
     from mc_nerf_torch.ops.cuda.fused_render import (
-        _bwd_fns, fused_render_plain, render_bwd_points)
+        _bwd_fns, fused_render, fused_render_plain, render_bwd_points)
     from mc_nerf_torch.tools.bwd_check import mlp_cotangent, mse_cotangent, shaded_cotangent
     from mc_nerf_torch.tools.scene import scene_params
 
@@ -86,9 +112,9 @@ def _time_here(iters: int, only) -> dict:
     params = scene_params(nc, 0, device=dev)
     nb = (nc.sh_deg + 1) ** 2
     out = {}
-    for label, pack, s, kind, rays in _shapes(only):
-        mlp, depth, skips = ((params.coarse, nc.coarse_depth, nc.coarse_skips) if pack == "coarse"
-                             else (params.fine, nc.fine_depth, nc.fine_skips))
+    for label, pack, s, kind, rays, draws in _shapes(only):
+        mlp, depth, skips = ((params.fine, nc.fine_depth, nc.fine_skips) if pack == "fine"
+                             else (params.coarse, nc.coarse_depth, nc.coarse_skips))
         rng = np.random.default_rng(s)
         d = torch.as_tensor(rng.normal(size=(rays, 3)), dtype=torch.float32, device=dev)
         d = d / d.norm(dim=-1, keepdim=True)
@@ -98,12 +124,21 @@ def _time_here(iters: int, only) -> dict:
         feat = encode_kernel_order(xyz.reshape(-1, 3), nc.emb_freqs_xyz)
         basis16 = torch.nn.functional.pad(sh_basis(nc.sh_deg, d),
                                           (0, BASIS_LANES - nb)).contiguous()
-        packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+        packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips, pack == "coarse-sigma")
         ws, bs = _flat_weights(packed)
         work = None
         if kind == "forward":
             fn = fused_shaded_mlp
             args = (packed, feat, basis16, depth, skips, s, nb)
+        elif kind == "mlp_fwd":
+            fn = fused_mlp_apply
+            args = (packed, feat, depth, skips)
+        elif kind == "render_fwd":
+            noise, noise_sel = (torch.as_tensor(rng.normal(size=(rays, s)), dtype=torch.float32,
+                                                device=dev) for _ in range(2))
+            fn = fused_render
+            args = (packed, feat, basis16, z, noise, noise_sel, depth, skips, s, nb, draws > 0,
+                    draws > 1, nc.white_back)
         elif kind == "render":
             noise = torch.as_tensor(rng.normal(size=(rays, s)), dtype=torch.float32, device=dev)
             dray = mse_cotangent(fused_render_plain(packed, feat, basis16, z, noise, None, depth,
@@ -142,22 +177,38 @@ def _bounds(only) -> dict:
     """{label: (bound_ms, floor_ms)} of this tree's count of the work."""
     from mc_nerf_torch.config import NerfConfig
     from mc_nerf_torch.tools.bwd_check import (
-        needed_macs, points_stage_bytes, render_points_stage_bytes, shaded_forward_bytes)
+        mlp_forward_bytes, needed_macs, points_stage_bytes, render_forward_bytes,
+        render_points_stage_bytes, shaded_forward_bytes)
 
     nc = NerfConfig()
     enc = 4 + 6 * nc.emb_freqs_xyz
     nb = (nc.sh_deg + 1) ** 2
     out = {}
-    for label, pack, s, kind, rays in _shapes(only):
-        depth, width, skips = ((nc.coarse_depth, nc.coarse_width, nc.coarse_skips)
-                               if pack == "coarse" else
-                               (nc.fine_depth, nc.fine_width, nc.fine_skips))
+    for label, pack, s, kind, rays, draws in _shapes(only):
+        depth, width, skips = ((nc.fine_depth, nc.fine_width, nc.fine_skips) if pack == "fine"
+                               else (nc.coarse_depth, nc.coarse_width, nc.coarse_skips))
+        sigma_only = pack == "coarse-sigma"
+        head0 = width if sigma_only else 2 * width
         p = rays * s
-        macs = needed_macs(nc, depth, width, skips, False)
-        if kind == "forward":
-            nbytes = shaded_forward_bytes(enc, depth, width, skips, 2 * width, p, s)
-            ops_ms = (2.0 * macs * p / PEAK_BF16_FLOPS + 2.0 * 3 * nb * p / PEAK_FP32_FLOPS) * 1e3
-            out[label] = (max(ops_ms, nbytes / PEAK_BYTES * 1e3), nbytes / PEAK_BYTES * 1e3)
+        macs = needed_macs(nc, depth, width, skips, sigma_only)
+        if kind in ("forward", "render_fwd", "mlp_fwd"):
+            # needed: feat in and the outputs (K4: [P, 8]; K2: the rays'
+            # [P / s, 8] and wsel; K1: [P, 32]), the rays' basis and K2's
+            # z and draws, fp32; the design's floor: this route's bytes
+            shade = 0.0 if kind == "mlp_fwd" else 2.0 * 3 * nb * p / PEAK_FP32_FLOPS
+            ops_ms = (2.0 * macs * p / PEAK_BF16_FLOPS + shade) * 1e3
+            if kind == "forward":
+                need = 2 * enc * p + 16 * 4 * rays + 8 * 4 * p
+                nbytes = shaded_forward_bytes(enc, depth, width, skips, head0, p, s)
+            elif kind == "render_fwd":
+                need = (2 * enc * p + 16 * 4 * rays + 4 * (1 + draws) * p + 8 * 4 * rays
+                        + (4 * p if draws > 1 else 0))
+                nbytes = render_forward_bytes(enc, depth, width, skips, head0, p, s, draws,
+                                              draws > 1)
+            else:
+                need = 2 * enc * p + 32 * 4 * p
+                nbytes = mlp_forward_bytes(enc, depth, width, skips, head0, p)
+            out[label] = (max(ops_ms, need / PEAK_BYTES * 1e3), nbytes / PEAK_BYTES * 1e3)
             continue
         nbytes = (render_points_stage_bytes(enc, depth, width, skips, 2 * width, p, s)
                   if kind == "render" else
