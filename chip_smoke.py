@@ -55,10 +55,10 @@ in both fine modes.
    last.
 
 Every kernel check also measures planted faults against the same plain
-version (points mixed up, K4's tiles swapped in pairs, the skip input
-dropped, the first layer lost, another ray's SH basis; for the backwards
-also a layer's dW transposed or
-zeroed, the skip's dfeat share dropped, the suffix scan shifted by one,
+version (points mixed up, tiles swapped in pairs, the skip input dropped,
+the first layer lost, another ray's SH basis, the forward composite's
+prefix sums one sample late; for the backwards also a layer's dW
+transposed or zeroed, the skip's dfeat share dropped, the suffix scan shifted by one,
 one sample's dout8 moved to its neighbour, the sigmoid's derivative
 dropped on one channel: ``tools/bwd_check.py``)
 and fails if one of them would pass.  Bounds
@@ -325,7 +325,7 @@ def check_train_forward(nc, params, dev, rng, rays, errs, render_tol):
     s=48, noise + wsel; fine 8x256, s=32, noise) against the plain forward,
     with planted faults.  Returns per pass the kernel's ms, the plain
     version's, a bf16 matmul chain's and the bound at these shapes."""
-    from mc_nerf_torch.tools.bwd_check import needed_macs
+    from mc_nerf_torch.tools.bwd_check import needed_macs, render_scan_late
     from mc_nerf_torch.ops.cuda.fused_mlp import pack_mlp_params
     from mc_nerf_torch.ops.cuda.fused_render import fused_render, fused_render_plain
 
@@ -353,7 +353,8 @@ def check_train_forward(nc, params, dev, rng, rays, errs, render_tol):
                                               p_out, p_w),
             "another ray's basis": render_errs(*fused_render_plain(*args(bas=basis16.roll(1, 0))),
                                                p_out, p_w),
-        })
+            "scan one sample late": render_errs(*render_scan_late(*args()), p_out, p_w),
+        }, 2.0)
         p = rays * s
         # read: feat, basis, z, noise (and noise_sel), the pack; written:
         # ray_out (and wsel)
@@ -872,9 +873,23 @@ def fused_mlp_vjp_phase(nc, params, dev, rng, rays, errs) -> dict:
     print(f"fused_mlp VJP (coarse {rays} x 48, fine {rays} x 32): launches {launches}", flush=True)
     if launches != {"fused_mlp_apply": 2, "fused_mlp_bwd": 2}:
         fail(f"fused_mlp's VJP should launch its forward and backward once per pack: {launches}")
-    numbers, rel = {}, {}
+    numbers, fwd, rel = {}, {}, {}
     for label, mlp, depth, width, skips, s in passes:
         pk, feat, dout = inputs[label]
+        # K1, the VJP's forward, against its plain version and timed
+        ker, ref = fused_mlp_apply(pk, feat, depth, skips), mlp_plain(pk, feat, depth, skips)
+        errs["fused_mlp_apply"] = max(errs["fused_mlp_apply"], float((ker - ref).abs().max()))
+        hold(f"fused_mlp_apply {label} full pack P={feat.shape[0]}", mlp_errs(ker, ref),
+             {"rel": MLP_RTOL}, {"points mixed in a tile": mlp_errs(mixed_in_tiles(ker), ref),
+                                 "a pair's tiles swapped": mlp_errs(pair_swapped(ker), ref)}, 2.0)
+        del ker, ref
+        p, enc = feat.shape
+        t_f = bound(2.0 * needed_macs(nc, depth, width, skips, False) * p,
+                    p * enc * 2 + p * 32 * 4 + pack_bytes(pk))
+        fwd[label] = {"ms": cuda_ms(lambda: fused_mlp_apply(pk, feat, depth, skips)),
+                      "plain_ms": cuda_ms(lambda: mlp_plain(pk, feat, depth, skips), 3),
+                      "library_ms": cuda_ms(lambda: library_mlp(pk, feat, depth, skips)),
+                      "bound_ms": t_f[0], "bound_by": t_f[1]}
         ws, bs = _flat_weights(pk)
         args = (ws, bs, feat, dout, depth, skips)
         k = fused_mlp_bwd(*args)
@@ -910,7 +925,7 @@ def fused_mlp_vjp_phase(nc, params, dev, rng, rays, errs) -> dict:
                               lambda work: _mlp_bwd_launch(*args, work),
                               library_bwd_dx(ws, bs, feat, dout_b, depth, skips), dout_b, macs,
                               pk)}
-    return {"launches": launches, "fused_mlp_bwd": numbers, "rel": rel}
+    return {"launches": launches, "fused_mlp_apply": fwd, "fused_mlp_bwd": numbers, "rel": rel}
 
 
 def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> dict:
@@ -1046,6 +1061,7 @@ def main() -> None:
     from mc_nerf_torch.ops.cuda.fused_render import (
         fused_render, fused_render_plain, max_samples, max_samples_bwd, render_bwd_points,
         render_bwd_weights)
+    from mc_nerf_torch.tools.bwd_check import render_scan_late
     from mc_nerf_torch.tools.scene import LEGO_FOV, orbit_views, scene_params
     from mc_nerf_torch.train.engine import demo, refresh_occupancy
     from mc_nerf_torch.train.steps import make_render_fn
@@ -1072,8 +1088,8 @@ def main() -> None:
     nc = cfg.nerf
     params = scene_params(nc, SEED, device=dev)
     packed_c, packed_f = pack_eval_params(params, nc)
-    print(f"samples per ray at the fine pack, at most: forward {max_samples(packed_f)} (its "
-          f"shared-memory layout), backward {max_samples_bwd(packed_f)} (2**31 - 1: no limit)")
+    print(f"samples per ray at the fine pack, at most: forward {max_samples(packed_f)}, "
+          f"backward {max_samples_bwd(packed_f)} (2**31 - 1: no limit)")
     nb = (nc.sh_deg + 1) ** 2
     rng = np.random.default_rng(SEED)
     errs = {"fused_mlp_apply": 0.0, "fused_render": 0.0}   # max abs, for the kernels line
@@ -1095,9 +1111,10 @@ def main() -> None:
                            ker[n_tiled:]])
         hold(f"fused_mlp_apply {label} P={n_pts}", mlp_errs(ker, ref), mlp_tol, {
             "points mixed in a tile": mlp_errs(mixed, ref),
+            "a pair's tiles swapped": mlp_errs(pair_swapped(ker), ref),
             "skip input dropped": mlp_errs(mlp_plain(drop_skip(pk, skips), feat, depth, skips), ref),
             "first layer lost": mlp_errs(mlp_plain(drop_first(pk), feat, depth, skips), ref),
-        })
+        }, 2.0)
 
     rays = 2000
     for s in (32, 48):
@@ -1128,9 +1145,12 @@ def main() -> None:
                                                        p_out, p_w),
                 "skip input dropped": render_errs(
                     *fused_render_plain(*args(pk=drop_skip(packed_f, nc.fine_skips))), p_out, p_w),
+                "first layer lost": render_errs(
+                    *fused_render_plain(*args(pk=drop_first(packed_f))), p_out, p_w),
                 "another ray's basis": render_errs(
                     *fused_render_plain(*args(bas=basis16.roll(1, 0))), p_out, p_w),
-            })
+                "scan one sample late": render_errs(*render_scan_late(*args()), p_out, p_w),
+            }, 2.0)
 
     # ---- timings at the main path's shapes: one 16384-ray chunk
     chunk = cfg.eval.rays_per_chunk
@@ -1270,6 +1290,10 @@ def main() -> None:
                   f"{t['plain_ms']:.3f}, bf16 torch chain {t['library_ms']:.3f}, bound "
                   f"{t['bound_ms']:.3f} by {t['bound_by']})" + weight_stage_line(t), flush=True)
     vjp = fused_mlp_vjp_phase(nc, params, dev, rng, t_rays, errs)
+    for label, t in vjp["fused_mlp_apply"].items():
+        print(f"fused_mlp_apply, VJP {label} pack: {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}, "
+              f"bf16 torch chain {t['library_ms']:.3f}, bound {t['bound_ms']:.3f} by "
+              f"{t['bound_by']})", flush=True)
     for label, t in vjp["fused_mlp_bwd"].items():
         print(f"fused_mlp_bwd, {label} pack: {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}, bf16 "
               f"torch chain {t['library_ms']:.3f}, bound {t['bound_ms']:.3f} by "
@@ -1300,15 +1324,16 @@ def main() -> None:
                 **numbers}
 
     # one entry per kernel and path, each path's launches counted from 0
-    # just before it ran: the demo (2 frames; times at one eval chunk) and
-    # the train step (N_TRAIN steps; times per launch, the mean of the
-    # coarse and the fine pass, each pass kept in per_pass)
-    kernels = [{
-        "name": name, "path": "demo", "route": "cuda", "source": sources[name],
-        "replaces": replaces[name], "launches": demo_launches[name],
-        "max_abs_err": errs[name], "ms": times[name][0], "plain_ms": times[name][1],
-        "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": times[name][2],
-    } for name in ("fused_mlp_apply", "fused_render")]
+    # just before it ran: the demo (2 frames; times at one eval chunk, kept
+    # in per_pass too) and the train step (N_TRAIN steps; times per launch,
+    # the mean of the coarse and the fine pass, each pass kept in per_pass)
+    kernels = []
+    for name in ("fused_mlp_apply", "fused_render"):
+        chunk_numbers = {"ms": times[name][0], "plain_ms": times[name][1],
+                         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                         "library_ms": times[name][2]}
+        kernels.append(entry(name, "demo", demo_launches[name],
+                             {**chunk_numbers, "per_pass": {"eval chunk": chunk_numbers}}))
     kernels += [{
         "name": name, "path": "train_step", "route": "cuda", "source": sources[name],
         "replaces": replaces[name], "launches": train["launches"][name],
@@ -1319,14 +1344,15 @@ def main() -> None:
     # train step (N_TRAIN_GRID steps; per launch, the mean of both passes),
     # the fused_mlp VJP (one launch per pack; the mean of both packs)
     kernels += [entry(name, "demo_grid", grid_demo["launches"][name],
-                      grid_demo["numbers"][name])
+                      {**grid_demo["numbers"][name],
+                       "per_pass": {"grid eval chunk": grid_demo["numbers"][name]}})
                 for name in ("fused_mlp_apply", "fused_shaded_mlp")]
     kernels += [{**entry(name, "train_step_grid", grid_train["launches"][name],
                          per_launch(shaded[name])),
                  "launches_per_step": grid_train["launches"][name] / N_TRAIN_GRID}
                 for name in ("fused_shaded_mlp", "fused_shaded_mlp_bwd")]
-    kernels.append(entry("fused_mlp_bwd", "fused_mlp_vjp", vjp["launches"]["fused_mlp_bwd"],
-                         per_launch(vjp["fused_mlp_bwd"])))
+    kernels += [entry(name, "fused_mlp_vjp", vjp["launches"][name], per_launch(vjp[name]))
+                for name in ("fused_mlp_apply", "fused_mlp_bwd")]
     print(json.dumps({"grid_demo": {k: v for k, v in grid_demo.items() if k != "numbers"},
                       "grid_train": {k: v for k, v in grid_train.items() if k != "launches"},
                       "grid_train_launches": grid_train["launches"],

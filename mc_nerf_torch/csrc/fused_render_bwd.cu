@@ -174,7 +174,7 @@ extern "C" int mcn_render_bwd_points(const void* feat, const void* basis16, cons
   a.dout_in = io;
   PtSchedule fwd = sc;  // the recompute's products (head-0 passes of a.nch), at its head
   fwd.count = pt_recompute_products(p, f.nch, true);
-  err = launch_shaded_fwd(p, a, fwd, st);
+  err = launch_shaded_fwd<FWD_SHADED>(p, a, fwd, st);
   if (err) return err;
   const int per_block = COMPOSITE_THREADS / 32;
   composite_bwd_kernel<<<(rays + per_block - 1) / per_block, COMPOSITE_THREADS, 0, st>>>(

@@ -102,5 +102,5 @@ extern "C" int mcn_fused_shaded(const void* feat, const void* basis16, void* out
   weight_images_kernel<<<sc.stages, THREADS, 0, st>>>(im, sc,
                                                       static_cast<unsigned char*>(workspace));
   err = cudaGetLastError();
-  return err ? err : launch_shaded_fwd(p, a, sc, st);
+  return err ? err : launch_shaded_fwd<FWD_SHADED>(p, a, sc, st);
 }

@@ -191,7 +191,8 @@ struct PtArgs {
   const bf16* feat;
   const float* basis16;  // [P / s, 16] (shaded)
   const float* dout_in;  // dout8 [P, 8] (shaded) or dout [P, 32]
-  float* out8;           // K4's forward (shaded_fwd.cuh): its [P, 8] output
+  float* out8;           // shaded_fwd.cuh: K4's [P, 8] output, or
+  float* out32;          //   K1's [P, 32] output
   float* dfeat;          // [P, enc]
   const float* z;        // PT_RENDER: the composite's inputs, [rays, s], [rays, s] or
   const float* noise;    //   null, [rays, 8]
@@ -1213,6 +1214,7 @@ static int points_args(bool shaded, MLPParams* p, FlatPlan* f, PtSchedule* sc, P
   a->basis16 = static_cast<const float*>(basis16);
   a->dout_in = static_cast<const float*>(dout_in);
   a->out8 = nullptr;
+  a->out32 = nullptr;
   a->z = a->noise = a->dray = nullptr;
   a->rays = 0;
   a->ray_k = a->white_back = 0;

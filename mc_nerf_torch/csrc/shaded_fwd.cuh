@@ -48,16 +48,25 @@ __device__ __forceinline__ void fwd_layer_at(int nc, const PtGemm& G, uint32_t a
   }
 }
 
+// What fwd_consume writes from the output fragment (its template argument):
+constexpr int FWD_SHADED = 0;  // K4, K3's composed forward: [P, 8] rows, sigma and rgb
+constexpr int FWD_RAW = 1;     // K1: [P, 32] rows, the packed head's raw output
+
 // One consumer warp's share of every tile of its block (tiles b, b + G,
 // ...), in its slab (act [ep + width] and h1 [nch] columns of its 16 rows;
 // its warpgroup's four slabs are the A operand): the recompute of
 // mlp_points_kernel (pt_consume) with nothing kept for a backward -- feat
 // into the act buffer, the trunk (h over the act buffer's hidden columns),
 // head layer 0 in passes of nch columns, each followed by its share of
-// head layer 1 into the output fragment o -- then the warp's rows of
-// [P, 8] from o: forward_out's raw sigma and shaded rgb into columns 0..3,
-// zeros into 4..7.  pt_consume keeps its own copy of the loop: one shared
-// helper moved K6's coarse points stage by 3.5% on an H100 (PERF.md).
+// head layer 1 into the output fragment o, plus head layer 1's bias --
+// then, by EPI: FWD_SHADED, the warp's rows of [P, 8] from o (forward_out's
+// raw sigma and shaded rgb into columns 0..3, zeros into 4..7); FWD_RAW,
+// the warp's rows of [P, 32] as they stand (sigma, the SH lanes; zeros
+// past column 0 for a sigma-only pack).  pt_consume keeps its own copy of
+// the loop: one shared helper moved K6's coarse points stage by 3.5% on an
+// H100 (PERF.md); the epilogue as a template argument left K4 unmoved
+// (PERF.md, K1's redesign).
+template <int EPI>
 __device__ __forceinline__ void fwd_consume(const MLPParams& p, const PtArgs& a,
                                             const PtSchedule& sc, unsigned char* slab, Ring& rg) {
   const int warp = threadIdx.x >> 5;
@@ -100,13 +109,27 @@ __device__ __forceinline__ void fwd_consume(const MLPParams& p, const PtArgs& a,
         o[4 * j + 2 * h + 1] += __bfloat162float(b.y);
       }
     }
-    float* rows = a.out8 + row0 * IO_FLOATS;
-    forward_out(o, a, row0, nr, rows, f);
+    if constexpr (EPI == FWD_RAW) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = f.g + 8 * h;
-      if (r < nr && f.tig == 1)
-        *reinterpret_cast<float4*>(rows + r * IO_FLOATS + 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int h = 0; h < 2; ++h) {
+        const int r = f.g + 8 * h;
+        if (r < nr) {
+          float* row = a.out32 + (row0 + r) * OUT_COLS + 2 * f.tig;
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<float2*>(row + 8 * j) =
+                make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
+        }
+      }
+    } else {
+      float* rows = a.out8 + row0 * IO_FLOATS;
+      forward_out(o, a, row0, nr, rows, f);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = f.g + 8 * h;
+        if (r < nr && f.tig == 1)
+          *reinterpret_cast<float4*>(rows + r * IO_FLOATS + 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
     }
   }
 }
@@ -114,6 +137,7 @@ __device__ __forceinline__ void fwd_consume(const MLPParams& p, const PtArgs& a,
 // Persistent: warpgroups 0 and 1 consume, warp 8 produces; registers moved
 // by setmaxnreg from the producer's warpgroup to the consumers', as in
 // mlp_points_kernel.
+template <int EPI>
 __global__ void __launch_bounds__(PT_THREADS, 1)
     shaded_fwd_kernel(const __grid_constant__ MLPParams p, const __grid_constant__ PtArgs a,
                       const __grid_constant__ PtSchedule sc) {
@@ -140,7 +164,7 @@ __global__ void __launch_bounds__(PT_THREADS, 1)
     if (threadIdx.x < THREADS + 32) pt_produce(sc, a.img, a.tiles, rg);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    fwd_consume(p, a, sc, slabs + (size_t)(threadIdx.x >> 5) * 2 * a.half, rg);
+    fwd_consume<EPI>(p, a, sc, slabs + (size_t)(threadIdx.x >> 5) * 2 * a.half, rg);
   }
 }
 
@@ -162,13 +186,14 @@ static long long fwd_schedule(const MLPParams& p, int nch, PtSchedule* sc, PtIma
   return g.off + (long long)g.k_tiles * KT * g.nc * 2;
 }
 
-// One launch of shaded_fwd_kernel over a.points points (a: feat, basis16,
-// out8, s, nb, nch and the images at a.img, written for the recompute's
-// products that sc holds) on the forward-only plan: per half-slab act [ep + width]
-// and h1 [nch] columns x 16 bytes, no mask bits, no backward buffer, and
-// the ring as deep as the rest of the block's shared memory allows, up to
+// One launch of shaded_fwd_kernel<EPI> over a.points points (a: feat,
+// basis16, the outputs EPI writes, s, nb, nch and the images at a.img,
+// written for the recompute's products that sc holds) on the forward-only
+// plan: per half-slab act [ep + width] and h1 [nch] columns x 16 bytes, no
+// mask bits, no backward buffer, and the ring as deep as the rest of the block's shared memory allows, up to
 // PT_MAX_STAGES (on an H100 4 slots ran as fast as 7 or 9, PERF.md); one
 // persistent block per SM.  Returns cudaGetLastError().
+template <int EPI>
 static int launch_shaded_fwd(const MLPParams& p, PtArgs a, const PtSchedule& sc,
                              cudaStream_t st) {
   int dev = 0, limit = 0, sms = 0;
@@ -185,11 +210,11 @@ static int launch_shaded_fwd(const MLPParams& p, PtArgs a, const PtSchedule& sc,
   a.nst = (int)(room < PT_MAX_STAGES ? room : PT_MAX_STAGES);
   if (a.nst < 2) return cudaErrorInvalidValue;
   const size_t smem = (size_t)a.nst * PT_STAGE + (size_t)slabs + 16 * a.nst;
-  err = cudaFuncSetAttribute(shaded_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  err = cudaFuncSetAttribute(shaded_fwd_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err) return err;
   const long long blocks = a.tiles < sms ? a.tiles : sms;
-  shaded_fwd_kernel<<<(unsigned)blocks, PT_THREADS, smem, st>>>(p, a, sc);
+  shaded_fwd_kernel<EPI><<<(unsigned)blocks, PT_THREADS, smem, st>>>(p, a, sc);
   return cudaGetLastError();
 }
 

@@ -4,11 +4,12 @@ Counterpart of ``mc_nerf_tpu/ops/pallas/fused_render.py``.  Two kernels:
 
 * ``csrc/fused_render.cu`` replaces the Pallas ``_render_fwd_kernel``
   (``fused_render.py:211``, called through ``_render_fwd_call`` at
-  ``:476`` and ``fused_render`` at ``:650``): blocks of whole rays run the
-  MLP of ``csrc/mlp_tile.cuh`` on their points, shade them against a
-  per-ray SH basis, and composite each ray in a warp with a shuffle prefix
-  scan.  Only per-ray results (and, optionally, the per-sample selection
-  weights) reach device memory.
+  ``:476`` and ``fused_render`` at ``:650``): K4's forward kernel
+  (``csrc/shaded_fwd.cuh``: persistent blocks on a TMA ring of weight
+  images) runs the MLP and the SH shading of every point into a [P, 8]
+  buffer of the workspace, then a composite kernel runs each ray in a
+  warp with a shuffle prefix scan into the per-ray results (and,
+  optionally, the per-sample selection weights).
 * ``csrc/fused_render_bwd.cu`` replaces ``_render_bwd_kernel``
   (``fused_render.py:290``, via ``_render_bwd_call`` ``:559`` and the
   custom VJP ``_fused_render_bwd`` ``:697``) in two launches:
@@ -227,10 +228,11 @@ def _ceiling(lib: str, fn_name: str, packed: PackedMLP) -> int:
 
 
 def max_samples(packed: PackedMLP) -> int:
-    """The most samples per ray the forward kernel takes with this pack on
-    the current CUDA device (1,952 for the fine 8x256 pack at 10 octaves
-    on an H100), as ``csrc/fused_render.cu`` lays out its shared memory;
-    builds the kernels at first use."""
+    """The most samples per ray the forward kernels take with this pack
+    (``mcn_render_max_samples`` in ``csrc/fused_render.cu``): no limit
+    (2**31 - 1) for any full pack, the composite reading each ray's rows
+    from device memory; 0 for a pack they do not take.  Builds the
+    kernels at first use."""
     return _ceiling("fused_render", "mcn_render_max_samples", packed)
 
 
@@ -242,12 +244,14 @@ def max_samples_bwd(packed: PackedMLP) -> int:
     return _ceiling("fused_render_bwd", "mcn_render_bwd_max_samples", packed)
 
 
-def _fwd_fn():
-    fn = _lib("fused_render").mcn_fused_render
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p] * 3)
+def _fwd_fns():
+    lib = _lib("fused_render")
+    ws_fn, fn = lib.mcn_fused_render_workspace, lib.mcn_fused_render
+    ws_fn.argtypes = [ctypes.c_int] * 7
+    ws_fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
     fn.restype = ctypes.c_int
-    return fn
+    return ws_fn, fn
 
 
 def _bwd_fns():
@@ -292,16 +296,21 @@ def _render_fwd(ws, bs, feat, basis16, z, noise, noise_sel, depth, skips, s, nb,
     if feat.device.type == "cpu":
         return _render_plain_flat(ws, bs, feat, basis16, z, noise, noise_sel, depth, skips,
                                   s, nb, with_noise, emit_wsel, white_back)
-    rays = basis16.shape[0]
+    rays, enc = basis16.shape[0], feat.shape[1]
     _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, feat.device)
+    ws_fn, fn = _fwd_fns()
+    # the weight images (written anew by every call: the weights may have
+    # been updated in place since the last) and the [P, 8] rows of the MLP
+    # and shading, which the composite reads
+    work = torch.empty(max(ws_fn(rays, s, enc, depth, skip_mask, width, head0), 1),
+                       dtype=torch.uint8, device=feat.device)
     ray_out = torch.empty((rays, 8), dtype=torch.float32, device=feat.device)
     wsel = (torch.empty((rays, s), dtype=torch.float32, device=feat.device)
             if emit_wsel else None)
     stream = torch.cuda.current_stream(feat.device).cuda_stream
-    err = _fwd_fn()(feat.data_ptr(), basis16.data_ptr(), z.data_ptr(), _ptr(noise),
-                    _ptr(noise_sel), ray_out.data_ptr(), _ptr(wsel), rays, s, nb,
-                    int(white_back), feat.shape[1], depth, skip_mask, width, head0,
-                    wp, bp, stream)
+    err = fn(feat.data_ptr(), basis16.data_ptr(), z.data_ptr(), _ptr(noise), _ptr(noise_sel),
+             ray_out.data_ptr(), _ptr(wsel), work.data_ptr(), rays, s, nb, int(white_back), enc,
+             depth, skip_mask, width, head0, wp, bp, stream)
     if err:
         raise RuntimeError(f"fused_render kernel launch failed: CUDA error {err}")
     fused_render.launches += 1
@@ -447,9 +456,9 @@ def fused_render(
       z: [rays, s] sorted fp32 sample depths (no gradient).
       noise / noise_sel: [rays, s] fp32 N(0,1) draws (training) or None;
         read only when ``with_noise`` (and ``emit_wsel`` for noise_sel).
-      s: samples per ray, >= 2 (and <= :func:`max_samples`, under autograd
-        also <= :func:`max_samples_bwd`, on CUDA tensors); nb: (sh_deg+1)^2
-        <= 9.
+      s: samples per ray, >= 2 (on CUDA tensors also <= :func:`max_samples`
+        and, under autograd, :func:`max_samples_bwd`: both 2**31 - 1, no
+        limit); nb: (sh_deg+1)^2 <= 9.
       with_noise: noisy rgb weights with a separate noise-free
         depth/opacity path.  emit_wsel: also return the selection weights
         (from noise_sel under ``with_noise``, else the noise-free ones;
@@ -459,7 +468,8 @@ def fused_render(
       (ray_out [rays, 8] fp32 — rgb(3), depth, opacity, 3 zeros;
        wsel [rays, s] fp32 or None).  CPU tensors take the plain versions,
       forward and backward; CUDA tensors launch ``csrc/fused_render.cu``
-      and, in the backward, ``csrc/fused_render_bwd.cu``.
+      (counted as one launch per call, whatever it launches inside) and,
+      in the backward, ``csrc/fused_render_bwd.cu``.
     """
     skips = tuple(skips)
     _check_mlp_args(packed, feat, depth, skips)
@@ -479,7 +489,7 @@ def fused_render(
     if feat.device.type != "cpu":
         _check_cuda_inputs(feat, basis16, z, noise, noise_sel, rays, s)
         if s > max_samples(packed):
-            raise ValueError(f"fused_render: s={s} exceeds the kernel's shared-memory "
+            raise ValueError(f"fused_render: s={s} exceeds the forward kernels' "
                              f"ceiling of {max_samples(packed)} samples per ray")
         grad = torch.is_grad_enabled() and any(
             t.requires_grad for t in (feat, basis16, *leaves))

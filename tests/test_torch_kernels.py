@@ -139,11 +139,11 @@ def test_fused_render_refuses_bad_shapes(rng):
 
 
 def test_fused_render_sample_ceiling(rng):
-    """The forward kernel's shared-memory ceiling on samples per ray (1,952
-    at the default fine pack on an H100; the backward has none) is the CUDA
-    sources' and is held on the card (tests/test_torch_gpu.py); the plain
-    versions on CPU tensors have none: a 1,953-sample ray at that pack
-    renders and takes its gradients, and nothing launches."""
+    """The kernels have no ceiling on samples per ray (held on the card,
+    tests/test_torch_gpu.py), and neither have the plain versions on CPU
+    tensors: a 1,953-sample ray at the default fine pack (one past the
+    shared-memory ceiling of an earlier forward kernel) renders and
+    takes its gradients, and nothing launches."""
     nc = NerfConfig()
     params = init_nerf_params(nc, device="cpu")
     packed = t_fm.pack_mlp_params(params.fine, nc.emb_freqs_xyz, nc.fine_skips,
