@@ -6,10 +6,11 @@ encode with its analytic VJP, and the pack).  Four hand-written CUDA
 kernels replace its four Pallas bodies:
 
 * ``csrc/fused_mlp.cu``, the Pallas ``_kernel`` (``fused_mlp.py:241``,
-  via ``fused_mlp_apply`` at ``:276``): a block of 256 threads runs 128
-  pre-encoded points through every trunk layer and both heads with
-  ``wgmma`` bf16 tiles and fp32 accumulation, and only the packed
-  ``[P, 32]`` fp32 output reaches device memory;
+  via ``fused_mlp_apply`` at ``:276``): the forward kernel of
+  ``csrc/shaded_fwd.cuh`` (below) with a raw epilogue runs pre-encoded
+  points through every trunk layer and both heads with ``wgmma`` bf16
+  products and fp32 accumulation, and only the packed ``[P, 32]`` fp32
+  output reaches device memory;
 * ``csrc/fused_shaded.cu`` (+ ``shaded_fwd.cuh``), ``_shaded_fwd_kernel``
   (``:381``, via ``fused_shaded_mlp`` at ``:686``): the MLP with the SH
   shading per point, ``[P, 8]`` out, as the points stage's recompute
@@ -353,15 +354,10 @@ def _check_mlp_args(packed: PackedMLP, feat: torch.Tensor, depth: int,
                          f"{packed.trunk_w[0].shape[0]} feature lanes")
 
 
-def launch_args(packed: PackedMLP, skips: Sequence[int], device: torch.device):
-    """The C arguments that describe the MLP: (keep-alive tensors,
-    skip_mask, width, head0, weight pointer array, bias pointer array)."""
-    return launch_args_flat(*_flat_weights(packed), skips, device)
-
-
 def launch_args_flat(ws, bs, skips: Sequence[int], device: torch.device):
-    """:func:`launch_args` on the bf16 (weights, biases) of
-    :func:`_flat_weights`."""
+    """The C arguments that describe the MLP, from the bf16 (weights,
+    biases) of :func:`_flat_weights`: (keep-alive tensors, skip_mask,
+    width, head0, weight pointer array, bias pointer array)."""
     for t in ws + bs:
         if t.device != device:
             raise ValueError(f"weights on {t.device}, feat on {device}")
@@ -374,16 +370,37 @@ def launch_args_flat(ws, bs, skips: Sequence[int], device: torch.device):
     return (ws, bs), skip_mask, width, head0, wp, bp
 
 
-def _lib():
+def _mlp_fwd_fns():
     from mc_nerf_torch.ops.cuda import _build
 
     lib = _build.load("fused_mlp")
-    fn = lib.mcn_fused_mlp
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    ws_fn, fn = lib.mcn_fused_mlp_workspace, lib.mcn_fused_mlp
+    ws_fn.argtypes = [ctypes.c_int] * 5
+    ws_fn.restype = ctypes.c_longlong
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
-    return fn
+    return ws_fn, fn
+
+
+def _mlp_fwd(ws, bs, feat, depth, skips) -> torch.Tensor:
+    """K1 on the bf16 layer weights of a CUDA tensor (feat checked): one
+    call of ``mcn_fused_mlp``, counted as one launch."""
+    _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, feat.device)
+    p, enc = feat.shape
+    ws_fn, fn = _mlp_fwd_fns()
+    # the weight images, written anew by every call (the weights may have
+    # been updated in place since the last)
+    images = torch.empty(max(ws_fn(enc, depth, skip_mask, width, head0), 1), dtype=torch.uint8,
+                         device=feat.device)
+    out = torch.empty((p, OUT_COLS), dtype=torch.float32, device=feat.device)
+    stream = torch.cuda.current_stream(feat.device).cuda_stream
+    err = fn(feat.data_ptr(), out.data_ptr(), images.data_ptr(), p, enc, depth, skip_mask, width,
+             head0, wp, bp, stream)
+    if err:
+        raise RuntimeError(f"fused_mlp kernel launch failed: CUDA error {err}")
+    fused_mlp_apply.launches += 1
+    return out
 
 
 def fused_mlp_apply(packed: PackedMLP, feat: torch.Tensor, depth: int,
@@ -398,26 +415,15 @@ def fused_mlp_apply(packed: PackedMLP, feat: torch.Tensor, depth: int,
     Returns:
       [P, 32] fp32: col 0 raw sigma, cols 1..27 SH (zeros past col 0 for a
       sigma-only pack).  CPU tensors take the plain version; CUDA tensors
-      launch ``csrc/fused_mlp.cu``.
+      launch ``csrc/fused_mlp.cu`` (counted as one launch per call,
+      whatever it launches inside).
     """
     skips = tuple(skips)
     _check_mlp_args(packed, feat, depth, skips)
     if feat.device.type == "cpu":
         return mlp_plain(packed, feat, depth, skips)
-    if feat.device.type != "cuda":
-        raise ValueError(f"fused_mlp_apply: unsupported device {feat.device}")
-    if feat.dtype != torch.bfloat16 or not feat.is_contiguous():
-        raise ValueError("fused_mlp_apply: feat must be contiguous bfloat16")
-    _keep, skip_mask, width, head0, wp, bp = launch_args(packed, skips, feat.device)
-    p = feat.shape[0]
-    out = torch.empty((p, OUT_COLS), dtype=torch.float32, device=feat.device)
-    stream = torch.cuda.current_stream(feat.device).cuda_stream
-    err = _lib()(feat.data_ptr(), out.data_ptr(), p, feat.shape[1], depth,
-                 skip_mask, width, head0, wp, bp, stream)
-    if err:
-        raise RuntimeError(f"fused_mlp kernel launch failed: CUDA error {err}")
-    fused_mlp_apply.launches += 1
-    return out
+    _check_cuda("fused_mlp_apply", feat)
+    return _mlp_fwd(*_flat_weights(packed), feat, depth, skips)
 
 
 fused_mlp_apply.launches = 0

@@ -13,7 +13,7 @@ The weights are the seeded scene of ``mc_nerf_torch.tools.scene``
 point; at the init as drawn the outputs are nearly all bias and a wrong
 kernel could pass).  Shapes go beyond the main path's: narrow widths, an
 encode width that is not a multiple of 16, ragged point and ray counts,
-and sample counts from 2 to each kernel's shared-memory ceiling.
+and sample counts from 2 to rays longer than any tile.
 Tolerances are about 10x the largest error measured on an H100 (PERF.md).
 """
 
@@ -30,6 +30,7 @@ from mc_nerf_torch.ops.cuda.fused_mlp import (
     BASIS_LANES,
     _flat_weights,
     _mlp_bwd_launch,
+    _mlp_fwd,
     _shaded_bwd_launch,
     _shaded_fwd,
     _workspace,
@@ -46,6 +47,7 @@ from mc_nerf_torch.ops.cuda.fused_mlp import (
     pack_mlp_params,
 )
 from mc_nerf_torch.ops.cuda.fused_render import (
+    _render_fwd,
     fused_render,
     fused_render_bwd,
     fused_render_bwd_plain,
@@ -68,6 +70,7 @@ from mc_nerf_torch.tools.bwd_check import (
     planted_last_tile,
     planted_points,
     rel_l2,
+    render_scan_late,
     shaded_cotangent,
     workspace_acts,
 )
@@ -133,27 +136,91 @@ def _params(cfg_kw, seed=0):
     return nc, scene_params(nc, seed, device="cuda")
 
 
+def _rows_mixed(out):
+    """The rows of every full 128-point tile (of all rows, below 128) in
+    reverse order: points mixed up inside a tile."""
+    tile = min(128, out.shape[0])
+    n = out.shape[0] // tile * tile
+    return torch.cat([out[:n].view(-1, tile, out.shape[1]).flip(1).reshape(n, -1), out[n:]])
+
+
+def _tiles_swapped(out):
+    """The rows of every pair of consecutive 128-point tiles swapped: a
+    block that took its neighbour's tile (256 rows or more)."""
+    n = out.shape[0] // 256 * 256
+    return torch.cat([out[:n].view(-1, 2, 128, out.shape[1]).flip(1).reshape(n, -1), out[n:]])
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg_kw", [NARROW, {}], ids=["narrow", "default"])
-@pytest.mark.parametrize("n_points", [1, 1000, 4099])
+@pytest.mark.parametrize("n_points", [1, 127, 129, 1000, 4099, 8193])
 def test_fused_mlp_kernel_matches_plain(cuda, cfg_kw, n_points):
-    """Both eval packs (coarse sigma-only, fine full): max abs error within
-    MLP_RTOL of the output's largest magnitude."""
+    """K1 on the coarse sigma-only pack (the demos'), the coarse full pack
+    and the fine full pack (the fused_mlp VJP's, the importance demo's
+    fine pass): max abs error within MLP_RTOL of the output's largest
+    magnitude, zeros past column 0 of the sigma-only pack, one launch
+    counted, the same bits on a second call; from 127 points on, the
+    planted faults at 2x the tolerance or more: the skip input dropped,
+    the first layer lost, the points of a tile mixed up, two tiles swapped
+    (256 points or more).  At one point a plant may move the one output by
+    less than the tolerance, which is relative to its own magnitude (the
+    skip input dropped: 0.9x it at the default fine pack on an H100), so
+    the plants are printed there and not held."""
     nc, params = _params(cfg_kw)
-    packed_c, packed_f = pack_eval_params(params, nc)
     rng = np.random.default_rng(n_points)
     xyz = torch.as_tensor(rng.uniform(-3.5, 3.5, (n_points, 3)), dtype=torch.float32,
                           device=cuda)
     feat = encode_kernel_order(xyz, nc.emb_freqs_xyz)
-    for packed, depth, skips in ((packed_c, nc.coarse_depth, nc.coarse_skips),
-                                 (packed_f, nc.fine_depth, nc.fine_skips)):
+    for mlp, depth, skips, sigma_only in (
+            (params.coarse, nc.coarse_depth, nc.coarse_skips, True),
+            (params.coarse, nc.coarse_depth, nc.coarse_skips, False),
+            (params.fine, nc.fine_depth, nc.fine_skips, False)):
+        packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips, sigma_only)
         before = fused_mlp_apply.launches
         ker = fused_mlp_apply(packed, feat, depth, skips)
         assert fused_mlp_apply.launches == before + 1
+        assert torch.equal(ker, fused_mlp_apply(packed, feat, depth, skips))
         ref = mlp_plain(packed, feat, depth, skips)
-        err = float((ker - ref).abs().max()) / float(ref.abs().max())
-        print(f"measured mlp rel {err:.3e}")
-        assert err <= MLP_RTOL
+
+        def over(out):
+            return float((out - ref).abs().max()) / float(ref.abs().max()) / MLP_RTOL
+
+        print(f"measured mlp rel {over(ker) * MLP_RTOL:.3e}")
+        assert over(ker) <= 1.0
+        if sigma_only:
+            assert float(ker[:, 1:].abs().max()) == 0.0
+        skipless = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips, sigma_only)
+        for i in skips:
+            skipless.trunk_w[i][:feat.shape[1]] = 0
+        firstless = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips, sigma_only)
+        firstless.trunk_w[0].zero_()
+        plants = {"skip input dropped": over(mlp_plain(skipless, feat, depth, skips)),
+                  "first layer lost": over(mlp_plain(firstless, feat, depth, skips))}
+        if n_points > 1:
+            plants["points mixed in a tile"] = over(_rows_mixed(ker))
+        if n_points >= 256:
+            plants["two tiles swapped"] = over(_tiles_swapped(ker))
+        print(f"measured mlp plants over tolerance (P={n_points}) "
+              + " ".join(f"{n}: {r:.1f}" for n, r in plants.items()))
+        if n_points >= 127:
+            assert all(r >= 2.0 for r in plants.values()), plants
+
+
+@pytest.mark.gpu
+def test_fused_mlp_refused_launch_raises(cuda):
+    """A call the kernel refuses (a layer's weights not 16-byte aligned)
+    raises and counts no launch: nothing falls back to the plain
+    version."""
+    nc, params = _params(NARROW)
+    ws, bs = _flat_weights(pack_mlp_params(params.coarse, nc.emb_freqs_xyz, nc.coarse_skips,
+                                           True))
+    w1 = torch.empty(ws[1].numel() + 1, dtype=ws[1].dtype, device=cuda)[1:].view(ws[1].shape)
+    w1.copy_(ws[1])
+    feat = encode_kernel_order(torch.zeros((129, 3), device=cuda), nc.emb_freqs_xyz)
+    before = fused_mlp_apply.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _mlp_fwd([ws[0], w1, *ws[2:]], bs, feat, nc.coarse_depth, tuple(nc.coarse_skips))
+    assert fused_mlp_apply.launches == before
 
 
 def _render_args(nc, packed_f, depth, skips, s, rays, with_noise, emit_wsel, device):
@@ -189,11 +256,14 @@ def _render_close(ko, kw, po, pw):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg_kw", [NARROW, {}], ids=["narrow", "default"])
-@pytest.mark.parametrize("s", [2, 17, 48, 300])
+@pytest.mark.parametrize("s", [2, 17, 31, 32, 33, 48, 64, 65, 130, 300])
 @pytest.mark.parametrize("with_noise,emit_wsel",
                          [(False, False), (True, True), (True, False), (False, True)])
 def test_fused_render_kernel_matches_plain(cuda, cfg_kw, s, with_noise, emit_wsel):
-    """The fine eval pack and the coarse full (training) pack."""
+    """The fine eval pack and the coarse full (training) pack over 53 rays:
+    rays that straddle the forward's 128-point tiles (s = 31, 33, 48, 65,
+    130, 300) or fill them (32, 64), and a ragged last tile at every s
+    but 64 and 128's multiples."""
     nc, params = _params(cfg_kw, seed=s)
     for mlp, depth, skips in ((params.fine, nc.fine_depth, nc.fine_skips),
                               (params.coarse, nc.coarse_depth, nc.coarse_skips)):
@@ -207,21 +277,89 @@ def test_fused_render_kernel_matches_plain(cuda, cfg_kw, s, with_noise, emit_wse
 
 @pytest.mark.gpu
 def test_fused_render_sample_ceiling(cuda):
-    """At the default fine pack the forward takes rays of max_samples
-    samples (1,952 on an H100; more at the narrow pack) and refuses a
-    longer one before launch."""
+    """The forward has no ceiling on samples per ray (max_samples is 2**31
+    - 1 at both packs; the composite reads each ray's rows from device
+    memory): rays of 4,099 samples, past the 1,952 of the shared-memory
+    design it replaced, render at the default fine pack with noise and
+    wsel and agree with the plain version."""
     nc, params = _params({})
     _, packed_f = pack_eval_params(params, nc)
-    s_max = max_samples(packed_f)
-    assert s_max == 1952
+    assert max_samples(packed_f) == 2**31 - 1
     nc_n, params_n = _params(NARROW)
-    assert max_samples(pack_eval_params(params_n, nc_n)[1]) > 1952
-    args = _render_args(nc, packed_f, nc.fine_depth, nc.fine_skips, s_max, 3, False, False,
-                        cuda)
+    assert max_samples(pack_eval_params(params_n, nc_n)[1]) == 2**31 - 1
+    args = _render_args(nc, packed_f, nc.fine_depth, nc.fine_skips, 4099, 3, True, True, cuda)
     _render_close(*fused_render(*args), *fused_render_plain(*args))
-    with pytest.raises(ValueError):
-        fused_render(*_render_args(nc, packed_f, nc.fine_depth, nc.fine_skips, s_max + 1, 3,
-                                   False, False, cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,with_noise,emit_wsel", [(32, True, True), (48, True, True),
+                                                    (130, False, False)])
+def test_fused_render_same_bits_twice(cuda, s, with_noise, emit_wsel):
+    """K2 over 1000 rays on the default fine pack gives the same bits on a
+    second call: each row of the forward comes from one warpgroup in an
+    order fixed by the shapes, each ray's composite from one warp."""
+    nc, params = _params({})
+    packed = pack_mlp_params(params.fine, nc.emb_freqs_xyz, nc.fine_skips)
+    args = _render_args(nc, packed, nc.fine_depth, nc.fine_skips, s, 1000, with_noise,
+                        emit_wsel, cuda)
+    (a, aw), (b, bw) = fused_render(*args), fused_render(*args)
+    assert torch.equal(a, b)
+    assert (aw is None and bw is None) or torch.equal(aw, bw)
+
+
+def _render_over(out, w, ref, ref_w):
+    """The largest of K2's errors over its tolerance."""
+    errs = [float((out[:, [0, 1, 2, 4]] - ref[:, [0, 1, 2, 4]]).abs().max()) / RENDER_ATOL,
+            float((out[:, 3] - ref[:, 3]).abs().max()) / DEPTH_ATOL]
+    if ref_w is not None:
+        errs.append(float((w - ref_w).abs().max()) / WSEL_ATOL)
+    return max(errs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg_kw", [NARROW, {}], ids=["narrow", "default"])
+@pytest.mark.parametrize("s", [31, 32, 48])
+def test_fused_render_planted_faults(cuda, cfg_kw, s):
+    """K2 at the training flags (noise, noise_sel, wsel) on the fine pack
+    over 54 rays within its tolerances, and each planted fault of the plain
+    version at 2x them or more: the skip input dropped, the first layer
+    lost, the samples of each pair of rays swapped, the composite's prefix
+    sums one sample late (``tools/bwd_check.render_scan_late``)."""
+    nc, params = _params(cfg_kw, seed=s)
+    packed = pack_mlp_params(params.fine, nc.emb_freqs_xyz, nc.fine_skips)
+    args = _render_args(nc, packed, nc.fine_depth, nc.fine_skips, s, 54, True, True, cuda)
+    ref = fused_render_plain(*args)
+    assert _render_over(*fused_render(*args), *ref) <= 1.0
+    skipless = pack_mlp_params(params.fine, nc.emb_freqs_xyz, nc.fine_skips)
+    for i in nc.fine_skips:
+        skipless.trunk_w[i][:args[1].shape[1]] = 0
+    firstless = pack_mlp_params(params.fine, nc.emb_freqs_xyz, nc.fine_skips)
+    firstless.trunk_w[0].zero_()
+    swapped = args[1].view(54, s, -1)[torch.arange(54, device=cuda).view(-1, 2).flip(1)
+                                       .reshape(-1)].reshape(54 * s, -1)
+    plants = {"skip input dropped": fused_render_plain(skipless, *args[1:]),
+              "first layer lost": fused_render_plain(firstless, *args[1:]),
+              "pairs of rays swapped": fused_render_plain(args[0], swapped, *args[2:]),
+              "scan one sample late": render_scan_late(*args)}
+    over = {n: _render_over(*o, *ref) for n, o in plants.items()}
+    print(f"measured render plants over tolerance {cfg_kw and 'narrow' or 'default'} s={s}: "
+          + " ".join(f"{n}: {r:.1f}" for n, r in over.items()))
+    assert all(r >= 2.0 for r in over.values()), over
+
+
+@pytest.mark.gpu
+def test_fused_render_refused_launch_raises(cuda):
+    """A call the kernels refuse (noise_sel without noise) raises and counts
+    no launch: nothing falls back to the plain version."""
+    nc, params = _params(NARROW)
+    packed = pack_mlp_params(params.fine, nc.emb_freqs_xyz, nc.fine_skips)
+    args = _render_args(nc, packed, nc.fine_depth, nc.fine_skips, 32, 7, True, True, cuda)
+    ws, bs = _flat_weights(packed)
+    before = fused_render.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _render_fwd(ws, bs, args[1], args[2], args[3], None, args[5], nc.fine_depth,
+                    tuple(nc.fine_skips), 32, args[9], True, True, True)
+    assert fused_render.launches == before
 
 
 def _bwd_case(cfg, coarse, s, rays, with_noise, device, seed=0):
@@ -281,10 +419,11 @@ def test_backward_kernels_match_plain(cuda, cfg, coarse, s, rays, with_noise):
 def test_backward_sample_ceiling_and_determinism(cuda):
     """At the default fine pack the backward takes rays of 1,301 samples
     (the ceiling of the shared-memory design it replaced; it now has none:
-    max_samples_bwd is 2**31 - 1 at both packs, so every ray the forward
-    takes) and agrees with the plain version; two runs give the same bits
-    (a fixed-order reduction, no atomics); under autograd the forward
-    refuses a ray longer than its own ceiling before launch."""
+    max_samples_bwd is 2**31 - 1 at both packs) and agrees with the plain
+    version; two runs give the same bits (a fixed-order reduction, no
+    atomics); the forward has no ceiling either, so under autograd no ray
+    is refused for its length (max_samples and max_samples_bwd are both
+    2**31 - 1 at the training pack)."""
     packed, args = _bwd_case("default", False, 1301, 3, True, cuda)
     assert max_samples_bwd(packed) >= 1301
     nc_n, params_n = _params(NARROW)
@@ -297,11 +436,7 @@ def test_backward_sample_ceiling_and_determinism(cuda):
     nc, params = _params({})
     train_pack = pack_mlp_params(params.fine, nc.emb_freqs_xyz, nc.fine_skips,
                                  dtype=torch.float32)
-    s_max = max_samples(train_pack)
-    assert max_samples_bwd(train_pack) >= s_max
-    with pytest.raises(ValueError):
-        fused_render(*_render_args(nc, train_pack, nc.fine_depth, nc.fine_skips, s_max + 1, 3,
-                                   True, False, cuda))
+    assert max_samples(train_pack) == max_samples_bwd(train_pack) == 2**31 - 1
 
 
 @pytest.mark.gpu
