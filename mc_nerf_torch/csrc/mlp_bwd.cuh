@@ -20,7 +20,7 @@
 #include <cuda.h>
 #include <cudaTypedefs.h>
 
-#include "mlp_tile.cuh"
+#include "mlp_params.cuh"
 
 namespace mcn {
 

@@ -166,9 +166,10 @@ struct PtGemm {
 };
 
 // How weight_images_kernel fills a product's image:
-//   kind 0 (recompute): B[k][n] = w[(row0 + row(k)) * ldw + n0 + n], row(k) as
-//     mlp_tile.cuh's WeightRows (k below feat_rows, none in the gap up to
-//     gap_end, k - gap_end + feat_rows after), zero past K;
+//   kind 0 (recompute): B[k][n] = w[(row0 + row(k)) * ldw + n0 + n], where
+//     row(k) = k below feat_rows, no row (zeros) in the gap up to gap_end
+//     (between a skip input's feature lanes, padded, and its hidden
+//     lanes), and k - gap_end + feat_rows from gap_end on; zero past K;
 //   kind 1 (backward, W^T): B[k][n] = w[(n0 + n) * ldw + k] for n < n_lim
 //     and k < K, else zero.
 struct PtImage {
@@ -211,9 +212,11 @@ struct PtArgs {
 
 // ------------------------------------------------------------ the images
 
-// One block per stage of the schedule: its 32 K rows x nc columns in the
-// layout of stage_tile (mlp_tile.cuh): the 16-byte chunk of row k, columns
-// 8c..8c+7, at byte (k / 8) * (nc * 16) + c * 128 + (k % 8) * 16.
+// One block per stage of the schedule: its 32 K rows x nc columns in
+// wgmma's MN-major no-swizzle layout (wgmma.cuh): the 16-byte chunk of row
+// k, columns 8c..8c+7, at byte (k / 8) * (nc * 16) + c * 128 + (k % 8) *
+// 16, so that 128-byte core matrices of 8 K rows lie side by side along N
+// (SBO 128) and 8-row K groups nc * 16 bytes apart (LBO).
 __global__ void weight_images_kernel(const __grid_constant__ PtImages im,
                                      const __grid_constant__ PtSchedule sc, unsigned char* img) {
   int g = 0;

@@ -1,11 +1,12 @@
 // Warpgroup matrix multiply (Hopper wgmma) with A in registers and B in
-// shared memory, for the four output widths the MLP tile uses; below, the
-// form with both operands in shared memory (the weight gradients).
+// shared memory, for the three output widths of the points stage's d_h1
+// product (mlp_bwd_points.cuh, ring_gemm_regs); below, the form with both
+// operands in shared memory (the weight gradients).
 //
 //   d[64 x N] += a[64 x 16] * B[16 x N]     (bf16 in, fp32 accumulate)
 //
 // a: each warp of the warpgroup holds a 16 x 16 slice (rows 16 * warp),
-// four registers in the mma.sync m16n8k16 A-fragment layout (ldmatrix.x4).
+// four registers in the mma.sync m16n8k16 A-fragment layout.
 // B: a shared-memory descriptor (make_desc) over an MN-major, no-swizzle
 // tile: 16-byte rows of 8 consecutive N values, 8 K rows per 128-byte core
 // matrix; LBO is the byte stride between the two core matrices along K,
@@ -14,7 +15,7 @@
 // d: N / 2 fp32 registers per thread; register 4 * j + 2 * h + e holds row
 // 16 * warp + g + 8 * h, column 8 * j + 2 * (lane % 4) + e (g = lane / 4),
 // as the mma.sync C fragment per 8-column block.
-// The four widths differ only in N and the register count; the scale-d
+// The widths differ only in N and the register count; the scale-d
 // predicate is always set (d accumulates), B is MN-major (imm-trans-b 1).
 #pragma once
 
@@ -26,16 +27,6 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t smem_addr, uint32_t lbo_b
                                               uint32_t sbo_bytes) {
   return uint64_t((smem_addr & 0x3FFFF) >> 4) | (uint64_t((lbo_bytes >> 4) & 0x3FFF) << 16) |
          (uint64_t((sbo_bytes >> 4) & 0x3FFF) << 32);  // layout type 0: no swizzle
-}
-
-__device__ __forceinline__ void wgmma_rs_32(float* d, const uint32_t* a, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
 __device__ __forceinline__ void wgmma_rs_64(float* d, const uint32_t* a, uint64_t desc_b) {
@@ -70,9 +61,8 @@ __device__ __forceinline__ void wgmma_rs_256(float* d, const uint32_t* a, uint64
 
 template <int N>
 __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t desc_b) {
-  static_assert(N == 32 || N == 64 || N == 128 || N == 256, "wgmma_rs: N");
-  if constexpr (N == 32) wgmma_rs_32(d, a, desc_b);
-  else if constexpr (N == 64) wgmma_rs_64(d, a, desc_b);
+  static_assert(N == 64 || N == 128 || N == 256, "wgmma_rs: N");
+  if constexpr (N == 64) wgmma_rs_64(d, a, desc_b);
   else if constexpr (N == 128) wgmma_rs_128(d, a, desc_b);
   else wgmma_rs_256(d, a, desc_b);
 }
@@ -122,11 +112,6 @@ __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void wgmma_commit_and_wait() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
@@ -137,8 +122,8 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Make this thread's cp.async writes to shared memory visible to wgmma
-// (the async proxy) once they have landed.
+// Make this thread's writes to shared memory visible to wgmma and the
+// TMA (the async proxy).
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
