@@ -694,24 +694,6 @@ def shaded_errs(out, ref) -> dict:
             "rgb": float((out[:, 1:4] - ref[:, 1:4]).abs().max())}
 
 
-def mixed_in_tiles(out):
-    """The rows of every full 128-point tile (of all rows, below 128) in
-    reverse order: points mixed up inside a tile."""
-    tile = min(128, out.shape[0])
-    n = out.shape[0] // tile * tile
-    return torch.cat([out[:n].view(-1, tile, out.shape[1]).flip(1).reshape(n, -1), out[n:]])
-
-
-def pair_swapped(out):
-    """The rows of every pair of consecutive 128-point tiles swapped (of
-    halves of the rows, below 256): neighbouring tiles written to each
-    other's rows, as a block or a pair of blocks that took the wrong tile
-    would."""
-    tile = 128 if out.shape[0] >= 256 else out.shape[0] // 2
-    n = out.shape[0] // (2 * tile) * 2 * tile
-    return torch.cat([out[:n].view(-1, 2, tile, out.shape[1]).flip(1).reshape(n, -1), out[n:]])
-
-
 def grid_passes(nc, params):
     """The two shading passes of a grid-mode training step: (label, module,
     depth, width, skips, samples per ray)."""
@@ -741,7 +723,8 @@ def check_shaded(nc, params, dev, rng, rays, errs) -> dict:
     from mc_nerf_torch.ops.cuda.fused_mlp import (
         _flat_weights, _shaded_bwd_launch, fused_shaded_mlp, fused_shaded_mlp_bwd,
         fused_shaded_mlp_bwd_plain, fused_shaded_mlp_plain, pack_mlp_params)
-    from mc_nerf_torch.tools.bwd_check import bwd_errs, planted_errs_shaded, shaded_cotangent
+    from mc_nerf_torch.tools.bwd_check import (
+        bwd_errs, mixed_in_tiles, pair_swapped, planted_errs_shaded, shaded_cotangent)
 
     nb = (nc.sh_deg + 1) ** 2
     fwd, bwd, rel = {}, {}, {}
@@ -844,7 +827,8 @@ def fused_mlp_vjp_phase(nc, params, dev, rng, rays, errs) -> dict:
     from mc_nerf_torch.ops.cuda.fused_mlp import (
         _flat_weights, _mlp_bwd_launch, fused_mlp, fused_mlp_apply, fused_mlp_bwd,
         fused_mlp_bwd_plain, mlp_plain, pack_mlp_params)
-    from mc_nerf_torch.tools.bwd_check import bwd_errs, mlp_cotangent, planted_errs_mlp
+    from mc_nerf_torch.tools.bwd_check import (
+        bwd_errs, mixed_in_tiles, mlp_cotangent, pair_swapped, planted_errs_mlp)
 
     passes = (("coarse", params.coarse, nc.coarse_depth, nc.coarse_width, nc.coarse_skips,
                nc.occ_coarse_samples),
@@ -937,7 +921,7 @@ def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> 
     against the kernel route; K1 and K4 at one eval chunk's shapes
     (16384 x 128 coarse, 16384 x 130 fine) against their plain versions,
     and their times."""
-    from mc_nerf_torch.tools.bwd_check import needed_macs
+    from mc_nerf_torch.tools.bwd_check import mixed_in_tiles, needed_macs, pair_swapped
     from mc_nerf_torch.cameras.rays import pixel_grid, rays_for_pixels
     from mc_nerf_torch.models.nerf import pack_eval_params, render_rays_eval
     from mc_nerf_torch.ops.cuda.fused_mlp import (
@@ -1012,7 +996,8 @@ def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> 
     ker_c, ref_c = fused_mlp_apply(*lib_c), mlp_plain(*lib_c)
     errs["fused_mlp_apply"] = max(errs["fused_mlp_apply"], float((ker_c - ref_c).abs().max()))
     hold(f"fused_mlp_apply grid eval chunk ({chunk} x {sc})", mlp_errs(ker_c, ref_c),
-         {"rel": MLP_RTOL}, {"points mixed in a tile": mlp_errs(mixed_in_tiles(ker_c), ref_c)})
+         {"rel": MLP_RTOL}, {"points mixed in a tile": mlp_errs(mixed_in_tiles(ker_c), ref_c),
+                             "a pair's tiles swapped": mlp_errs(pair_swapped(ker_c), ref_c)}, 2.0)
     ker_f, ref_f = fused_shaded_mlp(*sh_args), fused_shaded_mlp_plain(*sh_args)
     errs["fused_shaded_mlp"] = max(errs["fused_shaded_mlp"], float((ker_f - ref_f).abs().max()))
     hold(f"fused_shaded_mlp grid eval chunk ({chunk} x {sf})", shaded_errs(ker_f, ref_f),
@@ -1061,7 +1046,7 @@ def main() -> None:
     from mc_nerf_torch.ops.cuda.fused_render import (
         fused_render, fused_render_plain, max_samples, max_samples_bwd, render_bwd_points,
         render_bwd_weights)
-    from mc_nerf_torch.tools.bwd_check import render_scan_late
+    from mc_nerf_torch.tools.bwd_check import mixed_in_tiles, pair_swapped, render_scan_late
     from mc_nerf_torch.tools.scene import LEGO_FOV, orbit_views, scene_params
     from mc_nerf_torch.train.engine import demo, refresh_occupancy
     from mc_nerf_torch.train.steps import make_render_fn
@@ -1100,17 +1085,14 @@ def main() -> None:
     n_pts = 65536 + 37
     xyz = torch.as_tensor(rng.uniform(-3.5, 3.5, (n_pts, 3)), dtype=torch.float32, device=dev)
     feat = encode_kernel_order(xyz, nc.emb_freqs_xyz)
-    n_tiled = n_pts // 128 * 128
     for label, pk, depth, skips in (("coarse sigma-only", packed_c, nc.coarse_depth, nc.coarse_skips),
                                     ("fine full", packed_f, nc.fine_depth, nc.fine_skips)):
         ker = fused_mlp_apply(pk, feat, depth, skips)
         torch.cuda.synchronize()
         ref = mlp_plain(pk, feat, depth, skips)
         errs["fused_mlp_apply"] = max(errs["fused_mlp_apply"], float((ker - ref).abs().max()))
-        mixed = torch.cat([ker[:n_tiled].view(-1, 128, ker.shape[1]).flip(1).reshape(n_tiled, -1),
-                           ker[n_tiled:]])
         hold(f"fused_mlp_apply {label} P={n_pts}", mlp_errs(ker, ref), mlp_tol, {
-            "points mixed in a tile": mlp_errs(mixed, ref),
+            "points mixed in a tile": mlp_errs(mixed_in_tiles(ker), ref),
             "a pair's tiles swapped": mlp_errs(pair_swapped(ker), ref),
             "skip input dropped": mlp_errs(mlp_plain(drop_skip(pk, skips), feat, depth, skips), ref),
             "first layer lost": mlp_errs(mlp_plain(drop_first(pk), feat, depth, skips), ref),

@@ -126,14 +126,6 @@ __global__ void __launch_bounds__(COMPOSITE_THREADS)
                     wsel ? wsel + base : nullptr, s, white_back);
 }
 
-// The weight images' bytes at this pack (-1 for a shape the kernels do not
-// take: a full pack, head0 = 2 * width, only).
-static long long render_images(MLPParams* p, int depth, int skip_mask, int enc, int width,
-                               int head0, PtSchedule* sc, PtImages* im) {
-  if (set_shape(p, depth, skip_mask, enc, width, head0) || head0 != 2 * width) return -1;
-  return fwd_schedule(*p, fwd_nch(head0), sc, im);
-}
-
 // ------------------------------------------------------------- C interface
 
 // The most samples per ray the forward takes with this pack shape: no
@@ -146,15 +138,19 @@ extern "C" int mcn_render_max_samples(int enc, int depth, int width, int head0) 
 }
 
 // Bytes of the workspace mcn_fused_render needs: the weight images, then
-// the [rays * s, 8] fp32 rows (0 for a shape it does not take).
+// the [rays * s, 8] fp32 rows (0 for a shape it does not take: a full
+// pack, head0 = 2 * width, only).
 extern "C" long long mcn_fused_render_workspace(int rays, int s, int enc, int depth,
                                                 int skip_mask, int width, int head0) {
   MLPParams p;
-  for (int l = 0; l < MAX_LAYERS; ++l) p.w[l] = p.b[l] = nullptr;
+  if (rays <= 0 || s <= 0 || set_shape(&p, depth, skip_mask, enc, width, head0) ||
+      head0 != 2 * width)
+    return 0;
+  for (int l = 0; l < depth + 2; ++l) p.w[l] = p.b[l] = nullptr;
   PtSchedule sc;
   PtImages im;
-  const long long img = render_images(&p, depth, skip_mask, enc, width, head0, &sc, &im);
-  if (img < 0 || rays <= 0 || s <= 0) return 0;
+  const long long img = fwd_schedule(p, fwd_nch(head0), &sc, &im);
+  if (img < 0) return 0;
   return (long long)(align256((size_t)img) + (size_t)rays * s * IO_FLOATS * sizeof(float));
 }
 

@@ -1,6 +1,8 @@
-// The shaded MLP forward on the points-stage machinery: K4's kernel
-// (fused_shaded.cu) and the forward of K3's composed path
-// (fused_render_bwd.cu).  Its design, budget and bound: fused_shaded.cu.
+// The MLP forward on the points-stage machinery: K4's kernel
+// (fused_shaded.cu), the forward of K3's composed path
+// (fused_render_bwd.cu) and of K2 (fused_render.cu), all with the shading
+// epilogue, and K1 (fused_mlp.cu) with the raw one.  Its design, budget
+// and bound: fused_shaded.cu.
 #pragma once
 
 #include "mlp_bwd_points.cuh"

@@ -112,6 +112,24 @@ def _suffix_late(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([s[:, 1:], torch.zeros_like(s[:, :1])], 1)
 
 
+def mixed_in_tiles(out: torch.Tensor) -> torch.Tensor:
+    """The rows of every full 128-point tile (of all rows, below 128) in
+    reverse order: points mixed up inside a tile."""
+    tile = min(POINTS_TILE, out.shape[0])
+    n = out.shape[0] // tile * tile
+    return torch.cat([out[:n].view(-1, tile, out.shape[1]).flip(1).reshape(n, -1), out[n:]])
+
+
+def pair_swapped(out: torch.Tensor) -> torch.Tensor:
+    """The rows of every pair of consecutive 128-point tiles swapped (of
+    halves of the rows, from 2 to 255 rows): neighbouring tiles written to
+    each other's rows, as a block or a pair of blocks that took the wrong
+    tile would."""
+    tile = POINTS_TILE if out.shape[0] >= 2 * POINTS_TILE else out.shape[0] // 2
+    n = out.shape[0] // (2 * tile) * 2 * tile
+    return torch.cat([out[:n].view(-1, 2, tile, out.shape[1]).flip(1).reshape(n, -1), out[n:]])
+
+
 def _prefix_late(x: torch.Tensor) -> torch.Tensor:
     p = _PREFIX(x)
     return torch.cat([torch.zeros_like(p[:, :1]), p[:, :-1]], 1)

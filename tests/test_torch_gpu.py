@@ -62,8 +62,10 @@ from mc_nerf_torch.tools.bwd_check import (
     LAST_TILE_TOL,
     bwd_errs,
     last_tile_cotangent,
+    mixed_in_tiles,
     mlp_cotangent,
     mse_cotangent,
+    pair_swapped,
     planted_errs,
     planted_errs_mlp,
     planted_errs_shaded,
@@ -136,21 +138,6 @@ def _params(cfg_kw, seed=0):
     return nc, scene_params(nc, seed, device="cuda")
 
 
-def _rows_mixed(out):
-    """The rows of every full 128-point tile (of all rows, below 128) in
-    reverse order: points mixed up inside a tile."""
-    tile = min(128, out.shape[0])
-    n = out.shape[0] // tile * tile
-    return torch.cat([out[:n].view(-1, tile, out.shape[1]).flip(1).reshape(n, -1), out[n:]])
-
-
-def _tiles_swapped(out):
-    """The rows of every pair of consecutive 128-point tiles swapped: a
-    block that took its neighbour's tile (256 rows or more)."""
-    n = out.shape[0] // 256 * 256
-    return torch.cat([out[:n].view(-1, 2, 128, out.shape[1]).flip(1).reshape(n, -1), out[n:]])
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("cfg_kw", [NARROW, {}], ids=["narrow", "default"])
 @pytest.mark.parametrize("n_points", [1, 127, 129, 1000, 4099, 8193])
@@ -197,9 +184,9 @@ def test_fused_mlp_kernel_matches_plain(cuda, cfg_kw, n_points):
         plants = {"skip input dropped": over(mlp_plain(skipless, feat, depth, skips)),
                   "first layer lost": over(mlp_plain(firstless, feat, depth, skips))}
         if n_points > 1:
-            plants["points mixed in a tile"] = over(_rows_mixed(ker))
+            plants["points mixed in a tile"] = over(mixed_in_tiles(ker))
         if n_points >= 256:
-            plants["two tiles swapped"] = over(_tiles_swapped(ker))
+            plants["two tiles swapped"] = over(pair_swapped(ker))
         print(f"measured mlp plants over tolerance (P={n_points}) "
               + " ".join(f"{n}: {r:.1f}" for n, r in plants.items()))
         if n_points >= 127:
@@ -696,8 +683,8 @@ def test_grid_train_step_autograd_launches_k4_and_k5(cuda):
 # weight_splits: ceil(P / 4096) splits below 65,536 points, at most 16,
 # each whole 64-point stages but the last), as (rays, samples per ray):
 # below one split; two whole splits of 4096 (on a split boundary); one
-# point past it (8193; for fused_render 8194 = 34 x 241, since 8193 = 3 x
-# 2731 is above its sample ceiling); 224,000 = 7000 x 32, the importance
+# point past it (8193; for fused_render 8194 = 34 x 241, rays of a few
+# hundred samples); 224,000 = 7000 x 32, the importance
 # fine pass, 14 or 15 splits.  1000 and 8193/8194 are no multiple of the
 # 64-point stage.
 WEIGHT_EDGES = {"render": [(50, 20), (256, 32), (34, 241), (7000, 32)],
