@@ -1,5 +1,5 @@
 """Smoke test of the PyTorch port on one NVIDIA GPU: build, check, render, train,
-in both fine modes.
+in both fine modes, and the engine's three stages, resume and demo.
 
     python3 chip_smoke.py
 
@@ -48,11 +48,23 @@ in both fine modes.
    a frame timed, one chunk against the plain route, K1 and K4 at one eval
    chunk's shapes; the grid GLOBAL_OPTIM step as in 5 (K4 and K5 twice
    per step).
-7. Prints the ``kernels`` JSON line, one entry per kernel and path (the
+7. The engine (``mc_nerf_torch.train.engine.Engine``) at the default model
+   and sampler widths on a scene the port's ``make_dataset`` writes under
+   ``build/`` (8 train + 1 val + 2 test views at 200x200), cut to stages
+   of 1 + 1 + 1 epochs of 16 steps with a 16-step occupancy warm-up: run
+   A trains them (``fused_render`` and its two backward launches exactly
+   twice per GLOBAL_OPTIM / FINE_TUNE step, ``fused_mlp_apply`` and
+   ``fused_render`` in the validation renders), run B resumes from run
+   A's epoch-0 checkpoint and must end on the same bits, the demo
+   restores the latest checkpoint and scores the test views.  The calls
+   of the kernels' entry points are recorded by path and shape; each
+   kernel is then held against its plain version and timed on the inputs
+   the engine gave it at each shape.
+8. Prints the ``kernels`` JSON line, one entry per kernel and path (the
    demo; the train step; the grid demo; the grid train step; the
-   fused_mlp VJP): that path's launches, time per launch at its shapes,
-   bound, plain and library times; then ``{"ok": true, "device": ...}``
-   last.
+   fused_mlp VJP; the engine's training steps, validation renders and
+   demo): that path's launches, time per launch at its shapes, bound,
+   plain and library times; then ``{"ok": true, "device": ...}`` last.
 
 Every kernel check also measures planted faults against the same plain
 version (points mixed up, tiles swapped in pairs, the skip input dropped,
@@ -138,6 +150,15 @@ MLP_BWD_TOL = {"coarse": {"dW": 2.2e-4, "db": 1.2e-4, "last layer": 1.1e-4, "dfe
 # threshold may pick another bin.  About 18x the measured loss error
 # (5.6e-6) and 6x the worst leaf's (4.7e-2, PERF.md)
 GRID_STEP_TOL = {"loss rel": 1e-4, "grad rel L2 (worst leaf)": 0.3}
+# the engine phase's cuts of the protocol (52 epochs of 50 steps a train
+# image, 3000 warm-up steps, 800x800 images, 200 test views)
+ENGINE_CUTS = {"stages": (1, 1, 1), "steps_per_image_epoch": 2, "occ_warmup_steps": 16}
+ENGINE_RES = 200
+# improve_cameras on the card vs the CPU: the adoption masks exact, the
+# adopted twists and focal multipliers (fp32, SVDs of 10 x 9 systems)
+RESTART_ATOL = 1e-4
+# calls per timing of a forward kernel on the engine's inputs
+ENGINE_ITERS = 20
 
 
 def fail(msg: str) -> None:
@@ -325,13 +346,13 @@ def check_train_forward(nc, params, dev, rng, rays, errs, render_tol):
     s=48, noise + wsel; fine 8x256, s=32, noise) against the plain forward,
     with planted faults.  Returns per pass the kernel's ms, the plain
     version's, a bf16 matmul chain's and the bound at these shapes."""
-    from mc_nerf_torch.tools.bwd_check import needed_macs, render_scan_late
+    from mc_nerf_torch.tools.bwd_check import render_scan_late
     from mc_nerf_torch.ops.cuda.fused_mlp import pack_mlp_params
     from mc_nerf_torch.ops.cuda.fused_render import fused_render, fused_render_plain
 
     nb = (nc.sh_deg + 1) ** 2
     passes = {}
-    for label, mlp, depth, width, skips, s, emit in train_passes(nc, params):
+    for label, mlp, depth, _width, skips, s, emit in train_passes(nc, params):
         pk = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
         feat, basis16, z, noise, noise_sel = render_inputs(nc, rays, s, rng, dev)
         feat_mixed = feat.view(rays, s, -1)[torch.arange(rays, device=dev).view(-1, 2).flip(1)
@@ -355,17 +376,56 @@ def check_train_forward(nc, params, dev, rng, rays, errs, render_tol):
                                                p_out, p_w),
             "scan one sample late": render_errs(*render_scan_late(*args()), p_out, p_w),
         }, 2.0)
-        p = rays * s
-        # read: feat, basis, z, noise (and noise_sel), the pack; written:
-        # ray_out (and wsel)
-        nbytes = (p * feat.shape[1] * 2 + rays * basis16.shape[1] * 4 + p * 4 * (3 if emit else 2)
-                  + rays * 8 * 4 + (p * 4 if emit else 0) + pack_bytes(pk))
-        t_bound, by = bound(2.0 * needed_macs(nc, depth, width, skips, False) * p, nbytes)
-        passes[label] = {"ms": cuda_ms(lambda: fused_render(*args())),
-                         "plain_ms": cuda_ms(lambda: fused_render_plain(*args()), 3),
-                         "library_ms": cuda_ms(lambda: library_mlp(pk, feat, depth, skips)),
-                         "bound_ms": t_bound, "bound_by": by}
+        passes[label] = render_forward_numbers(nc, args())
     return passes
+
+
+def bf16_pack(packed):
+    """The pack with every leaf in bf16, as the kernels read it."""
+    cast = lambda t: t.detach().to(torch.bfloat16)
+    return type(packed)(*(tuple(map(cast, x)) if isinstance(x, tuple) else cast(x)
+                          for x in packed))
+
+
+def render_forward_numbers(nc, args, iters: int = 5) -> dict:
+    """fused_render on ``args`` (its positional arguments): the kernel's
+    ms, the plain version's, a bf16 matmul chain's of the same MLP (each
+    of the two over ``iters`` calls) and the bound: the MLP's products, or
+    the bytes read (feat, basis, z, the noise draws it takes, the bf16
+    pack) and written (ray_out, wsel)."""
+    from mc_nerf_torch.ops.cuda.fused_render import fused_render, fused_render_plain
+    from mc_nerf_torch.tools.bwd_check import needed_macs
+
+    pk, feat, basis16, z, noise, noise_sel, depth, skips, s, _nb, with_noise, emit = args[:12]
+    rays, p, pk16 = basis16.shape[0], feat.shape[0], bf16_pack(pk)
+    draws = (1 if with_noise else 0) + (1 if with_noise and emit else 0)
+    nbytes = (p * feat.shape[1] * 2 + rays * basis16.shape[1] * 4 + p * 4 * (1 + draws)
+              + rays * 8 * 4 + (p * 4 if emit else 0) + pack_bytes(pk16))
+    t_bound, by = bound(2.0 * needed_macs(nc, depth, pk.trunk_w[0].shape[1], skips, False) * p,
+                        nbytes)
+    with torch.no_grad():
+        return {"ms": cuda_ms(lambda: fused_render(*args), iters),
+                "plain_ms": cuda_ms(lambda: fused_render_plain(*args), 3),
+                "library_ms": cuda_ms(lambda: library_mlp(pk16, feat, depth, skips), iters),
+                "bound_ms": t_bound, "bound_by": by}
+
+
+def mlp_numbers(nc, pk, feat, depth, skips, iters: int = 5) -> dict:
+    """fused_mlp_apply on these inputs: the kernel's ms, the plain
+    version's, a bf16 matmul chain's (the two over ``iters`` calls) and
+    the bound (the MLP's products, or feat and the pack read, the [P, 32]
+    rows written)."""
+    from mc_nerf_torch.ops.cuda.fused_mlp import fused_mlp_apply, mlp_plain
+    from mc_nerf_torch.tools.bwd_check import needed_macs
+
+    p, width = feat.shape[0], pk.trunk_w[0].shape[1]
+    sigma_only = pk.head_w0.shape[1] == width
+    t_bound, by = bound(2.0 * needed_macs(nc, depth, width, skips, sigma_only) * p,
+                        p * feat.shape[1] * 2 + p * 32 * 4 + pack_bytes(pk))
+    return {"ms": cuda_ms(lambda: fused_mlp_apply(pk, feat, depth, skips), iters),
+            "plain_ms": cuda_ms(lambda: mlp_plain(pk, feat, depth, skips), 3),
+            "library_ms": cuda_ms(lambda: library_mlp(pk, feat, depth, skips), iters),
+            "bound_ms": t_bound, "bound_by": by}
 
 
 def check_backward(nc, params, dev, rng, rays, bwd_tol):
@@ -685,6 +745,296 @@ def train_phase(cfg, dev, h: int, w: int, counters, n_steps: int, route_tol: dic
             "rounds_ms": rounds,
             "route_errs": route_errs(ker, pln), "rgb_loss_fixed_batch": [rgb[0], rgb[-1]],
             "profiles": profiles, "launches": launches}
+
+
+def engine_phase(dev, smi: str, counters: dict) -> dict:
+    """The engine (``mc_nerf_torch.train.engine.Engine``) at ``Config()``'s
+    model and sampler widths on a scene the port's ``make_dataset`` writes
+    under ``build/`` (ball rig, analytic calibration, 8 train + 1 val + 2
+    test views at ``ENGINE_RES``^2), with the cuts of ``ENGINE_CUTS``.
+    Run A trains the three stages; run B resumes from run A's epoch-0
+    checkpoint in a fresh weights directory and must end on the same bits;
+    the demo restores the latest checkpoint and scores the test views.
+    ``counters`` (name -> wrapper) count launches: run A's from 0 (the
+    training steps and the validation renders apart), the demo's from 0.
+    The kernels' entry points are wrapped where the engine's renders call
+    them (``engine_recorder``): each path's calls are counted by shape and
+    the first call at each shape keeps its inputs, on which
+    ``engine_kernel_numbers`` then checks and times the kernel."""
+    import os
+    import pathlib
+    import shutil
+
+    import mc_nerf_torch.models.nerf as nerf_module
+    import mc_nerf_torch.ops.cuda.fused_render as render_module
+
+    from mc_nerf_torch.config import Config, NerfConfig, PathsConfig, StageConfig, TrainConfig
+    from mc_nerf_torch.data.calibration import load_calibration
+    from mc_nerf_torch.data.synthetic import make_dataset
+    from mc_nerf_torch.train.engine import STAGE_NAMES, Engine
+    from mc_nerf_torch.train.restarts import improve_cameras
+
+    t_phase = time.perf_counter()
+    work = pathlib.Path(__file__).resolve().parent / "build" / f"engine_smoke_{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    res = ENGINE_RES
+    make_dataset(str(work / "Ball_Smoke"), n_train=8, n_val=1, n_test=2, img_h=res, img_w=res,
+                 seed=SEED)
+    stages, spi, warmup = ENGINE_CUTS["stages"], ENGINE_CUTS["steps_per_image_epoch"], \
+        ENGINE_CUTS["occ_warmup_steps"]
+
+    def paths(weights):
+        return PathsConfig(root_weights=str(work / weights), root_out=str(work / "results"),
+                           log_path=str(work / "log"), tb_path=str(work / "tb"))
+
+    cfg = Config(data_root=str(work), data_name="Ball_Smoke", stages=StageConfig(*stages),
+                 train=TrainConfig(steps_per_image_epoch=spi),
+                 nerf=NerfConfig(occ_warmup_steps=warmup), paths=paths("weights_a"))
+    print(f"engine: Config() model and sampler widths; cuts: stages {stages}, "
+          f"steps_per_image_epoch {spi}, occ_warmup_steps {warmup}, {res}x{res} images, "
+          "8 train + 1 val + 2 test views", flush=True)
+
+    def launches():
+        return {n: c.launches for n, c in counters.items()}
+
+    def reset():
+        for c in counters.values():
+            c.launches = 0
+
+    # the engine's calls of the kernels' entry points, by path and shape
+    where, calls = [None], {}
+    wrapped = {(nerf_module, "fused_render"): lambda a: f"{a[2].shape[0]} rays x {a[8]}",
+               (nerf_module, "fused_mlp_apply"): lambda a: f"{a[1].shape[0]} points",
+               (render_module, "fused_render_bwd"): lambda a: f"{a[3].shape[0]} rays x {a[9]}"}
+    originals = {k: getattr(*k) for k in wrapped}
+    for (module, name), shape_of in wrapped.items():
+        setattr(module, name, engine_recorder(originals[module, name], name, shape_of, where,
+                                              calls))
+
+    # run A, the validation renders' launches counted apart
+    eng_a = Engine(cfg, device=dev)
+    spe = eng_a.steps_per_epoch
+    val_launches = dict.fromkeys(counters, 0)
+    validate = eng_a._validate
+
+    def counted_validate(epoch):
+        before = launches()
+        where[0] = "engine_validation"
+        out = validate(epoch)
+        where[0] = "engine_train"
+        for n, v in launches().items():
+            val_launches[n] += v - before[n]
+        return out
+
+    eng_a._validate = counted_validate
+    reset()
+    where[0] = "engine_train"
+    t0 = time.perf_counter()
+    eng_a.train()
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    where[0] = None
+    total = launches()
+    train_launches = {n: total[n] - val_launches[n] for n in counters}
+    for h in eng_a.history:
+        print(f"engine {STAGE_NAMES[h['stage']]} {h['epoch']}: loss {h['loss']:.6f} intr "
+              f"{h['loss_intr']:.6f} extr {h['loss_extr']:.6f} rgb_c {h['loss_rgb_c']:.5f} rgb_f "
+              f"{h['loss_rgb_f']:.5f}; {h['seconds']:.3f} s ({h['seconds'] / spe * 1e3:.2f} ms a "
+              f"step, {h['rays_per_s']:.0f} rays/s), checkpoint save "
+              f"{h['ckpt_seconds'] * 1e3:.1f} ms"
+              + (f"; val PSNR {h['val_psnr']:.3f} SSIM {h['val_ssim']:.4f}" if "val_psnr" in h
+                 else "") + f" ({smi})", flush=True)
+    nerf_steps = spe * (stages[1] + stages[2])
+    print(f"engine run A: {train_s:.2f} s; launches in the training steps {train_launches}, "
+          f"in the validation renders {val_launches}", flush=True)
+    for h in eng_a.history:
+        if not all(math.isfinite(h[k]) for k in ("loss", "loss_rgb_c", "loss_rgb_f")):
+            fail(f"engine epoch {h['epoch']} is not finite: {h}")
+    if eng_a.state.step != spe * sum(stages) or len(eng_a.history) != sum(stages):
+        fail(f"engine ran {eng_a.state.step} steps over {len(eng_a.history)} epochs")
+    for n in ("fused_render", "render_bwd_points", "render_bwd_weights"):
+        if train_launches[n] != 2 * nerf_steps:
+            fail(f"{n}: {train_launches[n]} launches in {nerf_steps} GLOBAL_OPTIM / FINE_TUNE "
+                 "steps, not 2 a step")
+    if train_launches["fused_mlp_apply"] != 0 or not all(
+            val_launches[n] > 0 for n in ("fused_mlp_apply", "fused_render")):
+        fail(f"engine validation launches {val_launches}, training {train_launches}")
+
+    # the camera restarts (which one CAM_PARAM epoch never reaches) on run
+    # A's cameras: the card's answer against the CPU's
+    cam_cpu = copy.deepcopy(eng_a.state.params.cam).cpu()
+    got = improve_cameras(eng_a.state.params.cam, load_calibration(cfg.scene_dir, device=dev),
+                          res, res)
+    want = improve_cameras(cam_cpu, load_calibration(cfg.scene_dir, device="cpu"), res, res)
+    restart_err = max(float((got[0][f].cpu() - want[0][f]).abs().max()) for f in want[0])
+    print(f"engine restarts on the card: pose adopted {got[1].cpu().tolist()}, cube adopted "
+          f"{got[2].cpu().tolist()}; the CPU's masks equal: "
+          f"{torch.equal(got[1].cpu(), want[1]) and torch.equal(got[2].cpu(), want[2])}, "
+          f"values within {restart_err:.2e}", flush=True)
+    if not (torch.equal(got[1].cpu(), want[1]) and torch.equal(got[2].cpu(), want[2])
+            and restart_err <= RESTART_ATOL):
+        fail("the camera restarts on the card disagree with the CPU")
+
+    # run B: resume from run A's epoch-0 checkpoint in a fresh directory
+    eng_b = Engine(cfg.replace(paths=paths("weights_b")), device=dev)
+    shutil.copytree(os.path.join(eng_a.ckpt_dir, "0"), os.path.join(eng_b.ckpt_dir, "0"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng_b.ckpt.restore(eng_b.state, 0)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    eng_b.train(resume=True)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    a, b = eng_a.state, eng_b.state
+    same = {"p_flat": torch.equal(a.p_flat, b.p_flat), "step": a.step == b.step,
+            **{f"stage {i} {f}": bool(torch.equal(getattr(x, f), getattr(y, f)))
+               for i, (x, y) in enumerate(zip(a.opt_states, b.opt_states)) for f in ("mu", "nu")},
+            **{f"stage {i} count": x.count == y.count
+               for i, (x, y) in enumerate(zip(a.opt_states, b.opt_states))}}
+    print(f"engine run B (resumed from epoch 0): {resume_s:.2f} s, restore {restore_ms:.1f} ms; "
+          f"bit-identical to run A: {same}; p_flat max abs difference "
+          f"{float((a.p_flat - b.p_flat).abs().max()):.3e}", flush=True)
+    if not all(same.values()):
+        fail(f"the resumed run does not end on run A's bits: {same}")
+
+    # the demo from the latest checkpoint
+    eng_d = Engine(cfg.replace(mode=1), device=dev)
+    reset()
+    where[0] = "engine_demo"
+    t0 = time.perf_counter()
+    demo = eng_d.demo()
+    torch.cuda.synchronize()
+    demo_s = time.perf_counter() - t0
+    where[0] = None
+    demo_launches = launches()
+    for (module, name), fn in originals.items():
+        setattr(module, name, fn)
+    print(f"engine demo: {demo} in {demo_s:.2f} s ({smi}); launches {demo_launches}", flush=True)
+    if not (demo["count"] == 2 and math.isfinite(demo["psnr"]) and math.isfinite(demo["ssim"])):
+        fail(f"engine demo result is not finite: {demo}")
+    if not (demo_launches["fused_mlp_apply"] > 0 and demo_launches["fused_render"] > 0
+            and demo_launches["render_bwd_points"] == 0):
+        fail(f"engine demo launches {demo_launches}")
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"engine phase: {seconds:.1f} s", flush=True)
+
+    # every counted launch is a recorded call, on the path it was counted on
+    counted = {"engine_train": train_launches, "engine_validation": val_launches,
+               "engine_demo": demo_launches}
+    for path, got in counted.items():
+        seen = {name: sum(c["n"] for c in calls.get((path, name), {}).values())
+                for name in ("fused_render", "fused_mlp_apply", "fused_render_bwd")}
+        want = {"fused_render": got["fused_render"], "fused_mlp_apply": got["fused_mlp_apply"],
+                "fused_render_bwd": got["render_bwd_points"]}
+        if seen != want or got["render_bwd_points"] != got["render_bwd_weights"]:
+            fail(f"{path}: recorded calls {seen} are not the launches counted {got}")
+    return {"seconds": seconds, "train_s": train_s, "resume_s": resume_s,
+            "restore_ms": restore_ms, "demo_s": demo_s, "demo": demo, "steps_per_epoch": spe,
+            "epochs": eng_a.history, "train_launches": train_launches,
+            "validation_launches": val_launches, "demo_launches": demo_launches,
+            "resume_bit_identical": all(same.values()), "cuts": ENGINE_CUTS,
+            "calls": calls, "nerf": cfg.nerf}
+
+
+def engine_recorder(fn, name: str, shape_of, where: list, calls: dict):
+    """``fn`` (a kernel's entry point, called with positional arguments)
+    that, while ``where[0]`` names a path, counts its calls there by
+    ``shape_of(args)`` and keeps detached copies of the first call's
+    arguments at each shape in ``calls[(path, name)][shape]``."""
+    def copy_arg(a):
+        if isinstance(a, torch.Tensor):
+            return a.detach().clone()
+        if hasattr(a, "_fields"):
+            return type(a)(*map(copy_arg, a))
+        return type(a)(map(copy_arg, a)) if isinstance(a, (list, tuple)) else a
+
+    def call(*args):
+        if where[0] is not None:
+            seen = calls.setdefault((where[0], name), {})
+            rec = seen.setdefault(shape_of(args), {"n": 0})
+            if rec["n"] == 0:
+                rec["args"] = copy_arg(args)
+            rec["n"] += 1
+        return fn(*args)
+    return call
+
+
+def engine_kernel_numbers(engine: dict, rng, render_tol: dict, mlp_tol: dict) -> dict:
+    """Each kernel on each engine path, checked and timed on the inputs
+    the engine gave it: at every shape it was called at, the kernel held
+    against its plain version (the tolerances of the other phases, no
+    plants: those phases plant), its ms, the plain version's, the library
+    call's and the bound, per launch.  The forward kernels are timed over
+    ``ENGINE_ITERS`` calls, after a collection of the engine's garbage: on
+    an H100, 5 calls of the engine's fine K2 once measured 1.251 ms, 20
+    calls 0.646 (the train-step phase's K2 0.627 over 5, on a bf16 pack).
+    Returns {(path, kernel):
+    {shape: numbers with the shape's "launches" and "max_abs_err"}}."""
+    import gc
+
+    from mc_nerf_torch.ops.cuda.fused_mlp import PackedMLP, fused_mlp_apply, mlp_plain
+    from mc_nerf_torch.ops.cuda.fused_render import (
+        fused_render, fused_render_bwd, fused_render_bwd_plain, fused_render_plain)
+    from mc_nerf_torch.tools.bwd_check import bwd_errs
+
+    nc, out = engine["nerf"], {}
+    gc.collect()
+    for (path, name), shapes in engine["calls"].items():
+        for shape, rec in shapes.items():
+            a, n, label = rec["args"], rec["n"], f"{name} on the engine's {path} inputs ({shape})"
+            if name == "fused_mlp_apply":
+                ker = fused_mlp_apply(*a)
+                torch.cuda.synchronize()
+                ref = mlp_plain(*a)
+                hold(label, mlp_errs(ker, ref), mlp_tol, {})
+                nums = {name: {**mlp_numbers(nc, *a, iters=ENGINE_ITERS),
+                               "max_abs_err": float((ker - ref).abs().max())}}
+            elif name == "fused_render":
+                with torch.no_grad():
+                    k_out, k_w = fused_render(*a)
+                    torch.cuda.synchronize()
+                    p_out, p_w = fused_render_plain(*a)
+                e = render_errs(k_out, k_w, p_out, p_w)
+                hold(label, e, render_tol, {})
+                nums = {name: {**render_forward_numbers(nc, a, ENGINE_ITERS),
+                               "max_abs_err": max(e.values())}}
+            else:
+                ws, bs, depth = a[0], a[1], a[7]
+                k = fused_render_bwd(*a)
+                torch.cuda.synchronize()
+                ref = fused_render_bwd_plain(*a)
+                hold(label + " (relative L2)", bwd_errs(k, ref),
+                     BWD_TOL["coarse" if depth == nc.coarse_depth else "fine"], {})
+                pk = PackedMLP(tuple(ws[:depth]), tuple(bs[:depth]), ws[depth], bs[depth],
+                               ws[depth + 1], bs[depth + 1])
+                timed = time_backward(nc, {shape: (None, a, pk)}, rng, ws[0].device)
+                nums = {kn: {**timed[kn][shape], "max_abs_err": max(
+                    float((x - y).abs().max()) for x, y in pairs)}
+                        for kn, pairs in (("render_bwd_points", zip(k[2:], ref[2:])),
+                                          ("render_bwd_weights", zip([*k[0], *k[1]],
+                                                                     [*ref[0], *ref[1]])))}
+            for kn, x in nums.items():
+                print(f"{kn} on the engine's {path} inputs ({shape}, {n} launches): "
+                      f"{x['ms']:.3f} ms (plain {x['plain_ms']:.3f}, bf16 torch chain "
+                      f"{x['library_ms']:.3f}, bound {x['bound_ms']:.3f} by {x['bound_by']}), "
+                      f"max abs error {x['max_abs_err']:.3e}", flush=True)
+                out.setdefault((path, kn), {})[shape] = {**x, "launches": n}
+    return out
+
+
+def per_launch_over_shapes(shapes: dict) -> dict:
+    """One kernel's numbers on a path over the shapes it ran at: each time
+    and bound the mean per launch (weighted by the launches at each
+    shape), the largest error, ``per_shape`` keeping each."""
+    n = sum(x["launches"] for x in shapes.values())
+    mean = {k: sum(x[k] * x["launches"] for x in shapes.values()) / n
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    by = max(shapes.values(), key=lambda x: x["bound_ms"] * x["launches"])["bound_by"]
+    return {"launches": n, "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
+            **mean, "bound_by": by, "per_shape": shapes}
 
 
 def shaded_errs(out, ref) -> dict:
@@ -1189,7 +1539,7 @@ def main() -> None:
                       ["view0", "view1"])
 
     render = make_render_fn(cfg, h, w, device=dev)
-    occ = refresh_occupancy(params, cfg, dev)
+    occ = refresh_occupancy(params, cfg, dev, 0)
     occ_share = float(occ.float().mean())
     print(f"occupancy: {occ_share:.4f} of the G={nc.occ_grid_size} map's cells occupied "
           "(the rest culled)", flush=True)
@@ -1285,6 +1635,10 @@ def main() -> None:
     grid_train = train_phase(cfg_grid, dev, h, w, (fused_shaded_mlp, fused_shaded_mlp_bwd),
                              N_TRAIN_GRID, GRID_STEP_TOL)
 
+    # ---- the engine: three stages, a resume, the demo from a checkpoint
+    engine = engine_phase(dev, smi, {k.__name__: k for k in (
+        fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply)})
+
     replaces = {"fused_mlp_apply": "mc_nerf_tpu/ops/pallas/fused_mlp.py:241",
                 "fused_render": "mc_nerf_tpu/ops/pallas/fused_render.py:211",
                 "render_bwd_points": "mc_nerf_tpu/ops/pallas/fused_render.py:290",
@@ -1335,6 +1689,15 @@ def main() -> None:
                 for name in ("fused_shaded_mlp", "fused_shaded_mlp_bwd")]
     kernels += [entry(name, "fused_mlp_vjp", vjp["launches"][name], per_launch(vjp[name]))
                 for name in ("fused_mlp_apply", "fused_mlp_bwd")]
+    # the engine: run A's training steps, its validation renders and the
+    # demo, each kernel checked and timed on the inputs the engine gave it
+    nerf_steps = engine["steps_per_epoch"] * sum(engine["cuts"]["stages"][1:])
+    for (path, name), shapes in engine_kernel_numbers(engine, rng, render_tol, mlp_tol).items():
+        numbers = per_launch_over_shapes(shapes)
+        kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
+                        "replaces": replaces[name], **numbers,
+                        **({"launches_per_step": numbers["launches"] / nerf_steps}
+                           if path == "engine_train" else {})})
     print(json.dumps({"grid_demo": {k: v for k, v in grid_demo.items() if k != "numbers"},
                       "grid_train": {k: v for k, v in grid_train.items() if k != "launches"},
                       "grid_train_launches": grid_train["launches"],
@@ -1346,6 +1709,9 @@ def main() -> None:
     print(json.dumps({"train": {k: v for k, v in train.items() if k != "launches"},
                       "train_launches": train["launches"],
                       "backward_rel_l2": {k: v[0] for k, v in bwd.items()}, "card": smi}))
+    print(json.dumps({"engine": {k: v for k, v in engine.items()
+                                 if not k.endswith("launches") and k not in ("calls", "nerf")},
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,22 @@
 """Configuration for the PyTorch port: the fields the ported code reads.
 
 An own copy of ``mc_nerf_tpu/config.py``'s ``StageConfig``, ``TrainConfig``,
-``BarfConfig``, ``NerfConfig`` and ``EvalConfig`` with the same defaults,
-cut to the fields the ported code reads (the render, the training step
-and both fine modes).  Later slices add their fields with their code:
-``occ_pmf`` with the density PMF, ``coarse_free`` with the coarse-free
-branch, the engine's schedule fields and the yaml loader.
+``BarfConfig``, ``NerfConfig``, ``EvalConfig``, ``PathsConfig`` and
+``Config`` with the same defaults, cut to the fields the ported code reads
+(the render, the training step in both fine modes, the engine), plus
+``EvalConfig.res_h`` / ``res_w``, which nothing reads yet: they are
+carried for the yaml loader, as in the JAX config.  Later
+slices add their fields with their code: ``occ_pmf`` with the density PMF,
+``coarse_free`` with the coarse-free branch, ``ParallelConfig`` with data
+parallelism, the yaml loader with the CLI.  ``max_steps_per_program`` is
+not carried: it bounds the size of one compiled XLA program, and an epoch
+here is a Python loop over steps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 
@@ -25,6 +31,24 @@ class StageConfig:
     @property
     def total_epochs(self) -> int:
         return self.cam_param_epochs + self.global_opt_epochs + self.fine_tune_epochs
+
+    @property
+    def boundaries(self) -> Tuple[int, int, int]:
+        """Cumulative epoch boundaries of the three stages."""
+        s1 = self.cam_param_epochs
+        s2 = s1 + self.global_opt_epochs
+        return (s1, s2, s2 + self.fine_tune_epochs)
+
+    def stage_of_epoch(self, epoch: int) -> int:
+        """0-based stage of a 0-based epoch (ref ``main.py:210-217``)."""
+        b1, b2, b3 = self.boundaries
+        if epoch < b1:
+            return 0
+        if epoch < b2:
+            return 1
+        if epoch < b3:
+            return 2
+        raise ValueError(f"epoch {epoch} beyond training schedule ({b3} epochs)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +65,12 @@ class TrainConfig:
     # global gradient-norm clip in every stage (0 disables: the reference
     # never clips)
     grad_clip: float = 10.0
+    # checkpoint retention: the newest N epochs plus the three stage
+    # boundaries; 0 keeps every epoch (the reference's behaviour)
+    ckpt_max_keep: int = 5
     rays_per_batch: int = 7000       # rays sampled from one image per step (ref yaml `batch`)
+    images_per_batch: int = 1        # images per step (ref: 1 via BatchSampler)
+    steps_per_image_epoch: int = 50  # ref expands the dataset 50x (data_read.py:286-297)
     seed: int = 42
     # "importance": stratified inverse-CDF fine sampling; "grid": the
     # reference-faithful threshold / top-k bins of the fine grid
@@ -103,6 +132,11 @@ class NerfConfig:
     occ_grid_size: int = 64          # lattice resolution G (0 disables culling)
     occ_thresh: float = 0.01         # occupied iff softplus(sigma)*coarse_step > this
     occ_decay: float = 0.95          # EMA-max decay per refresh
+    occ_update_every: int = 1        # epochs between grid refreshes (stages 2-3)
+    # NeRF-stage steps before the first refresh; until then the
+    # all-occupied prior (uniform sampling): a grid from a barely trained
+    # coarse MLP mislocalizes the culling
+    occ_warmup_steps: int = 3000
     occ_floor: float = 0.01          # exploration floor in the sampling PMF
     occ_probes: int = 64             # per-ray occupancy probes across [near, far]
     occ_coarse_samples: int = 48     # coarse samples/ray under culling
@@ -131,6 +165,9 @@ class NerfConfig:
 class EvalConfig:
     """Demo/eval parameters (ref ``config/config.yaml:31-36``)."""
 
+    res_h: int = 800
+    res_w: int = 800
+    demo_ckpt: str = ""              # epoch number or ``...-EPOCH-<n>-...`` name; "" = latest
     rays_per_chunk: int = 16384      # rays per render chunk
     fine_mode: str = "importance"    # "importance" | "grid" (reference-faithful)
     importance_samples: int = 32     # fine samples/ray for fine_mode="importance"
@@ -138,12 +175,42 @@ class EvalConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PathsConfig:
+    """Output directory layout (ref ``config/config.yaml:37-49``)."""
+
+    root_weights: str = "./weights"
+    root_out: str = "./results"
+    render_subdir: str = "./img_rendered"
+    log_path: str = "./log"
+    tb_path: str = "./tensorboard"
+    tb_delete_old: bool = False
+
+    @property
+    def render_dir(self) -> str:
+        return os.path.join(self.root_out, self.render_subdir)
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
+    data_root: str = "./data/dataset_Ball"
     data_name: str = "Ball_Computer"
+    mode: int = 0                    # 0 = train, 1 = demo (ref config_read.py:78-81)
+    log_to_file: bool = False
+    tensorboard: bool = False
+    apriltag_size: float = 1.0
     stages: StageConfig = dataclasses.field(default_factory=StageConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
     barf: BarfConfig = dataclasses.field(default_factory=BarfConfig)
     nerf: NerfConfig = dataclasses.field(default_factory=NerfConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    paths: PathsConfig = dataclasses.field(default_factory=PathsConfig)
     # numeric policy of the plain route: params fp32, activations in this dtype
     compute_dtype: str = "bfloat16"
+
+    @property
+    def scene_dir(self) -> str:
+        """<data_root>/<data_name>, the directory holding transforms_*.json."""
+        return os.path.join(self.data_root, self.data_name)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)

@@ -109,3 +109,31 @@ def load_split(scene_dir: str, split: str, load_images: bool = True,
         img_w=img_w,
         paths=paths,
     )
+
+
+@dataclasses.dataclass
+class Scene:
+    """A full multi-camera scene: the train/val/test render splits."""
+
+    train: SplitData
+    val: SplitData
+    test: SplitData
+    scene_dir: str
+
+    @property
+    def img_h(self) -> int:
+        return self.train.img_h
+
+    @property
+    def img_w(self) -> int:
+        return self.train.img_w
+
+
+def load_scene(scene_dir: str, load_test_images: bool = True) -> Scene:
+    """Load the train/val/test render splits of a scene directory."""
+    return Scene(
+        train=load_split(scene_dir, "train"),
+        val=load_split(scene_dir, "val"),
+        test=load_split(scene_dir, "test", load_images=load_test_images),
+        scene_dir=scene_dir,
+    )

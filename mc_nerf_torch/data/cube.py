@@ -22,13 +22,17 @@ _FACES = (
 )
 
 
+def face_frames():
+    """The six (normal, u, v) face frames as float arrays."""
+    return tuple(tuple(np.array(a) for a in face) for face in _FACES)
+
+
 def tag_world_points(tag_size: float = 1.0) -> np.ndarray:
     """[6, 5, 3] float32 keypoints of all six tags in the cube frame."""
     cube_half = tag_size / 2.0
     tag_half = tag_size * 0.8 / 2.0
     pts = np.zeros((6, 5, 3), dtype=np.float32)
-    for tag_id, face in enumerate(_FACES):
-        n, u, v = (np.array(a) for a in face)
+    for tag_id, (n, u, v) in enumerate(face_frames()):
         center = n * cube_half
         pts[tag_id] = [center, center + (-u + v) * tag_half, center + (u + v) * tag_half,
                        center + (u - v) * tag_half, center + (-u - v) * tag_half]

@@ -37,21 +37,15 @@ def init_grid(g: int, device=None) -> OccupancyGrid:
                                     device=resolve_device(device)))
 
 
-def _lattice(g: int, lo: float, hi: float,
-             uniforms: Optional[torch.Tensor] = None,
-             generator: Optional[torch.Generator] = None,
+def _lattice(g: int, lo: float, hi: float, uniforms: Optional[torch.Tensor] = None,
              device=None) -> torch.Tensor:
     """[G^3, 3] points, one per cell: centers, or jittered uniformly within
-    the cell by ``uniforms`` ([G^3, 3] U[0, 1) draws) or by draws from
-    ``generator``."""
+    the cell by ``uniforms`` ([G^3, 3] U[0, 1) draws)."""
     dev = resolve_device(device)
     cell = (hi - lo) / g
     axis = lo + (torch.arange(g, dtype=torch.float32, device=dev) + 0.5) * cell
     x, y, z = torch.meshgrid(axis, axis, axis, indexing="ij")
     pts = torch.stack([x, y, z], dim=-1).reshape(-1, 3)
-    if uniforms is None and generator is not None:
-        uniforms = torch.rand(pts.shape, generator=generator, dtype=torch.float32,
-                              device=generator.device).to(dev)
     if uniforms is not None:
         pts = pts + (uniforms * cell - 0.5 * cell)
     return pts
@@ -64,7 +58,6 @@ def update_grid(
     lo: float,
     hi: float,
     uniforms: Optional[torch.Tensor] = None,
-    generator: Optional[torch.Generator] = None,
     decay: float = 0.95,
     chunk: int = 262144,
     device=None,
@@ -75,7 +68,7 @@ def update_grid(
     over the lattice in chunks of ``chunk`` points.  ``grid=None`` rebuilds
     from scratch; otherwise the EMA-max ``max(decay * old, new)``.
     """
-    pts = _lattice(g, lo, hi, uniforms, generator, device)
+    pts = _lattice(g, lo, hi, uniforms, device)
     act = torch.cat([sigma_act_fn(c).reshape(-1) for c in torch.split(pts, chunk)])
     act = act.reshape(g, g, g)
     if grid is not None:

@@ -53,7 +53,7 @@ def main() -> None:
     poses, K = orbit_views((0.3,), h, w)
     pose = poses[0]
     render = make_render_fn(cfg, h, w, device=dev)
-    occ = None if args.grid else refresh_occupancy(params, cfg, dev)
+    occ = None if args.grid else refresh_occupancy(params, cfg, dev, 0)
     render(params, pose, K, occ)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

@@ -30,16 +30,28 @@ from mc_nerf_torch.cameras.projection import reproject_points
 from mc_nerf_torch.cameras.rays import pixel_grid, rays_for_pixels
 from mc_nerf_torch.config import Config
 from mc_nerf_torch.data.calibration import CalibrationData, sample_tags
-from mc_nerf_torch.models.camera_params import calib_cube_poses, camera_poses, intrinsics
+from mc_nerf_torch.models.camera_params import (
+    calib_cube_poses,
+    camera_params_from_numpy,
+    camera_poses,
+    intrinsics,
+)
 from mc_nerf_torch.models.nerf import (
     RenderDraws,
     draw_render,
+    nerf_params_from_numpy,
     pack_eval_params,
     render_rays_eval,
     render_rays_train,
 )
 from mc_nerf_torch.train.loss import reprojection_loss, rgb_loss, self_normalized
-from mc_nerf_torch.train.optim import FlatOptState, FlatRAdam, Params, flat_grads
+from mc_nerf_torch.train.optim import (
+    FlatOptState,
+    FlatRAdam,
+    Params,
+    flat_grads,
+    flatten_params,
+)
 
 
 class TrainData(NamedTuple):
@@ -64,6 +76,50 @@ class TrainState:
     step: int = 0
 
 
+def _shaped_like(tree, flat: np.ndarray, off: int = 0):
+    """The vector ``flat``, from ``off`` on, shaped as ``tree``'s leaves in
+    the order ``jax.flatten_util.ravel_pytree`` walks them (NamedTuple
+    fields, then sequence items, depth first).  Returns (tree, offset)."""
+    if hasattr(tree, "_fields"):
+        out = []
+        for f in tree._fields:
+            leaf, off = _shaped_like(getattr(tree, f), flat, off)
+            out.append(leaf)
+        return type(tree)(*out), off
+    if isinstance(tree, (list, tuple)):
+        out = []
+        for t in tree:
+            leaf, off = _shaped_like(t, flat, off)
+            out.append(leaf)
+        return type(tree)(out), off
+    shape = np.shape(tree)
+    n = int(np.prod(shape))
+    return flat[off:off + n].reshape(shape), off + n
+
+
+def train_state_from_numpy(params_np, opt_states_np, step: int, cfg: Config,
+                           device=None) -> TrainState:
+    """The JAX package's train state as numpy arrays (``Params`` and one
+    RAdam ``FlatOptState`` per stage, e.g. ``jax.tree.map(np.asarray, ...)``)
+    -> :class:`TrainState`: the parameters through
+    ``camera_params_from_numpy`` / ``nerf_params_from_numpy``, each stage's
+    ``mu`` / ``nu`` (in ``ravel_pytree`` order there) moved leaf by leaf
+    into :func:`flatten_params` order the same way."""
+    dev = resolve_device(device)
+
+    def to_port(tree):
+        p = Params(camera_params_from_numpy(tree.cam, dev),
+                   nerf_params_from_numpy(tree.nerf, cfg.nerf, dev))
+        return flatten_params(p), p
+
+    def moved(flat):
+        return to_port(_shaped_like(params_np, np.asarray(flat, np.float32))[0])[0]
+
+    p_flat, params = to_port(params_np)
+    opts = tuple(FlatOptState(moved(o.mu), moved(o.nu), int(o.count)) for o in opt_states_np)
+    return TrainState(params, p_flat, opts, int(step))
+
+
 class StepDraws(NamedTuple):
     """The random draws of one step (``train/steps.py`` splits its key
     into k_calib -> (k_int, k_ext), k_rays -> (k_img, k_pix), k_render)."""
@@ -73,8 +129,7 @@ class StepDraws(NamedTuple):
     img_ids: Optional[torch.Tensor]      # [B] int64 images of the batch (stages 1, 2)
     pix_idx: Optional[torch.Tensor]      # [B, R] int64 pixels of each image
     render: Optional[RenderDraws]        # the render's draws, over B * R rays
-    # (B is 1 from draw_step, as in the reference's BatchSampler; the JAX
-    # package's per-device images_per_batch waits for data parallelism)
+    # (B = cfg.train.images_per_batch; 1 is the reference's BatchSampler)
 
 
 def draw_step(cfg: Config, stage: int, n_images: int, img_h: int, img_w: int,
@@ -88,13 +143,14 @@ def draw_step(cfg: Config, stage: int, n_images: int, img_h: int, img_w: int,
     u_ext = torch.rand((n_images,), generator=generator, device=dev)
     if stage == 0:
         return StepDraws(u_int, u_ext, None, None, None)
-    rays, hw = cfg.train.rays_per_batch, img_h * img_w
-    img_ids = torch.randint(0, n_images, (1,), generator=generator, device=dev)
+    rays, hw, b = cfg.train.rays_per_batch, img_h * img_w, cfg.train.images_per_batch
+    img_ids = torch.randint(0, n_images, (b,), generator=generator, device=dev)
     if hw > 8 * rays:
-        pix_idx = torch.randint(0, hw, (1, rays), generator=generator, device=dev)
+        pix_idx = torch.randint(0, hw, (b, rays), generator=generator, device=dev)
     else:
-        pix_idx = torch.randperm(hw, generator=generator, device=dev)[None, :rays]
-    render = draw_render(rays, cfg.nerf, cfg.train.importance_samples, culled, generator,
+        pix_idx = torch.stack([torch.randperm(hw, generator=generator, device=dev)[:rays]
+                               for _ in range(b)])
+    render = draw_render(b * rays, cfg.nerf, cfg.train.importance_samples, culled, generator,
                          cfg.train.fine_mode)
     return StepDraws(u_int, u_ext, img_ids, pix_idx, render)
 

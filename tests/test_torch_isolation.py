@@ -61,7 +61,7 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
     from mc_nerf_torch.config import Config, NerfConfig
     from mc_nerf_torch.data.blender import SplitData
     from mc_nerf_torch.models.nerf import init_nerf_params
-    from mc_nerf_torch.train.engine import demo
+    from mc_nerf_torch.train.engine import Engine, demo
     from mc_nerf_torch.train.steps import make_render_fn
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -75,3 +75,5 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
                       np.eye(3, dtype=np.float32)[None], np.ones(1, np.float32), 8, 8, ["a"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         demo(params, split, Config(nerf=nc))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(Config())

@@ -246,7 +246,7 @@ def test_depth_colormap_matches_the_jax_package():
     both ends: within the 0.026 its comment states, the [63, 255] clip
     the same."""
     pytest.importorskip("matplotlib")
-    from mc_nerf_torch.train.engine import apply_depth_colormap
+    from mc_nerf_torch.utils.visualization import apply_depth_colormap
     from mc_nerf_tpu.utils.visualization import apply_depth_colormap as reference
 
     rng = np.random.default_rng(0)

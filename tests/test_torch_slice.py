@@ -173,6 +173,6 @@ def test_refresh_builds_a_binary_map():
     from mc_nerf_torch.train.engine import refresh_occupancy
 
     _, tc, _, tp, _, _, _ = _setup()
-    occ = refresh_occupancy(tp, t_config.Config(nerf=tc), CPU)
+    occ = refresh_occupancy(tp, t_config.Config(nerf=tc), CPU, 0)
     assert tuple(occ.shape) == (16 * 16, 16) and occ.dtype == torch.bfloat16
     assert set(torch.unique(occ.float()).tolist()) <= {0.0, 1.0}
