@@ -19,6 +19,15 @@ def blender_pose_to_w2c(c2w_blender: torch.Tensor) -> torch.Tensor:
     return torch.cat([R_w2c, t_w2c[..., None]], dim=-1)
 
 
+def w2c_to_blender_pose(w2c: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`blender_pose_to_w2c`: [..., 3, 4] -> Blender c2w
+    [..., 3, 4] (ref ``model/mc_nerf.py:434-446``, for the pose plots)."""
+    R_cv = w2c[..., :3].transpose(-1, -2)
+    t = -(R_cv * w2c[..., 3][..., None, :]).sum(-1)
+    R = R_cv * torch.tensor(_FLIP, dtype=w2c.dtype, device=w2c.device)
+    return torch.cat([R, t[..., None]], dim=-1)
+
+
 def fov_to_K(fov_x, img_h: int, img_w: int) -> torch.Tensor:
     """Horizontal FOV (radians) -> [..., 3, 3] intrinsics with the
     reference's formula (fy shares the x-FOV tangent, data_read.py:141-152)."""

@@ -1,23 +1,29 @@
-"""Configuration for the PyTorch port: the fields the ported code reads.
+"""Configuration for the PyTorch port and its yaml loader (own copy of
+``mc_nerf_tpu/config.py``).
 
-An own copy of ``mc_nerf_tpu/config.py``'s ``StageConfig``, ``TrainConfig``,
-``BarfConfig``, ``NerfConfig``, ``EvalConfig``, ``PathsConfig`` and
-``Config`` with the same defaults, cut to the fields the ported code reads
-(the render, the training step in both fine modes, the engine), plus
-``EvalConfig.res_h`` / ``res_w``, which nothing reads yet: they are
-carried for the yaml loader, as in the JAX config.  Later
-slices add their fields with their code: ``occ_pmf`` with the density PMF,
-``coarse_free`` with the coarse-free branch, ``ParallelConfig`` with data
-parallelism, the yaml loader with the CLI.  ``max_steps_per_program`` is
-not carried: it bounds the size of one compiled XLA program, and an epoch
-here is a Python loop over steps.
+The dataclasses carry the JAX config's fields with the same defaults, cut
+to the fields the ported code reads or the loader sets (``barf_mask``,
+``grid_nerf`` and ``sigma_init``, which the JAX package accepts and never
+reads, are not carried).  :func:`load_yaml`
+reads the reference's ``config.yaml`` schema with the port's own reader
+(:mod:`mc_nerf_torch.yaml_subset`, no PyYAML), and :func:`build_argparser`
+/ :func:`from_args` give the reference's CLI flags.  Keys of modes the
+port lacks (coarse-free rendering, the density PMF, the bitpacked map)
+raise when set to anything but their default; ``max_steps_per_program``
+and ``prng_impl`` (XLA's program size, JAX's PRNG) are logged and not
+applied.  ``ParallelConfig`` comes with data parallelism.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import logging
 import os
+from pathlib import Path
 from typing import Optional, Tuple
+
+from mc_nerf_torch.yaml_subset import loads as _yaml_loads
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +74,7 @@ class TrainConfig:
     # checkpoint retention: the newest N epochs plus the three stage
     # boundaries; 0 keeps every epoch (the reference's behaviour)
     ckpt_max_keep: int = 5
+    warmup_epoch: int = 100          # carried from the reference yaml (unused there too)
     rays_per_batch: int = 7000       # rays sampled from one image per step (ref yaml `batch`)
     images_per_batch: int = 1        # images per step (ref: 1 via BatchSampler)
     steps_per_image_epoch: int = 50  # ref expands the dataset 50x (data_read.py:286-297)
@@ -197,6 +204,7 @@ class Config:
     mode: int = 0                    # 0 = train, 1 = demo (ref config_read.py:78-81)
     log_to_file: bool = False
     tensorboard: bool = False
+    start_device: int = 0            # CUDA index of the card (ref --start_device)
     apriltag_size: float = 1.0
     stages: StageConfig = dataclasses.field(default_factory=StageConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
@@ -214,3 +222,184 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+# yaml keys of modes the port lacks, with the default each must keep:
+# (section, key) under system (test_params) or model.nerf
+_UNPORTED = ((("model", "nerf", "coarse_free"), False),
+             (("model", "nerf", "coarse_free_from_stage"), 1),
+             (("model", "nerf", "occ_pmf"), "binary"),
+             (("model", "nerf", "occ_refresh_source"), "auto"),
+             (("model", "nerf", "cf_uniform_samples"), 0),
+             (("model", "nerf", "allow_measured_harmful"), False),
+             (("system", "test_params", "coarse_free"), None))
+# yaml keys of the JAX package's XLA program size and PRNG: read, not applied
+_NOT_APPLIED = (("system", "train_params", "max_steps_per_program"),
+                ("system", "train_params", "prng_impl"))
+
+
+def _get(d, *keys, default=None):
+    for k in keys:
+        if not isinstance(d, dict) or k not in d:
+            return default
+        d = d[k]
+    return d
+
+
+def _refuse_unported(raw: dict) -> None:
+    """Raise for a key of a mode the port lacks set to a value other than
+    its default; log each key that is read and not applied."""
+    def refuse(path, value):
+        raise ValueError(
+            f"config key {'.'.join(path)}: {value!r} selects a sampling mode the port does "
+            "not have yet (coarse-free rendering, the density PMF, the bitpacked map: "
+            "ROADMAP Queue 1 item 3)")
+
+    for path, default in _UNPORTED:
+        value = _get(raw, *path, default=default)
+        if value != default:
+            refuse(path, value)
+    if _get(raw, "model", "nerf", "occ_map_dtype") == "bitpack":
+        refuse(("model", "nerf", "occ_map_dtype"), "bitpack")
+    for path in _NOT_APPLIED:
+        if _get(raw, *path) is not None:
+            logging.warning("config key %s is not applied: it sizes the JAX package's XLA "
+                            "programs or picks its PRNG, which the port does not have",
+                            ".".join(path))
+
+
+def load_yaml(path: str, base: Optional[Config] = None) -> Config:
+    """A :class:`Config` from a reference-format ``config.yaml`` (the
+    reference's schema plus the JAX package's extension keys); missing keys
+    keep ``base``'s values (the defaults)."""
+    cfg = base or Config()
+    with open(path, "r", encoding="utf-8") as f:
+        raw = _yaml_loads(f.read()) or {}
+    _refuse_unported(raw)
+    sys_info = raw.get("system", {})
+    model = raw.get("model", {})
+    get = _get
+
+    stages = StageConfig(
+        cam_param_epochs=get(sys_info, "epoch", "cam_param_stage", default=cfg.stages.cam_param_epochs),
+        global_opt_epochs=get(sys_info, "epoch", "global_opt_stage", default=cfg.stages.global_opt_epochs),
+        fine_tune_epochs=get(sys_info, "epoch", "fine_tune_stage", default=cfg.stages.fine_tune_epochs),
+    )
+    tp = lambda key, default: get(sys_info, "train_params", key, default=default)
+    train = dataclasses.replace(
+        cfg.train,
+        stage1_lr=tp("stage_1_lr", cfg.train.stage1_lr),
+        stage2_lr=tp("stage_2_lr", cfg.train.stage2_lr),
+        stage3_lr=tp("stage_3_lr", cfg.train.stage3_lr),
+        weight_decay=tp("weight_decay", cfg.train.weight_decay),
+        warmup_epoch=tp("warmup_epoch", cfg.train.warmup_epoch),
+        rays_per_batch=tp("batch", cfg.train.rays_per_batch),
+        seed=get(sys_info, "data", "seed", default=cfg.train.seed),
+        # extension keys (not in the reference schema)
+        fine_mode=tp("fine_mode", cfg.train.fine_mode),
+        importance_samples=tp("importance_samples", cfg.train.importance_samples),
+        remat_shade=tp("remat_shade", cfg.train.remat_shade),
+        use_pallas=tp("use_pallas", cfg.train.use_pallas),
+        grad_clip=tp("grad_clip", cfg.train.grad_clip),
+        ckpt_max_keep=tp("ckpt_max_keep", cfg.train.ckpt_max_keep),
+    )
+    barf = BarfConfig(
+        start=get(model, "barf", "barf_start", default=cfg.barf.start),
+        end=get(model, "barf", "barf_end", default=cfg.barf.end),
+    )
+    nf = lambda key, default: get(model, "nerf", key, default=default)
+    n = cfg.nerf
+    nerf = dataclasses.replace(
+        n,
+        near=nf("near", n.near),
+        far=nf("far", n.far),
+        samples_coarse=nf("samples", n.samples_coarse),
+        sample_scale=nf("sample_scale", n.sample_scale),
+        sigma_default=nf("sigma_default", n.sigma_default),
+        weight_thresh=nf("weight_thresh", n.weight_thresh),
+        bound_min=nf("global_boader_min", n.bound_min),
+        bound_max=nf("global_boader_max", n.bound_max),
+        white_back=nf("white_back", n.white_back),
+        emb_freqs_xyz=nf("emb_freqs_xyz", n.emb_freqs_xyz),
+        coarse_depth=nf("coarse_MLP_depth", n.coarse_depth),
+        coarse_width=nf("coarse_MLP_width", n.coarse_width),
+        coarse_skips=tuple(nf("coarse_MLP_skip", list(n.coarse_skips))),
+        fine_depth=nf("fine_MLP_depth", n.fine_depth),
+        fine_width=nf("fine_MLP_width", n.fine_width),
+        fine_skips=tuple(nf("fine_MLP_skip", list(n.fine_skips))),
+        sh_deg=nf("MLP_deg", n.sh_deg),
+        # extension keys (not in the reference schema): occupancy culling
+        occ_grid_size=nf("occ_grid_size", n.occ_grid_size),
+        occ_thresh=nf("occ_thresh", n.occ_thresh),
+        occ_decay=nf("occ_decay", n.occ_decay),
+        occ_update_every=nf("occ_update_every", n.occ_update_every),
+        occ_warmup_steps=nf("occ_warmup_steps", n.occ_warmup_steps),
+        occ_floor=nf("occ_floor", n.occ_floor),
+        occ_probes=nf("occ_probes", n.occ_probes),
+        occ_coarse_samples=nf("occ_coarse_samples", n.occ_coarse_samples),
+        occ_dilate=nf("occ_dilate", n.occ_dilate),
+        occ_map_dtype=nf("occ_map_dtype", n.occ_map_dtype),
+    )
+    tst = lambda key, default: get(sys_info, "test_params", key, default=default)
+    evalc = dataclasses.replace(
+        cfg.eval,
+        res_h=tst("resolution_h", cfg.eval.res_h),
+        res_w=tst("resolution_w", cfg.eval.res_w),
+        demo_ckpt=tst("nerf_model_name", cfg.eval.demo_ckpt),
+        # extension keys (not in the reference schema)
+        fine_mode=tst("fine_mode", cfg.eval.fine_mode),
+        importance_samples=tst("importance_samples", cfg.eval.importance_samples),
+        rays_per_chunk=tst("rays_per_chunk", cfg.eval.rays_per_chunk),
+        use_pallas=tst("use_pallas", cfg.eval.use_pallas),
+    )
+    paths = dataclasses.replace(
+        cfg.paths,
+        root_weights=get(sys_info, "weights_params", "root_weights", default=cfg.paths.root_weights),
+        root_out=get(sys_info, "out_params", "root_out", default=cfg.paths.root_out),
+        render_subdir=get(sys_info, "out_params", "test_enerf_pth", default=cfg.paths.render_subdir),
+        log_path=get(sys_info, "log_params", "logpath", default=cfg.paths.log_path),
+        tb_path=get(sys_info, "tensorboard_params", "tb_pth", default=cfg.paths.tb_path),
+        tb_delete_old=get(sys_info, "tensorboard_params", "del_mode", default=cfg.paths.tb_delete_old),
+    )
+    return dataclasses.replace(
+        cfg,
+        apriltag_size=get(sys_info, "apriltag", "tag_size", default=cfg.apriltag_size),
+        stages=stages, train=train, barf=barf, nerf=nerf, eval=evalc, paths=paths,
+    )
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    """The reference's CLI flags (ref ``main.py:245-268``), as the JAX
+    package gives them."""
+    p = argparse.ArgumentParser(description="MC-NeRF-TPU")
+    p.add_argument("--config", type=str, default="./config",
+                   help="root path of config file (directory containing config.yaml)")
+    p.add_argument("--root_data", type=str, default="./data/dataset_Ball",
+                   help="root path of data")
+    p.add_argument("--data_name", type=str, default="Ball_Computer",
+                   help="name of data")
+    p.add_argument("--demo", action="store_true",
+                   help="nerf rendering forward with test mode")
+    p.add_argument("--train", action="store_true", help="train mode")
+    p.add_argument("--log", action="store_true",
+                   help="save log information to a log file")
+    p.add_argument("--start_device", type=int, default=0,
+                   help="start device index (CLI parity with the reference; no-op on TPU)")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="write tensorboard scalars during training")
+    return p
+
+
+def from_args(args: argparse.Namespace) -> Config:
+    """Merge CLI args with ``<args.config>/config.yaml``, or with
+    ``Config()`` where there is none (ref ``config/config_read.py:8-93``)."""
+    yaml_path = os.path.join(Path(args.config), Path("config.yaml"))
+    cfg = load_yaml(yaml_path) if os.path.exists(yaml_path) else Config()
+    return cfg.replace(
+        data_root=args.root_data,
+        data_name=args.data_name,
+        mode=1 if args.demo and not args.train else 0,
+        log_to_file=args.log,
+        tensorboard=args.tensorboard,
+        start_device=args.start_device,
+    )

@@ -1,10 +1,13 @@
-"""Calibration detections and per-step tag sampling (own copy of
-``mc_nerf_tpu/data/calibration.py:27-72``, ``:114-142``).
+"""Calibration detections: the cache, the function that writes it, and per-step tag
+sampling (own copy of ``mc_nerf_tpu/data/calibration.py``).
 
 Detections live in a fixed-shape cache (``calibration_cache.npz``: pts
-[N, 6, 5, 2], valid [N, 6]), read with numpy; the per-step "one random
-visible tag per camera" choice runs on the device from uniforms passed
-in, so the same draws can be handed to the JAX package.
+[N, 6, 5, 2], valid [N, 6]), read with numpy.  :func:`build_calibration_cache`
+writes it by running the tag36h11 detector (``native/apriltag_binding.py``)
+over a scene's calib/coord images, as the reference runs libapriltag at
+start-up; synthetic scenes may ship an analytic one instead.  The per-step
+"one random visible tag per camera" choice runs on the device from
+uniforms passed in, so the same draws can be handed to the JAX package.
 """
 
 from __future__ import annotations
@@ -67,6 +70,38 @@ def load_calibration(scene_dir: str, tag_size: float = 1.0, device=None) -> Cali
     ts = float(cache["tag_size"]) if "tag_size" in cache else tag_size
     return calibration_from_numpy(cache["calib_pts"], cache["calib_valid"],
                                   cache["coord_pts"], cache["coord_valid"], ts, device)
+
+
+def build_calibration_cache(scene_dir: str, overwrite: bool = False) -> str:
+    """Run the tag36h11 detector over the calib and coord images and write
+    the detection cache, unless it exists (or with ``overwrite``).  Like the
+    reference (``data/data_read.py:208-212``), an image with no detection
+    aborts.  Returns the cache's path."""
+    out_path = os.path.join(scene_dir, CACHE_NAME)
+    if os.path.exists(out_path) and not overwrite:
+        return out_path
+
+    from mc_nerf_torch.data.blender import load_split
+    from mc_nerf_torch.native.apriltag_binding import detect_tags, rgb_to_gray
+
+    arrays = {}
+    for split in ("calib", "coord"):
+        data = load_split(scene_dir, split, load_images=True, with_poses=False)
+        pts = np.zeros((data.count, 6, 5, 2), dtype=np.float32)
+        valid = np.zeros((data.count, 6), dtype=bool)
+        for i in range(data.count):
+            dets = detect_tags(rgb_to_gray(data.images_u8[i]))
+            if not dets:
+                raise ValueError(f"no tags detected in {split} image {i} — invalid "
+                                 "calibration data (the reference aborts here too)")
+            for d in dets:
+                if 0 <= d.tag_id < 6:
+                    pts[i, d.tag_id] = d.keypoints
+                    valid[i, d.tag_id] = True
+        arrays[f"{split}_pts"] = pts
+        arrays[f"{split}_valid"] = valid
+    np.savez(out_path, tag_size=np.float32(1.0), **arrays)
+    return out_path
 
 
 def sample_tags(u: torch.Tensor, pts: torch.Tensor, tag_ids: torch.Tensor,

@@ -1,14 +1,15 @@
 """Procedural synthetic scene writer (own copy of
-``mc_nerf_tpu/data/synthetic.py``, analytic calibration only).
+``mc_nerf_tpu/data/synthetic.py``).
 
 Writes a blender-format scene: per-split ``transforms_*.json`` and RGBA
 PNGs of a few lambertian spheres, ray-traced from cameras on one of the
 reference's four rigs with per-camera random FOVs in [40, 80] degrees,
-plus ``calibration_cache.npz`` of tag keypoints projected through the
-ground-truth cameras.  Given the same arguments it writes the same files
-as the JAX package's ``make_dataset``.  ``calibration_mode="rendered"``
-(cube images through the tag36h11 detector) waits for the port's own
-detector.  Host-side numpy and PIL only.
+plus ``calibration_cache.npz``: either of tag keypoints projected through
+the ground-truth cameras (``calibration_mode="analytic"``), or detected
+by the tag36h11 detector in rendered calib/coord cube images
+(``"rendered"``, the path of a real scene).  Given the same arguments it
+writes the same files as the JAX package's ``make_dataset``.  Host-side
+numpy and PIL only.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-from mc_nerf_torch.data.calibration import CACHE_NAME
+from mc_nerf_torch.data.calibration import CACHE_NAME, build_calibration_cache
 from mc_nerf_torch.data.cube import face_frames, tag_world_points
 
 
@@ -255,6 +256,13 @@ def _blender_to_w2c_np(c2w: np.ndarray) -> np.ndarray:
     return np.concatenate([R_w2c, (-R_w2c @ c2w[:3, 3])[:, None]], axis=-1)
 
 
+def _intrinsics(fov: float, img_h: int, img_w: int) -> np.ndarray:
+    """[3, 3] intrinsics of a horizontal FOV (radians), the reference's formula."""
+    tan_half = np.tan(fov / 2.0)
+    return np.array([[(img_w / 2.0) / tan_half, 0, img_w / 2.0],
+                     [0, (img_h / 2.0) / tan_half, img_h / 2.0], [0, 0, 1.0]])
+
+
 def _write_split(scene_dir: str, split: str, c2w: np.ndarray, fov: np.ndarray,
                  scene: Optional[SphereScene], img_h: int, img_w: int) -> None:
     from PIL import Image
@@ -266,14 +274,51 @@ def _write_split(scene_dir: str, split: str, c2w: np.ndarray, fov: np.ndarray,
         frames.append({"file_path": rel, "camera_angle_x": float(fov[i]),
                        "transform_matrix": c2w[i].tolist()})
         if scene is not None:
-            tan_half = np.tan(fov[i] / 2.0)
-            K = np.array([[(img_w / 2.0) / tan_half, 0, img_w / 2.0],
-                          [0, (img_h / 2.0) / tan_half, img_h / 2.0], [0, 0, 1.0]])
-            rgba = render_spheres(scene, _blender_to_w2c_np(c2w[i]), K, img_h, img_w)
+            rgba = render_spheres(scene, _blender_to_w2c_np(c2w[i]),
+                                  _intrinsics(fov[i], img_h, img_w), img_h, img_w)
             Image.fromarray((rgba * 255 + 0.5).astype(np.uint8), "RGBA").save(
                 os.path.join(scene_dir, rel + ".png"))
     with open(os.path.join(scene_dir, f"transforms_{split}.json"), "w") as f:
         json.dump({"frames": frames}, f)
+
+
+def _write_cube_split(scene_dir: str, split: str, c2w: np.ndarray, fov: np.ndarray,
+                      img_h: int, img_w: int, tag_size: float, rng: np.random.Generator,
+                      randomize_cube: bool) -> np.ndarray:
+    """Render the calibration cube through each camera of a split.  With
+    ``randomize_cube`` (the calib shots) the cube's orientation is drawn
+    again until the detector finds >= 2 tags (ref ``Ball.py:246-313``).
+    Returns the cube rotations, [N, 3, 3]."""
+    from PIL import Image
+
+    from mc_nerf_torch.data.cube_render import render_cube_image
+    from mc_nerf_torch.native.apriltag_binding import detect_tags, rgb_to_gray
+
+    os.makedirs(os.path.join(scene_dir, split), exist_ok=True)
+    n = c2w.shape[0]
+    rots = np.zeros((n, 3, 3), dtype=np.float32)
+    frames = []
+    for i in range(n):
+        rel = f"./{split}/r_{i}"
+        frames.append({"file_path": rel, "camera_angle_x": float(fov[i]),
+                       "transform_matrix": c2w[i].tolist()})
+        K = _intrinsics(fov[i], img_h, img_w)
+        w2c = _blender_to_w2c_np(c2w[i])
+        for _ in range(100):
+            R_cube = _random_rotation(rng) if randomize_cube else None
+            rgba = render_cube_image(w2c, K, img_h, img_w, tag_size, cube_rot=R_cube,
+                                     supersample=3)
+            rgb = rgba[..., :3] * rgba[..., 3:] + (1.0 - rgba[..., 3:])
+            if not randomize_cube or len(detect_tags(rgb_to_gray(rgb))) >= 2:
+                Image.fromarray((rgba * 255 + 0.5).astype(np.uint8), "RGBA").save(
+                    os.path.join(scene_dir, rel + ".png"))
+                rots[i] = R_cube if R_cube is not None else np.eye(3)
+                break
+        else:
+            raise RuntimeError(f"no detectable cube orientation for camera {i}")
+    with open(os.path.join(scene_dir, f"transforms_{split}.json"), "w") as f:
+        json.dump({"frames": frames}, f)
+    return rots
 
 
 def make_dataset(scene_dir: str, n_train: int = 16, n_val: int = 2, n_test: int = 4,
@@ -282,16 +327,15 @@ def make_dataset(scene_dir: str, n_train: int = 16, n_val: int = 2, n_test: int 
     """Write a blender-format scene and its calibration cache.
 
     The calib and coord splits reuse the train cameras (the same rig
-    photographs the cube), as the reference datasets do; their detections
-    are the cube's keypoints projected through the ground-truth cameras.
+    photographs the cube), as the reference datasets do.
+    ``calibration_mode``: 'analytic', the cube's keypoints projected
+    through the ground-truth cameras (no cube images); or 'rendered', cube
+    images rendered and the cache built from them by the tag36h11 detector.
     ``rig``: 'ball' | 'array' | 'halfball' | 'room', the reference's four
     dataset styles.
     """
-    if calibration_mode != "analytic":
-        raise ValueError(
-            f"calibration_mode={calibration_mode!r} is not ported: 'rendered' runs the "
-            "tag36h11 detector over rendered cube images, which waits for the port's "
-            "detector (ROADMAP Queue 1 item 2); use 'analytic'")
+    if calibration_mode not in ("analytic", "rendered"):
+        raise ValueError(f"unknown calibration_mode {calibration_mode!r} (analytic | rendered)")
     rng = np.random.default_rng(seed)
     scene = default_scene()
     os.makedirs(scene_dir, exist_ok=True)
@@ -302,6 +346,14 @@ def make_dataset(scene_dir: str, n_train: int = 16, n_val: int = 2, n_test: int 
     _write_split(scene_dir, "train", c2w_train, fov_train, scene, img_h, img_w)
     _write_split(scene_dir, "val", c2w_val, fov_val, scene, img_h, img_w)
     _write_split(scene_dir, "test", c2w_test, fov_test, scene, img_h, img_w)
+
+    if calibration_mode == "rendered":
+        _write_cube_split(scene_dir, "coord", c2w_train, fov_train, img_h, img_w, tag_size, rng,
+                          randomize_cube=False)
+        _write_cube_split(scene_dir, "calib", c2w_train, fov_train, img_h, img_w, tag_size, rng,
+                          randomize_cube=True)
+        build_calibration_cache(scene_dir, overwrite=True)
+        return
 
     # pose-only calib/coord JSONs and analytic detections
     _write_split(scene_dir, "coord", c2w_train, fov_train, None, img_h, img_w)

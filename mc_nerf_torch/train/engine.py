@@ -12,11 +12,12 @@ loop of train steps (``train/steps.py``) whose draws come from a
 generator on the device seeded from ``(train.seed, epoch)``, so a resumed
 run draws what an uninterrupted one does.
 
-As in the JAX package, and unlike the reference: each demo view is scored
-against its own ground truth, means divide by the view count, training
-resumes from any checkpoint, scalars are written.  Not ported: the pose
-plot (matplotlib), building the detection cache (the tag36h11 detector),
-multi-process runs.
+A scene without a detection cache (a reference-format scene: calib and
+coord images only) gets one from the tag36h11 detector before training.
+Each camera table also writes the GT-vs-estimated pose plot.  As in the
+JAX package, and unlike the reference: each demo view is scored against
+its own ground truth, means divide by the view count, training resumes
+from any checkpoint, scalars are written.  Not ported: multi-process runs.
 """
 
 from __future__ import annotations
@@ -33,9 +34,10 @@ import torch.nn.functional as F
 
 from mc_nerf_torch import compute_dtype as _dtype
 from mc_nerf_torch import resolve_device
+from mc_nerf_torch.cameras.convention import w2c_to_blender_pose
 from mc_nerf_torch.config import Config
 from mc_nerf_torch.data.blender import SplitData, load_scene, load_split
-from mc_nerf_torch.data.calibration import CACHE_NAME, load_calibration
+from mc_nerf_torch.data.calibration import build_calibration_cache, load_calibration
 from mc_nerf_torch.eval.metrics import lpips, psnr, ssim
 from mc_nerf_torch.models.camera_params import camera_poses, init_camera_params, intrinsics
 from mc_nerf_torch.models.encoding import sincos_encode
@@ -57,6 +59,7 @@ from mc_nerf_torch.utils.visualization import (
     apply_depth_colormap,
     camera_error_row,
     camera_error_table,
+    save_pose_plot,
 )
 
 STAGE_NAMES = ("CAM_PARAM_EPOCH", "GLOBAL_OPTIM_EPOCH", "FINE_TUNE_EPOCH")
@@ -253,12 +256,11 @@ class Engine:
 
     def _train_data(self) -> TrainData:
         """The train images and the calibration detections, copied to the
-        device once (no step copies a host tensor there)."""
-        if not os.path.exists(os.path.join(self.cfg.scene_dir, CACHE_NAME)):
-            raise FileNotFoundError(
-                f"{self.cfg.scene_dir} has no {CACHE_NAME}: building it runs the tag36h11 "
-                "detector over the calib/coord images, which is not ported yet (ROADMAP.md, "
-                "Queue 1 item 2); write scenes with mc_nerf_torch.data.synthetic.make_dataset")
+        device once (no step copies a host tensor there).  A scene without a
+        detection cache gets one from the tag36h11 detector over its calib
+        and coord images (the reference runs libapriltag at start-up,
+        ``data/data_read.py:171-214``)."""
+        build_calibration_cache(self.cfg.scene_dir)
         imgs = self.scene.train.images_u8.reshape(self.n_train, -1, 3)
         return TrainData(torch.as_tensor(imgs, device=self.device),
                          load_calibration(self.cfg.scene_dir, self.cfg.apriltag_size,
@@ -363,16 +365,25 @@ class Engine:
 
     @torch.no_grad()
     def _report_cameras(self, epoch: int) -> None:
-        """The camera-error table and its scalars (ref mc_nerf.py:388-407;
-        the pose plot is not ported)."""
+        """The camera-error table, its scalars and the pose plot
+        ``<render_dir>/<data_name>/cam_pose/epoch_<n>.png`` (ref
+        mc_nerf.py:388-534)."""
         cam = self.state.params.cam
-        row = camera_error_row(epoch, self.scene.train.K,
-                               intrinsics(cam, self.img_h, self.img_w).cpu().numpy(),
-                               self.scene.train.poses_w2c, camera_poses(cam).cpu().numpy())
+        train = self.scene.train
+        K_est = intrinsics(cam, self.img_h, self.img_w).cpu().numpy()
+        pose_est = camera_poses(cam).cpu()
+        row = camera_error_row(epoch, train.K, K_est, train.poses_w2c, pose_est.numpy())
         self._table_rows.append(row)
         print(camera_error_table(self._table_rows[-12:]))
         for name, val in zip(CAMERA_TABLE_HEADERS[1:], row[1:]):
             self.writer.scalar(f"camera/{name}", val, epoch)
+        path = os.path.join(self.cfg.paths.render_dir, self.cfg.data_name, "cam_pose",
+                            f"epoch_{epoch}.png")
+        try:
+            save_pose_plot(path, w2c_to_blender_pose(torch.as_tensor(train.poses_w2c)).numpy(),
+                           w2c_to_blender_pose(pose_est).numpy(), train.K, K_est, self.img_w)
+        except Exception:     # a plot must never stop training
+            logging.exception("pose plot %s failed", path)
 
     def _validate(self, epoch: int) -> dict:
         """Render one validation view with its ground-truth camera and score

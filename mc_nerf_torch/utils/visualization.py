@@ -1,12 +1,15 @@
-"""Per-epoch observability (own copy of the table and colormap parts of
+"""Per-epoch observability (counterpart of
 ``mc_nerf_tpu/utils/visualization.py``; ref ``model/mc_nerf.py:388-534``,
-``model/net_utils.py:205-231``): the camera-error table and the
-inverse-depth colormap.  The GT-vs-estimated pose plot (matplotlib there)
-is not ported: matplotlib is not a dependency of the port.
+``model/net_utils.py:205-231``): the camera-error table, the
+inverse-depth colormap and the GT-vs-estimated camera pose plot.  The
+plot is drawn with PIL (matplotlib draws it there, and is not a
+dependency of the port): the same wireframes, colours, limits and image
+size, projected orthographically at matplotlib's default 3D view.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import numpy as np
@@ -52,3 +55,60 @@ def apply_depth_colormap(depth01: np.ndarray) -> np.ndarray:
     t = np.arange(256) / 255.0
     table = np.stack([np.interp(t, xs, _INFERNO[:, c]) for c in range(3)], -1)
     return table[idx]
+
+
+def _frustum_points(pose_c2w: np.ndarray, K: np.ndarray, img_w: int, cam_size: float):
+    """Five 3D points (4 image-plane corners + center) of a camera wireframe
+    (ref draw_camera_shape, mc_nerf.py:499-534)."""
+    focal = K[0, 0] * cam_size / img_w
+    h = cam_size / 2.0
+    corners = np.array(
+        [[-h, -h, -focal], [-h, h, -focal], [h, h, -focal], [h, -h, -focal]]
+    )
+    R, t = pose_c2w[:, :3], pose_c2w[:, 3]
+    world = corners @ R.T + t
+    return world, t
+
+
+POSE_GT_COLOR = (0.7, 0.2, 0.7)      # purple
+POSE_EST_COLOR = (0.0, 0.6, 0.7)     # teal
+
+
+def view_projection(elev_deg: float = 30.0, azim_deg: float = -60.0) -> np.ndarray:
+    """[2, 3] orthographic projection onto the screen (right, up) of a view
+    from elevation ``elev_deg`` and azimuth ``azim_deg`` (matplotlib's
+    default 3D view), +z up."""
+    el, az = np.deg2rad(elev_deg), np.deg2rad(azim_deg)
+    eye = np.array([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)])
+    right = np.cross([0.0, 0.0, 1.0], eye)
+    right /= np.linalg.norm(right)
+    return np.stack([right, np.cross(eye, right)])
+
+
+def save_pose_plot(path: str, gt_c2w: np.ndarray, est_c2w: np.ndarray, K_gt: np.ndarray,
+                   K_est: np.ndarray, img_w: int, lim: float = 3.5, size: int = 600) -> None:
+    """GT (purple) and estimated (teal) camera wireframes in the cube
+    [-lim, lim]^3, one ``size`` x ``size`` PNG (4 in at 150 dpi)."""
+    from PIL import Image, ImageDraw
+
+    proj = view_projection()
+    # the limits' cube fills the image: its projection spans sqrt(3) lim at most
+    scale = 0.95 * (size / 2.0) / (np.sqrt(3.0) * lim)
+
+    def px(p):
+        x, y = proj @ np.asarray(p, np.float64)
+        return (size / 2.0 + scale * x, size / 2.0 - scale * y)
+
+    img = Image.new("RGB", (size, size), (255, 255, 255))
+    draw = ImageDraw.Draw(img)
+    for poses, Ks, color in ((gt_c2w, K_gt, POSE_GT_COLOR), (est_c2w, K_est, POSE_EST_COLOR)):
+        rgb = tuple(int(round(255 * c)) for c in color)
+        for i in range(poses.shape[0]):
+            pts, c = _frustum_points(poses[i], Ks[i], img_w, 0.3)
+            draw.line([px(p) for p in (*pts, pts[0])], fill=rgb, width=1)
+            for p in pts:
+                draw.line([px(c), px(p)], fill=rgb, width=1)
+            cx, cy = px(c)
+            draw.ellipse([cx - 2, cy - 2, cx + 2, cy + 2], fill=rgb)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    img.save(path)

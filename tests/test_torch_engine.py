@@ -3,8 +3,9 @@ engine test's tiny scene (``tests/test_engine.py:22-50``: 5 train views at
 24x24, 2-layer width-16 MLPs, 128 rays a step, float32, plain routes).
 
 One JAX run and one port run of a 2 + 2 + 2 epoch protocol (10 steps an
-epoch; the occupancy map refreshed every 2 NeRF epochs once 20 NeRF steps
-have run) give:
+epoch), in each fine mode: importance (the occupancy map refreshed every
+2 NeRF epochs once 20 NeRF steps have run) and grid (train and eval; no
+occupancy map), give:
   * the schedule: steps per epoch, the stage of each epoch, the epochs
     that restart cameras, the epochs that refresh the map and whether
     each refresh is fresh or EMA, the checkpoint epochs kept: exact;
@@ -12,16 +13,18 @@ have run) give:
     (``train_state_from_numpy``), its step draws are built from the JAX
     key tree (``fold_in(train_key, epoch)`` -> ``split``) and its refresh
     jitter from the JAX key's uniforms.  Each epoch's mean metrics agree
-    to rtol 1e-3 (measured: 8.1e-5 at most over the six epochs), the
-    camera and the NeRF parameters after each epoch each to 2.5e-5 of
-    their largest entry (measured: 9.9e-7 on the cameras, 2.4e-6 on the
-    MLPs after the sixth epoch).
+    to rtol 1e-3 (measured: 8.1e-5 at most over the six epochs in
+    importance mode, 7.8e-5 in grid mode), the camera and the NeRF
+    parameters after each epoch each to 2.5e-5 of their largest entry
+    (measured after the sixth epoch: 9.9e-7 on the cameras in both modes,
+    2.4e-6 on the MLPs in importance mode, 9.9e-6 in grid mode).
 Then the port alone: a resume from the epoch-0 checkpoint ends on the
 same bits as the uninterrupted run; a resume past a refresh rebuilds the
 map fresh, as the JAX engine does (``engine.py:452-464``); ``demo`` of a
 stage-0 checkpoint renders unculled (``engine.py:651-676``); two
-refreshes jitter differently; a scene without a detection cache and an
-unknown fine mode are refused.
+refreshes jitter differently; a scene without a detection cache gets one
+from the detector (and one whose cube images hold no tag is refused); an
+unknown fine mode is refused.
 """
 
 import dataclasses
@@ -30,15 +33,18 @@ import os
 import shutil
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 from mc_nerf_tpu import config as j_config
-from mc_nerf_tpu.data.synthetic import make_dataset
+from mc_nerf_tpu.data.synthetic import make_dataset as j_make_dataset
 from mc_nerf_tpu.train import engine as j_engine
 
 from mc_nerf_torch import config as t_config
+from mc_nerf_torch.data.synthetic import make_dataset
 from mc_nerf_torch.models.nerf import RenderDraws
 from mc_nerf_torch.train import engine as t_engine
 from mc_nerf_torch.train import steps as t_steps
@@ -53,7 +59,7 @@ N_TRAIN, HW = 5, 24
 @pytest.fixture(scope="module")
 def scene_dir(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("scene") / "Tiny_Spheres")
-    make_dataset(d, n_train=N_TRAIN, n_val=2, n_test=2, img_h=HW, img_w=HW, seed=7)
+    j_make_dataset(d, n_train=N_TRAIN, n_val=2, n_test=2, img_h=HW, img_w=HW, seed=7)
     return d
 
 
@@ -94,8 +100,18 @@ def _draws_from_key(key, cfg, stage, culled):
     img_ids = jax.random.randint(k_img, (1,), 0, N_TRAIN)
     pix = jax.random.permutation(jax.random.split(k_pix, 1)[0], HW * HW)[None, :rays]  # hw <= 8R
     kj, kn_c, kn_sel, kn_pdf, kn_f = jax.random.split(k_render, 5)
+    nc = cfg.nerf
+    if cfg.train.fine_mode == "grid":     # models/nerf.py:259-262, :292-305
+        assert not culled
+        sc = nc.samples_coarse
+        render = RenderDraws(
+            _t(jax.random.uniform(kj, (rays, 1), jnp.float32, 0.0, (nc.far - nc.near) / sc)),
+            _t(jax.random.normal(kn_c, (rays, sc))), _t(jax.random.normal(kn_sel, (rays, sc))),
+            None, _t(jax.random.normal(kn_f, (rays, nc.samples_fine))))
+        return t_steps.StepDraws(u_int, u_ext, _t(img_ids, torch.int64), _t(pix, torch.int64),
+                                 render)
     assert culled
-    sc = cfg.nerf.occ_coarse_samples
+    sc = nc.occ_coarse_samples
     render = RenderDraws(_t(jax.random.uniform(kj, (rays, sc))),
                          _t(jax.random.normal(kn_c, (rays, sc))),
                          _t(jax.random.normal(kn_sel, (rays, sc))),
@@ -118,12 +134,19 @@ def _spy(obj, name, record):
     return calls
 
 
-@pytest.fixture(scope="module")
-def both_runs(scene_dir, tmp_path_factory):
+def _fine_mode(cfg, mode):
+    return cfg.replace(train=dataclasses.replace(cfg.train, fine_mode=mode),
+                       eval=dataclasses.replace(cfg.eval, fine_mode=mode))
+
+
+@pytest.fixture(scope="module", params=["importance", "grid"])
+def both_runs(scene_dir, tmp_path_factory, request):
     """The JAX engine and the port's engine through the same 2 + 2 + 2
-    protocol from the same state, the port drawing from the JAX key tree."""
-    jcfg, tcfg = _configs(scene_dir, str(tmp_path_factory.mktemp("both")), (2, 2, 2),
-                          occ_update_every=2, occ_warmup_steps=20)
+    protocol from the same state, in one fine mode, the port drawing from
+    the JAX key tree."""
+    jcfg, tcfg = (_fine_mode(c, request.param) for c in _configs(
+        scene_dir, str(tmp_path_factory.mktemp("both")), (2, 2, 2), occ_update_every=2,
+        occ_warmup_steps=20))
     jeng = j_engine.Engine(jcfg)
     init = jax.tree.map(np.asarray, (jeng.state.params, jeng.state.opt_states, jeng.state.step))
     train_key, spe = jeng.train_key, jeng.steps_per_epoch
@@ -165,7 +188,7 @@ def both_runs(scene_dir, tmp_path_factory):
               for e, p in j_params.items()}
     return dict(jeng=jeng, teng=teng, j_metrics=j_metrics, j_refresh=j_refresh,
                 t_refresh=t_refresh, j_restart=j_restart, t_restart=t_restart, j_kept=j_kept,
-                j_flat=j_flat, t_flat=t_params, jcfg=jcfg)
+                j_flat=j_flat, t_flat=t_params, jcfg=jcfg, mode=request.param)
 
 
 def test_schedule_matches_jax(both_runs):
@@ -176,8 +199,11 @@ def test_schedule_matches_jax(both_runs):
     assert [h["stage"] for h in teng.history] == [r["jcfg"].stages.stage_of_epoch(e)
                                                   for e in range(6)] == [0, 0, 1, 1, 2, 2]
     assert r["t_restart"] == r["j_restart"] == [0]
-    # refreshes: after 2 NeRF epochs (fresh), after 4 (EMA)
-    assert r["t_refresh"] == r["j_refresh"] == [(3, True), (5, False)]
+    # importance: refreshes after 2 NeRF epochs (fresh), after 4 (EMA);
+    # grid: no occupancy map
+    want = [(3, True), (5, False)] if r["mode"] == "importance" else []
+    assert r["t_refresh"] == r["j_refresh"] == want
+    assert (teng.occ_grid is None) == (r["mode"] == "grid")
     assert teng.ckpt.epochs() == r["j_kept"] == [1, 3, 4, 5]
 
 
@@ -288,13 +314,40 @@ def test_demo_of_a_stage0_checkpoint_renders_unculled(run_a, monkeypatch):
     assert {"epoch_1.png", "epoch_1_gt.png", "epoch_2_depth.png"} <= set(os.listdir(out_dir))
 
 
-def test_train_refuses_a_scene_without_a_detection_cache(scene_dir, tmp_path):
-    d = str(tmp_path / "NoCache")
-    shutil.copytree(scene_dir, d)
-    os.remove(os.path.join(d, "calibration_cache.npz"))
+def test_train_refuses_a_scene_without_a_detection_cache(tmp_path):
+    """A scene that ships calib / coord cube images and no detection cache
+    gets the cache make_dataset wrote, from the detector, before training;
+    one whose calib image holds no tag is refused (ref data_read.py:208-212)."""
+    d = str(tmp_path / "Rendered")
+    make_dataset(d, n_train=3, n_val=1, n_test=1, img_h=64, img_w=64, seed=2,
+                 calibration_mode="rendered")
+    cache = os.path.join(d, "calibration_cache.npz")
+    want = dict(np.load(cache))
+    os.remove(cache)
     _, cfg = _configs(d, str(tmp_path / "out"), (1, 0, 0))
-    with pytest.raises(FileNotFoundError, match="Queue 1 item 2"):
+    eng = t_engine.Engine(cfg, device=CPU)
+    eng.train()
+    got = np.load(cache)
+    assert set(got) == set(want) and all(np.array_equal(got[k], want[k]) for k in want)
+    assert eng.state.step == eng.steps_per_epoch == 6
+
+    os.remove(cache)
+    Image.new("RGBA", (64, 64), (255, 255, 255, 255)).save(os.path.join(d, "calib", "r_1.png"))
+    with pytest.raises(ValueError, match="no tags detected in calib image 1"):
         t_engine.Engine(cfg, device=CPU).train()
+    assert not os.path.exists(cache)
+
+
+def test_a_failing_pose_plot_does_not_stop_training(scene_dir, tmp_path, monkeypatch, capfd):
+    def broken(*a, **kw):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(t_engine, "save_pose_plot", broken)
+    _, cfg = _configs(scene_dir, str(tmp_path), (2, 0, 0))
+    eng = t_engine.Engine(cfg, device=CPU)
+    eng.train()
+    assert eng.state.step == 2 * eng.steps_per_epoch and eng.ckpt.epochs() == [0, 1]
+    assert capfd.readouterr().err.count("E] pose plot ") == 2    # logged once a camera table
 
 
 def test_engine_refuses_an_unknown_fine_mode(scene_dir, tmp_path):

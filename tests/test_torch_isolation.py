@@ -1,5 +1,6 @@
-"""The PyTorch port stands alone: no JAX, nothing of the JAX package, and
-no silent fall back to the CPU."""
+"""The PyTorch port stands alone: no JAX, nothing of the JAX package, no
+PyYAML (the port reads its config with its own reader), and no silent fall
+back to the CPU."""
 
 import ast
 import pathlib
@@ -11,7 +12,11 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-BLOCKED = ("jax", "jaxlib", "mc_nerf_tpu")
+BLOCKED = ("jax", "jaxlib", "mc_nerf_tpu", "yaml")
+# modules the walk must reach: the entry, the yaml reader, the detector
+REQUIRED = ("mc_nerf_torch.main", "mc_nerf_torch.__main__", "mc_nerf_torch.yaml_subset",
+            "mc_nerf_torch.config", "mc_nerf_torch.native.apriltag_binding",
+            "mc_nerf_torch.data.cube_render", "mc_nerf_torch.data.tag36h11")
 
 _IMPORT_ALL = f"""
 import importlib, importlib.abc, pkgutil, sys
@@ -29,6 +34,8 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 assert not any(m.split(".")[0] in {BLOCKED!r} for m in sys.modules)
+missing = set({REQUIRED!r}) - set(names)
+assert not missing, missing
 print(len(names))
 """
 
@@ -37,7 +44,7 @@ def test_every_module_imports_without_jax():
     proc = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
 
 
 def _imported_roots(path):
@@ -77,3 +84,6 @@ def test_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch):
         demo(params, split, Config(nerf=nc))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Engine(Config())
+    from mc_nerf_torch.main import main
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(["--train", "--config", "no-such-dir"])

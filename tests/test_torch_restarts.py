@@ -86,8 +86,20 @@ def test_make_dataset_writes_the_same_files(tmp_path, rig):
 
 
 def test_make_dataset_refuses_rendered_calibration(tmp_path):
-    with pytest.raises(ValueError, match="detector"):
-        t_make_dataset(str(tmp_path / "s"), n_train=2, calibration_mode="rendered")
+    """``calibration_mode="rendered"`` writes the cube images and the cache
+    the detector builds from them (>= 2 tags in each calib view, as its
+    re-rolls ask); a mode other than the two is refused.  Parity of the
+    files with the JAX package is ``tests/test_torch_cli.py``'s."""
+    d = str(tmp_path / "s")
+    t_make_dataset(d, n_train=2, n_val=1, n_test=1, img_h=64, img_w=64, seed=4,
+                   calibration_mode="rendered")
+    for split in ("calib", "coord"):
+        assert sorted(os.listdir(os.path.join(d, split))) == ["r_0.png", "r_1.png"]
+    cache = np.load(os.path.join(d, t_calib.CACHE_NAME))
+    assert cache["calib_valid"].sum(1).min() >= 2 and cache["coord_valid"].sum(1).min() >= 1
+    assert cache["calib_pts"].shape == (2, 6, 5, 2)
+    with pytest.raises(ValueError, match="calibration_mode"):
+        t_make_dataset(str(tmp_path / "x"), n_train=2, calibration_mode="detected")
 
 
 # ---------------------------------------------------------------- planar PnP
