@@ -75,7 +75,15 @@ on a reference-format scene.
    pose plot per camera table, finite demos, each kernel's launches on
    its path; then holds each kernel against its plain version on the
    inputs the CLI gave it, with the planted faults at 2x a tolerance or
-   more, and times it.
+   more, and times it; a frame's eval chunk again with its depths spread
+   ``EVAL_SPREAD`` times, where the composite's planted scan fault must
+   show.  Then the coarse-free hybrid through the CLI (GLOBAL_OPTIM
+   two-pass, FINE_TUNE coarse-free, a bitpacked map): ``fused_render``
+   and its two backward launches exactly twice a two-pass step and once
+   a coarse-free one, ``fused_mlp_apply`` never, the coarse MLP's
+   parameters bit-stable through FINE_TUNE; its ``--demo`` with LPIPS on
+   seeded random weights (against the CPU's fp32 value) and with the
+   density PMF; each kernel held on those inputs as above.
 9. Prints the ``kernels`` JSON line, one entry per kernel and path (the
    demo; the train step; the grid demo; the grid train step; the
    fused_mlp VJP; the engine's training steps, validation renders and
@@ -100,6 +108,7 @@ one CUDA card; imports nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -189,6 +198,33 @@ CLI_WEAK_PLANTS = {"skip input dropped": 1.0, "the skip's dfeat share dropped": 
 CLI_VIEWS = (4, 1, 2)
 CLI_CUTS = {"importance stages": (2, 1, 1), "grid stages": (1, 1, 0),
             "occ_warmup_steps": 200, "ckpt_max_keep": 2}
+# the coarse-free CLI phase: the hybrid schedule (GLOBAL_OPTIM two-pass,
+# FINE_TUNE coarse-free) on the bitpacked map, stages 1 + 1 + 1 of the
+# protocol's 20 + 16 + 16, the CLI phase's views and warm-up (a fresh
+# refresh from the coarse MLP follows the GLOBAL_OPTIM epoch); its demo
+# again with the density PMF on a bf16 map.  LPIPS of the demo's views
+# (seeded random weights) against the CPU's fp32 value, the bound of
+# tests/test_lpips.py
+CLI_CF = {"stages": (1, 1, 1),
+          "train": {"coarse_free": "true", "coarse_free_from_stage": 2, "cf_uniform_samples": 8,
+                    "occ_map_dtype": "bitpack"},
+          "density demo": {"coarse_free": "true", "coarse_free_from_stage": 2,
+                           "occ_pmf": "density", "occ_map_dtype": "bfloat16"}}
+LPIPS_RTOL = 2e-4
+# the forward composite's scan one sample late moves a frame's eval chunk
+# by what neighbouring samples along a ray both absorb, which the field
+# decides: on an H100 (PERF.md) 3.4-4.3x RENDER_ATOL on the CLI's two-pass
+# chunks, 0.1x on a tree whose fine samples spread, 0.1-0.8x on the
+# coarse-free chunks (noise-free samples spread over the PMF's support of
+# a barely trained field).  So an eval chunk is held a second time with
+# its depths spread EVAL_SPREAD times from each ray's first sample (the
+# same points, features and basis; every delta, and so every sample's
+# optical depth, times EVAL_SPREAD): there the plant is held with the
+# others at 2x, and on the chunk as the path gave it every plant but it.
+# Spread 4 / 16 / 64 / 256x, the plant landed at 0.2 / 0.9 / 3.3 / 9.3x
+# on the coarse-free demo's chunk (the least of the CLI's five) and the
+# kernel's rgb error fell (4.2e-4 to 2.3e-4)
+EVAL_SPREAD = 256
 
 
 def fail(msg: str) -> None:
@@ -286,6 +322,41 @@ def render_errs(out, w, ref, ref_w) -> dict:
     if ref_w is not None:
         errs["wsel"] = float((w - ref_w).abs().max())
     return errs
+
+
+def hold_render(label: str, a: tuple, tols: dict, plants: bool, failures: list,
+                unplanted: tuple = ()) -> dict:
+    """``fused_render`` on the inputs ``a`` held against its plain version
+    (``hold``), with the planted faults of the other phases but those in
+    ``unplanted`` at 2x (``CLI_WEAK_PLANTS`` at theirs); returns the
+    kernel's errors."""
+    from mc_nerf_torch.ops.cuda.fused_render import fused_render, fused_render_plain
+    from mc_nerf_torch.tools.bwd_check import render_scan_late
+
+    k_out, k_w = fused_render(*a)
+    torch.cuda.synchronize()
+    p_out, p_w = fused_render_plain(*a)
+    planted = {}
+    if plants:
+        pk, feat, basis16, skips, s = a[0], a[1], a[2], a[7], a[8]
+
+        def plain(p=pk, f=feat, b=basis16):
+            return render_errs(*fused_render_plain(p, f, b, *a[3:]), p_out, p_w)
+
+        # neighbouring rays of a frame's chunk see nearly the same points:
+        # the other ray is half the batch away
+        half = basis16.shape[0] // 2
+        faults = {
+            "another ray's points": lambda: plain(
+                f=feat.view(basis16.shape[0], s, -1).roll(half, 0).reshape(feat.shape)),
+            "skip input dropped": lambda: plain(p=drop_skip(pk, skips)),
+            "first layer lost": lambda: plain(p=drop_first(pk)),
+            "another ray's basis": lambda: plain(b=basis16.roll(half, 0)),
+            "scan one sample late": lambda: render_errs(*render_scan_late(*a), p_out, p_w)}
+        planted = {n: f() for n, f in faults.items() if n not in unplanted}
+    e = render_errs(k_out, k_w, p_out, p_w)
+    hold(label, e, tols, planted, 2.0, failures, CLI_WEAK_PLANTS)
+    return e
 
 
 def library_mlp(packed, feat, depth, skips):
@@ -973,10 +1044,10 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
             "calls": calls, "nerf": cfg.nerf}
 
 
-def cli_yaml(res: int, fine_mode: str, stages, warmup: int, out) -> str:
-    """A reference-schema ``config.yaml`` for the CLI phase: ``Config()``'s
+def cli_yaml(res: int, fine_mode: str, stages, warmup: int, out, nerf_extra=None) -> str:
+    """A reference-schema ``config.yaml`` for the CLI phases: ``Config()``'s
     model and sampler widths written out, the phase's cuts, outputs under
-    ``out``."""
+    ``out``, and ``nerf_extra``'s keys under ``model.nerf``."""
     from mc_nerf_torch.config import Config
 
     nc, tc = Config().nerf, Config().train
@@ -1010,7 +1081,7 @@ model:
     occ_grid_size: {nc.occ_grid_size}   # G
     occ_coarse_samples: {nc.occ_coarse_samples}
     occ_warmup_steps: {warmup}
-"""
+""" + "".join(f"    {k}: {v}\n" for k, v in (nerf_extra or {}).items())
 
 
 def cli_phase(dev, smi: str, counters: dict) -> dict:
@@ -1039,17 +1110,11 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
     import pathlib
     import shutil
 
-    import mc_nerf_torch.models.nerf as nerf_module
-    import mc_nerf_torch.ops.cuda.fused_mlp as mlp_module
-    import mc_nerf_torch.ops.cuda.fused_render as render_module
-    import mc_nerf_torch.train.engine as engine_module
-
     from mc_nerf_torch.config import Config
     from mc_nerf_torch.data.blender import load_scene
     from mc_nerf_torch.data.calibration import CACHE_NAME
     from mc_nerf_torch.data.cube import tag_world_points
     from mc_nerf_torch.data.synthetic import make_dataset
-    from mc_nerf_torch.main import main as cli_main
     from mc_nerf_torch.train.engine import STAGE_NAMES
 
     t_phase = time.perf_counter()
@@ -1083,75 +1148,12 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
           f"{CLI_CUTS['ckpt_max_keep']} of 5, {res}x{res} images of 800x800, {n_train} train "
           f"views ({n_train * 50} steps an epoch)", flush=True)
 
-    # the kernels' entry points, recorded by path and shape, each shape's
-    # last call kept: the trained field's (a first NeRF step's untrained
-    # field composites to the white background whatever its MLP computes,
-    # and no planted fault there moves K2's rays); K5 where its launch
-    # starts (its entry point is called inside fused_mlp.py's VJP)
-    where, calls = [None], {}
-    wrapped = {(nerf_module, "fused_render"): lambda a: f"{a[2].shape[0]} rays x {a[8]}",
-               (nerf_module, "fused_mlp_apply"): lambda a: f"{a[1].shape[0]} points",
-               (nerf_module, "fused_shaded_mlp"): lambda a: f"{a[2].shape[0]} rays x {a[5]}",
-               (render_module, "fused_render_bwd"): lambda a: f"{a[3].shape[0]} rays x {a[9]}"}
-    originals = {k: getattr(*k) for k in wrapped}
-    for (module, fn_name), shape_of in wrapped.items():
-        setattr(module, fn_name, engine_recorder(originals[module, fn_name], fn_name, shape_of,
-                                                 where, calls, last=True))
-    shaded_bwd_launch = mlp_module._shaded_bwd_launch
-    record_k5 = engine_recorder(lambda *a: None, "fused_shaded_mlp_bwd",
-                                lambda a: f"{a[3].shape[0]} rays x {a[7]}", where, calls,
-                                last=True)
-
-    def k5_launch(*a):
-        record_k5(*a[:9])           # not the workspace
-        return shaded_bwd_launch(*a)
-
-    mlp_module._shaded_bwd_launch = k5_launch
-    engines, cache_s = [], []
-    engine_train, engine_demo = engine_module.Engine.train, engine_module.Engine.demo
-    build_cache = engine_module.build_calibration_cache
-
-    def train(self, *a, **kw):
-        engines.append(self)
-        return engine_train(self, *a, **kw)
-
-    def demo(self, *a, **kw):
-        engines.append(self)
-        return engine_demo(self, *a, **kw)
-
-    def timed_build(*a, **kw):
-        t = time.perf_counter()
-        out = build_cache(*a, **kw)
-        cache_s.append(time.perf_counter() - t)
-        return out
-
-    engine_module.Engine.train, engine_module.Engine.demo = train, demo
-    engine_module.build_calibration_cache = timed_build
-
-    def cli(path, run, mode):
-        for c in counters.values():
-            c.launches = 0
-        where[0] = path
-        t = time.perf_counter()
-        out = cli_main([mode, "--config", str(work / f"config_{run}"), "--root_data",
-                        str(work / "data"), "--data_name", name])
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t
-        where[0] = None
-        return out, dt, {n: c.launches for n, c in counters.items()}, engines[-1]
-
-    try:
+    with cli_recording(work, name, counters) as (cli, calls, cache_s, _):
         state_i, train_s, l_train, eng_i = cli("cli_train", "importance", "--train")
         demo_i, demo_s, l_demo, _ = cli("cli_demo", "importance", "--demo")
         state_g, train_g_s, l_train_g, eng_g = cli("cli_train_grid", "grid", "--train")
         demo_g, demo_g_s, l_demo_g, _ = cli("cli_demo_grid", "grid", "--demo")
         state_r, resume_s, l_resume, eng_r = cli(None, "importance", "--train")
-    finally:
-        for (module, fn_name), fn in originals.items():
-            setattr(module, fn_name, fn)
-        mlp_module._shaded_bwd_launch = shaded_bwd_launch
-        engine_module.Engine.train, engine_module.Engine.demo = engine_train, engine_demo
-        engine_module.build_calibration_cache = build_cache
 
     # the loader read the widths written out
     if eng_i.cfg.nerf != dataclasses.replace(Config().nerf,
@@ -1236,6 +1238,197 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
     # every counted launch is a recorded call, on the path it was counted on
     counted = {"cli_train": l_train, "cli_demo": l_demo, "cli_train_grid": l_train_g,
                "cli_demo_grid": l_demo_g}
+    check_recorded(calls, counted)
+    shutil.rmtree(work, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"cli phase: {summary['seconds']:.1f} s", flush=True)
+    return {"summary": summary, "calls": calls, "nerf": eng_i.cfg.nerf, "launches": counted}
+
+
+def lpips_weights(path) -> None:
+    """Seeded random LPIPS(alex) weights in the port's ``.npz`` format
+    (``mc_nerf_torch/eval/lpips.py``): the real ones are not in the repo."""
+    rng = np.random.default_rng(SEED)
+    out, cin = {}, 3
+    for i, (cout, k) in enumerate(((64, 11), (192, 5), (384, 3), (256, 3), (256, 3))):
+        out[f"conv{i + 1}_w"] = rng.normal(scale=0.05, size=(k, k, cin, cout)).astype(np.float32)
+        out[f"conv{i + 1}_b"] = rng.normal(scale=0.05, size=(cout,)).astype(np.float32)
+        out[f"lin{i}"] = np.abs(rng.normal(size=(cout,))).astype(np.float32)
+        cin = cout
+    out["shift"] = np.array([-0.030, -0.088, -0.188], np.float32)
+    out["scale"] = np.array([0.458, 0.448, 0.450], np.float32)
+    np.savez(path, **out)
+
+
+def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
+    """The CLI's coarse-free paths on a scene of its own
+    (``make_dataset(calibration_mode="rendered")``, the CLI phase's views
+    and cuts, its cache deleted so that the engine builds it), with the
+    weights of ``CLI_CF``: ``cli_train_cf`` (``--train`` under the hybrid
+    schedule on the bitpacked map: GLOBAL_OPTIM two-pass, FINE_TUNE
+    coarse-free, the refresh from the coarse MLP), ``cli_demo_cf``
+    (``--demo`` of its checkpoint, coarse-free, LPIPS scored with seeded
+    random weights that ``$MC_NERF_LPIPS_WEIGHTS`` points at) and
+    ``cli_demo_density`` (the same checkpoint's ``--demo`` with the
+    density PMF: demo mode is exempt from the training refusal).  Checks,
+    each path's launches counted from 0 just before it: per training
+    epoch, ``fused_render``, ``render_bwd_points`` and
+    ``render_bwd_weights`` exactly 2 per GLOBAL_OPTIM step and 1 per
+    FINE_TUNE step; the validation renders' ``fused_render`` launches one
+    per eval chunk; ``fused_mlp_apply`` (K1) never, on every path (every
+    eval render is coarse-free); the coarse MLP's slice of ``p_flat``
+    bit-identical before and after the FINE_TUNE epoch (and moved by the
+    GLOBAL_OPTIM one); the demos finite; each demo view's LPIPS on the
+    card within ``LPIPS_RTOL`` of the CPU's fp32 value on the same
+    images; every launch a recorded call."""
+    import os
+    import pathlib
+    import shutil
+    import tempfile
+
+    import mc_nerf_torch.train.engine as engine_module
+    from mc_nerf_torch.data.calibration import CACHE_NAME
+    from mc_nerf_torch.data.synthetic import make_dataset
+    from mc_nerf_torch.eval import lpips as lpips_net
+    from mc_nerf_torch.train.engine import STAGE_NAMES
+
+    t_phase = time.perf_counter()
+    work = pathlib.Path(__file__).resolve().parent / "build" / f"cli_cf_smoke_{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    res, (n_train, n_val, n_test), name = ENGINE_RES, CLI_VIEWS, "Ball_Cf"
+    t0 = time.perf_counter()
+    make_dataset(str(work / "data" / name), n_train=n_train, n_val=n_val, n_test=n_test,
+                 img_h=res, img_w=res, seed=SEED, calibration_mode="rendered")
+    dataset_s = time.perf_counter() - t0
+    os.remove(work / "data" / name / CACHE_NAME)
+    stages, warmup = CLI_CF["stages"], CLI_CUTS["occ_warmup_steps"]
+    for run, extra in (("cf", CLI_CF["train"]), ("density", CLI_CF["density demo"])):
+        (work / f"config_{run}").mkdir(parents=True)
+        (work / f"config_{run}" / "config.yaml").write_text(
+            cli_yaml(res, "importance", stages, warmup, work / "cf", extra))
+    print(f"cli_cf: the reference-format scene ({n_train} + {n_val} + {n_test} views at "
+          f"{res}x{res}) written in {dataset_s:.2f} s; Config() widths, {CLI_CF['train']}, "
+          f"stages {stages} of (20, 16, 16), occ_warmup_steps {warmup} of 3000", flush=True)
+
+    lpips_seen = []
+    lpips_fn = engine_module.lpips
+
+    def timed_lpips(pred, gt, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = lpips_fn(pred, gt, *a)
+        lpips_seen.append((pred.detach().cpu(), gt.detach().cpu(), out,
+                           time.perf_counter() - t))
+        return out
+
+    env = os.environ.get(lpips_net.ENV_VAR)
+    with tempfile.TemporaryDirectory() as tmp, \
+            cli_recording(work, name, counters) as (cli, calls, cache_s, epochs):
+        weights = os.path.join(tmp, "lpips_alex_seeded.npz")
+        lpips_weights(weights)
+        state, train_s, l_train, eng = cli("cli_train_cf", "cf", "--train")
+        os.environ[lpips_net.ENV_VAR] = weights
+        engine_module.lpips = timed_lpips
+        try:
+            demo_cf, demo_s, l_demo, _ = cli("cli_demo_cf", "cf", "--demo")
+        finally:
+            engine_module.lpips = lpips_fn
+            if env is None:
+                os.environ.pop(lpips_net.ENV_VAR)
+            else:
+                os.environ[lpips_net.ENV_VAR] = env
+        demo_d, demo_d_s, l_density, eng_d = cli("cli_demo_density", "density", "--demo")
+        lpips_cpu = [float(lpips_net.lpips_distance(lpips_net.load(weights), p, g))
+                     for p, g, _, _ in lpips_seen]
+
+    nc = eng.cfg.nerf
+    if not (nc.coarse_free and nc.coarse_free_from_stage == 2 and nc.occ_map_dtype == "bitpack"
+            and nc.cf_uniform_samples == 8 and eng_d.cfg.nerf.occ_pmf == "density"):
+        fail(f"the coarse-free CLI configs were not read: {nc}, {eng_d.cfg.nerf}")
+    spe = eng.steps_per_epoch
+    summary = {"dataset_s": dataset_s, "cache_build_s": cache_s[0], "train_s": train_s,
+               "steps_per_epoch": spe, "epochs": eng.history, "step_ms": {}, "rays_per_s": {}}
+    for h in eng.history:
+        stage = STAGE_NAMES[h["stage"]]
+        summary["step_ms"][stage] = h["seconds"] / spe * 1e3
+        summary["rays_per_s"][stage] = h["rays_per_s"]
+        print(f"cli_cf {stage} {h['epoch']}: loss {h['loss']:.6f} rgb_c {h['loss_rgb_c']:.5f} "
+              f"rgb_f {h['loss_rgb_f']:.5f}; {h['seconds']:.3f} s ({h['seconds'] / spe * 1e3:.2f}"
+              f" ms a step, {h['rays_per_s']:.0f} rays/s)"
+              + (f"; val PSNR {h['val_psnr']:.3f}" if "val_psnr" in h else "") + f" ({smi})",
+              flush=True)
+        if not all(math.isfinite(h[k]) for k in ("loss", "loss_rgb_c", "loss_rgb_f")):
+            fail(f"cli_cf epoch {h['epoch']} is not finite: {h}")
+        if h["stage"] and (h["stage"] == 2) != (h["loss_rgb_c"] == 0.0):
+            fail(f"cli_cf epoch {h['epoch']}: rgb_c {h['loss_rgb_c']} in stage {h['stage']}")
+    if state.step != spe * sum(stages) or len(eng.history) != sum(stages):
+        fail(f"cli_cf ran {state.step} steps over {len(eng.history)} epochs")
+
+    # per training epoch: 2 launches a two-pass step, 1 a coarse-free step
+    trained = [(stage, n) for path, stage, n in epochs if path == "cli_train_cf"]
+    per_step = {0: 0, 1: 2, 2: 1}
+    for stage, n in trained:
+        want = {k: per_step[stage] * spe if k in ("fused_render", "render_bwd_points",
+                                                    "render_bwd_weights") else 0 for k in n}
+        if n != want:
+            fail(f"cli_train_cf {STAGE_NAMES[stage]}: launches {n}, wanted {want}")
+    if [s for s, _ in trained] != [0, 1, 2]:
+        fail(f"cli_train_cf trained stages {[s for s, _ in trained]}")
+    val = {k: l_train[k] - sum(n[k] for _, n in trained) for k in l_train}
+    chunks = -(-res * res // eng.cfg.eval.rays_per_chunk)
+    if val != {k: (2 * chunks if k == "fused_render" else 0) for k in val}:
+        fail(f"cli_train_cf validation launches {val}: {chunks} fused_render a view wanted")
+    for path, launches in (("cli_demo_cf", l_demo), ("cli_demo_density", l_density)):
+        if not (launches["fused_render"] > 0
+                and all(v == 0 for k, v in launches.items() if k != "fused_render")):
+            fail(f"{path} launches {launches}: fused_render only (K1 never) wanted")
+    print(f"cli_train_cf: {train_s:.2f} s; launches {l_train} (by epoch {trained}, validation "
+          f"{val}); cache built in {cache_s[0]:.3f} s", flush=True)
+
+    # the coarse MLP: moved by GLOBAL_OPTIM, frozen through FINE_TUNE
+    flat = {e: torch.load(os.path.join(eng.ckpt_dir, str(e), "state.pt"),
+                          weights_only=True)["p_flat"] for e in range(3)}
+    n_cam = sum(p.numel() for p in eng.state.params.cam.parameters())
+    coarse = slice(n_cam, n_cam + sum(p.numel() for p in eng.state.params.nerf.coarse.parameters()))
+    frozen = torch.equal(flat[1][coarse], flat[2][coarse])
+    if not frozen or torch.equal(flat[0][coarse], flat[1][coarse]):
+        fail("cli_cf: the coarse MLP moved in FINE_TUNE, or stood still in GLOBAL_OPTIM")
+
+    # the demos, and LPIPS on the card against the CPU's fp32 value
+    for path, result, dt in (("cli_demo_cf", demo_cf, demo_s), ("cli_demo_density", demo_d,
+                                                                demo_d_s)):
+        print(f"{path}: {result} in {dt:.2f} s ({smi})", flush=True)
+        if not (result["count"] == n_test and math.isfinite(result["psnr"])
+                and math.isfinite(result["ssim"])):
+            fail(f"{path} result is not finite: {result}")
+    if demo_d["lpips"] is not None:
+        fail("cli_demo_density scored LPIPS without a weights file")
+    card = [lp for _, _, lp, _ in lpips_seen]
+    rel = [abs(a - b) / abs(b) for a, b in zip(card, lpips_cpu)]
+    print(f"cli_demo_cf LPIPS (seeded random weights) per view on the card {card}, on the CPU "
+          f"{lpips_cpu}: relative error {max(rel):.3e} (bound {LPIPS_RTOL}); "
+          f"{sum(t for *_, t in lpips_seen) * 1e3:.1f} ms over {len(card)} views", flush=True)
+    if len(card) != n_test or demo_cf["lpips"] is None or not max(rel) <= LPIPS_RTOL:
+        fail(f"cli_demo_cf LPIPS {demo_cf['lpips']}: card {card} against CPU {lpips_cpu}")
+
+    counted = {"cli_train_cf": l_train, "cli_demo_cf": l_demo, "cli_demo_density": l_density}
+    check_recorded(calls, counted)
+    shutil.rmtree(work, ignore_errors=True)
+    summary.update({"demo_cf_s": demo_s, "demo_density_s": demo_d_s,
+                    "demo_cf": {k: demo_cf[k] for k in ("psnr", "ssim", "lpips")},
+                    "demo_density": {k: demo_d[k] for k in ("psnr", "ssim")},
+                    "lpips_card": card, "lpips_cpu": lpips_cpu, "lpips_rel_err": max(rel),
+                    "lpips_s": sum(t for *_, t in lpips_seen), "coarse_frozen": frozen,
+                    "launches_by_epoch": trained, "validation_launches": val,
+                    "seconds": time.perf_counter() - t_phase})
+    print(f"cli_cf phase: {summary['seconds']:.1f} s", flush=True)
+    return {"summary": summary, "calls": calls, "nerf": nc, "launches": counted,
+            "nerf_steps": spe * sum(stages[1:])}
+
+
+def check_recorded(calls: dict, counted: dict) -> None:
+    """Every launch counted on a path is a call ``engine_recorder``
+    recorded there."""
     for path, got in counted.items():
         seen = {n: sum(c["n"] for c in calls.get((path, n), {}).values())
                 for n in ("fused_render", "fused_mlp_apply", "fused_render_bwd",
@@ -1246,10 +1439,104 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
                 "fused_shaded_mlp_bwd": got["fused_shaded_mlp_bwd"]}
         if seen != want:
             fail(f"{path}: recorded calls {seen} are not the launches counted {got}")
-    shutil.rmtree(work, ignore_errors=True)
-    summary["seconds"] = time.perf_counter() - t_phase
-    print(f"cli phase: {summary['seconds']:.1f} s", flush=True)
-    return {"summary": summary, "calls": calls, "nerf": eng_i.cfg.nerf, "launches": counted}
+
+
+@contextlib.contextmanager
+def cli_recording(work, name: str, counters: dict):
+    """Instruments ``mc_nerf_torch.main.main`` for a CLI phase and yields
+    ``(cli, calls, cache_s, epochs)``.  ``cli(path, run, mode)`` runs
+    ``main([mode, "--config", work/config_<run>, ...])`` on the scene
+    ``work/data/<name>`` with every count in ``counters`` set to 0 just
+    before, and returns (its result, seconds, the launches counted, the
+    engine).  While it runs, the kernels' entry points are recorded by
+    path and shape into ``calls`` (``engine_recorder``, each shape's last
+    call kept: the trained field's; a first NeRF step's untrained field
+    composites to the white background whatever its MLP computes, and no
+    planted fault there moves K2's rays; K5 where its launch starts, its
+    entry point being called inside fused_mlp.py's VJP), the engine's
+    detection-cache builds are timed into ``cache_s``, and each training
+    epoch's launches are appended to ``epochs`` as (path, stage,
+    {kernel: launches}).  Everything is restored on exit."""
+    import mc_nerf_torch.models.nerf as nerf_module
+    import mc_nerf_torch.ops.cuda.fused_mlp as mlp_module
+    import mc_nerf_torch.ops.cuda.fused_render as render_module
+    import mc_nerf_torch.train.engine as engine_module
+    from mc_nerf_torch.main import main as cli_main
+
+    where, calls, epochs = [None], {}, []
+    wrapped = {(nerf_module, "fused_render"): lambda a: f"{a[2].shape[0]} rays x {a[8]}",
+               (nerf_module, "fused_mlp_apply"): lambda a: f"{a[1].shape[0]} points",
+               (nerf_module, "fused_shaded_mlp"): lambda a: f"{a[2].shape[0]} rays x {a[5]}",
+               (render_module, "fused_render_bwd"): lambda a: f"{a[3].shape[0]} rays x {a[9]}"}
+    originals = {k: getattr(*k) for k in wrapped}
+    for (module, fn_name), shape_of in wrapped.items():
+        setattr(module, fn_name, engine_recorder(originals[module, fn_name], fn_name, shape_of,
+                                                 where, calls, last=True))
+    shaded_bwd_launch = mlp_module._shaded_bwd_launch
+    record_k5 = engine_recorder(lambda *a: None, "fused_shaded_mlp_bwd",
+                                lambda a: f"{a[3].shape[0]} rays x {a[7]}", where, calls,
+                                last=True)
+
+    def k5_launch(*a):
+        record_k5(*a[:9])           # not the workspace
+        return shaded_bwd_launch(*a)
+
+    mlp_module._shaded_bwd_launch = k5_launch
+    engines, cache_s = [], []
+    engine_train, engine_demo = engine_module.Engine.train, engine_module.Engine.demo
+    build_cache = engine_module.build_calibration_cache
+
+    def train(self, *a, **kw):
+        engines.append(self)
+        epoch_fn = self._epoch_fn
+
+        def counted_epoch_fn(stage):
+            fn = epoch_fn(stage)
+
+            def run(*args):
+                before = {n: c.launches for n, c in counters.items()}
+                out = fn(*args)
+                epochs.append((where[0], stage, {n: c.launches - before[n]
+                                                 for n, c in counters.items()}))
+                return out
+            return run
+
+        self._epoch_fn = counted_epoch_fn
+        return engine_train(self, *a, **kw)
+
+    def demo(self, *a, **kw):
+        engines.append(self)
+        return engine_demo(self, *a, **kw)
+
+    def timed_build(*a, **kw):
+        t = time.perf_counter()
+        out = build_cache(*a, **kw)
+        cache_s.append(time.perf_counter() - t)
+        return out
+
+    engine_module.Engine.train, engine_module.Engine.demo = train, demo
+    engine_module.build_calibration_cache = timed_build
+
+    def cli(path, run, mode):
+        for c in counters.values():
+            c.launches = 0
+        where[0] = path
+        t = time.perf_counter()
+        out = cli_main([mode, "--config", str(work / f"config_{run}"), "--root_data",
+                        str(work / "data"), "--data_name", name])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        where[0] = None
+        return out, dt, {n: c.launches for n, c in counters.items()}, engines[-1]
+
+    try:
+        yield cli, calls, cache_s, epochs
+    finally:
+        for (module, fn_name), fn in originals.items():
+            setattr(module, fn_name, fn)
+        mlp_module._shaded_bwd_launch = shaded_bwd_launch
+        engine_module.Engine.train, engine_module.Engine.demo = engine_train, engine_demo
+        engine_module.build_calibration_cache = build_cache
 
 
 def engine_recorder(fn, name: str, shape_of, where: list, calls: dict, last: bool = False):
@@ -1335,18 +1622,18 @@ def path_kernel_numbers(calls: dict, nc, rng, render_tol: dict, mlp_tol: dict,
     kernels are timed over ``ENGINE_ITERS`` calls, after a collection of
     the paths' garbage: on an H100, 5 calls of the engine's fine K2 once
     measured 1.251 ms, 20 calls 0.646 (the train-step phase's K2 0.627
-    over 5, on a bf16 pack).  Returns {(path, kernel):
-    {shape: numbers with the shape's "launches" and "max_abs_err"}}."""
+    over 5, on a bf16 pack).  An eval chunk of ``fused_render`` (no
+    noise) is held again with its depths spread (``EVAL_SPREAD``).
+    Returns {(path, kernel): {shape: numbers with the shape's "launches"
+    and "max_abs_err"}}."""
     import gc
 
     from mc_nerf_torch.ops.cuda.fused_mlp import (
         PackedMLP, fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd,
         fused_shaded_mlp_bwd_plain, fused_shaded_mlp_plain, mlp_plain)
-    from mc_nerf_torch.ops.cuda.fused_render import (
-        fused_render, fused_render_bwd, fused_render_bwd_plain, fused_render_plain)
+    from mc_nerf_torch.ops.cuda.fused_render import fused_render_bwd, fused_render_bwd_plain
     from mc_nerf_torch.tools.bwd_check import (
-        bwd_errs, mixed_in_tiles, pair_swapped, planted_errs, planted_errs_shaded,
-        render_scan_late)
+        bwd_errs, mixed_in_tiles, pair_swapped, planted_errs, planted_errs_shaded)
 
     out = {}
     gc.collect()
@@ -1372,29 +1659,13 @@ def path_kernel_numbers(calls: dict, nc, rng, render_tol: dict, mlp_tol: dict,
                                "max_abs_err": float((ker - ref).abs().max())}}
             elif name == "fused_render":
                 with torch.no_grad():
-                    k_out, k_w = fused_render(*a)
-                    torch.cuda.synchronize()
-                    p_out, p_w = fused_render_plain(*a)
-                    if plants:
-                        pk, feat, basis16, skips, s = a[0], a[1], a[2], a[7], a[8]
-
-                        def plain(p=pk, f=feat, b=basis16):
-                            return render_errs(*fused_render_plain(p, f, b, *a[3:]), p_out, p_w)
-
-                        # neighbouring rays of a frame's chunk see nearly the
-                        # same points: the other ray is half the batch away
-                        half = basis16.shape[0] // 2
-                        planted = {
-                            "another ray's points": plain(
-                                f=feat.view(basis16.shape[0], s, -1).roll(half, 0)
-                                .reshape(feat.shape)),
-                            "skip input dropped": plain(p=drop_skip(pk, skips)),
-                            "first layer lost": plain(p=drop_first(pk)),
-                            "another ray's basis": plain(b=basis16.roll(half, 0)),
-                            "scan one sample late": render_errs(*render_scan_late(*a), p_out,
-                                                                p_w)}
-                e = render_errs(k_out, k_w, p_out, p_w)
-                hold(label, e, render_tol, planted, 2.0, failures, CLI_WEAK_PLANTS)
+                    e = hold_render(label, a, render_tol, plants, failures,
+                                    ("scan one sample late",) if a[4] is None else ())
+                    if plants and a[4] is None:
+                        z, k = a[3], EVAL_SPREAD
+                        hold_render(f"{label}, depths spread {k}x",
+                                    (*a[:3], z[:, :1] + (z - z[:, :1]) * k, *a[4:]),
+                                    {**render_tol, "depth": DEPTH_ATOL * k}, plants, failures)
                 nums = {name: {**render_forward_numbers(nc, a, ENGINE_ITERS),
                                "max_abs_err": max(e.values())}}
             elif name == "fused_shaded_mlp":
@@ -1828,7 +2099,7 @@ def main() -> None:
         render_bwd_weights)
     from mc_nerf_torch.tools.bwd_check import mixed_in_tiles, pair_swapped, render_scan_late
     from mc_nerf_torch.tools.scene import LEGO_FOV, orbit_views, scene_params
-    from mc_nerf_torch.train.engine import demo, refresh_occupancy
+    from mc_nerf_torch.train.engine import STAGE_NAMES, demo, refresh_occupancy
     from mc_nerf_torch.train.steps import make_render_fn
 
     # full fp32 for the plain versions: TF32 would blur the comparison
@@ -2074,6 +2345,11 @@ def main() -> None:
         fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, fused_shaded_mlp,
         fused_shaded_mlp_bwd)})
 
+    # ---- the CLI's coarse-free paths: the hybrid schedule, its demos, LPIPS
+    cli_cf = cli_cf_phase(dev, smi, {k.__name__: k for k in (
+        fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, fused_shaded_mlp,
+        fused_shaded_mlp_bwd)})
+
     replaces = {"fused_mlp_apply": "mc_nerf_tpu/ops/pallas/fused_mlp.py:241",
                 "fused_render": "mc_nerf_tpu/ops/pallas/fused_render.py:211",
                 "render_bwd_points": "mc_nerf_tpu/ops/pallas/fused_render.py:290",
@@ -2157,6 +2433,28 @@ def main() -> None:
                ("cli_demo_grid", "fused_shaded_mlp")}
     if wanted - set(cli_numbers):
         fail(f"kernels not checked on their CLI paths: {sorted(wanted - set(cli_numbers))}")
+    # the coarse-free paths: K2 and K3 on the inputs the hybrid schedule's
+    # two-pass and coarse-free steps, its validation and both demos gave
+    failures = []
+    cf_numbers = path_kernel_numbers(cli_cf["calls"], cli_cf["nerf"], rng, render_tol, mlp_tol,
+                                     plants=True, failures=failures)
+    if failures:
+        fail("the coarse-free CLI paths' kernel checks failed: " + "; ".join(failures))
+    spe = cli_cf["summary"]["steps_per_epoch"]
+    for (path, name), shapes in cf_numbers.items():
+        numbers = per_launch_over_shapes(shapes)
+        by_stage = ({STAGE_NAMES[stage]: n[name] / spe
+                     for stage, n in cli_cf["summary"]["launches_by_epoch"] if stage}
+                    if path == "cli_train_cf" else None)
+        kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
+                        "replaces": replaces[name], **numbers,
+                        **({"launches_per_step_by_stage": by_stage} if by_stage else {})})
+    wanted = {("cli_train_cf", n) for n in ("fused_render", "render_bwd_points",
+                                            "render_bwd_weights")}
+    wanted |= {("cli_demo_cf", "fused_render"), ("cli_demo_density", "fused_render")}
+    if set(cf_numbers) != wanted:
+        fail(f"kernels checked on the coarse-free CLI paths {sorted(cf_numbers)}, "
+             f"wanted {sorted(wanted)}")
     print(json.dumps({"grid_demo": {k: v for k, v in grid_demo.items() if k != "numbers"},
                       "grid_train": {k: v for k, v in grid_train.items() if k != "launches"},
                       "grid_train_launches": grid_train["launches"],
@@ -2172,6 +2470,8 @@ def main() -> None:
                                  if not k.endswith("launches") and k not in ("calls", "nerf")},
                       "card": smi}))
     print(json.dumps({"cli": cli["summary"], "cli_launches": cli["launches"], "card": smi}))
+    print(json.dumps({"cli_cf": cli_cf["summary"], "cli_cf_launches": cli_cf["launches"],
+                      "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

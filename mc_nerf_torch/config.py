@@ -7,11 +7,10 @@ to the fields the ported code reads or the loader sets (``barf_mask``,
 reads, are not carried).  :func:`load_yaml`
 reads the reference's ``config.yaml`` schema with the port's own reader
 (:mod:`mc_nerf_torch.yaml_subset`, no PyYAML), and :func:`build_argparser`
-/ :func:`from_args` give the reference's CLI flags.  Keys of modes the
-port lacks (coarse-free rendering, the density PMF, the bitpacked map)
-raise when set to anything but their default; ``max_steps_per_program``
-and ``prng_impl`` (XLA's program size, JAX's PRNG) are logged and not
-applied.  ``ParallelConfig`` comes with data parallelism.
+/ :func:`from_args` give the reference's CLI flags.  Every key the JAX
+loader reads is applied but ``max_steps_per_program`` and ``prng_impl``
+(XLA's program size, JAX's PRNG), which are logged and not applied.
+``ParallelConfig`` comes with data parallelism.
 """
 
 from __future__ import annotations
@@ -148,7 +147,47 @@ class NerfConfig:
     occ_probes: int = 64             # per-ray occupancy probes across [near, far]
     occ_coarse_samples: int = 48     # coarse samples/ray under culling
     occ_dilate: bool = True          # 3^3 max-pool safety margin
-    occ_map_dtype: str = "bfloat16"  # "bfloat16" | "int8" ("bitpack" not ported yet)
+    # layout of the binary map: "bfloat16" / "int8" (one cell a lane) or
+    # "bitpack" (32 z cells a 32-bit word)
+    occ_map_dtype: str = "bfloat16"
+    # coarse-free rendering: the fine depths come straight from the
+    # occupancy PMF and the coarse pass is skipped (train and eval); the
+    # coarse MLP stops training and the rgb_c loss term drops.  Needs
+    # occ_grid_size > 0 and fine_mode="importance"
+    coarse_free: bool = False
+    # first NeRF stage that runs coarse-free: 1 = GLOBAL_OPTIM (all NeRF
+    # training), 2 = FINE_TUNE only (the hybrid schedule)
+    coarse_free_from_stage: int = 1
+    # sampling PMF: "binary" (occupancy + floor) or "density" (T * alpha
+    # of the probed EMA density; needs occ_map_dtype="bfloat16"; refused
+    # for training unless allow_measured_harmful)
+    occ_pmf: str = "binary"
+    # the MLP the refresh probes in coarse-free stages: "coarse", "fine",
+    # or "auto" (coarse when a trained coarse exists, i.e. the hybrid)
+    occ_refresh_source: str = "auto"
+    # coarse-free training: this many of the K fine samples are stratified
+    # uniform over [near, far] instead of PMF draws (0 disables)
+    cf_uniform_samples: int = 0
+    # lifts the engine's refusal of the training configurations measured
+    # to collapse (coarse-free from stage 1, the density PMF)
+    allow_measured_harmful: bool = False
+
+    def coarse_free_at(self, stage: int) -> bool:
+        """Is the renderer coarse-free at this engine stage (0 = CAM_PARAM,
+        1 = GLOBAL_OPTIM, 2 = FINE_TUNE)?  Eval follows
+        :attr:`Config.eval_coarse_free`."""
+        return self.coarse_free and stage >= self.coarse_free_from_stage
+
+    def refresh_source(self, stage: int) -> str:
+        """The MLP ("coarse" / "fine") the occupancy refresh probes at this
+        stage: the coarse in two-pass stages, ``occ_refresh_source`` in
+        coarse-free ones ("auto": the coarse under the hybrid schedule,
+        else the fine, the only one that trains)."""
+        if not self.coarse_free_at(stage):
+            return "coarse"
+        if self.occ_refresh_source != "auto":
+            return self.occ_refresh_source
+        return "fine" if self.coarse_free_from_stage == 1 else "coarse"
 
     @property
     def samples_fine_grid(self) -> int:
@@ -179,6 +218,10 @@ class EvalConfig:
     fine_mode: str = "importance"    # "importance" | "grid" (reference-faithful)
     importance_samples: int = 32     # fine samples/ray for fine_mode="importance"
     use_pallas: Optional[bool] = None  # kernel route; None = the kernel route
+    # coarse-free eval override: None follows nerf.coarse_free; False
+    # renders a coarse-free-trained model two-pass; True renders from the
+    # occupancy PMF alone (needs occupancy culling)
+    coarse_free: Optional[bool] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,19 +263,17 @@ class Config:
         """<data_root>/<data_name>, the directory holding transforms_*.json."""
         return os.path.join(self.data_root, self.data_name)
 
+    @property
+    def eval_coarse_free(self) -> bool:
+        """Whether eval and demo renders are coarse-free (``eval.coarse_free``
+        if set, else ``nerf.coarse_free``)."""
+        ecf = self.eval.coarse_free
+        return self.nerf.coarse_free if ecf is None else ecf
+
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
 
 
-# yaml keys of modes the port lacks, with the default each must keep:
-# (section, key) under system (test_params) or model.nerf
-_UNPORTED = ((("model", "nerf", "coarse_free"), False),
-             (("model", "nerf", "coarse_free_from_stage"), 1),
-             (("model", "nerf", "occ_pmf"), "binary"),
-             (("model", "nerf", "occ_refresh_source"), "auto"),
-             (("model", "nerf", "cf_uniform_samples"), 0),
-             (("model", "nerf", "allow_measured_harmful"), False),
-             (("system", "test_params", "coarse_free"), None))
 # yaml keys of the JAX package's XLA program size and PRNG: read, not applied
 _NOT_APPLIED = (("system", "train_params", "max_steps_per_program"),
                 ("system", "train_params", "prng_impl"))
@@ -246,21 +287,8 @@ def _get(d, *keys, default=None):
     return d
 
 
-def _refuse_unported(raw: dict) -> None:
-    """Raise for a key of a mode the port lacks set to a value other than
-    its default; log each key that is read and not applied."""
-    def refuse(path, value):
-        raise ValueError(
-            f"config key {'.'.join(path)}: {value!r} selects a sampling mode the port does "
-            "not have yet (coarse-free rendering, the density PMF, the bitpacked map: "
-            "ROADMAP Queue 1 item 3)")
-
-    for path, default in _UNPORTED:
-        value = _get(raw, *path, default=default)
-        if value != default:
-            refuse(path, value)
-    if _get(raw, "model", "nerf", "occ_map_dtype") == "bitpack":
-        refuse(("model", "nerf", "occ_map_dtype"), "bitpack")
+def _log_not_applied(raw: dict) -> None:
+    """Log each key that is read and not applied."""
     for path in _NOT_APPLIED:
         if _get(raw, *path) is not None:
             logging.warning("config key %s is not applied: it sizes the JAX package's XLA "
@@ -275,7 +303,7 @@ def load_yaml(path: str, base: Optional[Config] = None) -> Config:
     cfg = base or Config()
     with open(path, "r", encoding="utf-8") as f:
         raw = _yaml_loads(f.read()) or {}
-    _refuse_unported(raw)
+    _log_not_applied(raw)
     sys_info = raw.get("system", {})
     model = raw.get("model", {})
     get = _get
@@ -339,6 +367,12 @@ def load_yaml(path: str, base: Optional[Config] = None) -> Config:
         occ_coarse_samples=nf("occ_coarse_samples", n.occ_coarse_samples),
         occ_dilate=nf("occ_dilate", n.occ_dilate),
         occ_map_dtype=nf("occ_map_dtype", n.occ_map_dtype),
+        coarse_free=nf("coarse_free", n.coarse_free),
+        occ_pmf=nf("occ_pmf", n.occ_pmf),
+        coarse_free_from_stage=nf("coarse_free_from_stage", n.coarse_free_from_stage),
+        occ_refresh_source=nf("occ_refresh_source", n.occ_refresh_source),
+        cf_uniform_samples=nf("cf_uniform_samples", n.cf_uniform_samples),
+        allow_measured_harmful=nf("allow_measured_harmful", n.allow_measured_harmful),
     )
     tst = lambda key, default: get(sys_info, "test_params", key, default=default)
     evalc = dataclasses.replace(
@@ -351,6 +385,7 @@ def load_yaml(path: str, base: Optional[Config] = None) -> Config:
         importance_samples=tst("importance_samples", cfg.eval.importance_samples),
         rays_per_chunk=tst("rays_per_chunk", cfg.eval.rays_per_chunk),
         use_pallas=tst("use_pallas", cfg.eval.use_pallas),
+        coarse_free=tst("coarse_free", cfg.eval.coarse_free),
     )
     paths = dataclasses.replace(
         cfg.paths,

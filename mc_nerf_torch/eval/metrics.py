@@ -3,12 +3,13 @@
 * PSNR: -10*log10(MSE) over [0, 1] images (ref ``main.py:220-228``).
 * SSIM: 11x11 Gaussian window (sigma 1.5), C1=0.01^2, C2=0.03^2 — the
   reference's ``pytorch_ssim`` algorithm, as a depthwise convolution.
-* LPIPS: needs converted AlexNet weights that are not in the repository;
-  :func:`lpips` returns None, as the JAX package does without weights.
+* LPIPS(alex) (:mod:`mc_nerf_torch.eval.lpips`) where a weights file is
+  found, else None, as the JAX package does without weights.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -61,7 +62,24 @@ def ssim(pred: torch.Tensor, gt: torch.Tensor, window_size: int = 11,
     return torch.mean(ssim_map)
 
 
+@functools.lru_cache(maxsize=2)
+def _lpips_model(path: str, device: str):
+    from mc_nerf_torch.eval import lpips as lpips_net
+
+    return lpips_net.load(path, device)
+
+
 def lpips(pred, gt, weights_path: Optional[str] = None) -> Optional[float]:
-    """LPIPS(alex) needs converted AlexNet weights the repository does not
-    hold; returns None (reported as "n/a") until they are added."""
-    return None
+    """LPIPS(alex) between two [H, W, 3] images in [0, 1] (tensors or
+    arrays; computed on ``pred``'s device) if a weights file is found (see
+    :mod:`mc_nerf_torch.eval.lpips`), else None.  The model loads once per
+    file and device (cached), not once per image as the reference's
+    ``lpips.LPIPS(net="alex")`` at ``main.py:239`` does."""
+    from mc_nerf_torch.eval import lpips as lpips_net
+
+    path = lpips_net.weights_file(weights_path)
+    if path is None:
+        return None
+    pred = torch.as_tensor(pred)
+    gt = torch.as_tensor(gt, device=pred.device)
+    return float(lpips_net.lpips_distance(_lpips_model(path, str(pred.device)), pred, gt))

@@ -16,7 +16,11 @@ top-k bins of the fine grid), by two routes:
   (importance) or ``fused_shaded_mlp`` (grid), hand-written forward and
   backward kernels, on an fp32 pack.
 
-The coarse-free branch waits for a later slice.
+Both renders also have the coarse-free branch (``coarse_free=True``,
+importance mode with an occupancy map): the fine depths come straight
+from the occupancy PMF (``proposal_pmf``; in training the mixture of
+:func:`mixture_samples`), no coarse pass runs, and the fine pass is the
+two-pass renders' own.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from mc_nerf_torch.ops.cuda.fused_mlp import (
     pack_mlp_params,
 )
 from mc_nerf_torch.ops.cuda.fused_render import fused_render
-from mc_nerf_torch.ops.occupancy import proposal_pmf
+from mc_nerf_torch.ops.occupancy import mixture_samples, mixture_split, proposal_pmf
 from mc_nerf_torch.ops.volume import (
     composite,
     compute_deltas,
@@ -212,6 +216,7 @@ def render_rays_eval(
     importance_samples: int = 64,
     packed: Optional[Tuple[PackedMLP, PackedMLP]] = None,
     occ: Optional[torch.Tensor] = None,
+    coarse_free: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Eval render: no jitter, no sigma noise (ref ``render_rays_test``).
 
@@ -219,8 +224,10 @@ def render_rays_eval(
 
     * ``"importance"``: ``importance_samples`` depths per ray by
       deterministic inverse-CDF sampling of the coarse weights; with
-      ``occ`` (a ``[G*G, G]`` binary map) the coarse samples come from the
-      occupancy PMF instead of the uniform grid.
+      ``occ`` (a ``[G*G, G]`` sampler map) the coarse samples come from the
+      occupancy PMF instead of the uniform grid.  ``coarse_free`` (needs
+      ``occ``) draws the fine depths from the occupancy PMF itself and
+      runs no coarse pass.
     * ``"grid"`` (reference-faithful): threshold + top-k bins on the
       ``sample_scale``-times-finer grid, unselected slots defaulting to
       sigma_default / white (mc_nerf.py:692-694).  The threshold's cutoff
@@ -230,23 +237,51 @@ def render_rays_eval(
     """
     if fine_mode not in ("importance", "grid"):
         raise ValueError(f"unknown eval fine_mode: {fine_mode!r}")
+    if coarse_free and (occ is None or fine_mode != "importance"):
+        raise ValueError("coarse_free requires an occupancy map and fine_mode='importance'")
     if occ is not None and fine_mode != "importance":
         raise ValueError("occupancy culling requires fine_mode='importance'")
     n_rays = rays_d.shape[0]
+    basis = sh_basis(cfg.sh_deg, rays_d)
+
+    def points(z):
+        return rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+
+    def shade_fine(z_f):
+        if packed is not None:
+            return _shade_pallas(packed[1], cfg.fine_depth, cfg.fine_skips, points(z_f),
+                                 basis, cfg)
+        return _shade(params.fine, cfg.fine_skips, points(z_f), basis, cfg, None,
+                      compute_dtype)
+
+    def importance_fine(z_f):
+        if packed is not None:
+            basis16, nb = _basis16(basis, cfg)
+            feat_f = encode_kernel_order(points(z_f).reshape(-1, 3), cfg.emb_freqs_xyz, None)
+            ray_f, _ = fused_render(
+                packed[1], feat_f, basis16, z_f.contiguous(), None, None,
+                cfg.fine_depth, tuple(cfg.fine_skips), importance_samples, nb,
+                False, False, cfg.white_back,
+            )
+            return ray_f[:, :3], ray_f[:, 3:4], ray_f[:, 4:5]
+        sigma_f, rgb_f = shade_fine(z_f)
+        out = composite(z_f, sigma_f, rgb_f, noise=None, white_back=cfg.white_back,
+                        last_inf=True)
+        return out.rgb, out.depth, out.opacity
+
     if occ is not None:
-        sc = cfg.occ_coarse_samples
         z_probe, pmf = proposal_pmf(occ, rays_o, rays_d, cfg)
         # deterministic midpoint strata; clip the phantom-end-bin overhang
+        if coarse_free:
+            return importance_fine(torch.clamp(sample_pdf(z_probe, pmf, importance_samples),
+                                               cfg.near, cfg.far))
+        sc = cfg.occ_coarse_samples
         z_c = torch.clamp(sample_pdf(z_probe, pmf, sc), cfg.near, cfg.far)
     else:
         sc = cfg.samples_coarse
         z_c = torch.linspace(cfg.near, cfg.far, sc, dtype=torch.float32,
                              device=rays_d.device)
         z_c = z_c[None, :].expand(n_rays, sc)
-    basis = sh_basis(cfg.sh_deg, rays_d)
-
-    def points(z):
-        return rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
 
     if packed is not None:
         sigma_c, _ = _shade_pallas(packed[0], cfg.coarse_depth, cfg.coarse_skips,
@@ -256,65 +291,56 @@ def render_rays_eval(
                             None, compute_dtype, sigma_only=True)
     w_sel = sigma_to_weights(compute_deltas(z_c, last_inf=True), sigma_c)
 
-    def shade_fine(z_f):
-        if packed is not None:
-            return _shade_pallas(packed[1], cfg.fine_depth, cfg.fine_skips, points(z_f),
-                                 basis, cfg)
-        return _shade(params.fine, cfg.fine_skips, points(z_f), basis, cfg, None,
-                      compute_dtype)
-
     if fine_mode == "grid":
         z_f, sample_valid, step_f = _grid_fine_depths(w_sel, cfg)
         sigma_f, rgb_f = shade_fine(z_f)
         out = _grid_composite(z_f, sigma_f, rgb_f, sample_valid, step_f, cfg, None)
         return out.rgb, out.depth, out.opacity
-
-    z_f = sample_pdf(z_c, w_sel, importance_samples)                # [R, K]
-    if packed is not None:
-        basis16, nb = _basis16(basis, cfg)
-        feat_f = encode_kernel_order(points(z_f).reshape(-1, 3), cfg.emb_freqs_xyz, None)
-        ray_f, _ = fused_render(
-            packed[1], feat_f, basis16, z_f.contiguous(), None, None,
-            cfg.fine_depth, tuple(cfg.fine_skips), importance_samples, nb,
-            False, False, cfg.white_back,
-        )
-        return ray_f[:, :3], ray_f[:, 3:4], ray_f[:, 4:5]
-    sigma_f, rgb_f = shade_fine(z_f)
-    out = composite(z_f, sigma_f, rgb_f, noise=None, white_back=cfg.white_back,
-                    last_inf=True)
-    return out.rgb, out.depth, out.opacity
+    return importance_fine(sample_pdf(z_c, w_sel, importance_samples))       # [R, K]
 
 
 class RenderDraws(NamedTuple):
     """The random draws of one training render, passed in so that the same
     numbers can be handed to the JAX package (``models/nerf.py:188`` splits
-    its key into kj, kn_c, kn_sel, kn_pdf, kn_f for them)."""
+    its key into kj, kn_c, kn_sel, kn_pdf, kn_f for them).  A coarse-free
+    render draws no coarse pass (``z_u``, ``noise_c``, ``noise_sel`` None):
+    its PMF draw takes ``pdf_u`` from kn_pdf, its uniform share ``mix_u``
+    from kn_sel, its noise ``noise_f`` from kn_f."""
 
-    z_u: torch.Tensor        # kj: [R, Sc] U[0,1) strata jitter of the occupancy
+    z_u: Optional[torch.Tensor]        # kj: [R, Sc] U[0,1) strata jitter of the occupancy
     #                          PMF draw, or [R, 1] U[0, (far-near)/Sc) grid jitter
-    noise_c: torch.Tensor    # kn_c: [R, Sc] N(0,1), the coarse composite's sigma noise
-    noise_sel: torch.Tensor  # kn_sel: [R, Sc] N(0,1), the selection weights' noise
+    noise_c: Optional[torch.Tensor]    # kn_c: [R, Sc] N(0,1), the coarse composite's noise
+    noise_sel: Optional[torch.Tensor]  # kn_sel: [R, Sc] N(0,1), the selection weights' noise
     pdf_u: Optional[torch.Tensor]  # kn_pdf: [R, K] U[0,1), fine inverse-CDF jitter
-    #                          (None in grid mode, which draws no fine depths)
+    #                          (coarse-free: [R, K - ku]; None in grid mode, which
+    #                          draws no fine depths)
     noise_f: torch.Tensor    # kn_f: [R, K] N(0,1) (grid mode: [R, topk * scale]),
     #                          the fine composite's sigma noise
+    mix_u: Optional[torch.Tensor] = None  # kn_sel, coarse-free: [R, ku] U[0,1), the
+    #                          mixture's uniform strata (None when ku = 0)
 
 
 def draw_render(n_rays: int, cfg: NerfConfig, importance_samples: int, culled: bool,
-                generator: torch.Generator, fine_mode: str = "importance") -> RenderDraws:
+                generator: torch.Generator, fine_mode: str = "importance",
+                coarse_free: bool = False) -> RenderDraws:
     """Draw :class:`RenderDraws` from ``generator`` on its device.  In grid
     mode the fine noise covers ``cfg.samples_fine`` samples and ``pdf_u``
-    is None."""
+    is None; ``coarse_free`` draws the coarse-free render's draws, with
+    ku = ``cfg.cf_uniform_samples`` clamped to [0, K - 1]."""
     dev = generator.device
-    sc = cfg.occ_coarse_samples if culled else cfg.samples_coarse
     u = lambda *shape: torch.rand(shape, generator=generator, device=dev)
     n = lambda *shape: torch.randn(shape, generator=generator, device=dev)
+    k = importance_samples
+    if coarse_free:
+        ku = mixture_split(k, cfg.cf_uniform_samples)
+        return RenderDraws(None, None, None, u(n_rays, k - ku), n(n_rays, k),
+                           u(n_rays, ku) if ku else None)
+    sc = cfg.occ_coarse_samples if culled else cfg.samples_coarse
     z_u = u(n_rays, sc) if culled else u(n_rays, 1) * ((cfg.far - cfg.near) / sc)
     noise_c, noise_sel = n(n_rays, sc), n(n_rays, sc)
     if fine_mode == "grid":
         return RenderDraws(z_u, noise_c, noise_sel, None, n(n_rays, cfg.samples_fine))
-    return RenderDraws(z_u, noise_c, noise_sel, u(n_rays, importance_samples),
-                       n(n_rays, importance_samples))
+    return RenderDraws(z_u, noise_c, noise_sel, u(n_rays, k), n(n_rays, k))
 
 
 def render_rays_train(
@@ -332,7 +358,8 @@ def render_rays_train(
     use_kernels: bool = False,
     occ: Optional[torch.Tensor] = None,
     remat_shade: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    coarse_free: bool = False,
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Training render: coarse + fine pass with sigma noise (ref
     ``render_rays_train``, mc_nerf.py:598-646).
 
@@ -345,6 +372,9 @@ def render_rays_train(
     ``cfg.fine_bins_topk`` above-threshold coarse bins on the
     ``sample_scale``-times-finer grid with the same jitter, unselected
     samples as sigma_default / white (``"grid"``, the reference's scheme).
+    ``coarse_free`` (needs ``occ`` and the importance mode) runs no coarse
+    pass: the fine depths are :func:`mixture_samples` of the occupancy
+    PMF (``cfg.cf_uniform_samples`` of them stratified uniform).
     ``barf_on`` gates the encode's octaves at progress ``step_r`` within
     ``barf_window``.  ``use_kernels`` shades both passes through the
     hand-written kernels (their plain versions on CPU tensors):
@@ -355,45 +385,23 @@ def render_rays_train(
     package) in the backward (``torch.utils.checkpoint``) instead of
     keeping their activations.
 
-    Returns (rgb_coarse [R, 3], rgb_fine [R, 3]).
+    Returns (rgb_coarse [R, 3], or None when coarse-free, rgb_fine [R, 3]).
     """
     if fine_mode not in ("importance", "grid"):
         raise ValueError(f"unknown fine_mode: {fine_mode!r}")
-    if occ is not None:
-        if fine_mode != "importance":
-            raise ValueError("occupancy culling requires fine_mode='importance'")
-        sc = cfg.occ_coarse_samples
-        z_probe, pmf = proposal_pmf(occ, rays_o, rays_d, cfg)
-        # probe ladder carries phantom end bins; clip the draws into range
-        z_c = torch.clamp(sample_pdf(z_probe, pmf, sc, uniforms=draws.z_u), cfg.near, cfg.far)
-    else:
-        sc = cfg.samples_coarse
-        z_c = torch.linspace(cfg.near, cfg.far, sc, dtype=torch.float32,
-                             device=rays_d.device)[None, :] + draws.z_u
-    z_c = z_c.detach().contiguous()
+    if coarse_free and (occ is None or fine_mode != "importance"):
+        raise ValueError("coarse_free requires an occupancy map and fine_mode='importance'")
+    if occ is not None and fine_mode != "importance":
+        raise ValueError("occupancy culling requires fine_mode='importance'")
     freq_w = barf_weights(cfg.emb_freqs_xyz, step_r, *barf_window) if barf_on else None
     basis = sh_basis(cfg.sh_deg, rays_d)
     k = importance_samples
+    kernel_fine = use_kernels and fine_mode == "importance"
+    if kernel_fine:
+        basis16, nb = _basis16(basis, cfg)
 
     def points(z):
         return rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
-
-    if use_kernels and fine_mode == "importance":
-        basis16, nb = _basis16(basis, cfg)
-        packed_c = pack_mlp_params(params.coarse, cfg.emb_freqs_xyz, cfg.coarse_skips,
-                                   dtype=torch.float32)
-        packed_f = pack_mlp_params(params.fine, cfg.emb_freqs_xyz, cfg.fine_skips,
-                                   dtype=torch.float32)
-        feat_c = encode_kernel_order(points(z_c).reshape(-1, 3), cfg.emb_freqs_xyz, freq_w)
-        ray_c, wsel = fused_render(packed_c, feat_c, basis16, z_c, draws.noise_c,
-                                   draws.noise_sel, cfg.coarse_depth, tuple(cfg.coarse_skips),
-                                   sc, nb, True, True, cfg.white_back)
-        z_f = sample_pdf(z_c, wsel.detach(), k, uniforms=draws.pdf_u).contiguous()
-        feat_f = encode_kernel_order(points(z_f).reshape(-1, 3), cfg.emb_freqs_xyz, freq_w)
-        ray_f, _ = fused_render(packed_f, feat_f, basis16, z_f, draws.noise_f, None,
-                                cfg.fine_depth, tuple(cfg.fine_skips), k, nb, True, False,
-                                cfg.white_back)
-        return ray_c[:, :3], ray_f[:, :3]
 
     def shade_c(z):
         if use_kernels:
@@ -416,17 +424,53 @@ def render_rays_train(
         shade_c = lambda z, fn=shade_c: checkpoint(fn, z, use_reentrant=False)
         shade_f = lambda z, fn=shade_f: checkpoint(fn, z, use_reentrant=False)
 
+    def importance_fine(z_f):
+        """The importance fine pass at depths ``z_f``: its rgb [R, 3]."""
+        if kernel_fine:
+            packed_f = pack_mlp_params(params.fine, cfg.emb_freqs_xyz, cfg.fine_skips,
+                                       dtype=torch.float32)
+            feat_f = encode_kernel_order(points(z_f).reshape(-1, 3), cfg.emb_freqs_xyz, freq_w)
+            ray_f, _ = fused_render(packed_f, feat_f, basis16, z_f, draws.noise_f, None,
+                                    cfg.fine_depth, tuple(cfg.fine_skips), k, nb, True, False,
+                                    cfg.white_back)
+            return ray_f[:, :3]
+        sigma_f, rgb_f = shade_f(z_f)
+        return composite(z_f, sigma_f, rgb_f, noise=draws.noise_f, white_back=cfg.white_back,
+                         last_inf=True).rgb
+
+    if occ is not None:
+        z_probe, pmf = proposal_pmf(occ, rays_o, rays_d, cfg)
+        if coarse_free:
+            # the PMF's stratified draws and the uniform share, sorted
+            z_f = mixture_samples(z_probe, pmf, k, cfg.cf_uniform_samples, draws.pdf_u,
+                                  draws.mix_u, cfg.near, cfg.far)
+            return None, importance_fine(z_f.detach().contiguous())
+        sc = cfg.occ_coarse_samples
+        # probe ladder carries phantom end bins; clip the draws into range
+        z_c = torch.clamp(sample_pdf(z_probe, pmf, sc, uniforms=draws.z_u), cfg.near, cfg.far)
+    else:
+        sc = cfg.samples_coarse
+        z_c = torch.linspace(cfg.near, cfg.far, sc, dtype=torch.float32,
+                             device=rays_d.device)[None, :] + draws.z_u
+    z_c = z_c.detach().contiguous()
+
+    if kernel_fine:
+        packed_c = pack_mlp_params(params.coarse, cfg.emb_freqs_xyz, cfg.coarse_skips,
+                                   dtype=torch.float32)
+        feat_c = encode_kernel_order(points(z_c).reshape(-1, 3), cfg.emb_freqs_xyz, freq_w)
+        ray_c, wsel = fused_render(packed_c, feat_c, basis16, z_c, draws.noise_c,
+                                   draws.noise_sel, cfg.coarse_depth, tuple(cfg.coarse_skips),
+                                   sc, nb, True, True, cfg.white_back)
+        z_f = sample_pdf(z_c, wsel.detach(), k, uniforms=draws.pdf_u).contiguous()
+        return ray_c[:, :3], importance_fine(z_f)
+
     sigma_c, rgb_c = shade_c(z_c)
     out_c = composite(z_c, sigma_c, rgb_c, noise=draws.noise_c, white_back=cfg.white_back)
     # fine-bin selection: no gradient, fresh noise (ref mc_nerf.py:613-621)
     w_sel = sigma_to_weights(compute_deltas(z_c, last_inf=True), sigma_c.detach(),
                              draws.noise_sel)
     if fine_mode == "importance":
-        z_f = sample_pdf(z_c, w_sel, k, uniforms=draws.pdf_u)
-        sigma_f, rgb_f = shade_f(z_f)
-        out_f = composite(z_f, sigma_f, rgb_f, noise=draws.noise_f,
-                          white_back=cfg.white_back, last_inf=True)
-        return out_c.rgb, out_f.rgb
+        return out_c.rgb, importance_fine(sample_pdf(z_c, w_sel, k, uniforms=draws.pdf_u))
 
     # the fine grid shares the coarse jitter (ref mc_nerf.py:633-634)
     z_f, sample_valid, step_f = _grid_fine_depths(w_sel, cfg)

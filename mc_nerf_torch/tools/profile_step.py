@@ -1,7 +1,7 @@
-"""Where one GLOBAL_OPTIM train step spends its time on the card.
+"""Where one GLOBAL_OPTIM (or FINE_TUNE) train step spends its time on the card.
 
     python3 -m mc_nerf_torch.tools.profile_step [--steps N] [--top K] [--plain] [--grid]
-                                                [--remat]
+                                                [--remat] [--stage 2] [--coarse-free]
 
 Takes ``--steps`` stage-1 steps (after two warm-up steps) at the library's
 default ``Config()`` on the workload of ``tools/scene.train_workload``
@@ -14,7 +14,10 @@ overlap).  ``--plain`` profiles the plain route instead of the kernels;
 ``--grid`` the grid fine mode (128 uniform coarse samples, 26 bins x 5
 fine samples per ray, no occupancy map) instead of the importance mode;
 ``--remat`` sets ``remat_shade`` (the shading passes recomputed in the
-backward).  Needs a CUDA card.
+backward); ``--stage 2`` takes FINE_TUNE steps; ``--coarse-free`` takes
+them under the hybrid schedule (``coarse_free_from_stage=2``,
+``cf_uniform_samples=8``, the bitpacked map: the fine pass alone, from
+the occupancy PMF).  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -60,7 +63,10 @@ def main() -> None:
     ap.add_argument("--plain", action="store_true")
     ap.add_argument("--grid", action="store_true")
     ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--stage", type=int, choices=(1, 2), default=1)
+    ap.add_argument("--coarse-free", action="store_true")
     args = ap.parse_args()
+    stage = 2 if args.coarse_free else args.stage
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
 
@@ -80,16 +86,20 @@ def main() -> None:
         cfg = dataclasses.replace(cfg, train=dataclasses.replace(
             cfg.train, fine_mode="grid" if args.grid else cfg.train.fine_mode,
             remat_shade=args.remat))
+    if args.coarse_free:
+        cfg = dataclasses.replace(cfg, nerf=dataclasses.replace(
+            cfg.nerf, coarse_free=True, coarse_free_from_stage=2, cf_uniform_samples=8,
+            occ_map_dtype="bitpack"))
     params, data = train_workload(cfg, 0, dev)
     p_flat = flatten_params(params)
     txs, states = build_optimizers(cfg, params, p_flat, STEPS_PER_EPOCH)
     state = TrainState(params, p_flat, states, TOTAL_STEPS // 2)
-    step_fn = make_stage_step(cfg, 1, txs[1], 800, 800, TOTAL_STEPS)
+    step_fn = make_stage_step(cfg, stage, txs[stage], 800, 800, TOTAL_STEPS)
     gen = torch.Generator(device=dev).manual_seed(0)
     n_img = data.images_u8.shape[0]
 
     def step():
-        step_fn(state, data, draw_step(cfg, 1, n_img, 800, 800, data.occ is not None, gen))
+        step_fn(state, data, draw_step(cfg, stage, n_img, 800, 800, data.occ is not None, gen))
 
     for _ in range(2):
         step()
@@ -99,8 +109,9 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     step()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"step ({'plain' if args.plain else 'kernel'} route, {cfg.train.fine_mode} fine "
-          f"mode, remat_shade {cfg.train.remat_shade}): {wall:.1f} ms wall, "
+    print(f"stage-{stage} step ({'plain' if args.plain else 'kernel'} route, "
+          f"{cfg.train.fine_mode} fine mode, coarse-free {cfg.nerf.coarse_free_at(stage)}, "
+          f"remat_shade {cfg.train.remat_shade}): {wall:.1f} ms wall, "
           f"{busy:.1f} ms of CUDA kernels (busy share {busy / wall:.3f}); peak device memory "
           f"{peak:.2f} GiB")
     for ms, n, name in rows[: args.top]:
@@ -111,6 +122,7 @@ def main() -> None:
     print(json.dumps({"step_ms": wall, "kernel_ms": busy, "busy_share": busy / wall,
                       "peak_gib": peak, "fine_mode": cfg.train.fine_mode,
                       "remat_shade": cfg.train.remat_shade, "plain": args.plain,
+                      "stage": stage, "coarse_free": cfg.nerf.coarse_free_at(stage),
                       "card": card, "top": [{"ms": ms, "calls": n, "name": name}
                                             for ms, n, name in rows[: args.top]]}))
 

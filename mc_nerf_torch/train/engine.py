@@ -3,14 +3,18 @@
 
 :class:`Engine` runs the reference's three-stage protocol (``main.py:27-241``):
 CAM_PARAM epochs with camera restarts between them, then GLOBAL_OPTIM and
-FINE_TUNE epochs with the occupancy grid refreshed from the coarse MLP
+FINE_TUNE epochs with the occupancy grid refreshed from the coarse MLP,
+or in coarse-free stages from the MLP ``NerfConfig.refresh_source`` names
 (the first refresh after ``occ_warmup_steps`` of NeRF training, EMA-max
 after it); a checkpoint, a camera-error report and (stages 1-2) one
 validation view every epoch; and the demo, which restores a checkpoint
-and scores every test view through :func:`demo`.  An epoch is a Python
-loop of train steps (``train/steps.py``) whose draws come from a
-generator on the device seeded from ``(train.seed, epoch)``, so a resumed
-run draws what an uninterrupted one does.
+and scores every test view through :func:`demo` (PSNR, SSIM, and LPIPS
+where a weights file is found).  The coarse-free modes and the density
+PMF are checked as the JAX engine checks them, training configurations
+measured to collapse refused unless ``allow_measured_harmful``.  An
+epoch is a Python loop of train steps (``train/steps.py``) whose draws
+come from a generator on the device seeded from ``(train.seed, epoch)``,
+so a resumed run draws what an uninterrupted one does.
 
 A scene without a detection cache (a reference-format scene: calib and
 coord images only) gets one from the tag36h11 detector before training.
@@ -84,18 +88,18 @@ def refresh_jitter(cfg: Config, epoch: int, device) -> torch.Tensor:
 
 
 def refresh_grid(nerf_params: NerfParams, cfg: Config, device, epoch: int,
-                 grid: Optional[OccupancyGrid] = None) -> OccupancyGrid:
-    """The occupancy grid from the coarse MLP: one jittered lattice
-    evaluation (:func:`refresh_jitter`), fresh when ``grid`` is None, else
-    the EMA-max into it.  Plain PyTorch in ``cfg.compute_dtype`` (the JAX
-    package leaves it to XLA)."""
+                 grid: Optional[OccupancyGrid] = None, source: str = "coarse") -> OccupancyGrid:
+    """The occupancy grid from the ``source`` ("coarse" / "fine") MLP: one
+    jittered lattice evaluation (:func:`refresh_jitter`), fresh when
+    ``grid`` is None, else the EMA-max into it.  Plain PyTorch in
+    ``cfg.compute_dtype`` (the JAX package leaves it to XLA)."""
     nc = cfg.nerf
     cd = _dtype(cfg.compute_dtype)
+    mlp = {"coarse": nerf_params.coarse, "fine": nerf_params.fine}[source]
 
     @torch.no_grad()
     def act(pts):
-        sigma, _ = nerf_params.coarse(sincos_encode(pts, nc.emb_freqs_xyz, None), cd,
-                                      sigma_only=True)
+        sigma, _ = mlp(sincos_encode(pts, nc.emb_freqs_xyz, None), cd, sigma_only=True)
         return F.softplus(sigma.reshape(-1))
 
     return update_grid(grid, act, nc.occ_grid_size, nc.bound_min, nc.bound_max,
@@ -103,9 +107,10 @@ def refresh_grid(nerf_params: NerfParams, cfg: Config, device, epoch: int,
                        device=device)
 
 
-def refresh_occupancy(nerf_params: NerfParams, cfg: Config, device, epoch: int) -> torch.Tensor:
-    """A fresh occupancy map (``sampler_map``) of :func:`refresh_grid`."""
-    return sampler_map(refresh_grid(nerf_params, cfg, device, epoch), cfg.nerf)
+def refresh_occupancy(nerf_params: NerfParams, cfg: Config, device, epoch: int,
+                      source: str = "coarse") -> torch.Tensor:
+    """A fresh sampler map (``sampler_map``) of :func:`refresh_grid`."""
+    return sampler_map(refresh_grid(nerf_params, cfg, device, epoch, None, source), cfg.nerf)
 
 
 def demo(nerf_params: NerfParams, test_split: SplitData, cfg: Config,
@@ -114,19 +119,26 @@ def demo(nerf_params: NerfParams, test_split: SplitData, cfg: Config,
 
     With ``cull`` (and occupancy enabled in ``cfg``, in the importance fine
     mode: the grid mode stays unculled, as ``Engine._occ_eval`` has it) the
-    occupancy map is rebuilt fresh from the coarse MLP first, with
-    ``epoch``'s jitter, and the coarse samples follow it; otherwise the
-    views render unculled.  With ``out_dir`` the pred, depth and gt PNGs
-    are written under it.
+    sampler map is rebuilt fresh first, with ``epoch``'s jitter, from the
+    MLP ``cfg.nerf.refresh_source`` names for ``epoch``'s stage, and the
+    samples follow it; otherwise the views render unculled, or, when the
+    renders are coarse-free (``cfg.eval_coarse_free``: the map is the only
+    proposal), from the uniform prior.  With ``out_dir`` the pred, depth
+    and gt PNGs are written under it.
 
-    Returns {"psnr", "ssim", "lpips": None, "count"}, the means over views.
+    Returns {"psnr", "ssim", "lpips", "count"}: the means over the views;
+    LPIPS over the views it scored, None without a weights file.
     """
     dev = resolve_device(device)
     test = test_split
     render = make_render_fn(cfg, test.img_h, test.img_w, device=dev)
     occ = None
-    if cull and cfg.nerf.occ_grid_size > 0 and cfg.eval.fine_mode == "importance":
-        occ = refresh_occupancy(nerf_params, cfg, dev, epoch)
+    if cfg.nerf.occ_grid_size > 0 and cfg.eval.fine_mode == "importance":
+        if cull:
+            occ = refresh_occupancy(nerf_params, cfg, dev, epoch,
+                                    cfg.nerf.refresh_source(cfg.stages.stage_of_epoch(epoch)))
+        elif cfg.eval_coarse_free:
+            occ = uniform_prior_map(cfg.nerf, dev)
     dirs = None
     if out_dir is not None:
         dirs = {k: os.path.join(out_dir, k) for k in ("pred", "depth", "gt")}
@@ -134,13 +146,17 @@ def demo(nerf_params: NerfParams, test_split: SplitData, cfg: Config,
             os.makedirs(d, exist_ok=True)
 
     scores = np.zeros((test.count, 2), np.float64)
+    lpips_scores = []
     for i in range(test.count):
         rgb, depth, opacity = render(nerf_params, test.poses_w2c[i], test.K[i], occ)
         gt = torch.as_tensor(test.images_u8[i], device=dev).float() / 255.0
         scores[i] = float(psnr(rgb, gt)), float(ssim(rgb, gt))
+        lp = lpips(rgb, gt)
+        if lp is not None:
+            lpips_scores.append(lp)
         if dirs is not None:
             _write_pngs(dirs, i, rgb, depth, opacity, gt)
-    lp = lpips(None, None)
+    lp = float(np.mean(lpips_scores)) if lpips_scores else None
     result = {"psnr": float(scores[:, 0].mean()), "ssim": float(scores[:, 1].mean()),
               "lpips": lp, "count": test.count}
     print(f"Results ({cfg.data_name})")
@@ -184,6 +200,64 @@ def _parse_demo_ckpt(name: str) -> Optional[int]:
     return None
 
 
+def check_sampling_modes(cfg: Config) -> None:
+    """The JAX engine's checks of the coarse-free modes and the sampling
+    PMF (``mc_nerf_tpu/train/engine.py:94-177``), each a ValueError with
+    its wording.  The training configurations measured to collapse
+    (coarse-free from stage 1, the density PMF) are refused in train mode
+    (``cfg.mode == 0``) unless ``nerf.allow_measured_harmful``; the demo
+    renders existing checkpoints and is exempt."""
+    nc = cfg.nerf
+    if nc.coarse_free and (nc.occ_grid_size <= 0 or cfg.train.fine_mode != "importance"
+                           or cfg.eval.fine_mode != "importance"):
+        raise ValueError(
+            "nerf.coarse_free requires occ_grid_size > 0 and fine_mode='importance' for "
+            "both train and eval — the occupancy grid is the sole sampling proposal in "
+            "this mode")
+    if nc.occ_pmf not in ("binary", "density"):
+        raise ValueError(f"unknown nerf.occ_pmf: {nc.occ_pmf!r}")
+    if nc.coarse_free_from_stage not in (1, 2):
+        raise ValueError(
+            "nerf.coarse_free_from_stage must be 1 (GLOBAL_OPTIM, all NeRF training) or 2 "
+            "(FINE_TUNE only — the hybrid schedule)")
+    if nc.occ_pmf == "density" and nc.occ_map_dtype != "bfloat16":
+        raise ValueError(
+            "nerf.occ_pmf='density' requires occ_map_dtype='bfloat16' — the sampler map "
+            "carries density magnitudes, not {0,1}")
+    if nc.occ_refresh_source not in ("auto", "coarse", "fine"):
+        raise ValueError(f"unknown nerf.occ_refresh_source: {nc.occ_refresh_source!r} "
+                         "(auto | coarse | fine)")
+    if nc.occ_refresh_source == "coarse" and nc.coarse_free and nc.coarse_free_from_stage == 1:
+        raise ValueError(
+            "occ_refresh_source='coarse' needs a trained coarse MLP, but "
+            "coarse_free_from_stage=1 never trains one — use the hybrid schedule "
+            "(coarse_free_from_stage=2) or source 'fine'")
+    if cfg.eval.coarse_free and (nc.occ_grid_size <= 0 or cfg.eval.fine_mode != "importance"):
+        raise ValueError(
+            "eval.coarse_free=True requires occ_grid_size > 0 and eval.fine_mode='importance' "
+            "— the occupancy grid is the sampling proposal")
+    if cfg.mode == 0 and not nc.allow_measured_harmful:
+        if nc.coarse_free and nc.coarse_free_from_stage == 1:
+            raise ValueError(
+                "nerf.coarse_free with coarse_free_from_stage=1 trains the field from scratch "
+                "on the grid PMF alone and collapsed to ~6 PSNR in all five measured takes "
+                "(BASELINE.md round 4).  Use the hybrid schedule (coarse_free_from_stage=2), "
+                "or set nerf.allow_measured_harmful=True to re-run the experiment anyway")
+        if nc.occ_pmf == "density":
+            raise ValueError(
+                "nerf.occ_pmf='density' is measured HARMFUL for training in every schedule — "
+                "concentrated-PMF sampling starves the field of spread empty-space supervision "
+                "(FINE_TUNE collapses 12.0 -> 8.1 PSNR, BASELINE.md round 4).  Keep 'binary' "
+                "for training, or set nerf.allow_measured_harmful=True to re-run the "
+                "experiment anyway")
+    if (nc.coarse_free and nc.coarse_free_from_stage == 1 and cfg.eval.coarse_free is False
+            and not nc.allow_measured_harmful):
+        raise ValueError(
+            "eval.coarse_free=False forces two-pass eval, but coarse_free_from_stage=1 never "
+            "trains a coarse MLP to propose from — that override silently renders garbage.  "
+            "Drop the override or use the hybrid schedule (coarse_free_from_stage=2)")
+
+
 class Engine:
     """Trains the three stages (:meth:`train`) and scores a checkpoint on
     the test views (:meth:`demo`), on ``device`` (CUDA unless named)."""
@@ -192,6 +266,7 @@ class Engine:
         for where, mode in (("train", cfg.train.fine_mode), ("eval", cfg.eval.fine_mode)):
             if mode not in ("importance", "grid"):
                 raise ValueError(f"unknown {where}.fine_mode: {mode!r} (importance | grid)")
+        check_sampling_modes(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         setup_logging(cfg.paths.log_path, cfg.log_to_file)
@@ -246,10 +321,12 @@ class Engine:
         return self.cfg.nerf.occ_grid_size > 0 and self.cfg.eval.fine_mode == "importance"
 
     def _refresh_occupancy(self, epoch: int) -> None:
-        """Refresh the grid and the sampler map from the coarse MLP: fresh
-        the first time, EMA-max after."""
+        """Refresh the grid and the sampler map from the MLP
+        ``nerf.refresh_source`` names for ``epoch``'s stage (the coarse in
+        two-pass stages): fresh the first time, EMA-max after."""
+        source = self.cfg.nerf.refresh_source(self.cfg.stages.stage_of_epoch(epoch))
         self.occ_grid = refresh_grid(self.state.params.nerf, self.cfg, self.device, epoch,
-                                     self.occ_grid)
+                                     self.occ_grid, source)
         self._occ_map = sampler_map(self.occ_grid, self.cfg.nerf)
 
     # ------------------------------------------------------------------ train
@@ -298,7 +375,8 @@ class Engine:
                 # state, rebuilt fresh from the restored coarse MLP
                 self._refresh_occupancy(start_epoch - 1)
             else:
-                # uniform sampling until the first refresh
+                # uniform sampling until the first refresh (all occupied,
+                # or an all-zero density)
                 self._occ_map = uniform_prior_map(cfg.nerf, self.device)
             data = data._replace(occ=self._occ_map)
 
@@ -326,9 +404,10 @@ class Engine:
             if stage == 0 and epoch < cfg.stages.cam_param_epochs - 1:
                 self._maybe_restart_cameras(data, epoch)
 
-            # the refresh from the coarse MLP once the NeRF stages train it,
-            # gated on occ_warmup_steps of NeRF training: a grid from a
-            # barely trained coarse field mislocalizes the culling
+            # the refresh (from the coarse MLP in two-pass stages) once the
+            # NeRF stages train it, gated on occ_warmup_steps of NeRF
+            # training: a grid from a barely trained field mislocalizes the
+            # culling
             nerf_epochs_done = epoch + 1 - cfg.stages.cam_param_epochs
             if (self._occ_train and stage >= 1
                     and nerf_epochs_done % cfg.nerf.occ_update_every == 0
@@ -397,11 +476,13 @@ class Engine:
             self.state.params.nerf, val.poses_w2c[idx], val.K[idx], occ)
         gt = torch.as_tensor(val.images_u8[idx], device=self.device).float() / 255.0
         p, s = float(psnr(rgb, gt)), float(ssim(rgb, gt))
-        lp = lpips(None, None)
+        lp = lpips(rgb, gt)
         logging.info("VALID epoch %d | PSNR %.3f | SSIM %.4f | LPIPS %s", epoch, p, s,
                      f"{lp:.4f}" if lp is not None else "n/a")
         self.writer.scalar("val/psnr", p, epoch)
         self.writer.scalar("val/ssim", s, epoch)
+        if lp is not None:
+            self.writer.scalar("val/lpips", lp, epoch)
 
         out_dir = os.path.join(self.cfg.paths.render_dir, self.cfg.data_name)
         os.makedirs(out_dir, exist_ok=True)
@@ -411,7 +492,7 @@ class Engine:
         d01 = np.clip(depth.cpu().numpy() / (self.cfg.nerf.far + 1e-9), 0, 1)
         Image.fromarray((d01 * 255).astype(np.uint8)).save(
             os.path.join(out_dir, f"epoch_{epoch}_depth.png"))
-        return {"val_psnr": p, "val_ssim": s}
+        return {"val_psnr": p, "val_ssim": s, "val_lpips": lp}
 
     # ------------------------------------------------------------------- demo
 
@@ -432,13 +513,16 @@ class Engine:
             self.scene.test = test
         # the warm-up guard of train(): a checkpoint with fewer than
         # occ_warmup_steps of NeRF training (stage 0: an untrained coarse
-        # field) would mislocalize the culling, so it renders unculled
+        # field) would mislocalize the culling, so it renders unculled, or
+        # coarse-free from the uniform prior (the map is the proposal there)
         nerf_steps = (epoch + 1 - cfg.stages.cam_param_epochs) * self.steps_per_epoch
         cull = self._occ_eval and nerf_steps >= cfg.nerf.occ_warmup_steps
         if self._occ_eval and not cull:
             logging.info("demo checkpoint (epoch %d) predates occ_warmup_steps=%d (%d NeRF steps "
-                         "trained): rendering without occupancy culling", epoch,
-                         cfg.nerf.occ_warmup_steps, max(0, nerf_steps))
+                         "trained): rendering without occupancy culling%s", epoch,
+                         cfg.nerf.occ_warmup_steps, max(0, nerf_steps),
+                         " (coarse-free: from the uniform prior)" if cfg.eval_coarse_free
+                         else "")
         base = cfg.paths.render_dir + "_" + time.strftime("%Y-%m-%d-%H-%M-%S")
         result = demo(self.state.params.nerf, test, cfg, self.device, cull=cull, out_dir=base,
                       epoch=epoch)

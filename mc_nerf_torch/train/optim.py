@@ -8,7 +8,8 @@ an update writes the buffer in place and the module sees it.  Per-stage
 trainable subsets are 0/1 masks (ref ``main.py:182-205``):
   1. camera parameters only (NeRF frozen);
   2. everything;
-  3. everything except the camera poses (``pose_se3``).
+  3. everything except the camera poses (``pose_se3``);
+in coarse-free stages the coarse MLP is frozen too.
 The leaf order is the module's parameter order (cameras, then the coarse
 and fine MLPs), not the JAX package's ``ravel_pytree`` order; the update
 is elementwise, so only the leaf-by-leaf values have to agree.
@@ -122,8 +123,11 @@ class FlatRAdam:
         return FlatOptState(mu, nu, count)
 
 
-def stage_mask(params: Params, stage: int) -> torch.Tensor:
-    """[N] f32 0/1 trainable mask in :func:`flatten_params` order."""
+def stage_mask(params: Params, stage: int, freeze_coarse: bool = False) -> torch.Tensor:
+    """[N] f32 0/1 trainable mask in :func:`flatten_params` order.
+    ``freeze_coarse`` (a coarse-free stage) freezes the coarse MLP: it gets
+    no gradient there, but decoupled weight decay would still shrink it,
+    and the refresh may probe it."""
     if stage not in (0, 1, 2):
         raise ValueError(stage)
     parts: List[torch.Tensor] = []
@@ -131,7 +135,7 @@ def stage_mask(params: Params, stage: int) -> torch.Tensor:
         if name.startswith("cam."):
             on = not (stage == 2 and name == "cam.pose_se3")
         else:
-            on = stage != 0
+            on = stage != 0 and not (freeze_coarse and name.startswith("nerf.coarse."))
         parts.append(torch.full((p.numel(),), 1.0 if on else 0.0, dtype=torch.float32,
                                 device=p.device))
     return torch.cat(parts)
@@ -151,6 +155,6 @@ def build_optimizers(cfg: Config, params: Params, p_flat: torch.Tensor,
         return np.float32(tc.stage1_lr) * gamma1 ** np.float32(count)
 
     lrs = (lr1, tc.stage2_lr, tc.stage3_lr)
-    opts = tuple(FlatRAdam(stage_mask(params, stage), lrs[stage], tc.weight_decay,
-                           tc.grad_clip) for stage in range(3))
+    opts = tuple(FlatRAdam(stage_mask(params, stage, cfg.nerf.coarse_free_at(stage)), lrs[stage],
+                           tc.weight_decay, tc.grad_clip) for stage in range(3))
     return opts, tuple(tx.init(p_flat) for tx in opts)

@@ -135,7 +135,8 @@ class StepDraws(NamedTuple):
 def draw_step(cfg: Config, stage: int, n_images: int, img_h: int, img_w: int,
               culled: bool, generator: torch.Generator) -> StepDraws:
     """Draw one step's :class:`StepDraws` from ``generator`` on its device;
-    ``culled``: the coarse pass samples an occupancy map.  Pixels are drawn with replacement when the image has more than 8x the
+    ``culled``: the coarse pass samples an occupancy map; in a coarse-free
+    stage the render's draws are the coarse-free render's.  Pixels are drawn with replacement when the image has more than 8x the
     batch's rays (expected collisions ~R^2 / 2HW, as the JAX package
     argues), else without."""
     dev = generator.device
@@ -151,7 +152,7 @@ def draw_step(cfg: Config, stage: int, n_images: int, img_h: int, img_w: int,
         pix_idx = torch.stack([torch.randperm(hw, generator=generator, device=dev)[:rays]
                                for _ in range(b)])
     render = draw_render(b * rays, cfg.nerf, cfg.train.importance_samples, culled, generator,
-                         cfg.train.fine_mode)
+                         cfg.train.fine_mode, cfg.nerf.coarse_free_at(stage))
     return StepDraws(u_int, u_ext, img_ids, pix_idx, render)
 
 
@@ -216,8 +217,11 @@ def make_loss_fn(cfg: Config, stage: int, img_h: int, img_w: int,
             params.nerf, rays_d, rays_o, draws.render, step_r, cfg.nerf, barf_window,
             barf_on=(stage == 1), compute_dtype=cd, fine_mode=cfg.train.fine_mode,
             importance_samples=cfg.train.importance_samples, use_kernels=use_kernels,
-            occ=data.occ, remat_shade=cfg.train.remat_shade)
-        loss_c, loss_f = rgb_loss(rgb_c, gt), rgb_loss(rgb_f, gt)
+            occ=data.occ, remat_shade=cfg.train.remat_shade,
+            coarse_free=cfg.nerf.coarse_free_at(stage))
+        loss_f = rgb_loss(rgb_f, gt)
+        # a coarse-free render has no coarse pass: its loss term drops
+        loss_c = torch.zeros_like(loss_f) if rgb_c is None else rgb_loss(rgb_c, gt)
         total = self_normalized(loss_int) + loss_c + loss_f
         return total, {"loss": total, "loss_intr": loss_int, "loss_extr": loss_ext,
                        "loss_rgb_c": loss_c, "loss_rgb_f": loss_f}
@@ -282,8 +286,9 @@ def make_render_fn(cfg: Config, img_h: int, img_w: int,
     through the plain route in ``cfg.compute_dtype``.  ``cfg.eval.fine_mode``
     picks the fine mode; in grid mode the selection's cutoff is a max over
     each chunk, padding rays included, as in the JAX package's ``lax.map``.
-    ``occ`` is an optional ``[G*G, G]`` binary occupancy map for culled
-    coarse sampling (importance mode only).
+    ``occ`` is an optional ``[G*G, G]`` sampler map for culled coarse
+    sampling (importance mode only); with ``cfg.eval_coarse_free`` the fine
+    depths come from its PMF and no coarse pass runs.
     """
     dev = resolve_device(device)
     chunk = rays_per_chunk or cfg.eval.rays_per_chunk
@@ -304,7 +309,7 @@ def make_render_fn(cfg: Config, img_h: int, img_w: int,
             render_rays_eval(
                 nerf_params, rays_d[i:i + chunk], rays_o[i:i + chunk], cfg.nerf, cd,
                 fine_mode=cfg.eval.fine_mode, importance_samples=cfg.eval.importance_samples,
-                packed=packed, occ=occ,
+                packed=packed, occ=occ, coarse_free=cfg.eval_coarse_free,
             )
             for i in range(0, padded, chunk)
         ]

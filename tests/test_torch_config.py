@@ -3,9 +3,10 @@ its yaml reader against ``yaml.safe_load``.
 
 ``load_yaml`` is held field by field over every sub-config the port has
 on three texts: the reference-schema yaml of ``tests/test_config.py``,
-its extension-keys yaml (without the keys of the sampling modes the port
-lacks, which raise naming ROADMAP Queue 1 item 3) and the verify recipe's
-tiny yaml.  All comparisons are exact.
+its extension-keys yaml without the keys of the coarse-free modes, the
+density PMF and the bitpacked map, and the verify recipe's tiny yaml; then
+on the extension yaml as written, and on each of those keys alone.  All
+comparisons are exact.
 """
 
 import ast
@@ -34,14 +35,15 @@ def _extension_yaml() -> str:
                      JAX_TESTS, re.S).group(1)
 
 
-UNPORTED_KEYS = ("coarse_free", "occ_pmf", "coarse_free_from_stage", "occ_refresh_source",
+SAMPLING_KEYS = ("coarse_free", "occ_pmf", "coarse_free_from_stage", "occ_refresh_source",
                  "cf_uniform_samples", "allow_measured_harmful")
 
 
 def _ported_extension_yaml() -> str:
-    """The extension-keys yaml without the keys of the unported modes."""
+    """The extension-keys yaml without the keys of the sampling modes
+    (coarse-free, the density PMF)."""
     return "\n".join(line for line in _extension_yaml().splitlines()
-                     if line.strip().split(":")[0] not in UNPORTED_KEYS)
+                     if line.strip().split(":")[0] not in SAMPLING_KEYS)
 
 
 def _verify_yaml() -> str:
@@ -77,8 +79,14 @@ def test_load_yaml_matches_jax(tmp_path, name):
 
 
 def test_the_extension_yaml_as_written_is_refused(tmp_path):
-    with pytest.raises(ValueError, match="Queue 1 item 3"):
-        t_config.load_yaml(_write(tmp_path, _extension_yaml()))
+    """The extension yaml as written, the sampling-mode keys included,
+    loads as the JAX loader loads it (the name stays from when those keys
+    were refused)."""
+    path = _write(tmp_path, _extension_yaml())
+    cfg = t_config.load_yaml(path)
+    _assert_same_config(cfg, j_config.load_yaml(path))
+    assert cfg.nerf.coarse_free and cfg.nerf.occ_pmf == "density"
+    assert cfg.eval_coarse_free is False
 
 
 @pytest.mark.parametrize("section,key,value", [
@@ -92,9 +100,13 @@ def test_the_extension_yaml_as_written_is_refused(tmp_path):
     ("model:\n    nerf", "occ_map_dtype", "bitpack"),
 ])
 def test_each_unported_key_is_refused(tmp_path, section, key, value):
-    with pytest.raises(ValueError, match="Queue 1 item 3") as info:
-        t_config.load_yaml(_write(tmp_path, f"{section}:\n        {key}: {value}\n"))
-    assert key in str(info.value)
+    """Each key of the sampling modes once refused now loads as the JAX
+    loader loads it, away from its default (the name stays)."""
+    path = _write(tmp_path, f"{section}:\n        {key}: {value}\n")
+    cfg = t_config.load_yaml(path)
+    _assert_same_config(cfg, j_config.load_yaml(path))
+    where = cfg.eval if section.startswith("system") else cfg.nerf
+    assert getattr(where, key) != getattr(type(where)(), key)
 
 
 def test_unported_keys_at_their_defaults_load(tmp_path):

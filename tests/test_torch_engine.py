@@ -89,7 +89,9 @@ def _t(x, dtype=torch.float32):
 
 def _draws_from_key(key, cfg, stage, culled):
     """The draws the JAX loss takes from its step key (train/steps.py:162,
-    :68, :105-118; models/nerf.py:188)."""
+    :68, :105-118; models/nerf.py:188); in a coarse-free stage the PMF
+    draw's uniforms from kn_pdf, the mixture's from kn_sel, the noise
+    from kn_f."""
     rays, imp = cfg.train.rays_per_batch, cfg.train.importance_samples
     k_calib, k_rays, k_render = jax.random.split(key, 3)
     k_int, k_ext = jax.random.split(k_calib)
@@ -111,6 +113,13 @@ def _draws_from_key(key, cfg, stage, culled):
         return t_steps.StepDraws(u_int, u_ext, _t(img_ids, torch.int64), _t(pix, torch.int64),
                                  render)
     assert culled
+    if nc.coarse_free_at(stage):          # models/nerf.py:193-235, ops/volume.py:231-234
+        ku = min(max(nc.cf_uniform_samples, 0), imp - 1)
+        render = RenderDraws(None, None, None, _t(jax.random.uniform(kn_pdf, (rays, imp - ku))),
+                             _t(jax.random.normal(kn_f, (rays, imp))),
+                             _t(jax.random.uniform(kn_sel, (rays, ku))) if ku else None)
+        return t_steps.StepDraws(u_int, u_ext, _t(img_ids, torch.int64), _t(pix, torch.int64),
+                                 render)
     sc = nc.occ_coarse_samples
     render = RenderDraws(_t(jax.random.uniform(kj, (rays, sc))),
                          _t(jax.random.normal(kn_c, (rays, sc))),

@@ -262,10 +262,16 @@ def test_update_grid_matches_jax_fp32():
 
 
 def test_unported_occupancy_modes_refuse():
-    with pytest.raises(TypeError):   # the density PMF has no config field yet
-        NerfConfig(occ_pmf="density")
-    with pytest.raises(NotImplementedError):
-        t_occ.binary_grid(t_occ.init_grid(32, device=CPU), NerfConfig(occ_map_dtype="bitpack"))
+    """The density PMF and the bitpacked map are ported (the name stays
+    from when they were refused): the all-occupied grid packs to words of
+    32 set bits; an unknown layout is refused as the JAX package refuses it."""
+    assert NerfConfig(occ_pmf="density").occ_pmf == "density"
+    packed = t_occ.binary_grid(t_occ.init_grid(32, device=CPU),
+                               NerfConfig(occ_map_dtype="bitpack"))
+    assert packed.dtype == torch.int32 and tuple(packed.shape) == (32 * 32, 1)
+    assert bool((packed == -1).all())
+    with pytest.raises(ValueError, match="unknown occ_map_dtype: 'uint4'"):
+        t_occ.binary_grid(t_occ.init_grid(8, device=CPU), NerfConfig(occ_map_dtype="uint4"))
 
 
 # ---------------------------------------------------------------- metrics / data

@@ -94,19 +94,25 @@ def test_render_rays_eval_plain_route_fp32(culled):
 
 
 def test_unported_render_modes_refuse():
-    """The coarse-free branch is not ported: no config field selects it and
-    the renderer takes no switch for it.  The grid fine mode is ported;
-    an unknown fine mode is refused."""
+    """Every render mode of the JAX package is ported: the config fields
+    and the renderer switch of the coarse-free branch exist and select it
+    (a coarse-free eval render runs no coarse pass, so it differs from the
+    two-pass one on the same map); an unknown fine mode is still refused,
+    as is the coarse-free branch without a map."""
     assert t_config.EvalConfig(fine_mode="grid").fine_mode == "grid"
-    with pytest.raises(TypeError):
-        t_config.NerfConfig(coarse_free=True)
-    with pytest.raises(TypeError):
-        t_config.EvalConfig(coarse_free=True)
-    _, tc, _, tp, rd, ro, _ = _setup(4)
-    with pytest.raises(TypeError):
-        render_rays_eval(tp, torch.as_tensor(rd), torch.as_tensor(ro), tc, coarse_free=True)
+    assert t_config.NerfConfig(coarse_free=True).coarse_free
+    assert t_config.Config(eval=t_config.EvalConfig(coarse_free=True)).eval_coarse_free
+    _, tc, _, tp, rd, ro, occ = _setup(4)
+    args = (tp, torch.as_tensor(rd), torch.as_tensor(ro), tc, torch.float32)
+    occ_t = torch.as_tensor(occ).bfloat16()
+    cf = render_rays_eval(*args, importance_samples=8, occ=occ_t, coarse_free=True)
+    two_pass = render_rays_eval(*args, importance_samples=8, occ=occ_t)
+    assert all(bool(torch.isfinite(t).all()) for t in cf)
+    assert not torch.equal(cf[1], two_pass[1])
+    with pytest.raises(ValueError, match="coarse_free requires an occupancy map"):
+        render_rays_eval(*args, coarse_free=True)
     with pytest.raises(ValueError):
-        render_rays_eval(tp, torch.as_tensor(rd), torch.as_tensor(ro), tc, fine_mode="dense")
+        render_rays_eval(*args, fine_mode="dense")
 
 
 def _camera(h, w):
