@@ -111,6 +111,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import hashlib
 import json
 import math
 import subprocess
@@ -225,6 +226,20 @@ LPIPS_RTOL = 2e-4
 # on the coarse-free demo's chunk (the least of the CLI's five) and the
 # kernel's rgb error fell (4.2e-4 to 2.3e-4)
 EVAL_SPREAD = 256
+# the data-parallel phase: 2 ranks on the one card (gloo: NCCL refuses two
+# ranks on a card), the CLI phase's scene and views, stages 1 + 1 + 1 of
+# 100 steps a rank (4 views x 50 / 2 images) with a 100-step warm-up, and
+# a run of 1 + 1 + 0 epochs through torchrun itself
+DP_WORLD = 2
+DP_CUTS = {"stages": (1, 1, 1), "launch stages": (1, 1, 0), "occ_warmup_steps": 100}
+# the 2-rank run against a 1-rank run with images_per_batch=2 from the
+# same seed and draws (the order of the gradient's sums differs): each
+# epoch's metrics (relative) and the parameters after each epoch (against
+# their largest entry), ~10x what an H100 measured (1.3e-5 and 1.7e-3:
+# RAdam turns rounding-level differences of near-zero gradient entries
+# into whole steps); the demo's scores against the 1-rank demo of the
+# same checkpoint (relative; measured equal)
+DP_TOL = {"metrics rel": 1.5e-4, "params": 2e-2, "demo rel": 1e-6}
 
 
 def fail(msg: str) -> None:
@@ -1365,7 +1380,7 @@ def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
         fail(f"cli_cf ran {state.step} steps over {len(eng.history)} epochs")
 
     # per training epoch: 2 launches a two-pass step, 1 a coarse-free step
-    trained = [(stage, n) for path, stage, n in epochs if path == "cli_train_cf"]
+    trained = [(stage, n) for path, stage, n, _ in epochs if path == "cli_train_cf"]
     per_step = {0: 0, 1: 2, 2: 1}
     for stage, n in trained:
         want = {k: per_step[stage] * spe if k in ("fused_render", "render_bwd_points",
@@ -1426,6 +1441,293 @@ def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
             "nerf_steps": spe * sum(stages[1:])}
 
 
+def dp_rank(spec: dict) -> None:
+    """One rank of ``dp_phase``, started with torchrun's environment
+    (``python3 chip_smoke.py --dp-rank <spec>``).  Joins the group
+    (``initialize_distributed``: the rank's card by the device rule, the
+    backend by the backend rule), then drives ``mc_nerf_torch.main.main``
+    under the CLI phases' instrumentation (``cli_recording``): ``dp_train``
+    (``--train``) and ``dp_demo`` (``--demo``), each path's launches counted
+    from 0 just before it.  The step's gradient all-reduce is timed (the
+    card synchronized on each side), the demo's PNG writes recorded.  Writes
+    ``rank<r>.json`` under the phase's directory, and on rank 0 the
+    recorded kernel inputs (``calls.pt``) after checking them against the
+    launches counted."""
+    import pathlib
+
+    import torch.distributed as dist
+
+    import mc_nerf_torch.train.engine as engine_module
+    import mc_nerf_torch.train.steps as steps_module
+    from mc_nerf_torch.ops.cuda.fused_mlp import (
+        fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd)
+    from mc_nerf_torch.ops.cuda.fused_render import (
+        fused_render, render_bwd_points, render_bwd_weights)
+    from mc_nerf_torch.parallel.distributed import initialize_distributed
+
+    torch.backends.cuda.matmul.allow_tf32 = False    # as the parent's runs
+    torch.backends.cudnn.allow_tf32 = False
+    topo = initialize_distributed()
+    work = pathlib.Path(spec["work"])
+    counters = {k.__name__: k for k in (fused_render, render_bwd_points, render_bwd_weights,
+                                        fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd)}
+    reduces, written = [], []
+    mean_, write = steps_module.all_reduce_mean_, engine_module._write_pngs
+
+    def timed_mean_(t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = mean_(t)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        reduces.append((t.numel(), t.element_size(), t1 - t0, t1))
+        return out
+
+    def recorded_write(dirs, i, *a):
+        written.append(i)
+        return write(dirs, i, *a)
+
+    steps_module.all_reduce_mean_, engine_module._write_pngs = timed_mean_, recorded_write
+    try:
+        with cli_recording(work, spec["name"], counters) as (cli, calls, cache_s, epochs):
+            state, train_s, l_train, eng = cli("dp_train", "dp", "--train")
+            demo, demo_s, l_demo, _ = cli("dp_demo", "dp", "--demo")
+    finally:
+        steps_module.all_reduce_mean_, engine_module._write_pngs = mean_, write
+    grads = [(n * size, dt, end) for n, size, dt, end in reduces if n == state.p_flat.numel()]
+    out = {"rank": topo.rank, "world": topo.world, "backend": dist.get_backend(),
+           "device": str(topo.device), "current_device": torch.cuda.current_device(),
+           "steps_per_epoch": eng.steps_per_epoch, "step": state.step,
+           "history": eng.history, "epochs": epochs, "final_occ": digest(eng._occ_map),
+           "train_s": train_s, "demo_s": demo_s, "launches": {"dp_train": l_train,
+                                                             "dp_demo": l_demo},
+           "demo": demo, "written": written, "cache_builds": len(cache_s),
+           "kept": eng.ckpt.epochs(), "grad_reduces": len(grads),
+           "p_flat_bytes": state.p_flat.numel() * state.p_flat.element_size(),
+           "grad_reduce_bytes": grads[0][0] if grads else 0,
+           "grad_reduce_ms": [dt * 1e3 for _, dt, _ in grads],
+           "grad_reduce_end_s": [end for *_, end in grads]}
+    if topo.rank == 0:
+        check_recorded(calls, {"dp_train": l_train, "dp_demo": l_demo})
+        torch.save(calls, work / "calls.pt")
+    (work / f"rank{topo.rank}.json").write_text(json.dumps(out))
+    dist.destroy_process_group()
+
+
+def dp_phase(dev, smi: str) -> dict:
+    """Data parallelism on the one card: ``DP_WORLD`` ranks, subprocesses
+    with torchrun's environment (``parallel/dryrun.py::spawn_ranks``), each
+    ``dp_rank``: ``main()`` ``--train`` then ``--demo`` on the CLI phase's
+    kind of scene (``make_dataset(calibration_mode="rendered")``, its cache
+    deleted so that rank 0 builds it) at ``Config()``'s widths, 7000 rays a
+    rank, stages ``DP_CUTS``.  Checks: the world, the backend (gloo: ranks
+    share the card) and both ranks on ``cuda:0``; per rank and training
+    epoch, ``fused_render``, ``render_bwd_points`` and
+    ``render_bwd_weights`` exactly 2 a step in the NeRF stages and 0 in
+    CAM_PARAM, steps per epoch half the 1-rank run's; ``p_flat`` after
+    every epoch and the occupancy map of every epoch the same bits on both
+    ranks; rank 0 alone built the cache; the run against a 1-rank
+    ``Engine`` with ``images_per_batch=2`` from the same seed and draws
+    (``DP_TOL``); the demo: the same dict on both ranks, each view's PNGs
+    written once under one stamped directory, the scores of the 1-rank
+    demo of the same checkpoint; then ``torchrun`` itself
+    (``python -m torch.distributed.run --standalone``) trains stages
+    ``DP_CUTS["launch stages"]`` to the end.  Times: each rank's step ms
+    by stage, the gradient all-reduce's ms and bytes, the global rays/s
+    against the 1-rank run's, the demo's seconds on 2 ranks and on 1.
+    Returns the summary, rank 0's recorded kernel inputs and the
+    launches."""
+    import os
+    import pathlib
+    import shutil
+
+    from mc_nerf_torch.config import build_argparser, from_args
+    from mc_nerf_torch.data.calibration import CACHE_NAME
+    from mc_nerf_torch.data.synthetic import make_dataset
+    from mc_nerf_torch.parallel.dryrun import spawn_ranks
+    from mc_nerf_torch.train.engine import STAGE_NAMES, Engine
+
+    t_phase = time.perf_counter()
+    work = pathlib.Path(__file__).resolve().parent / "build" / f"dp_smoke_{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    res, (n_train, n_val, n_test), name = ENGINE_RES, CLI_VIEWS, "Ball_Dp"
+    scene_dir = work / "data" / name
+    make_dataset(str(scene_dir), n_train=n_train, n_val=n_val, n_test=n_test, img_h=res,
+                 img_w=res, seed=SEED, calibration_mode="rendered")
+    os.remove(scene_dir / CACHE_NAME)
+    stages, warmup = DP_CUTS["stages"], DP_CUTS["occ_warmup_steps"]
+    for run, st in (("dp", stages), ("launch", DP_CUTS["launch stages"])):
+        (work / f"config_{run}").mkdir(parents=True)
+        (work / f"config_{run}" / "config.yaml").write_text(
+            cli_yaml(res, "importance", st, warmup, work / run))
+    flags = lambda run, mode: [mode, "--config", str(work / f"config_{run}"), "--root_data",
+                               str(work / "data"), "--data_name", name]
+    print(f"dp: {DP_WORLD} ranks on one card; the scene ({n_train} + {n_val} + {n_test} views "
+          f"at {res}x{res}, its cache deleted); Config() widths, stages {stages} of (20, 16, "
+          f"16), occ_warmup_steps {warmup} of 3000", flush=True)
+
+    t0 = time.perf_counter()
+    spawn_ranks(DP_WORLD, [str(pathlib.Path(__file__).resolve()), "--dp-rank",
+                           json.dumps({"work": str(work), "name": name})], str(work),
+                timeout=900)
+    ranks_s = time.perf_counter() - t0
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
+    calls = torch.load(work / "calls.pt", weights_only=False)
+    r0 = ranks[0]
+    spe = r0["steps_per_epoch"]
+
+    # the topology, the schedule, the launches a step
+    for r, x in enumerate(ranks):
+        if (x["rank"], x["world"], x["backend"], x["device"], x["current_device"]) != (
+                r, DP_WORLD, "gloo", "cuda:0", 0):
+            fail(f"dp rank {r}: {x['rank']} of {x['world']}, {x['backend']} on {x['device']} "
+                 f"(current {x['current_device']}): rank {r} of {DP_WORLD}, gloo on cuda:0 "
+                 "wanted")
+        if x["steps_per_epoch"] != n_train * 50 // DP_WORLD or x["step"] != spe * sum(stages):
+            fail(f"dp rank {r}: {x['steps_per_epoch']} steps an epoch, {x['step']} in all")
+        trained = [(stage, n) for path, stage, n, _ in x["epochs"] if path == "dp_train"]
+        if [s for s, _ in trained] != [0, 1, 2]:
+            fail(f"dp rank {r} trained stages {[s for s, _ in trained]}")
+        for stage, n in trained:
+            want = {k: (2 * spe if stage and k in ("fused_render", "render_bwd_points",
+                                                   "render_bwd_weights") else 0) for k in n}
+            if n != want:
+                fail(f"dp rank {r} {STAGE_NAMES[stage]}: launches {n}, wanted {want}")
+        if (x["grad_reduces"] != spe * sum(stages)
+                or x["grad_reduce_bytes"] != x["p_flat_bytes"]):
+            fail(f"dp rank {r}: {x['grad_reduces']} gradient all-reduces of "
+                 f"{x['grad_reduce_bytes']} bytes")
+    digests = [[d for *_, d in x["epochs"]] for x in ranks]
+    same_bits = digests[0] == digests[1] and r0["final_occ"] == ranks[1]["final_occ"]
+    print(f"dp: p_flat after each epoch and each epoch's map the same bits on both ranks: "
+          f"{same_bits}", flush=True)
+    if not same_bits:
+        fail(f"dp: the ranks' parameters or maps differ: {digests}")
+    if (r0["cache_builds"], ranks[1]["cache_builds"]) != (1, 0):
+        fail(f"dp: cache builds by rank {[x['cache_builds'] for x in ranks]}: rank 0's alone")
+    if r0["kept"] != [0, 1, 2]:
+        fail(f"dp: checkpoints {r0['kept']}")
+
+    # the 1-rank run with twice the images a step, and its demo
+    cfg1 = from_args(build_argparser().parse_args(flags("dp", "--train")))
+    cfg1 = cfg1.replace(train=dataclasses.replace(cfg1.train, images_per_batch=DP_WORLD),
+                        paths=dataclasses.replace(cfg1.paths,
+                                                  root_weights=str(work / "one" / "weights"),
+                                                  root_out=str(work / "one" / "results")))
+    eng1 = Engine(cfg1, dev)
+    one_flat, epoch_fn = [], eng1._epoch_fn
+
+    def kept_epoch_fn(stage):
+        fn = epoch_fn(stage)
+
+        def run(*args):
+            out = fn(*args)
+            one_flat.append(eng1.state.p_flat.clone())
+            return out
+        return run
+
+    eng1._epoch_fn = kept_epoch_fn
+    t0 = time.perf_counter()
+    eng1.train()
+    torch.cuda.synchronize()
+    one_train_s = time.perf_counter() - t0
+    if eng1.steps_per_epoch != spe:
+        fail(f"dp: the 1-rank run takes {eng1.steps_per_epoch} steps an epoch, not {spe}")
+    ckpt_dir = work / "dp" / "weights" / "train" / name
+    dp_flat = [torch.load(ckpt_dir / str(e) / "state.pt", weights_only=True)["p_flat"]
+               for e in range(sum(stages))]
+    metric_err = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                     for a, b in zip(r0["history"], eng1.history)
+                     for k in ("loss", "loss_intr", "loss_extr", "loss_rgb_c", "loss_rgb_f"))
+    param_errs = [float((a.to(dev) - b).abs().max() / b.abs().max())
+                  for a, b in zip(dp_flat, one_flat)]
+    param_err = max(param_errs)
+    cfg_d = from_args(build_argparser().parse_args(flags("dp", "--demo")))
+    cfg_d = cfg_d.replace(paths=dataclasses.replace(cfg_d.paths,
+                                                    root_out=str(work / "one" / "demo")))
+    t0 = time.perf_counter()
+    demo1 = Engine(cfg_d, dev).demo()
+    torch.cuda.synchronize()
+    demo1_s = time.perf_counter() - t0
+    demo_err = max(abs(r0["demo"][k] - demo1[k]) / abs(demo1[k]) for k in ("psnr", "ssim"))
+    print(f"dp against 1 rank with images_per_batch={DP_WORLD}: epoch metrics within "
+          f"{metric_err:.3e} (bound {DP_TOL['metrics rel']}), parameters after each epoch "
+          f"within {', '.join(f'{e:.3e}' for e in param_errs)} of their largest entry (bound "
+          f"{DP_TOL['params']}); demo scores within "
+          f"{demo_err:.3e} (bound {DP_TOL['demo rel']}): 2 ranks {r0['demo']}, 1 rank {demo1}",
+          flush=True)
+    if not (metric_err <= DP_TOL["metrics rel"] and param_err <= DP_TOL["params"]
+            and demo_err <= DP_TOL["demo rel"]):
+        fail("dp: the 2-rank run strays from the 1-rank run with twice the images")
+
+    # the demo: one dict, each view written once, one stamped directory
+    out_dir = r0["demo"]["out_dir"]
+    written = sorted(ranks[0]["written"] + ranks[1]["written"])
+    stamped = [d for d in os.listdir(os.path.dirname(out_dir)) if d.startswith("img_rendered_")]
+    pngs = {k: sorted(os.listdir(os.path.join(out_dir, k))) for k in ("pred", "depth", "gt")}
+    print(f"dp_demo: both ranks {r0['demo']}; views written by rank "
+          f"{[x['written'] for x in ranks]}; {stamped}: {pngs}", flush=True)
+    if (ranks[1]["demo"] != r0["demo"] or written != list(range(n_test)) or len(stamped) != 1
+            or any(len(v) != n_test for v in pngs.values())
+            or not all(math.isfinite(r0["demo"][k]) for k in ("psnr", "ssim"))):
+        fail("dp_demo: the ranks' demos disagree, or a view was written twice or never")
+
+    # torchrun itself
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc_per_node", str(DP_WORLD), "-m", "mc_nerf_torch",
+                           *flags("launch", "--train")], capture_output=True, text=True,
+                          timeout=900)
+    launch_s = time.perf_counter() - t0
+    launch_dir = work / "launch" / "weights" / "train" / name
+    launch_kept = sorted(int(n) for n in os.listdir(launch_dir)) if launch_dir.is_dir() else []
+    print(f"dp torchrun --nproc_per_node {DP_WORLD} -m mc_nerf_torch --train: rc "
+          f"{proc.returncode} in {launch_s:.1f} s; checkpoints {launch_kept}", flush=True)
+    if proc.returncode != 0 or launch_kept != list(range(sum(DP_CUTS["launch stages"]))):
+        fail("torchrun's run failed:\n" + proc.stdout[-3000:] + proc.stderr[-6000:])
+
+    # times
+    summary = {"ranks_s": ranks_s, "steps_per_epoch": spe, "launch_s": launch_s,
+               "one_rank_train_s": one_train_s, "demo_s": [x["demo_s"] for x in ranks],
+               "one_rank_demo_s": demo1_s, "metric_err": metric_err, "param_err": param_err,
+               "param_errs": param_errs, "demo_err": demo_err,
+               "grad_reduce_bytes": r0["grad_reduce_bytes"], "step_ms": {}, "rays_per_s": {},
+               "grad_reduce_ms": {}, "median_step_ms": {}, "card": smi}
+    for stage in (0, 1, 2):
+        sn = STAGE_NAMES[stage]
+        summary["step_ms"][sn] = {
+            "ranks": [x["history"][stage]["seconds"] / spe * 1e3 for x in ranks],
+            "one_rank": eng1.history[stage]["seconds"] / spe * 1e3}
+        summary["rays_per_s"][sn] = {"ranks": r0["history"][stage]["rays_per_s"],
+                                     "one_rank": eng1.history[stage]["rays_per_s"]}
+        summary["grad_reduce_ms"][sn] = [
+            float(np.median(x["grad_reduce_ms"][stage * spe:(stage + 1) * spe])) for x in ranks]
+        # from one gradient all-reduce's end to the next: a step, without
+        # the epoch's first (start-up, the other rank's checkpoint)
+        summary["median_step_ms"][sn] = [
+            float(np.median(np.diff(x["grad_reduce_end_s"][stage * spe:(stage + 1) * spe])))
+            * 1e3 for x in ranks]
+        print(f"dp {sn}: step {summary['step_ms'][sn]['ranks'][0]:.2f} / "
+              f"{summary['step_ms'][sn]['ranks'][1]:.2f} ms, median "
+              f"{summary['median_step_ms'][sn][0]:.2f} / "
+              f"{summary['median_step_ms'][sn][1]:.2f} (rank 0 / 1; 1 rank with "
+              f"{DP_WORLD} images: {summary['step_ms'][sn]['one_rank']:.2f}), gradient "
+              f"all-reduce median {summary['grad_reduce_ms'][sn][0]:.3f} / "
+              f"{summary['grad_reduce_ms'][sn][1]:.3f} ms of {r0['grad_reduce_bytes']} bytes, "
+              f"global {summary['rays_per_s'][sn]['ranks']:.0f} rays/s (1 rank "
+              f"{summary['rays_per_s'][sn]['one_rank']:.0f}) ({smi}; two processes on one "
+              f"card: no measure of scaling across cards)", flush=True)
+    print(f"dp demo: {summary['demo_s'][0]:.2f} / {summary['demo_s'][1]:.2f} s on 2 ranks, "
+          f"{demo1_s:.2f} s on 1 ({smi})", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    summary["seconds"] = time.perf_counter() - t_phase
+    print(f"dp phase: {summary['seconds']:.1f} s", flush=True)
+    launches = {path: [x["launches"][path] for x in ranks] for path in ("dp_train", "dp_demo")}
+    return {"summary": summary, "calls": calls, "nerf": eng1.cfg.nerf, "launches": launches,
+            "by_epoch": [[(stage, n) for path, stage, n, _ in x["epochs"] if path == "dp_train"]
+                         for x in ranks]}
+
+
 def check_recorded(calls: dict, counted: dict) -> None:
     """Every launch counted on a path is a call ``engine_recorder``
     recorded there."""
@@ -1456,7 +1758,9 @@ def cli_recording(work, name: str, counters: dict):
     entry point being called inside fused_mlp.py's VJP), the engine's
     detection-cache builds are timed into ``cache_s``, and each training
     epoch's launches are appended to ``epochs`` as (path, stage,
-    {kernel: launches}).  Everything is restored on exit."""
+    {kernel: launches}, {"p_flat": the sha256 of ``p_flat`` after the
+    epoch, "occ": of the occupancy map it trained on}).  Everything is
+    restored on exit."""
     import mc_nerf_torch.models.nerf as nerf_module
     import mc_nerf_torch.ops.cuda.fused_mlp as mlp_module
     import mc_nerf_torch.ops.cuda.fused_render as render_module
@@ -1495,9 +1799,11 @@ def cli_recording(work, name: str, counters: dict):
 
             def run(*args):
                 before = {n: c.launches for n, c in counters.items()}
+                occ = digest(self._occ_map)
                 out = fn(*args)
                 epochs.append((where[0], stage, {n: c.launches - before[n]
-                                                 for n, c in counters.items()}))
+                                                 for n, c in counters.items()},
+                               {"p_flat": digest(self.state.p_flat), "occ": occ}))
                 return out
             return run
 
@@ -1537,6 +1843,14 @@ def cli_recording(work, name: str, counters: dict):
         mlp_module._shaded_bwd_launch = shaded_bwd_launch
         engine_module.Engine.train, engine_module.Engine.demo = engine_train, engine_demo
         engine_module.build_calibration_cache = build_cache
+
+
+def digest(t) -> str:
+    """The sha256 of a tensor's bytes (None: "none")."""
+    if t is None:
+        return "none"
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
 
 
 def engine_recorder(fn, name: str, shape_of, where: list, calls: dict, last: bool = False):
@@ -2350,6 +2664,9 @@ def main() -> None:
         fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, fused_shaded_mlp,
         fused_shaded_mlp_bwd)})
 
+    # ---- data parallelism: 2 ranks on the card through main(), torchrun
+    dp = dp_phase(dev, smi)
+
     replaces = {"fused_mlp_apply": "mc_nerf_tpu/ops/pallas/fused_mlp.py:241",
                 "fused_render": "mc_nerf_tpu/ops/pallas/fused_render.py:211",
                 "render_bwd_points": "mc_nerf_tpu/ops/pallas/fused_render.py:290",
@@ -2455,6 +2772,26 @@ def main() -> None:
     if set(cf_numbers) != wanted:
         fail(f"kernels checked on the coarse-free CLI paths {sorted(cf_numbers)}, "
              f"wanted {sorted(wanted)}")
+    # the data-parallel paths: K1, K2 and K3 on the inputs rank 0 gave them
+    failures = []
+    dp_numbers = path_kernel_numbers(dp["calls"], dp["nerf"], rng, render_tol, mlp_tol,
+                                     plants=True, failures=failures)
+    if failures:
+        fail("the data-parallel paths' kernel checks failed: " + "; ".join(failures))
+    spe = dp["summary"]["steps_per_epoch"]
+    for (path, name), shapes in dp_numbers.items():
+        numbers = per_launch_over_shapes(shapes)
+        by_stage = ({STAGE_NAMES[stage]: n[name] / spe for stage, n in dp["by_epoch"][0]}
+                    if path == "dp_train" else None)
+        kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
+                        "replaces": replaces[name], **numbers,
+                        "launches_by_rank": [n[name] for n in dp["launches"][path]],
+                        **({"launches_per_step_by_stage": by_stage} if by_stage else {})})
+    wanted = {(p, n) for p in ("dp_train", "dp_demo") for n in ("fused_mlp_apply", "fused_render")}
+    wanted |= {("dp_train", "render_bwd_points"), ("dp_train", "render_bwd_weights")}
+    if set(dp_numbers) != wanted:
+        fail(f"kernels checked on the data-parallel paths {sorted(dp_numbers)}, "
+             f"wanted {sorted(wanted)}")
     print(json.dumps({"grid_demo": {k: v for k, v in grid_demo.items() if k != "numbers"},
                       "grid_train": {k: v for k, v in grid_train.items() if k != "launches"},
                       "grid_train_launches": grid_train["launches"],
@@ -2472,6 +2809,7 @@ def main() -> None:
     print(json.dumps({"cli": cli["summary"], "cli_launches": cli["launches"], "card": smi}))
     print(json.dumps({"cli_cf": cli_cf["summary"], "cli_cf_launches": cli_cf["launches"],
                       "card": smi}))
+    print(json.dumps({"dp": dp["summary"], "dp_launches": dp["launches"], "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -2479,4 +2817,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--dp-rank"]:     # a rank that dp_phase starts
+        dp_rank(json.loads(sys.argv[2]))
+    else:
+        main()

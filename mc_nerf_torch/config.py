@@ -10,7 +10,6 @@ reads the reference's ``config.yaml`` schema with the port's own reader
 / :func:`from_args` give the reference's CLI flags.  Every key the JAX
 loader reads is applied but ``max_steps_per_program`` and ``prng_impl``
 (XLA's program size, JAX's PRNG), which are logged and not applied.
-``ParallelConfig`` comes with data parallelism.
 """
 
 from __future__ import annotations
@@ -241,6 +240,18 @@ class PathsConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    """Data parallelism over the ranks ``torchrun`` starts (replaces the
+    JAX package's device mesh; ref ``utils/distributed_init.py``)."""
+
+    # ranks on the data axis; 0 = the world size.  A torch process group
+    # cannot use fewer ranks than were launched, so any other value must
+    # equal it (``parallel/mesh.py::check_data_parallel``)
+    data_parallel: int = 0
+    mesh_axis: str = "data"
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     data_root: str = "./data/dataset_Ball"
     data_name: str = "Ball_Computer"
@@ -255,6 +266,7 @@ class Config:
     nerf: NerfConfig = dataclasses.field(default_factory=NerfConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     paths: PathsConfig = dataclasses.field(default_factory=PathsConfig)
+    parallel: ParallelConfig = dataclasses.field(default_factory=ParallelConfig)
     # numeric policy of the plain route: params fp32, activations in this dtype
     compute_dtype: str = "bfloat16"
 

@@ -25,7 +25,7 @@ two-pass renders' own.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -182,12 +182,14 @@ def _shade_train_kernel(mlp: NerfMLP, depth: int, skips, xyz: torch.Tensor,
     return out[:, 0].reshape(r, s), out[:, 1:4].reshape(r, s, 3)
 
 
-def _grid_fine_depths(w_sel: torch.Tensor, cfg: NerfConfig):
+def _grid_fine_depths(w_sel: torch.Tensor, cfg: NerfConfig,
+                      batch_max: Optional[torch.Tensor] = None):
     """Grid fine mode: the selected bins' fine-grid sample indices ->
     (depths [R, k * scale] on the fine grid, validity, the grid step).
     linspace is affine in the index, so depths come from the index
-    directly (JAX ``models/nerf.py:366-374``)."""
-    bin_idx, valid = select_fine_bins(w_sel, cfg.fine_bins_topk, cfg.weight_thresh)
+    directly (JAX ``models/nerf.py:366-374``).  ``batch_max``: the
+    selection cutoff's batch max (``select_fine_bins``)."""
+    bin_idx, valid = select_fine_bins(w_sel, cfg.fine_bins_topk, cfg.weight_thresh, batch_max)
     sample_idx, sample_valid = expand_bins_to_samples(bin_idx, valid, cfg.sample_scale)
     step_f = (cfg.far - cfg.near) / (cfg.samples_fine_grid - 1)
     return cfg.near + sample_idx.float() * step_f, sample_valid, step_f
@@ -359,6 +361,7 @@ def render_rays_train(
     occ: Optional[torch.Tensor] = None,
     remat_shade: bool = False,
     coarse_free: bool = False,
+    reduce_max: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
     """Training render: coarse + fine pass with sigma noise (ref
     ``render_rays_train``, mc_nerf.py:598-646).
@@ -383,7 +386,9 @@ def render_rays_train(
     ``composite`` in ``compute_dtype``.  ``remat_shade`` recomputes the
     shading passes (all but the fused importance kernels, as in the JAX
     package) in the backward (``torch.utils.checkpoint``) instead of
-    keeping their activations.
+    keeping their activations.  ``reduce_max`` (grid mode) takes the
+    selection cutoff's max over the rays of this call to the max over the
+    whole batch: a data-parallel step's all-reduce over the ranks.
 
     Returns (rgb_coarse [R, 3], or None when coarse-free, rgb_fine [R, 3]).
     """
@@ -473,7 +478,8 @@ def render_rays_train(
         return out_c.rgb, importance_fine(sample_pdf(z_c, w_sel, k, uniforms=draws.pdf_u))
 
     # the fine grid shares the coarse jitter (ref mc_nerf.py:633-634)
-    z_f, sample_valid, step_f = _grid_fine_depths(w_sel, cfg)
+    batch_max = None if reduce_max is None else reduce_max(w_sel.max())
+    z_f, sample_valid, step_f = _grid_fine_depths(w_sel, cfg, batch_max)
     z_f = z_f + draws.z_u
     sigma_f, rgb_f = shade_f(z_f)
     out_f = _grid_composite(z_f, sigma_f, rgb_f, sample_valid, step_f, cfg, draws.noise_f)

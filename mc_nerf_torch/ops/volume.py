@@ -71,12 +71,16 @@ def composite(z_vals: torch.Tensor, sigma: torch.Tensor, rgb: torch.Tensor,
     return CompositeResult(rgb_out, depth, opacity, weights)
 
 
-def select_fine_bins(weights_coarse: torch.Tensor, k: int,
-                     weight_thresh: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def select_fine_bins(weights_coarse: torch.Tensor, k: int, weight_thresh: float,
+                     batch_max: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Static-shape replacement for the reference's fine-bin selection
     (mc_nerf.py:623-632; the JAX package's ``select_fine_bins``): keep the
     FIRST k bins per ray in z order whose weight is at least
-    ``min(weight_thresh, max over the whole [R, S] batch)``.
+    ``min(weight_thresh, max over the whole [R, S] batch)``.  ``batch_max``
+    (a 0-d tensor) stands for that max where the batch is wider than
+    ``weights_coarse``: a data-parallel step passes the max over every
+    rank's rays, which is what the JAX package's max means on its mesh.
 
     The cutoff stays on the device (no host sync).  Each kept bin's slot is
     the count of kept bins before it (a cumsum); one scatter writes the bin
@@ -88,12 +92,14 @@ def select_fine_bins(weights_coarse: torch.Tensor, k: int,
       weights_coarse: [R, S] coarse compositing weights (no gradient).
       k: static per-ray bin budget.
       weight_thresh: the yaml ``weight_thresh`` (1e-3).
+      batch_max: the batch's max weight; None: ``weights_coarse.max()``.
 
     Returns:
       (bin_idx [R, k] int64 ascending per ray, valid [R, k] bool).
     """
     r, num_bins = weights_coarse.shape
-    cutoff = torch.clamp(weights_coarse.max(), max=weight_thresh)
+    cutoff = torch.clamp(weights_coarse.max() if batch_max is None else batch_max,
+                         max=weight_thresh)
     mask = weights_coarse >= cutoff                                 # [R, S]
     pos = torch.cumsum(mask.to(torch.int64), dim=-1) - 1            # slot per kept bin
     slot = torch.where(mask & (pos < k), pos, torch.full_like(pos, k))

@@ -21,7 +21,17 @@ coord images only) gets one from the tag36h11 detector before training.
 Each camera table also writes the GT-vs-estimated pose plot.  As in the
 JAX package, and unlike the reference: each demo view is scored against
 its own ground truth, means divide by the view count, training resumes
-from any checkpoint, scalars are written.  Not ported: multi-process runs.
+from any checkpoint, scalars are written.
+
+Under ``torchrun`` (``parallel/``), with one process per card: each rank
+trains on its block of the global batch (``images_per_batch`` x the world
+size; steps per epoch and rays/s count it), rank 0 builds the detection
+cache while the others wait, writes every checkpoint and prunes them, and
+alone reports cameras, validates and writes TensorBoard; every rank
+refreshes the occupancy map from the same parameters, restores a resume
+and ends ``train`` at a barrier, so a demo or resume launched after it
+sees the last checkpoint.  The demo shards its views over the ranks
+(:func:`demo`).
 """
 
 from __future__ import annotations
@@ -51,6 +61,14 @@ from mc_nerf_torch.ops.occupancy import (
     sampler_map,
     uniform_prior_map,
     update_grid,
+)
+from mc_nerf_torch.parallel.mesh import (
+    all_reduce_sum_,
+    barrier,
+    broadcast_,
+    check_data_parallel,
+    rank,
+    world_size,
 )
 from mc_nerf_torch.train.checkpoint import Checkpointer
 from mc_nerf_torch.train.optim import Params, build_optimizers, flatten_params
@@ -126,6 +144,13 @@ def demo(nerf_params: NerfParams, test_split: SplitData, cfg: Config,
     proposal), from the uniform prior.  With ``out_dir`` the pred, depth
     and gt PNGs are written under it.
 
+    Under a process group the views are sharded round robin over the ranks
+    (the JAX demo's ``range(rank, count, world)``): each rank renders,
+    scores and writes its own, per-view rows ``[psnr, ssim, lpips,
+    lpips_valid]`` (zeros for the views of other ranks) are summed with
+    one all-reduce, so every rank returns the same result and each PNG is
+    written once; rank 0 prints it.
+
     Returns {"psnr", "ssim", "lpips", "count"}: the means over the views;
     LPIPS over the views it scored, None without a weights file.
     """
@@ -145,24 +170,27 @@ def demo(nerf_params: NerfParams, test_split: SplitData, cfg: Config,
         for d in dirs.values():
             os.makedirs(d, exist_ok=True)
 
-    scores = np.zeros((test.count, 2), np.float64)
-    lpips_scores = []
-    for i in range(test.count):
+    per_view = np.zeros((test.count, 4), np.float64)
+    for i in range(rank(), test.count, world_size()):
         rgb, depth, opacity = render(nerf_params, test.poses_w2c[i], test.K[i], occ)
         gt = torch.as_tensor(test.images_u8[i], device=dev).float() / 255.0
-        scores[i] = float(psnr(rgb, gt)), float(ssim(rgb, gt))
+        per_view[i, :2] = float(psnr(rgb, gt)), float(ssim(rgb, gt))
         lp = lpips(rgb, gt)
         if lp is not None:
-            lpips_scores.append(lp)
+            per_view[i, 2:] = lp, 1.0
         if dirs is not None:
             _write_pngs(dirs, i, rgb, depth, opacity, gt)
-    lp = float(np.mean(lpips_scores)) if lpips_scores else None
-    result = {"psnr": float(scores[:, 0].mean()), "ssim": float(scores[:, 1].mean()),
+    if world_size() > 1:
+        per_view = all_reduce_sum_(torch.as_tensor(per_view, device=dev)).cpu().numpy()
+    n_lpips = per_view[:, 3].sum()
+    lp = float(per_view[:, 2].sum() / n_lpips) if n_lpips else None
+    result = {"psnr": float(per_view[:, 0].mean()), "ssim": float(per_view[:, 1].mean()),
               "lpips": lp, "count": test.count}
-    print(f"Results ({cfg.data_name})")
-    print(f"PSNR: {result['psnr']}")
-    print(f"SSIM: {result['ssim']}")
-    print(f"LPIP: {lp if lp is not None else 'n/a (no weights)'}")
+    if is_main_process():
+        print(f"Results ({cfg.data_name})")
+        print(f"PSNR: {result['psnr']}")
+        print(f"SSIM: {result['ssim']}")
+        print(f"LPIP: {lp if lp is not None else 'n/a (no weights)'}")
     return result
 
 
@@ -277,7 +305,9 @@ class Engine:
 
         # the reference expands the dataset 50x and walks it once an epoch
         # (data_read.py:286-297): N * 50 / B steps with B images a step
-        self.images_per_batch = cfg.train.images_per_batch
+        # over all ranks
+        self.world = check_data_parallel(cfg.parallel, world_size())
+        self.images_per_batch = cfg.train.images_per_batch * self.world
         self.steps_per_epoch = max(
             1, (self.n_train * cfg.train.steps_per_image_epoch) // self.images_per_batch)
         self.total_steps = self.steps_per_epoch * cfg.stages.total_epochs
@@ -336,8 +366,11 @@ class Engine:
         device once (no step copies a host tensor there).  A scene without a
         detection cache gets one from the tag36h11 detector over its calib
         and coord images (the reference runs libapriltag at start-up,
-        ``data/data_read.py:171-214``)."""
-        build_calibration_cache(self.cfg.scene_dir)
+        ``data/data_read.py:171-214``): rank 0 builds it, the other ranks
+        wait (concurrent builds would race on the file)."""
+        if is_main_process():
+            build_calibration_cache(self.cfg.scene_dir)
+        barrier()
         imgs = self.scene.train.images_u8.reshape(self.n_train, -1, 3)
         return TrainData(torch.as_tensor(imgs, device=self.device),
                          load_calibration(self.cfg.scene_dir, self.cfg.apriltag_size,
@@ -347,7 +380,7 @@ class Engine:
         if stage not in self._epoch_fns:
             self._epoch_fns[stage] = make_stage_epoch(
                 self.cfg, stage, self.txs[stage], self.img_h, self.img_w,
-                self.total_steps, self.steps_per_epoch)
+                self.total_steps, self.steps_per_epoch, self.world)
         return self._epoch_fns[stage]
 
     def _render_fn(self, img_h: int, img_w: int):
@@ -415,13 +448,15 @@ class Engine:
                 self._refresh_occupancy(epoch)
                 data = data._replace(occ=self._occ_map)
 
-            t0 = time.perf_counter()
-            self.ckpt.save(epoch, self.state)
-            record["ckpt_seconds"] = time.perf_counter() - t0
-            if is_main_process():
+            if is_main_process():     # one writer; the ranks hold the same bits
+                t0 = time.perf_counter()
+                self.ckpt.save(epoch, self.state)
+                record["ckpt_seconds"] = time.perf_counter() - t0
                 self._report_cameras(epoch)
                 if stage > 0:
                     record.update(self._validate(epoch))
+        # a demo or resume started after train() sees the last checkpoint
+        barrier()
         self.writer.close()
         return self.state
 
@@ -500,7 +535,8 @@ class Engine:
         """Restore a checkpoint (``ckpt_epoch``, else ``eval.demo_ckpt``, else
         the latest) and score every test view with its camera (the
         reference's demo, ``main.py:98-173``, with its two scoring faults
-        fixed).  The PNGs go to ``<paths.render_dir>_<time stamp>``."""
+        fixed).  The PNGs go to ``<paths.render_dir>_<time stamp>``, rank 0's
+        stamp on every rank."""
         cfg = self.cfg
         if ckpt_epoch is None:
             ckpt_epoch = _parse_demo_ckpt(cfg.eval.demo_ckpt)
@@ -523,7 +559,10 @@ class Engine:
                          cfg.nerf.occ_warmup_steps, max(0, nerf_steps),
                          " (coarse-free: from the uniform prior)" if cfg.eval_coarse_free
                          else "")
-        base = cfg.paths.render_dir + "_" + time.strftime("%Y-%m-%d-%H-%M-%S")
+        now = broadcast_(torch.tensor([int(time.time())], dtype=torch.int64,
+                                      device=self.device))
+        base = cfg.paths.render_dir + "_" + time.strftime("%Y-%m-%d-%H-%M-%S",
+                                                          time.localtime(int(now[0])))
         result = demo(self.state.params.nerf, test, cfg, self.device, cull=cull, out_dir=base,
                       epoch=epoch)
         return {**result, "out_dir": base}

@@ -13,6 +13,16 @@ drawn by :func:`draw_step` from an explicit ``torch.Generator`` on the
 device, or built by a test from the JAX package's key tree.  The JAX
 package scans an epoch in one compiled program; here an epoch is a
 Python loop over steps (:func:`make_stage_epoch`).
+
+Data parallelism (``world`` > 1 ranks of the default process group, the
+JAX package's ``mesh``): every rank draws the global batch of
+``images_per_batch x world`` images from the same generator and keeps its
+contiguous block (:func:`rank_block`, the batch JAX shards at
+``mc_nerf_tpu/train/steps.py:107-119``), so a run on 2 ranks draws what a
+1-rank run with twice the images draws.  The step averages the flat
+gradient with one all-reduce; every rank holds the same number of rays,
+so the mean of the ranks' RGB means is the global mean, and the
+calibration terms are the same on every rank.
 """
 
 from __future__ import annotations
@@ -43,6 +53,13 @@ from mc_nerf_torch.models.nerf import (
     pack_eval_params,
     render_rays_eval,
     render_rays_train,
+)
+from mc_nerf_torch.parallel.mesh import (
+    all_reduce_max,
+    all_reduce_mean_,
+    batch_slice,
+    rank,
+    world_size,
 )
 from mc_nerf_torch.train.loss import reprojection_loss, rgb_loss, self_normalized
 from mc_nerf_torch.train.optim import (
@@ -156,6 +173,19 @@ def draw_step(cfg: Config, stage: int, n_images: int, img_h: int, img_w: int,
     return StepDraws(u_int, u_ext, img_ids, pix_idx, render)
 
 
+def rank_block(draws: StepDraws, rank: int, world: int) -> StepDraws:
+    """Rank ``rank``'s contiguous block of a global batch's draws: its
+    images and pixels, and the render draws of their rays.  The
+    calibration draws stay whole: the JAX mesh replicates them."""
+    if world == 1 or draws.img_ids is None:
+        return draws
+    rows = batch_slice(draws.img_ids.shape[0], rank, world)
+    rays = batch_slice(draws.img_ids.shape[0] * draws.pix_idx.shape[1], rank, world)
+    render = RenderDraws(*(None if d is None else d[rays] for d in draws.render))
+    return draws._replace(img_ids=draws.img_ids[rows], pix_idx=draws.pix_idx[rows],
+                          render=render)
+
+
 def _calib_losses(params: Params, data: TrainData, draws: StepDraws, img_h: int,
                   img_w: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Intrinsic + extrinsic reprojection losses for the step."""
@@ -186,7 +216,7 @@ def _sample_ray_batch(params: Params, data: TrainData, draws: StepDraws, img_h: 
 
 
 def make_loss_fn(cfg: Config, stage: int, img_h: int, img_w: int,
-                 total_steps: int) -> Callable:
+                 total_steps: int, world: int = 1) -> Callable:
     """Per-stage loss: ``(params, data, draws, step) -> (loss, metrics)``.
 
     ``cfg.train.use_pallas`` picks the render route: None or True renders
@@ -195,7 +225,9 @@ def make_loss_fn(cfg: Config, stage: int, img_h: int, img_w: int,
     grid mode (``cfg.train.fine_mode``); False through the plain PyTorch
     route.  The JAX package defaults its train step to XLA because its
     fused backward lost on a TPU; the port's choice rests on the H100
-    (PERF.md)."""
+    (PERF.md).  With ``world`` > 1 ranks, the grid mode's selection cutoff
+    takes its max over every rank's rays (``all_reduce_max``), as the JAX
+    package's max over its mesh does."""
     barf_window = cfg.barf.global_window(cfg.stages)
     use_kernels = cfg.train.use_pallas is not False
     cd = _dtype(cfg.compute_dtype)
@@ -218,7 +250,8 @@ def make_loss_fn(cfg: Config, stage: int, img_h: int, img_w: int,
             barf_on=(stage == 1), compute_dtype=cd, fine_mode=cfg.train.fine_mode,
             importance_samples=cfg.train.importance_samples, use_kernels=use_kernels,
             occ=data.occ, remat_shade=cfg.train.remat_shade,
-            coarse_free=cfg.nerf.coarse_free_at(stage))
+            coarse_free=cfg.nerf.coarse_free_at(stage),
+            reduce_max=all_reduce_max if world > 1 else None)
         loss_f = rgb_loss(rgb_f, gt)
         # a coarse-free render has no coarse pass: its loss term drops
         loss_c = torch.zeros_like(loss_f) if rgb_c is None else rgb_loss(rgb_c, gt)
@@ -230,18 +263,24 @@ def make_loss_fn(cfg: Config, stage: int, img_h: int, img_w: int,
 
 
 def make_stage_step(cfg: Config, stage: int, tx: FlatRAdam, img_h: int, img_w: int,
-                    total_steps: int) -> Callable:
+                    total_steps: int, world: int = 1) -> Callable:
     """One step: ``(state, data, draws) -> metrics``: loss, backward,
-    the flat gradient, and the stage's masked RAdam update of
-    ``state.p_flat`` in place."""
-    loss_fn = make_loss_fn(cfg, stage, img_h, img_w, total_steps)
+    the flat gradient (averaged over the ``world`` ranks of the default
+    process group), and the stage's masked RAdam update of
+    ``state.p_flat`` in place.  The metrics are this rank's."""
+    if world != world_size():
+        raise ValueError(f"a step over {world} ranks in a group of {world_size()}")
+    loss_fn = make_loss_fn(cfg, stage, img_h, img_w, total_steps, world)
 
     def step_fn(state: TrainState, data: TrainData, draws: StepDraws) -> Dict[str, torch.Tensor]:
         for p in state.params.parameters():
             p.grad = None
         total, metrics = loss_fn(state.params, data, draws, state.step)
         total.backward()
-        new_opt = tx.update(flat_grads(state.params), state.opt_states[stage], state.p_flat)
+        # one all-reduce of the flat gradient (the parameters are views of
+        # p_flat: no per-parameter buckets); every rank applies the same update
+        g_flat = all_reduce_mean_(flat_grads(state.params))
+        new_opt = tx.update(g_flat, state.opt_states[stage], state.p_flat)
         state.opt_states = tuple(new_opt if i == stage else o
                                  for i, o in enumerate(state.opt_states))
         state.step += 1
@@ -251,22 +290,29 @@ def make_stage_step(cfg: Config, stage: int, tx: FlatRAdam, img_h: int, img_w: i
 
 
 def make_stage_epoch(cfg: Config, stage: int, tx: FlatRAdam, img_h: int, img_w: int,
-                     total_steps: int, steps_per_epoch: int) -> Callable:
+                     total_steps: int, steps_per_epoch: int, world: int = 1) -> Callable:
     """One epoch, a Python loop of :func:`make_stage_step`:
     ``(state, data, generator) -> mean metrics``, each step's draws from
-    ``generator`` (on the device)."""
-    step_fn = make_stage_step(cfg, stage, tx, img_h, img_w, total_steps)
+    ``generator`` (on the device): the global batch over ``world`` ranks,
+    of which this rank keeps its block.  The mean metrics are averaged
+    over the ranks once, at the end: the global batch's."""
+    step_fn = make_stage_step(cfg, stage, tx, img_h, img_w, total_steps, world)
+    draw_cfg = cfg.replace(train=dataclasses.replace(
+        cfg.train, images_per_batch=cfg.train.images_per_batch * world))
+    this_rank = rank()
 
     def epoch_fn(state: TrainState, data: TrainData,
                  generator: torch.Generator) -> Dict[str, torch.Tensor]:
         sums: Dict[str, torch.Tensor] = {}
         n_images = data.images_u8.shape[0]
         for _ in range(steps_per_epoch):
-            draws = draw_step(cfg, stage, n_images, img_h, img_w, data.occ is not None,
+            draws = draw_step(draw_cfg, stage, n_images, img_h, img_w, data.occ is not None,
                               generator)
-            for k, v in step_fn(state, data, draws).items():
+            for k, v in step_fn(state, data, rank_block(draws, this_rank, world)).items():
                 sums[k] = sums[k] + v if k in sums else v
-        return {k: v / steps_per_epoch for k, v in sums.items()}
+        names = sorted(sums)
+        means = all_reduce_mean_(torch.stack([sums[k] for k in names]) / steps_per_epoch)
+        return dict(zip(names, means))
 
     return epoch_fn
 

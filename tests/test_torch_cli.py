@@ -216,10 +216,17 @@ def test_main_without_a_device_raises_without_cuda(tmp_path, monkeypatch):
         t_main.main(["--demo", "--start_device", "1", "--config", str(tmp_path)])
 
 
-def test_a_launcher_world_size_is_refused(tmp_path, monkeypatch):
+def test_a_launcher_world_size_without_a_rendezvous_raises(tmp_path, monkeypatch):
+    """WORLD_SIZE=2 with no reachable rendezvous (torchrun's MASTER_ADDR
+    unset) raises from initialize_distributed: the run never goes on as a
+    single process."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(RuntimeError, match="Queue 1 item 5"):
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(RuntimeError, match="refusing to go on as 2 independent") as err:
         t_main.main(["--train", "--config", str(tmp_path)], device=CPU)
+    assert err.traceback[-1].name == "initialize_distributed"
+    assert not torch.distributed.is_initialized()
 
 
 def test_the_module_entry_prints_the_flags():

@@ -13,10 +13,11 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 BLOCKED = ("jax", "jaxlib", "mc_nerf_tpu", "yaml")
-# modules the walk must reach: the entry, the yaml reader, the detector
+# modules the walk must reach: the entry, the yaml reader, the detector, data parallelism
 REQUIRED = ("mc_nerf_torch.main", "mc_nerf_torch.__main__", "mc_nerf_torch.yaml_subset",
             "mc_nerf_torch.config", "mc_nerf_torch.native.apriltag_binding",
-            "mc_nerf_torch.data.cube_render", "mc_nerf_torch.data.tag36h11")
+            "mc_nerf_torch.data.cube_render", "mc_nerf_torch.data.tag36h11",
+            "mc_nerf_torch.parallel", "mc_nerf_torch.parallel.distributed")
 
 _IMPORT_ALL = f"""
 import importlib, importlib.abc, pkgutil, sys
