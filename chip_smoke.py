@@ -49,18 +49,33 @@ on a reference-format scene.
    a frame timed, one chunk against the plain route, K1 and K4 at one eval
    chunk's shapes; the grid GLOBAL_OPTIM step as in 5 (K4 and K5 twice
    per step).
+6b. The compiled epoch (``graph_phase``): for four step kinds on the
+   workload of 5 (importance and grid GLOBAL_OPTIM, coarse-free FINE_TUNE,
+   CAM_PARAM), epochs of 10 steps from one state and seed through the
+   step captured as a CUDA graph and through the loop of eager steps, in
+   turns: the states after them bit for bit the same, the launches a step
+   the same (the wrappers' over the warm-up and capture, the profiler's
+   over the replays), a rebound map and a value frozen by the capture
+   caught; wall ms, rays/s, device ms and busy share of each route.
 7. The engine (``mc_nerf_torch.train.engine.Engine``) at the default model
    and sampler widths on a scene the port's ``make_dataset`` writes under
    ``build/`` (8 train + 1 val + 2 test views at 200x200), cut to stages
    of 1 + 1 + 1 epochs of 16 steps with a 16-step occupancy warm-up: run
-   A trains them (``fused_render`` and its two backward launches exactly
-   twice per GLOBAL_OPTIM / FINE_TUNE step, ``fused_mlp_apply`` and
+   A trains them, each stage's step captured once and replayed
+   (``fused_render`` and its two backward launches exactly twice per
+   GLOBAL_OPTIM / FINE_TUNE step of the warm-ups and captures, which the
+   wrappers count, and twice in a replay of each stage's step graph,
+   which the profiler counts after the run; ``fused_mlp_apply`` and
    ``fused_render`` in the validation renders), run B resumes from run
    A's epoch-0 checkpoint and must end on the same bits, the demo
    restores the latest checkpoint and scores the test views.  The calls
-   of the kernels' entry points are recorded by path and shape; each
-   kernel is then held against its plain version and timed on the inputs
-   the engine gave it at each shape.
+   of the kernels' entry points are recorded by path and shape (the
+   engine's training path keeps the first call at each shape, a
+   warm-up step's before the capture: a replay calls no entry point; the
+   CLI phases keep the last, a step graph's own tensors as its last
+   replay, the profiled one after the run, left them); each kernel is
+   then held against its plain
+   version and timed on the inputs the engine gave it at each shape.
 8. The CLI (``mc_nerf_torch.main.main``, what ``python -m mc_nerf_torch``
    runs) on a reference-format scene: ``make_dataset(calibration_mode=
    "rendered")`` writes 4 train + 1 val + 2 test views at 200x200 with
@@ -177,6 +192,15 @@ MLP_BWD_TOL = {"coarse": {"dW": 2.2e-4, "db": 1.2e-4, "last layer": 1.1e-4, "dfe
 # threshold may pick another bin.  About 18x the measured loss error
 # (5.6e-6) and 6x the worst leaf's (4.7e-2, PERF.md)
 GRID_STEP_TOL = {"loss rel": 1e-4, "grad rel L2 (worst leaf)": 0.3}
+# the graph phase: steps an epoch of each route, and its step kinds:
+# (stage, train and NeRF config changes from Config())
+GRAPH_STEPS = 10
+GRAPH_KINDS = {"importance GLOBAL_OPTIM": (1, {}, {}),
+               "grid GLOBAL_OPTIM": (1, {"fine_mode": "grid"}, {}),
+               "coarse-free FINE_TUNE": (2, {}, {"coarse_free": True, "coarse_free_from_stage": 2,
+                                                 "cf_uniform_samples": 8,
+                                                 "occ_map_dtype": "bitpack"}),
+               "CAM_PARAM": (0, {}, {})}
 # the engine phase's cuts of the protocol (52 epochs of 50 steps a train
 # image, 3000 warm-up steps, 800x800 images, 200 test views)
 ENGINE_CUTS = {"stages": (1, 1, 1), "steps_per_image_epoch": 2, "occ_warmup_steps": 16}
@@ -741,14 +765,14 @@ def train_phase(cfg, dev, h: int, w: int, counters, n_steps: int, route_tol: dic
     from mc_nerf_torch.tools.bwd_check import rel_l2
     from mc_nerf_torch.tools.profile_step import profile_steps
     from mc_nerf_torch.tools.scene import STEPS_PER_EPOCH, TOTAL_STEPS, train_workload
-    from mc_nerf_torch.train.optim import build_optimizers, flatten_params
+    from mc_nerf_torch.train.optim import build_optimizers, counter, flatten_params
     from mc_nerf_torch.train.steps import TrainState, draw_step, make_loss_fn, make_stage_step
 
     mode = cfg.train.fine_mode
     params, data = train_workload(cfg, SEED, dev, img_h=h, img_w=w)
     p_flat = flatten_params(params)
     txs, states = build_optimizers(cfg, params, p_flat, STEPS_PER_EPOCH)
-    state = TrainState(params, p_flat, states, TOTAL_STEPS // 2)
+    state = TrainState(params, p_flat, states, counter(TOTAL_STEPS // 2, dev))
     gen = torch.Generator(device=dev).manual_seed(SEED)
     n_img = data.images_u8.shape[0]
     rays = cfg.train.rays_per_batch
@@ -867,6 +891,197 @@ def train_phase(cfg, dev, h: int, w: int, counters, n_steps: int, route_tol: dic
             "profiles": profiles, "launches": launches}
 
 
+def graph_phase(dev, smi: str, counters: dict) -> dict:
+    """The compiled epoch (``train/steps.py:StageEpoch``) against the loop
+    of eager steps, on the workload bench.py times at full width, for each
+    of ``GRAPH_KINDS``: from one state (step 143,000 of 286,000: the BARF
+    gate moves every step) and one seed, epochs of ``GRAPH_STEPS`` steps,
+    the first of each route untimed (the graph's warm-up and capture),
+    then four timed in turns (loop, graph, graph, loop), then one of each
+    under the profiler (``tools/profile_step.py``'s ``routes_in_turns``
+    and ``profile_routes``).  Checks: after every epoch the graph route's
+    p_flat, moments, count and step equal the loop's (the bound is the
+    loop's spread against itself, measured: 0, bit for bit, where the
+    kernels are deterministic); the wrappers' launches a step over the
+    warm-up and the capture equal the loop's, and the profiler finds every
+    kernel of ``csrc/`` as many times a step in a graph epoch (its
+    replays) as in a loop epoch.  Plants that must be caught: a map
+    rebound after the capture (``data._replace(occ=...)``:
+    ``StaleGraphBuffer``, before any replay) and a value made from the
+    host's count of the steps it issued (the progress clock of a
+    GLOBAL_OPTIM step, the count of a CAM_PARAM step's LR schedule), which
+    a capture freezes: the loop with it ends on the loop's bits, the graph
+    with it must not.  Prints each kind's wall ms a step in turns, rays/s,
+    and the profiled device ms and busy share."""
+    import mc_nerf_torch.train.steps as steps_module
+    from mc_nerf_torch.config import Config
+    from mc_nerf_torch.tools.profile_step import profile_routes, routes_in_turns
+    from mc_nerf_torch.tools.scene import STEPS_PER_EPOCH, TOTAL_STEPS, train_workload
+    from mc_nerf_torch.train.optim import FlatRAdam, build_optimizers, counter, flatten_params
+    from mc_nerf_torch.train.steps import StaleGraphBuffer, TrainState, make_stage_epoch
+
+    t_phase = time.perf_counter()
+    names = csrc_kernel_names()
+    n, pool = GRAPH_STEPS, torch.cuda.graph_pool_handle()
+
+    def one_kind(kind, stage, train_kw, nerf_kw) -> dict:
+        cfg = Config()
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train, **train_kw),
+                          nerf=dataclasses.replace(cfg.nerf, **nerf_kw))
+        params, data = train_workload(cfg, SEED, dev)
+        p_flat = flatten_params(params)
+        txs, states = build_optimizers(cfg, params, p_flat, STEPS_PER_EPOCH)
+        state = TrainState(params, p_flat, states, counter(TOTAL_STEPS // 2, dev))
+        opt = state.opt_states[stage]
+        live = [state.p_flat, opt.mu, opt.nu, opt.count, state.step]
+        start = [t.clone() for t in live]
+        gen = torch.Generator(device=dev)
+
+        def epoch(route, tx=None):
+            return make_stage_epoch(cfg, stage, tx or txs[stage], 800, 800, TOTAL_STEPS, n,
+                                    graph=route == "graph", pool=pool)
+
+        def reset():
+            """Back to the start state and seed."""
+            with torch.no_grad():
+                for t, v in zip(live, start):
+                    t.copy_(v)
+            gen.manual_seed(SEED + 1)
+
+        def keep():
+            return [t.clone() for t in live]
+
+        launched = {}
+
+        def run(ep, data_=None):
+            """One epoch; the wrappers' launches in it are added to
+            ``launched[ep]``."""
+            before = {k: c.launches for k, c in counters.items()}
+            m = ep(state, data if data_ is None else data_, gen)
+            got = launched.setdefault(ep, dict.fromkeys(counters, 0))
+            for k, c in counters.items():
+                got[k] += c.launches - before[k]
+            if not all(math.isfinite(float(v)) for v in m.values()):
+                fail(f"graph phase {kind}: epoch metrics not finite: {m}")
+
+        def gap(a, b):
+            return max(float((x.double() - y.double()).abs().max()) for x, y in zip(a, b))
+
+        eps = {"loop": epoch("loop"), "graph": epoch("graph")}
+        first, timed = routes_in_turns(eps, run, n, reset, keep)
+        ends = {route: [first[route]] + [kept for _, kept in timed[route]] for route in eps}
+        turns = {route: [ms for ms, _ in v] for route, v in timed.items()}
+        # the wrappers count the loop's launches and the graph's warm-up's
+        # and capture's; a replay runs the captured launches without them
+        launches = {route: {k: v / host_steps(ep.counts) for k, v in launched[ep].items()}
+                    for route, ep in eps.items()}
+        spread = gap(ends["loop"][0], ends["loop"][2])
+        worst = max(gap(e, ends["loop"][0]) for e in ends["graph"])
+        same = all(torch.equal(x, y) for e in ends["graph"] for x, y in zip(e, ends["loop"][0]))
+        counts = {r: dict(ep.counts) for r, ep in eps.items()}
+        print(f"graph phase, {kind}: the loop against itself {spread:.3e}, the graph against "
+              f"the loop {worst:.3e} (max abs over p_flat, mu, nu, count, step; bit-identical: "
+              f"{same}); launches a step: loop {launches['loop']}, graph (warm-up and capture) "
+              f"{launches['graph']}; steps by route {counts}", flush=True)
+        if worst > spread or launches["loop"] != launches["graph"]:
+            fail(f"graph phase {kind}: the graph route strays from the loop ({worst:.3e} "
+                 f"against its spread {spread:.3e}) or launches otherwise")
+        if counts["graph"] != {"warmup": steps_module.WARMUP_STEPS, "captured": 1,
+                               "replayed": 3 * n, "looped": 0}:
+            fail(f"graph phase {kind}: steps by route {counts['graph']}")
+
+        prof = profile_routes(eps, run, n, names)
+        for p in prof.values():
+            p.pop("rows")
+        if (prof["graph"]["named_a_step"] != prof["loop"]["named_a_step"]
+                or (stage and not prof["graph"]["named_a_step"])):
+            fail(f"graph phase {kind}: the profiler finds the kernels of csrc/ "
+                 f"{prof['graph']['named_a_step']} a step in the graph's replays, "
+                 f"{prof['loop']['named_a_step']} in the loop's")
+        rays = cfg.train.rays_per_batch if stage else 0
+        ms = {r: sum(v) / len(v) for r, v in turns.items()}
+        print(f"graph phase, {kind}: ms a step in turns (loop, graph, graph, loop) "
+              f"{turns['loop'][0]:.3f}, {turns['graph'][0]:.3f}, {turns['graph'][1]:.3f}, "
+              f"{turns['loop'][1]:.3f}: loop {ms['loop']:.3f}, graph {ms['graph']:.3f} "
+              f"({ms['loop'] / ms['graph']:.2f}x"
+              + (f"; {rays / ms['loop'] * 1e3:.0f} against {rays / ms['graph'] * 1e3:.0f} "
+                 "rays/s" if rays else "") + "); profiled: " + "; ".join(
+                  f"{r} {p['step_ms']:.3f} ms wall, {p['kernel_ms']:.3f} ms of kernels, busy "
+                  f"share {p['busy_share']:.3f}, {p['kernels_a_step']} kernels a step"
+                  for r, p in prof.items())
+              + f"; the kernels of csrc/ a step {prof['graph']['named_a_step']} ({smi})",
+              flush=True)
+
+        # the plants
+        plants = {}
+        if data.occ is not None and stage == 1:
+            replayed = eps["graph"].counts["replayed"]
+            try:
+                reset()
+                run(eps["graph"], data._replace(occ=data.occ.clone()))
+                plants["rebound map"] = "not caught"
+            except StaleGraphBuffer as e:
+                plants["rebound map"] = f"caught: {e}"
+            if eps["graph"].counts["replayed"] != replayed:
+                plants["rebound map"] = "not caught: replayed on the rebound map"
+        frozen = {1: "progress from the host's count", 0: "LR from the host's count"}.get(stage)
+        if frozen and not nerf_kw:
+            host = {"n": 0}
+            real, tx = steps_module.make_loss_fn, txs[stage]
+
+            def issued(dtype):
+                # the host's count of the steps it issued, as a device
+                # scalar: right in the loop, frozen by a capture
+                host["n"] += 1
+                return torch.full((), host["n"] - 1, dtype=dtype, device=dev)
+
+            if stage == 1:
+                def make_loss_fn(*a, **kw):
+                    fn = real(*a, **kw)
+                    return lambda prm, dat, draws, step: fn(
+                        prm, dat, draws, issued(torch.int32) + TOTAL_STEPS // 2)
+                steps_module.make_loss_fn = make_loss_fn
+            else:
+                lr1 = tx.lr
+                tx = FlatRAdam(tx.mask, lambda t: lr1(issued(torch.float32)), tx.weight_decay,
+                               tx.clip)
+            try:
+                planted = {}
+                for route in ("loop", "graph"):
+                    ep = epoch(route, tx)
+                    for _ in range(2):        # the graph's capture; the loop's first epoch
+                        host["n"] = 0
+                        reset()
+                        run(ep)
+                    planted[route] = keep()
+            finally:
+                steps_module.make_loss_fn = real
+            loop_ok = all(torch.equal(x, y) for x, y in zip(planted["loop"], ends["loop"][0]))
+            graph_off = gap(planted["graph"], ends["loop"][0])
+            plants[frozen] = (f"the loop with it {'on' if loop_ok else 'OFF'} the loop's bits; "
+                              f"the graph with it {graph_off:.3e} away")
+            if not loop_ok or graph_off <= spread:
+                plants[frozen] = "not caught: " + plants[frozen]
+        print(f"graph phase, {kind}: plants {plants}", flush=True)
+        if any(v.startswith("not caught") for v in plants.values()):
+            fail(f"graph phase {kind}: a plant was not caught: {plants}")
+        return {"stage": stage, "turns_ms": turns, "loop_ms": ms["loop"],
+                "graph_ms": ms["graph"], "speedup": ms["loop"] / ms["graph"],
+                "rays_per_s": {r: rays / v * 1e3 for r, v in ms.items()} if rays else None,
+                "profiles": prof, "loop_spread": spread, "graph_gap": worst,
+                "bit_identical": same, "launches_a_step": launches["loop"],
+                "graph_launches_a_step": launches["graph"], "steps_by_route": counts,
+                "plants": plants}
+
+    out = {}
+    for kind, spec in GRAPH_KINDS.items():
+        out[kind] = one_kind(kind, *spec)
+        torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t_phase
+    print(f"graph phase: {seconds:.1f} s", flush=True)
+    return {"kinds": out, "seconds": seconds, "card": smi}
+
+
 def engine_phase(dev, smi: str, counters: dict) -> dict:
     """The engine (``mc_nerf_torch.train.engine.Engine``) at ``Config()``'s
     model and sampler widths on a scene the port's ``make_dataset`` writes
@@ -971,11 +1186,25 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
         if not all(math.isfinite(h[k]) for k in ("loss", "loss_rgb_c", "loss_rgb_f")):
             fail(f"engine epoch {h['epoch']} is not finite: {h}")
     if eng_a.state.step != spe * sum(stages) or len(eng_a.history) != sum(stages):
-        fail(f"engine ran {eng_a.state.step} steps over {len(eng_a.history)} epochs")
+        fail(f"engine ran {int(eng_a.state.step)} steps over {len(eng_a.history)} epochs")
+    # one process on the card: every stage's step captured once and
+    # replayed; the wrappers count the launches of the warm-up and the
+    # capture, a replay runs the captured launches without them
+    routes = {STAGE_NAMES[st]: dict(ep.counts) for st, ep in sorted(eng_a._epoch_fns.items())}
+    host = sum(host_steps(eng_a._epoch_fns[st].counts) for st in (1, 2))
+    replays = sum(eng_a._epoch_fns[st].counts["replayed"] for st in (1, 2))
+    print(f"engine run A's steps by route and stage: {routes}", flush=True)
+    if not (all(c["captured"] == 1 and c["looped"] == 0 for c in routes.values())
+            and sum(c["replayed"] for c in routes.values()) == spe * sum(stages)
+            and replays == nerf_steps):
+        fail(f"engine run A did not replay one captured step a stage: {routes}")
     for n in ("fused_render", "render_bwd_points", "render_bwd_weights"):
-        if train_launches[n] != 2 * nerf_steps:
-            fail(f"{n}: {train_launches[n]} launches in {nerf_steps} GLOBAL_OPTIM / FINE_TUNE "
-                 "steps, not 2 a step")
+        if train_launches[n] != 2 * host:
+            fail(f"{n}: {train_launches[n]} launches in {host} GLOBAL_OPTIM / FINE_TUNE steps "
+                 "of warm-up and capture, not 2 a step")
+    graph_launches, per_replay = replayed_launches(
+        eng_a, "engine_train", ("fused_render", "render_bwd_points", "render_bwd_weights"),
+        {0: 0, 1: 2, 2: 2}, csrc_kernel_names())
     if train_launches["fused_mlp_apply"] != 0 or not all(
             val_launches[n] > 0 for n in ("fused_mlp_apply", "fused_render")):
         fail(f"engine validation launches {val_launches}, training {train_launches}")
@@ -1008,10 +1237,10 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
     torch.cuda.synchronize()
     resume_s = time.perf_counter() - t0
     a, b = eng_a.state, eng_b.state
-    same = {"p_flat": torch.equal(a.p_flat, b.p_flat), "step": a.step == b.step,
+    same = {"p_flat": torch.equal(a.p_flat, b.p_flat), "step": bool(a.step == b.step),
             **{f"stage {i} {f}": bool(torch.equal(getattr(x, f), getattr(y, f)))
                for i, (x, y) in enumerate(zip(a.opt_states, b.opt_states)) for f in ("mu", "nu")},
-            **{f"stage {i} count": x.count == y.count
+            **{f"stage {i} count": bool(x.count == y.count)
                for i, (x, y) in enumerate(zip(a.opt_states, b.opt_states))}}
     print(f"engine run B (resumed from epoch 0): {resume_s:.2f} s, restore {restore_ms:.1f} ms; "
           f"bit-identical to run A: {same}; p_flat max abs difference "
@@ -1054,6 +1283,8 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
     return {"seconds": seconds, "train_s": train_s, "resume_s": resume_s,
             "restore_ms": restore_ms, "demo_s": demo_s, "demo": demo, "steps_per_epoch": spe,
             "epochs": eng_a.history, "train_launches": train_launches,
+            "steps_by_route": routes, "graph_launches": {"engine_train": graph_launches},
+            "per_replay": per_replay,
             "validation_launches": val_launches, "demo_launches": demo_launches,
             "resume_bit_identical": all(same.values()), "cuts": ENGINE_CUTS,
             "calls": calls, "nerf": cfg.nerf}
@@ -1210,7 +1441,11 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
             if not all(math.isfinite(h[k]) for k in ("loss", "loss_rgb_c", "loss_rgb_f")):
                 fail(f"cli {run} epoch {h['epoch']} is not finite: {h}")
         if state.step != spe * total or len(eng.history) != total or spe != n_train * 50:
-            fail(f"cli {run} ran {state.step} steps over {len(eng.history)} epochs")
+            fail(f"cli {run} ran {int(state.step)} steps over {len(eng.history)} epochs")
+        routes = {STAGE_NAMES[st]: dict(ep.counts) for st, ep in sorted(eng._epoch_fns.items())}
+        if not (all(c["captured"] == 1 and c["looped"] == 0 for c in routes.values())
+                and sum(c["replayed"] for c in routes.values()) == spe * total):
+            fail(f"cli {run} did not replay one captured step a stage: {routes}")
         keep = CLI_CUTS["ckpt_max_keep"]
         b = (stages[0] - 1, stages[0] + stages[1] - 1, total - 1)
         want = sorted({e for e in range(total) if e >= total - keep} | {e for e in b if e >= 0})
@@ -1223,17 +1458,28 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
         if plots != sorted(f"epoch_{e}.png" for e in range(total)):
             fail(f"cli {run}: pose plots {plots}, one per camera table wanted")
         summary[run] = {"train_s": t_s, "steps_per_epoch": spe, "nerf_steps": nerf_steps,
-                        "epochs": eng.history}
-    nerf_i = summary["importance"]["nerf_steps"]
-    nerf_g = summary["grid"]["nerf_steps"]
-    if not (l_train["render_bwd_points"] == l_train["render_bwd_weights"] == 2 * nerf_i
-            and l_train["fused_render"] > 2 * nerf_i and l_train["fused_mlp_apply"] > 0
+                        "epochs": eng.history, "steps_by_route": routes,
+                        "host_nerf_steps": sum(host_steps(eng._epoch_fns[st].counts)
+                                               for st in (1, 2) if st in eng._epoch_fns)}
+    # the wrappers count the warm-ups' and the captures' launches; the
+    # replays run the captured ones again without them, which the profiler
+    # counts in one replay of each step graph
+    host_i, host_g = summary["importance"]["host_nerf_steps"], summary["grid"]["host_nerf_steps"]
+    if not (l_train["render_bwd_points"] == l_train["render_bwd_weights"] == 2 * host_i
+            and l_train["fused_render"] > 2 * host_i and l_train["fused_mlp_apply"] > 0
             and l_train["fused_shaded_mlp"] == l_train["fused_shaded_mlp_bwd"] == 0):
-        fail(f"cli_train launches {l_train} ({nerf_i} NeRF steps)")
-    if not (l_train_g["fused_shaded_mlp_bwd"] == 2 * nerf_g
-            and l_train_g["fused_shaded_mlp"] > 2 * nerf_g and l_train_g["fused_mlp_apply"] > 0
+        fail(f"cli_train launches {l_train} ({host_i} NeRF steps of warm-up and capture)")
+    if not (l_train_g["fused_shaded_mlp_bwd"] == 2 * host_g
+            and l_train_g["fused_shaded_mlp"] > 2 * host_g and l_train_g["fused_mlp_apply"] > 0
             and l_train_g["fused_render"] == l_train_g["render_bwd_points"] == 0):
-        fail(f"cli_train_grid launches {l_train_g} ({nerf_g} NeRF steps)")
+        fail(f"cli_train_grid launches {l_train_g} ({host_g} NeRF steps of warm-up and "
+             "capture)")
+    graph_launches, summary["per_replay"] = {}, {}
+    for path, eng, wrappers in (
+            ("cli_train", eng_i, ("fused_render", "render_bwd_points", "render_bwd_weights")),
+            ("cli_train_grid", eng_g, ("fused_shaded_mlp", "fused_shaded_mlp_bwd"))):
+        graph_launches[path], summary["per_replay"][path] = replayed_launches(
+            eng, path, wrappers, {0: 0, 1: 2, 2: 2}, csrc_kernel_names())
     for path, result, dt, launches, kernels in (
             ("cli_demo", demo_i, demo_s, l_demo, ("fused_mlp_apply", "fused_render")),
             ("cli_demo_grid", demo_g, demo_g_s, l_demo_g, ("fused_mlp_apply", "fused_shaded_mlp"))):
@@ -1245,7 +1491,7 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
             fail(f"{path} launches {launches}, only {kernels} wanted")
         summary[path] = {"seconds": dt, "psnr": result["psnr"], "ssim": result["ssim"]}
     print(f"cli resumed --train: {resume_s:.2f} s, epochs trained {len(eng_r.history)}, step "
-          f"{state_r.step}; launches {l_resume}", flush=True)
+          f"{int(state_r.step)}; launches {l_resume}", flush=True)
     if eng_r.history or state_r.step != state_i.step or any(l_resume.values()):
         fail("the resumed CLI run trained again")
     summary["resume_s"] = resume_s
@@ -1257,7 +1503,8 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
     shutil.rmtree(work, ignore_errors=True)
     summary["seconds"] = time.perf_counter() - t_phase
     print(f"cli phase: {summary['seconds']:.1f} s", flush=True)
-    return {"summary": summary, "calls": calls, "nerf": eng_i.cfg.nerf, "launches": counted}
+    return {"summary": summary, "calls": calls, "nerf": eng_i.cfg.nerf, "launches": counted,
+            "graph_launches": graph_launches}
 
 
 def lpips_weights(path) -> None:
@@ -1377,18 +1624,24 @@ def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
         if h["stage"] and (h["stage"] == 2) != (h["loss_rgb_c"] == 0.0):
             fail(f"cli_cf epoch {h['epoch']}: rgb_c {h['loss_rgb_c']} in stage {h['stage']}")
     if state.step != spe * sum(stages) or len(eng.history) != sum(stages):
-        fail(f"cli_cf ran {state.step} steps over {len(eng.history)} epochs")
+        fail(f"cli_cf ran {int(state.step)} steps over {len(eng.history)} epochs")
 
-    # per training epoch: 2 launches a two-pass step, 1 a coarse-free step
-    trained = [(stage, n) for path, stage, n, _ in epochs if path == "cli_train_cf"]
+    # per training epoch: 2 launches a two-pass step, 1 a coarse-free step,
+    # counted over the epoch's warm-up and capture; its replays run them
+    # again without the wrappers, which the profiler counts in one replay
+    trained = [(stage, n) for path, stage, n, *_ in epochs if path == "cli_train_cf"]
+    routes = [(stage, c) for path, stage, _, _, c in epochs if path == "cli_train_cf"]
     per_step = {0: 0, 1: 2, 2: 1}
-    for stage, n in trained:
-        want = {k: per_step[stage] * spe if k in ("fused_render", "render_bwd_points",
-                                                    "render_bwd_weights") else 0 for k in n}
-        if n != want:
-            fail(f"cli_train_cf {STAGE_NAMES[stage]}: launches {n}, wanted {want}")
+    wrappers = ("fused_render", "render_bwd_points", "render_bwd_weights")
+    for (stage, n), (_, c) in zip(trained, routes):
+        want = {k: per_step[stage] * host_steps(c) if k in wrappers else 0 for k in n}
+        if n != want or c["captured"] != 1 or c["looped"] or c["replayed"] != spe:
+            fail(f"cli_train_cf {STAGE_NAMES[stage]}: launches {n}, wanted {want}; steps by "
+                 f"route {c}: one capture and {spe} replays wanted")
     if [s for s, _ in trained] != [0, 1, 2]:
         fail(f"cli_train_cf trained stages {[s for s, _ in trained]}")
+    graph_launches, summary["per_replay"] = replayed_launches(
+        eng, "cli_train_cf", wrappers, per_step, csrc_kernel_names())
     val = {k: l_train[k] - sum(n[k] for _, n in trained) for k in l_train}
     chunks = -(-res * res // eng.cfg.eval.rays_per_chunk)
     if val != {k: (2 * chunks if k == "fused_render" else 0) for k in val}:
@@ -1434,11 +1687,13 @@ def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
                     "demo_density": {k: demo_d[k] for k in ("psnr", "ssim")},
                     "lpips_card": card, "lpips_cpu": lpips_cpu, "lpips_rel_err": max(rel),
                     "lpips_s": sum(t for *_, t in lpips_seen), "coarse_frozen": frozen,
-                    "launches_by_epoch": trained, "validation_launches": val,
+                    "launches_by_epoch": trained, "steps_by_route": routes,
+                    "validation_launches": val,
                     "seconds": time.perf_counter() - t_phase})
     print(f"cli_cf phase: {summary['seconds']:.1f} s", flush=True)
     return {"summary": summary, "calls": calls, "nerf": nc, "launches": counted,
-            "nerf_steps": spe * sum(stages[1:])}
+            "nerf_steps": spe * sum(stages[1:]),
+            "graph_launches": {"cli_train_cf": graph_launches}}
 
 
 def dp_rank(spec: dict) -> None:
@@ -1497,7 +1752,7 @@ def dp_rank(spec: dict) -> None:
     grads = [(n * size, dt, end) for n, size, dt, end in reduces if n == state.p_flat.numel()]
     out = {"rank": topo.rank, "world": topo.world, "backend": dist.get_backend(),
            "device": str(topo.device), "current_device": torch.cuda.current_device(),
-           "steps_per_epoch": eng.steps_per_epoch, "step": state.step,
+           "steps_per_epoch": eng.steps_per_epoch, "step": int(state.step),
            "history": eng.history, "epochs": epochs, "final_occ": digest(eng._occ_map),
            "train_s": train_s, "demo_s": demo_s, "launches": {"dp_train": l_train,
                                                              "dp_demo": l_demo},
@@ -1585,7 +1840,7 @@ def dp_phase(dev, smi: str) -> dict:
                  "wanted")
         if x["steps_per_epoch"] != n_train * 50 // DP_WORLD or x["step"] != spe * sum(stages):
             fail(f"dp rank {r}: {x['steps_per_epoch']} steps an epoch, {x['step']} in all")
-        trained = [(stage, n) for path, stage, n, _ in x["epochs"] if path == "dp_train"]
+        trained = [(stage, n) for path, stage, n, *_ in x["epochs"] if path == "dp_train"]
         if [s for s, _ in trained] != [0, 1, 2]:
             fail(f"dp rank {r} trained stages {[s for s, _ in trained]}")
         for stage, n in trained:
@@ -1597,7 +1852,7 @@ def dp_phase(dev, smi: str) -> dict:
                 or x["grad_reduce_bytes"] != x["p_flat_bytes"]):
             fail(f"dp rank {r}: {x['grad_reduces']} gradient all-reduces of "
                  f"{x['grad_reduce_bytes']} bytes")
-    digests = [[d for *_, d in x["epochs"]] for x in ranks]
+    digests = [[e[3] for e in x["epochs"]] for x in ranks]
     same_bits = digests[0] == digests[1] and r0["final_occ"] == ranks[1]["final_occ"]
     print(f"dp: p_flat after each epoch and each epoch's map the same bits on both ranks: "
           f"{same_bits}", flush=True)
@@ -1724,8 +1979,8 @@ def dp_phase(dev, smi: str) -> dict:
     print(f"dp phase: {summary['seconds']:.1f} s", flush=True)
     launches = {path: [x["launches"][path] for x in ranks] for path in ("dp_train", "dp_demo")}
     return {"summary": summary, "calls": calls, "nerf": eng1.cfg.nerf, "launches": launches,
-            "by_epoch": [[(stage, n) for path, stage, n, _ in x["epochs"] if path == "dp_train"]
-                         for x in ranks]}
+            "by_epoch": [[(stage, n) for path, stage, n, *_ in x["epochs"]
+                          if path == "dp_train"] for x in ranks]}
 
 
 def check_recorded(calls: dict, counted: dict) -> None:
@@ -1752,15 +2007,18 @@ def cli_recording(work, name: str, counters: dict):
     before, and returns (its result, seconds, the launches counted, the
     engine).  While it runs, the kernels' entry points are recorded by
     path and shape into ``calls`` (``engine_recorder``, each shape's last
-    call kept: the trained field's; a first NeRF step's untrained field
-    composites to the white background whatever its MLP computes, and no
-    planted fault there moves K2's rays; K5 where its launch starts, its
+    call kept: the trained field's, from a train path the tensors of the
+    step graph's capture as its last replay left them (the profiled one
+    of ``replayed_launches``, after the run); a first NeRF
+    step's untrained field composites to the white background whatever
+    its MLP computes, and no planted fault there moves K2's rays; K5 where its launch starts, its
     entry point being called inside fused_mlp.py's VJP), the engine's
     detection-cache builds are timed into ``cache_s``, and each training
     epoch's launches are appended to ``epochs`` as (path, stage,
     {kernel: launches}, {"p_flat": the sha256 of ``p_flat`` after the
-    epoch, "occ": of the occupancy map it trained on}).  Everything is
-    restored on exit."""
+    epoch, "occ": of the occupancy map it trained on}, the epoch's steps
+    by how they ran: ``StageEpoch.counts``' growth over it).  Everything
+    is restored on exit."""
     import mc_nerf_torch.models.nerf as nerf_module
     import mc_nerf_torch.ops.cuda.fused_mlp as mlp_module
     import mc_nerf_torch.ops.cuda.fused_render as render_module
@@ -1799,11 +2057,13 @@ def cli_recording(work, name: str, counters: dict):
 
             def run(*args):
                 before = {n: c.launches for n, c in counters.items()}
+                steps_before = dict(fn.counts)
                 occ = digest(self._occ_map)
                 out = fn(*args)
                 epochs.append((where[0], stage, {n: c.launches - before[n]
                                                  for n, c in counters.items()},
-                               {"p_flat": digest(self.state.p_flat), "occ": occ}))
+                               {"p_flat": digest(self.state.p_flat), "occ": occ},
+                               {k: v - steps_before[k] for k, v in fn.counts.items()}))
                 return out
             return run
 
@@ -1853,13 +2113,87 @@ def digest(t) -> str:
                           .tobytes()).hexdigest()
 
 
+def host_steps(counts: dict) -> int:
+    """The steps of a ``StageEpoch`` (its ``counts``) whose launches the
+    kernels' wrappers counted: the warm-up's, the capture's and the
+    loop's.  A replay runs the captured launches again without a wrapper."""
+    return counts["warmup"] + counts["captured"] + counts["looped"]
+
+
+def csrc_kernel_names() -> list:
+    """The names of the ``__global__`` kernels in ``mc_nerf_torch/csrc/``."""
+    import pathlib
+    import re
+
+    csrc = pathlib.Path(__file__).resolve().parent / "mc_nerf_torch" / "csrc"
+    sources = [f.read_text() for f in csrc.glob("*.cu*")]
+    return sorted({m for text in sources for m in re.findall(
+        r"__global__[^;{]*?\b(\w+_kernel)\s*\(", text)})
+
+
+# the kernel of csrc/ that a wrapper launches once a call and that no
+# other wrapper of its train path launches (the two fine modes never share
+# a path): what the profiler counts for the wrapper in a step graph's replay
+SIGNATURE = {"fused_render": "composite_fwd_kernel", "render_bwd_points": "mlp_points_kernel",
+             "render_bwd_weights": "weight_grad_kernel", "fused_shaded_mlp": "shaded_fwd_kernel",
+             "fused_shaded_mlp_bwd": "mlp_points_kernel"}
+
+
+def replayed_launches(eng, path: str, wrappers, per_step: dict, names) -> tuple:
+    """The launches that ``eng``'s step graphs made on the card in its
+    training run: each stage's graph replayed once more after the run
+    under the profiler (CUPTI reports a graph's kernel nodes one by one),
+    its kernels of ``csrc/`` counted, times the replays the run made
+    (``StageEpoch.counts``).  The train state a replay moves is put back
+    after each (the generator moves on: the engine reseeds it every
+    epoch).  The stages go in the order of their captures, so the
+    tensors a recorder keeps of the last one hold what that graph's own
+    replay gave its kernels.  Fails unless each of ``wrappers`` launches
+    its ``SIGNATURE`` kernel ``per_step[stage]`` times a replay.  Returns
+    ({wrapper: launches in the run's replays}, {stage: {kernel of csrc/:
+    launches a replay}})."""
+    from mc_nerf_torch.tools.profile_step import count_named, profile_steps
+
+    if len({SIGNATURE[w] for w in wrappers}) != len(wrappers):
+        fail(f"{path}: {wrappers} share a signature kernel")
+    st = eng.state
+    live = [st.p_flat, st.step, *(t for o in st.opt_states for t in (o.mu, o.nu, o.count))]
+    total, by_stage = dict.fromkeys(wrappers, 0), {}
+    for stage, ep in sorted(eng._epoch_fns.items()):
+        if ep._cuda_graph is None:
+            fail(f"{path}: the stage-{stage} step was not captured")
+        saved = [t.clone() for t in live]
+        _, rows, _ = profile_steps(ep._cuda_graph.replay, 1)
+        with torch.no_grad():
+            for t, v in zip(live, saved):
+                t.copy_(v)
+        found = by_stage[stage] = count_named(rows, names)
+        got = {w: found.get(SIGNATURE[w], 0) for w in wrappers}
+        if got != dict.fromkeys(wrappers, per_step[stage]):
+            fail(f"{path}: a replay of the stage-{stage} step graph launches {got} "
+                 f"({found}), not {per_step[stage]} each")
+        for w in wrappers:
+            total[w] += got[w] * ep.counts["replayed"]
+    print(f"{path}: the step graphs' kernels of csrc/ a replay, by stage (profiled): "
+          f"{by_stage}; in the run's replays: {total}", flush=True)
+    return total, by_stage
+
+
 def engine_recorder(fn, name: str, shape_of, where: list, calls: dict, last: bool = False):
     """``fn`` (a kernel's entry point, called with positional arguments)
     that, while ``where[0]`` names a path, counts its calls there by
     ``shape_of(args)`` and keeps detached copies of the first call's
     arguments at each shape in ``calls[(path, name)][shape]``; with
     ``last``, the last call's (detached, not copied: each call's
-    arguments are tensors of their own, which the next call replaces)."""
+    arguments are tensors of their own, which the next call replaces).
+    A call while a CUDA graph is being captured is counted (its wrapper
+    counts the launch once); with ``last`` it keeps its arguments as they
+    are, tensors of the graph's pool that every replay rewrites and that
+    this reference keeps from being reused, so they hold what the kernel
+    was given in the graph's last replay (a replay calls no
+    entry point: a train path's step graph is only seen at its capture);
+    without ``last`` it keeps none (they hold no values until a replay),
+    and the first call kept is the first eager step's, a warm-up's."""
     def copy_arg(a, copy=True):
         if isinstance(a, torch.Tensor):
             return a.detach().clone() if copy else a.detach()
@@ -1871,7 +2205,7 @@ def engine_recorder(fn, name: str, shape_of, where: list, calls: dict, last: boo
         if where[0] is not None:
             seen = calls.setdefault((where[0], name), {})
             rec = seen.setdefault(shape_of(args), {"n": 0})
-            if last or rec["n"] == 0:
+            if last or ("args" not in rec and not torch.cuda.is_current_stream_capturing()):
                 rec["args"] = copy_arg(args, not last)
             rec["n"] += 1
         return fn(*args)
@@ -2650,6 +2984,11 @@ def main() -> None:
     grid_train = train_phase(cfg_grid, dev, h, w, (fused_shaded_mlp, fused_shaded_mlp_bwd),
                              N_TRAIN_GRID, GRID_STEP_TOL)
 
+    # ---- the compiled epoch: the captured step against the loop, four step kinds
+    graph = graph_phase(dev, smi, {k.__name__: k for k in (
+        fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, fused_shaded_mlp,
+        fused_shaded_mlp_bwd)})
+
     # ---- the engine: three stages, a resume, the demo from a checkpoint
     engine = engine_phase(dev, smi, {k.__name__: k for k in (
         fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply)})
@@ -2718,14 +3057,22 @@ def main() -> None:
     kernels += [entry(name, "fused_mlp_vjp", vjp["launches"][name], per_launch(vjp[name]))
                 for name in ("fused_mlp_apply", "fused_mlp_bwd")]
     # the engine: run A's training steps, its validation renders and the
-    # demo, each kernel checked and timed on the inputs the engine gave it
+    # demo, each kernel checked and timed on the inputs the engine gave it.
+    # A train path's "launches" are the wrappers' count (the warm-ups, the
+    # captures; K1 and K2 in validation), "launches_in_graphs" the launches
+    # of the run's replays: what the profiler counted in one replay of each
+    # stage's step graph times that graph's replays (replayed_launches); the
+    # per-step figures are the latter's
     nerf_steps = engine["steps_per_epoch"] * sum(engine["cuts"]["stages"][1:])
+    in_graphs = {**engine["graph_launches"], **cli["graph_launches"], **cli_cf["graph_launches"]}
     for (path, name), shapes in path_kernel_numbers(engine["calls"], engine["nerf"], rng,
                                                     render_tol, mlp_tol).items():
         numbers = per_launch_over_shapes(shapes)
+        graphed = in_graphs.get(path, {}).get(name, 0)
         kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
                         "replaces": replaces[name], **numbers,
-                        **({"launches_per_step": numbers["launches"] / nerf_steps}
+                        **({"launches_in_graphs": graphed,
+                            "launches_per_step": graphed / nerf_steps}
                            if path == "engine_train" else {})})
     # the CLI's four paths, each kernel held on the inputs the CLI gave it
     # with the planted faults of the other phases at 2x or more
@@ -2738,9 +3085,11 @@ def main() -> None:
                  "cli_train_grid": cli["summary"]["grid"]["nerf_steps"]}
     for (path, name), shapes in cli_numbers.items():
         numbers = per_launch_over_shapes(shapes)
+        graphed = in_graphs.get(path, {}).get(name, 0)
         kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
                         "replaces": replaces[name], **numbers,
-                        **({"launches_per_nerf_step": numbers["launches"] / cli_steps[path]}
+                        **({"launches_in_graphs": graphed,
+                            "launches_per_nerf_step": graphed / cli_steps[path]}
                            if path in cli_steps else {})})
     wanted = {("cli_train", n) for n in ("fused_mlp_apply", "fused_render", "render_bwd_points",
                                          "render_bwd_weights")}
@@ -2760,12 +3109,15 @@ def main() -> None:
     spe = cli_cf["summary"]["steps_per_epoch"]
     for (path, name), shapes in cf_numbers.items():
         numbers = per_launch_over_shapes(shapes)
-        by_stage = ({STAGE_NAMES[stage]: n[name] / spe
-                     for stage, n in cli_cf["summary"]["launches_by_epoch"] if stage}
+        # each NeRF stage's launches a step: the profiler's count in one
+        # replay of its step graph
+        by_stage = ({STAGE_NAMES[stage]: found.get(SIGNATURE[name], 0)
+                     for stage, found in cli_cf["summary"]["per_replay"].items() if stage}
                     if path == "cli_train_cf" else None)
         kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
                         "replaces": replaces[name], **numbers,
-                        **({"launches_per_step_by_stage": by_stage} if by_stage else {})})
+                        **({"launches_in_graphs": in_graphs[path][name],
+                            "launches_per_step_by_stage": by_stage} if by_stage else {})})
     wanted = {("cli_train_cf", n) for n in ("fused_render", "render_bwd_points",
                                             "render_bwd_weights")}
     wanted |= {("cli_demo_cf", "fused_render"), ("cli_demo_density", "fused_render")}
@@ -2806,6 +3158,7 @@ def main() -> None:
     print(json.dumps({"engine": {k: v for k, v in engine.items()
                                  if not k.endswith("launches") and k not in ("calls", "nerf")},
                       "card": smi}))
+    print(json.dumps({"graph": graph}))
     print(json.dumps({"cli": cli["summary"], "cli_launches": cli["launches"], "card": smi}))
     print(json.dumps({"cli_cf": cli_cf["summary"], "cli_cf_launches": cli_cf["launches"],
                       "card": smi}))

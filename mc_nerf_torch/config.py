@@ -286,7 +286,9 @@ class Config:
         return dataclasses.replace(self, **kw)
 
 
-# yaml keys of the JAX package's XLA program size and PRNG: read, not applied
+# yaml keys of the JAX package's XLA program size and PRNG: read, not
+# applied (the port's compiled step is one CUDA graph of one step,
+# replayed once a step: there is no program of many steps to bound)
 _NOT_APPLIED = (("system", "train_params", "max_steps_per_program"),
                 ("system", "train_params", "prng_impl"))
 

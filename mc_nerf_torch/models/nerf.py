@@ -425,9 +425,13 @@ def render_rays_train(
     if remat_shade:
         # recompute encode -> MLP -> shade in the backward instead of keeping
         # the per-layer activations; the closed-over parameters and rays
-        # still get their gradients
-        shade_c = lambda z, fn=shade_c: checkpoint(fn, z, use_reentrant=False)
-        shade_f = lambda z, fn=shade_f: checkpoint(fn, z, use_reentrant=False)
+        # still get their gradients.  The shading draws nothing, so no RNG
+        # state is kept for the recompute (reading the CUDA RNG state
+        # breaks a graph capture of the step)
+        shade_c = lambda z, fn=shade_c: checkpoint(fn, z, use_reentrant=False,
+                                                   preserve_rng_state=False)
+        shade_f = lambda z, fn=shade_f: checkpoint(fn, z, use_reentrant=False,
+                                                   preserve_rng_state=False)
 
     def importance_fine(z_f):
         """The importance fine pass at depths ``z_f``: its rgb [R, 3]."""

@@ -125,7 +125,7 @@ def _rank_step(spec: dict) -> dict:
     from mc_nerf_torch.ops.occupancy import uniform_prior_map
     from mc_nerf_torch.parallel.distributed import initialize_distributed
     from mc_nerf_torch.parallel.mesh import all_reduce_mean_
-    from mc_nerf_torch.train.optim import Params, build_optimizers, flatten_params
+    from mc_nerf_torch.train.optim import Params, build_optimizers, counter, flatten_params
     from mc_nerf_torch.train.steps import (
         TrainData,
         TrainState,
@@ -153,7 +153,7 @@ def _rank_step(spec: dict) -> dict:
         data = TrainData(torch.as_tensor(images, device=dev),
                          calibration_from_numpy(pts, valid, pts, valid, device=dev),
                          uniform_prior_map(cfg.nerf, dev))     # all occupied
-        state = TrainState(params, p_flat, opt_states, 0)
+        state = TrainState(params, p_flat, opt_states, counter(0, dev))
         step = make_stage_step(cfg, 1, txs[1], img_h, img_w, 12, topo.world)
         # the global batch (one image a rank) from one seed on every rank
         draw_cfg = cfg.replace(train=dataclasses.replace(cfg.train, images_per_batch=topo.world))

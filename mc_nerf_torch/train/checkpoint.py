@@ -2,9 +2,10 @@
 (counterpart of ``mc_nerf_tpu/train/checkpoint.py``, which uses orbax).
 
 One file per epoch, ``<ckpt_dir>/<epoch>/state.pt``: ``torch.save`` of
-the flat parameter buffer, each stage's RAdam (mu, nu, count), the global
-step and the epoch, read back with ``torch.load(weights_only=True)``.  A
-save writes a temporary file named for the process and publishes it with
+the flat parameter buffer, each stage's RAdam (mu, nu, count), the
+global step (the device values, read back to the host) and the epoch,
+read back with ``torch.load(weights_only=True)``.  A save writes a
+temporary file named for the process and publishes it with
 ``os.replace``, so a reader never sees half a file and two writers never
 share a temporary name.  Saves are synchronous: the JAX package saves
 asynchronously, but ~2.5 MB of flat state (the default model) is not
@@ -21,7 +22,6 @@ from typing import Iterable, List, Optional, Tuple
 
 import torch
 
-from mc_nerf_torch.train.optim import FlatOptState
 from mc_nerf_torch.train.steps import TrainState
 
 STATE_FILE = "state.pt"
@@ -72,8 +72,10 @@ class Checkpointer:
 
     def restore(self, state: TrainState, epoch: Optional[int] = None) -> Tuple[TrainState, int]:
         """Load ``epoch``'s checkpoint (the latest when None) into ``state``
-        in place: the flat buffer is copied into (the parameters stay its
-        views), the optimizer states and the step replaced.  Returns
+        in place: the flat buffer, every stage's moments and count and the
+        step are copied into the buffers ``state`` already holds (the
+        parameters stay views of the flat buffer, and a captured step
+        graph keeps reading the buffers it was captured with).  Returns
         (state, the epoch restored)."""
         if epoch is None:
             epoch = self.latest_epoch()
@@ -85,10 +87,11 @@ class Checkpointer:
             raise ValueError(f"{path} holds {tuple(raw['p_flat'].shape)} parameters in "
                              f"{len(raw['opt'])} optimizer states; the model has "
                              f"{tuple(state.p_flat.shape)} in {len(state.opt_states)}")
-        dev = state.p_flat.device
         with torch.no_grad():
             state.p_flat.copy_(raw["p_flat"])
-        state.opt_states = tuple(FlatOptState(o["mu"].to(dev), o["nu"].to(dev), int(o["count"]))
-                                 for o in raw["opt"])
-        state.step = int(raw["step"])
+            for o, saved in zip(state.opt_states, raw["opt"]):
+                o.mu.copy_(saved["mu"])
+                o.nu.copy_(saved["nu"])
+                o.count.fill_(int(saved["count"]))
+            state.step.fill_(int(raw["step"]))
         return state, int(raw["epoch"])

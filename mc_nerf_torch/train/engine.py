@@ -12,9 +12,15 @@ and scores every test view through :func:`demo` (PSNR, SSIM, and LPIPS
 where a weights file is found).  The coarse-free modes and the density
 PMF are checked as the JAX engine checks them, training configurations
 measured to collapse refused unless ``allow_measured_harmful``.  An
-epoch is a Python loop of train steps (``train/steps.py``) whose draws
-come from a generator on the device seeded from ``(train.seed, epoch)``,
-so a resumed run draws what an uninterrupted one does.
+epoch is ``train/steps.py``'s :class:`StageEpoch` of its stage: on the
+card, with one process, each stage's step captured once as a CUDA graph
+and replayed once a step; on the CPU or over several ranks, the same
+step as a loop.  Its draws come
+from the engine's one generator on the device, reseeded from
+``(train.seed, epoch)`` every epoch, so a resumed run draws what an
+uninterrupted one does.  What a captured step reads stays in its
+buffers: the train data is made once, the occupancy map is refreshed,
+the cameras restarted and a checkpoint restored in place.
 
 A scene without a detection cache (a reference-format scene: calib and
 coord images only) gets one from the tag36h11 detector before training.
@@ -71,9 +77,15 @@ from mc_nerf_torch.parallel.mesh import (
     world_size,
 )
 from mc_nerf_torch.train.checkpoint import Checkpointer
-from mc_nerf_torch.train.optim import Params, build_optimizers, flatten_params
+from mc_nerf_torch.train.optim import Params, build_optimizers, counter, flatten_params
 from mc_nerf_torch.train.restarts import improve_cameras
-from mc_nerf_torch.train.steps import TrainData, TrainState, make_render_fn, make_stage_epoch
+from mc_nerf_torch.train.steps import (
+    StageEpoch,
+    TrainData,
+    TrainState,
+    make_render_fn,
+    make_stage_epoch,
+)
 from mc_nerf_torch.utils.logging import is_main_process, setup_logging
 from mc_nerf_torch.utils.tensorboard import ScalarWriter
 from mc_nerf_torch.utils.visualization import (
@@ -317,7 +329,7 @@ class Engine:
                         init_nerf_params(cfg.nerf, gen, self.device))
         p_flat = flatten_params(params)
         self.txs, opt_states = build_optimizers(cfg, params, p_flat, self.steps_per_epoch)
-        self.state = TrainState(params, p_flat, opt_states, 0)
+        self.state = TrainState(params, p_flat, opt_states, counter(0, self.device))
 
         st = cfg.stages
         self.ckpt_dir = os.path.join(cfg.paths.root_weights, "train", cfg.data_name)
@@ -329,8 +341,14 @@ class Engine:
         self.writer = ScalarWriter(os.path.join(cfg.paths.tb_path, cfg.data_name),
                                    delete_old=cfg.paths.tb_delete_old,
                                    enabled=cfg.tensorboard and is_main_process())
-        self._epoch_fns: Dict[int, object] = {}
+        self._epoch_fns: Dict[int, StageEpoch] = {}
         self._render_fns: Dict[tuple, object] = {}
+        # one generator, reseeded every epoch, and one memory pool for the
+        # stages' step graphs: a captured step keeps reading both
+        self._gen = torch.Generator(device=self.device)
+        self._graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
+                            else None)
+        self._data: Optional[TrainData] = None
         self._table_rows = []
         # per trained epoch: epoch, stage, the mean metrics, seconds, rays/s,
         # checkpoint seconds and (stages 1-2) the validation scores
@@ -357,7 +375,15 @@ class Engine:
         source = self.cfg.nerf.refresh_source(self.cfg.stages.stage_of_epoch(epoch))
         self.occ_grid = refresh_grid(self.state.params.nerf, self.cfg, self.device, epoch,
                                      self.occ_grid, source)
-        self._occ_map = sampler_map(self.occ_grid, self.cfg.nerf)
+        self._set_occ_map(sampler_map(self.occ_grid, self.cfg.nerf))
+
+    def _set_occ_map(self, occ: torch.Tensor) -> None:
+        """The sampler map, written into the one buffer the train data
+        holds from the first map on (a step graph keeps sampling it)."""
+        if self._occ_map is None:
+            self._occ_map = occ
+        else:
+            self._occ_map.copy_(occ)
 
     # ------------------------------------------------------------------ train
 
@@ -376,11 +402,13 @@ class Engine:
                          load_calibration(self.cfg.scene_dir, self.cfg.apriltag_size,
                                           self.device))
 
-    def _epoch_fn(self, stage: int):
+    def _epoch_fn(self, stage: int) -> StageEpoch:
         if stage not in self._epoch_fns:
             self._epoch_fns[stage] = make_stage_epoch(
                 self.cfg, stage, self.txs[stage], self.img_h, self.img_w,
-                self.total_steps, self.steps_per_epoch, self.world)
+                self.total_steps, self.steps_per_epoch, self.world, pool=self._graph_pool)
+            if not self._epoch_fns.keys() - {stage}:     # the first: say which route, once
+                logging.info("train steps: %s", self._epoch_fns[stage].route(self.device))
         return self._epoch_fns[stage]
 
     def _render_fn(self, img_h: int, img_w: int):
@@ -393,7 +421,9 @@ class Engine:
         """Run the protocol's epochs from the start, or with ``resume`` from
         the epoch after the latest checkpoint.  Returns the train state."""
         cfg, spe = self.cfg, self.steps_per_epoch
-        data = self._train_data()
+        if self._data is None:
+            self._data = self._train_data()
+        data = self._data
         start_epoch = 0
         if resume:
             last = self.ckpt.latest_epoch()
@@ -410,15 +440,15 @@ class Engine:
             else:
                 # uniform sampling until the first refresh (all occupied,
                 # or an all-zero density)
-                self._occ_map = uniform_prior_map(cfg.nerf, self.device)
-            data = data._replace(occ=self._occ_map)
+                self._set_occ_map(uniform_prior_map(cfg.nerf, self.device))
+            data = self._data = data._replace(occ=self._occ_map)
 
         for epoch in range(start_epoch, cfg.stages.total_epochs):
             stage = cfg.stages.stage_of_epoch(epoch)
             t0 = time.perf_counter()
-            gen = torch.Generator(device=self.device).manual_seed(
-                fold_seed(cfg.train.seed, epoch))
-            metrics = {k: float(v) for k, v in self._epoch_fn(stage)(self.state, data, gen).items()}
+            self._gen.manual_seed(fold_seed(cfg.train.seed, epoch))
+            metrics = {k: float(v)
+                       for k, v in self._epoch_fn(stage)(self.state, data, self._gen).items()}
             dt = time.perf_counter() - t0
             rays_per_s = 0.0 if stage == 0 else (
                 spe * self.images_per_batch * cfg.train.rays_per_batch / dt)
@@ -446,7 +476,6 @@ class Engine:
                     and nerf_epochs_done % cfg.nerf.occ_update_every == 0
                     and nerf_epochs_done * spe >= cfg.nerf.occ_warmup_steps):
                 self._refresh_occupancy(epoch)
-                data = data._replace(occ=self._occ_map)
 
             if is_main_process():     # one writer; the ranks hold the same bits
                 t0 = time.perf_counter()

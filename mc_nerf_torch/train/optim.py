@@ -20,7 +20,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, List, Tuple, Union
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -61,11 +60,19 @@ def flat_grads(params: nn.Module) -> torch.Tensor:
 
 @dataclasses.dataclass
 class FlatOptState:
-    """RAdam moments over the flat parameter vector."""
+    """RAdam moments over the flat parameter vector and the update count,
+    all on the parameters' device.  :meth:`FlatRAdam.update` writes all
+    three in place, so a captured step keeps reading and writing the same
+    buffers."""
 
     mu: torch.Tensor     # [N] f32 first moment
     nu: torch.Tensor     # [N] f32 second moment
-    count: int = 0       # update count
+    count: torch.Tensor  # 0-d int32 update count (:func:`counter`)
+
+
+def counter(value: int, device) -> torch.Tensor:
+    """A step or update count: a 0-d int32 tensor on ``device``."""
+    return torch.tensor(int(value), dtype=torch.int32, device=device)
 
 
 class FlatRAdam:
@@ -74,11 +81,15 @@ class FlatRAdam:
     ``add_decayed_weights(wd)`` -> ``scale_by_learning_rate(lr)``, as the
     JAX package's.  Frozen entries (mask 0) see zero gradient and zero
     update (weight decay included); the clip norm is taken over trainable
-    entries only.  The step's scalars are computed in float32, as there."""
+    entries only.  The step's scalars (``b1^t``, ``b2^t``, rho, its
+    threshold branch, a scheduled LR) are float32 tensors computed on the
+    device from the device count, as optax computes them: nothing in an
+    update is a host value that a CUDA graph would freeze."""
 
     b1, b2, eps, threshold = 0.9, 0.999, 1e-8, 5.0
 
-    def __init__(self, mask: torch.Tensor, lr: Union[float, Callable[[float], float]],
+    def __init__(self, mask: torch.Tensor,
+                 lr: Union[float, Callable[[torch.Tensor], torch.Tensor]],
                  weight_decay: float, clip: float = 0.0):
         self.mask = mask
         self.lr = lr
@@ -86,41 +97,48 @@ class FlatRAdam:
         self.clip = clip
 
     def init(self, p_flat: torch.Tensor) -> FlatOptState:
-        return FlatOptState(torch.zeros_like(p_flat), torch.zeros_like(p_flat), 0)
+        return FlatOptState(torch.zeros_like(p_flat), torch.zeros_like(p_flat),
+                            counter(0, p_flat.device))
 
     @torch.no_grad()
     def update(self, g_flat: torch.Tensor, state: FlatOptState,
                p_flat: torch.Tensor) -> FlatOptState:
-        """One step: updates ``p_flat`` in place, returns the new state."""
-        # the scalars round where the JAX package's do: Python constants in
-        # double, cast to float32 where they meet the float32 count
-        f32 = np.float32
+        """One step: updates ``p_flat`` and ``state`` (mu, nu, count) in
+        place and returns ``state``."""
+        # Python constants meet float32 tensors as JAX's weak types do:
+        # cast to float32 where they meet them
         b1, b2 = self.b1, self.b2
         m = self.mask
         g = g_flat * m
         if self.clip > 0:
             gn = torch.sqrt(torch.sum(g * g))
             g = g * (self.clip / torch.clamp(gn, min=self.clip))
-        mu = b1 * state.mu + (1.0 - b1) * g
-        nu = b2 * state.nu + (1.0 - b2) * g * g
-        count = state.count + 1
-        t = f32(count)
-        b1t, b2t = f32(b1) ** t, f32(b2) ** t
-        mu_hat = mu / float(f32(1.0) - b1t)
-        nu_hat = nu / float(f32(1.0) - b2t)
+        mu, nu = state.mu, state.nu
+        mu.mul_(b1).add_((1.0 - b1) * g)
+        nu.mul_(b2).add_((1.0 - b2) * g * g)
+        state.count.add_(1)
+        t = state.count.float()
+        b1t, b2t = torch.pow(b1, t), torch.pow(b2, t)
+        mu_hat = mu / (1.0 - b1t)
+        nu_hat = nu / (1.0 - b2t)
         ro_inf = 2.0 / (1.0 - b2) - 1.0
-        ro = f32(ro_inf) - f32(2.0) * t * b2t / (f32(1.0) - b2t)
-        if ro >= self.threshold:
-            r = np.sqrt((ro - f32(4.0)) * (ro - f32(2.0)) * f32(ro_inf)
-                        / (f32((ro_inf - 4.0) * (ro_inf - 2.0)) * ro))
-            upd = float(r) * mu_hat / (torch.sqrt(nu_hat) + self.eps)
-        else:
-            upd = mu_hat
+        ro = ro_inf - 2.0 * t * b2t / (1.0 - b2t)
+        r = torch.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+        rect = r * mu_hat / (torch.sqrt(nu_hat) + self.eps)
+        upd = torch.where(ro >= self.threshold, rect, mu_hat)
         upd = (upd + self.weight_decay * p_flat) * m
         # optax.scale_by_schedule evaluates at the PRE-increment count
-        lr = self.lr(t - f32(1.0)) if callable(self.lr) else self.lr
-        p_flat.sub_(float(lr) * upd)
-        return FlatOptState(mu, nu, count)
+        lr = self.lr(t - 1.0) if callable(self.lr) else self.lr
+        p_flat.sub_(upd * lr)
+        return state
+
+
+def exponential_decay(init: float, gamma: float) -> Callable[[torch.Tensor], torch.Tensor]:
+    """``optax.exponential_decay(init, transition_steps=1, decay_rate=gamma)``
+    on a float32 device count: ``init * gamma ** count`` in float32."""
+    def lr(count: torch.Tensor) -> torch.Tensor:
+        return init * torch.pow(gamma, count)
+    return lr
 
 
 def stage_mask(params: Params, stage: int, freeze_coarse: bool = False) -> torch.Tensor:
@@ -149,12 +167,8 @@ def build_optimizers(cfg: Config, params: Params, p_flat: torch.Tensor,
     the stage (ref ``main.py:188-189``); stages 2/3 are constant."""
     tc = cfg.train
     s1_steps = max(1, steps_per_epoch * cfg.stages.cam_param_epochs)
-    gamma1 = np.float32((tc.stage1_lr_floor / tc.stage1_lr) ** (1.0 / s1_steps))
-
-    def lr1(count):
-        return np.float32(tc.stage1_lr) * gamma1 ** np.float32(count)
-
-    lrs = (lr1, tc.stage2_lr, tc.stage3_lr)
+    gamma1 = (tc.stage1_lr_floor / tc.stage1_lr) ** (1.0 / s1_steps)
+    lrs = (exponential_decay(tc.stage1_lr, gamma1), tc.stage2_lr, tc.stage3_lr)
     opts = tuple(FlatRAdam(stage_mask(params, stage, cfg.nerf.coarse_free_at(stage)), lrs[stage],
                            tc.weight_decay, tc.grad_clip) for stage in range(3))
     return opts, tuple(tx.init(p_flat) for tx in opts)

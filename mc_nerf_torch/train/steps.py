@@ -10,9 +10,15 @@ Stage semantics follow ref ``MC_Model.forward`` (``model/mc_nerf.py:58-105``):
 Every tensor a step needs is on the device (uint8 images, detections,
 parameters); the step's random draws come in as a :class:`StepDraws`,
 drawn by :func:`draw_step` from an explicit ``torch.Generator`` on the
-device, or built by a test from the JAX package's key tree.  The JAX
-package scans an epoch in one compiled program; here an epoch is a
-Python loop over steps (:func:`make_stage_epoch`).
+device, or built by a test from the JAX package's key tree.  A step
+updates the state in place: the parameters, the stage's RAdam moments
+and count and the global step are device tensors that keep their
+buffers.  The JAX package scans an epoch in one compiled program
+(``mc_nerf_tpu/train/steps.py:234-287``); here (:func:`make_stage_epoch`)
+each stage's step, its draws included, is captured once as a CUDA graph
+and replayed once a step, the metric sums kept on the device to the
+epoch's end.  On CPU tensors, and over more than one rank (the gradient
+all-reduce is not captured), the same step body runs as a loop.
 
 Data parallelism (``world`` > 1 ranks of the default process group, the
 JAX package's ``mesh``): every rank draws the global batch of
@@ -66,6 +72,7 @@ from mc_nerf_torch.train.optim import (
     FlatOptState,
     FlatRAdam,
     Params,
+    counter,
     flat_grads,
     flatten_params,
 )
@@ -84,13 +91,14 @@ class TrainData(NamedTuple):
 @dataclasses.dataclass
 class TrainState:
     """Parameters (each a view of ``p_flat``), one optimizer state per
-    stage, and the global step (drives BARF progress).  Steps update it in
+    stage, and the global step (drives BARF progress; a 0-d int32 tensor
+    on ``p_flat``'s device, ``optim.counter``).  Steps update it all in
     place."""
 
     params: Params
     p_flat: torch.Tensor
     opt_states: Tuple[FlatOptState, ...]
-    step: int = 0
+    step: torch.Tensor
 
 
 def _shaped_like(tree, flat: np.ndarray, off: int = 0):
@@ -133,8 +141,9 @@ def train_state_from_numpy(params_np, opt_states_np, step: int, cfg: Config,
         return to_port(_shaped_like(params_np, np.asarray(flat, np.float32))[0])[0]
 
     p_flat, params = to_port(params_np)
-    opts = tuple(FlatOptState(moved(o.mu), moved(o.nu), int(o.count)) for o in opt_states_np)
-    return TrainState(params, p_flat, opts, int(step))
+    opts = tuple(FlatOptState(moved(o.mu), moved(o.nu), counter(o.count, dev))
+                 for o in opt_states_np)
+    return TrainState(params, p_flat, opts, counter(step, dev))
 
 
 class StepDraws(NamedTuple):
@@ -215,6 +224,14 @@ def _sample_ray_batch(params: Params, data: TrainData, draws: StepDraws, img_h: 
     return rays_d.reshape(-1, 3), rays_o.reshape(-1, 3), gt.reshape(-1, 3)
 
 
+def progress(step: torch.Tensor, total_steps: int) -> torch.Tensor:
+    """Training progress, the BARF gate's clock: the step counter over
+    ``total_steps`` in float32 on the counter's device (the JAX package's
+    ``step.astype(float32) / total_steps``).  A value made on the host
+    would be frozen into a captured step."""
+    return step.float() / total_steps
+
+
 def make_loss_fn(cfg: Config, stage: int, img_h: int, img_w: int,
                  total_steps: int, world: int = 1) -> Callable:
     """Per-stage loss: ``(params, data, draws, step) -> (loss, metrics)``.
@@ -233,7 +250,7 @@ def make_loss_fn(cfg: Config, stage: int, img_h: int, img_w: int,
     cd = _dtype(cfg.compute_dtype)
 
     def loss_fn(params: Params, data: TrainData, draws: StepDraws,
-                step: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                step) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         loss_int, loss_ext = _calib_losses(params, data, draws, img_h, img_w)
         if stage == 0:
             total = loss_int + loss_ext
@@ -241,10 +258,8 @@ def make_loss_fn(cfg: Config, stage: int, img_h: int, img_w: int,
             return total, {"loss": total, "loss_intr": loss_int, "loss_extr": loss_ext,
                            "loss_rgb_c": zero, "loss_rgb_f": zero}
         rays_d, rays_o, gt = _sample_ray_batch(params, data, draws, img_h, img_w)
-        # progress as a float32 scalar made on the device (a host tensor
-        # copied there each step would wait for the card)
-        step_r = torch.full((), float(np.float32(step) / np.float32(total_steps)),
-                            dtype=torch.float32, device=rays_d.device)
+        step_r = progress(torch.as_tensor(step, dtype=torch.int32, device=rays_d.device),
+                          total_steps)
         rgb_c, rgb_f = render_rays_train(
             params.nerf, rays_d, rays_o, draws.render, step_r, cfg.nerf, barf_window,
             barf_on=(stage == 1), compute_dtype=cd, fine_mode=cfg.train.fine_mode,
@@ -266,8 +281,9 @@ def make_stage_step(cfg: Config, stage: int, tx: FlatRAdam, img_h: int, img_w: i
                     total_steps: int, world: int = 1) -> Callable:
     """One step: ``(state, data, draws) -> metrics``: loss, backward,
     the flat gradient (averaged over the ``world`` ranks of the default
-    process group), and the stage's masked RAdam update of
-    ``state.p_flat`` in place.  The metrics are this rank's."""
+    process group), the stage's masked RAdam update of ``state.p_flat``
+    and of its optimizer state, and the step's increment, all in place
+    on the device.  The metrics are this rank's."""
     if world != world_size():
         raise ValueError(f"a step over {world} ranks in a group of {world_size()}")
     loss_fn = make_loss_fn(cfg, stage, img_h, img_w, total_steps, world)
@@ -280,41 +296,198 @@ def make_stage_step(cfg: Config, stage: int, tx: FlatRAdam, img_h: int, img_w: i
         # one all-reduce of the flat gradient (the parameters are views of
         # p_flat: no per-parameter buckets); every rank applies the same update
         g_flat = all_reduce_mean_(flat_grads(state.params))
-        new_opt = tx.update(g_flat, state.opt_states[stage], state.p_flat)
-        state.opt_states = tuple(new_opt if i == stage else o
-                                 for i, o in enumerate(state.opt_states))
-        state.step += 1
+        tx.update(g_flat, state.opt_states[stage], state.p_flat)
+        state.step.add_(1)
         return {k: v.detach() for k, v in metrics.items()}
 
     return step_fn
 
 
-def make_stage_epoch(cfg: Config, stage: int, tx: FlatRAdam, img_h: int, img_w: int,
-                     total_steps: int, steps_per_epoch: int, world: int = 1) -> Callable:
-    """One epoch, a Python loop of :func:`make_stage_step`:
-    ``(state, data, generator) -> mean metrics``, each step's draws from
-    ``generator`` (on the device): the global batch over ``world`` ranks,
-    of which this rank keeps its block.  The mean metrics are averaged
-    over the ranks once, at the end: the global batch's."""
-    step_fn = make_stage_step(cfg, stage, tx, img_h, img_w, total_steps, world)
-    draw_cfg = cfg.replace(train=dataclasses.replace(
-        cfg.train, images_per_batch=cfg.train.images_per_batch * world))
-    this_rank = rank()
+# the epoch's metrics, in the order of their sums
+METRICS = ("loss", "loss_extr", "loss_intr", "loss_rgb_c", "loss_rgb_f")
+# eager steps before a capture: lazy set-up (the kernels' libraries and
+# attributes, the cached device constants, the allocator's blocks) must
+# not happen under capture; the state is put back after them
+WARMUP_STEPS = 3
 
-    def epoch_fn(state: TrainState, data: TrainData,
+
+class StaleGraphBuffer(RuntimeError):
+    """A tensor a captured step reads or writes is not the one it was
+    captured with: a replay would go on using the old buffer."""
+
+
+class StageEpoch:
+    """One epoch of one stage: ``(state, data, generator) -> mean
+    metrics``, each step's draws from ``generator`` (on the device): the
+    global batch over ``world`` ranks, of which this rank keeps its block.
+    The mean metrics are averaged over the ranks once, at the end: the
+    global batch's.
+
+    The metric sums stay on the device (float64) through the epoch: no
+    step waits for the host.  ``graph`` picks the route (None: CUDA
+    tensors and one rank):
+
+    * the graph route (CUDA, one rank): at the first call, after
+      ``WARMUP_STEPS`` eager steps on a side stream whose effects are put
+      back (parameters, moments, count, step, the generator's state), one
+      step (draws, forward, backward, flat gradient, RAdam update, step
+      increment, metric sums) is captured as a ``torch.cuda.CUDAGraph``
+      with ``generator`` registered to it, so replay k draws what the k-th
+      step of the loop draws; every step is then one replay.  Before each
+      epoch, every buffer the graph reads or writes is checked against
+      the one it was captured with (:class:`StaleGraphBuffer`).  A failed
+      capture or replay raises: nothing falls back to the loop.
+    * the loop (CPU tensors, or ``graph=False``): the same step body,
+      once a step.  The collectives of more than one rank cannot be
+      captured, so ``world`` > 1 takes it.
+
+    ``pool`` (``torch.cuda.graph_pool_handle()``) lets the stages' graphs
+    share one memory pool: each graph writes every block it uses before
+    reading it within a replay, and what outlives a replay (the state,
+    the sums) is allocated outside the pool.  ``counts`` tallies the steps
+    each way ran: "warmup", "captured", "replayed" and "looped"."""
+
+    def __init__(self, cfg: Config, stage: int, tx: FlatRAdam, img_h: int, img_w: int,
+                 total_steps: int, steps_per_epoch: int, world: int = 1,
+                 graph: Optional[bool] = None, pool=None):
+        if graph and world > 1:
+            raise ValueError(f"a step over {world} ranks runs collectives, which a CUDA graph "
+                             "does not capture")
+        self.step_fn = make_stage_step(cfg, stage, tx, img_h, img_w, total_steps, world)
+        self.draw_cfg = cfg.replace(train=dataclasses.replace(
+            cfg.train, images_per_batch=cfg.train.images_per_batch * world))
+        self.stage, self.tx, self.img_h, self.img_w = stage, tx, img_h, img_w
+        self.world, self.rank = world, rank()
+        self.steps_per_epoch = steps_per_epoch
+        self.graph, self.pool = graph, pool
+        self.counts = dict.fromkeys(("warmup", "captured", "replayed", "looped"), 0)
+        self._sums: Optional[torch.Tensor] = None
+        self._cuda_graph = None
+        self._captured: Dict[str, int] = {}
+        self._generator: Optional[torch.Generator] = None
+
+    def uses_graph(self, device: torch.device) -> bool:
+        """Whether an epoch on ``device`` takes the graph route."""
+        if self.graph is None:
+            return device.type == "cuda" and self.world == 1
+        if self.graph and device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs CUDA tensors, not {device}")
+        return self.graph
+
+    def route(self, device: torch.device) -> str:
+        """The route an epoch on ``device`` takes, in words."""
+        if self.uses_graph(device):
+            return "one CUDA graph of the step, captured once and replayed once a step"
+        why = (f"{self.world} ranks: collectives are not captured" if self.world > 1
+               else "graph=False" if device.type == "cuda" else "CPU tensors")
+        return f"the step as a loop ({why})"
+
+    def _sums_on(self, device: torch.device) -> torch.Tensor:
+        """The metric sums' buffer, made once, outside any graph's pool."""
+        if self._sums is None:
+            self._sums = torch.zeros(len(METRICS), dtype=torch.float64, device=device)
+        return self._sums
+
+    def _step(self, state: TrainState, data: TrainData, generator: torch.Generator) -> None:
+        """The step body both routes run: draws, the step, the sums."""
+        draws = draw_step(self.draw_cfg, self.stage, data.images_u8.shape[0], self.img_h,
+                          self.img_w, data.occ is not None, generator)
+        m = self.step_fn(state, data, rank_block(draws, self.rank, self.world))
+        self._sums.add_(torch.stack([m[k] for k in METRICS]).double())
+
+    def buffers(self, state: TrainState, data: TrainData) -> Dict[str, int]:
+        """name -> ``data_ptr()`` of every tensor the step reads or writes
+        across steps (None for an absent occupancy map)."""
+        opt = state.opt_states[self.stage]
+        named = {"p_flat": state.p_flat, "step": state.step, "mu": opt.mu, "nu": opt.nu,
+                 "count": opt.count, "mask": self.tx.mask, "sums": self._sums,
+                 "images_u8": data.images_u8, "occ": data.occ,
+                 **{f"calib.{f}": t for f, t in zip(data.calib._fields, data.calib)},
+                 **{f"param {n}": p for n, p in state.params.named_parameters()}}
+        return {k: None if t is None else t.data_ptr() for k, t in named.items()}
+
+    def check_buffers(self, state: TrainState, data: TrainData,
+                      generator: torch.Generator) -> None:
+        """Raise :class:`StaleGraphBuffer`, naming the buffer, where a
+        tensor of ``state`` or ``data`` (or the generator) is not the one
+        the graph was captured with."""
+        if generator is not self._generator:
+            raise StaleGraphBuffer(f"stage {self.stage}: the generator is not the one its step "
+                                   "graph was captured with")
+        now = self.buffers(state, data)
+        for name, ptr in self._captured.items():
+            if now.get(name) != ptr:
+                raise StaleGraphBuffer(
+                    f"stage {self.stage}: {name} is not the buffer its step graph was captured "
+                    f"with (data_ptr {now.get(name)} against {ptr}); write new values into the "
+                    "captured buffer in place")
+
+    def capture(self, state: TrainState, data: TrainData, generator: torch.Generator) -> None:
+        """Warm up, put the run back, and capture one step (see the class)."""
+        dev = state.p_flat.device
+        self._sums_on(dev)
+        opt = state.opt_states[self.stage]
+        live = (state.p_flat, opt.mu, opt.nu, opt.count, state.step)
+        saved = [t.clone() for t in live]
+        gen_state = generator.get_state()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self._step(state, data, generator)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.counts["warmup"] += WARMUP_STEPS
+        # the warm-up must not train: every later step would shift
+        with torch.no_grad():
+            for t, s in zip(live, saved):
+                t.copy_(s)
+            self._sums.zero_()
+        generator.set_state(gen_state)
+        for p in state.params.parameters():
+            p.grad = None      # the backward writes fresh gradients, never accumulates
+        g = torch.cuda.CUDAGraph()
+        g.register_generator_state(generator)
+        with torch.cuda.graph(g, pool=self.pool, stream=side):
+            self._step(state, data, generator)
+        self.counts["captured"] += 1
+        self._cuda_graph = g
+        self.bind(state, data, generator)
+
+    def bind(self, state: TrainState, data: TrainData, generator: torch.Generator) -> None:
+        """Record the buffers (and the generator) that :meth:`check_buffers`
+        holds every later epoch to: those of the capture."""
+        self._sums_on(state.p_flat.device)
+        self._captured, self._generator = self.buffers(state, data), generator
+
+    def __call__(self, state: TrainState, data: TrainData,
                  generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        sums: Dict[str, torch.Tensor] = {}
-        n_images = data.images_u8.shape[0]
-        for _ in range(steps_per_epoch):
-            draws = draw_step(draw_cfg, stage, n_images, img_h, img_w, data.occ is not None,
-                              generator)
-            for k, v in step_fn(state, data, rank_block(draws, this_rank, world)).items():
-                sums[k] = sums[k] + v if k in sums else v
-        names = sorted(sums)
-        means = all_reduce_mean_(torch.stack([sums[k] for k in names]) / steps_per_epoch)
-        return dict(zip(names, means))
+        dev = state.p_flat.device
+        graph = self.uses_graph(dev)
+        self._sums_on(dev).zero_()
+        if graph and self._cuda_graph is None:
+            self.capture(state, data, generator)
+        n = self.steps_per_epoch
+        if graph:
+            self.check_buffers(state, data, generator)
+            for _ in range(n):
+                self._cuda_graph.replay()
+            self.counts["replayed"] += n
+        else:
+            for _ in range(n):
+                self._step(state, data, generator)
+            self.counts["looped"] += n
+        means = (self._sums / n).float()
+        return dict(zip(METRICS, all_reduce_mean_(means)))
 
-    return epoch_fn
+
+def make_stage_epoch(cfg: Config, stage: int, tx: FlatRAdam, img_h: int, img_w: int,
+                     total_steps: int, steps_per_epoch: int, world: int = 1,
+                     graph: Optional[bool] = None, pool=None) -> StageEpoch:
+    """One epoch of ``stage``: a :class:`StageEpoch` (``(state, data,
+    generator) -> mean metrics``), as a replayed CUDA graph on the card
+    (``graph`` None: CUDA and one rank), else as a loop."""
+    return StageEpoch(cfg, stage, tx, img_h, img_w, total_steps, steps_per_epoch, world,
+                      graph, pool)
 
 
 def make_render_fn(cfg: Config, img_h: int, img_w: int,

@@ -898,3 +898,90 @@ def test_render_backward_narrow_fine_dbasis_spread(cuda, rays, s):
     print(f"measured {rays}x{s} kernel vs plain fp32 dbasis rel L2 {rel_l2(k[3], ref[3]):.3e}")
     assert spread["kernel"] <= spread["plain fp32"], spread
     assert rel_l2(k[3], ref[3]) <= BWD_TOL[("narrow", "fine")]["dbasis"]
+
+
+# ------------------------------------------------------- the compiled epoch
+
+# step kinds of the graph route (train/steps.py StageEpoch): (stage, image
+# side, the train config's and the NeRF config's changes from the narrow
+# widths).  The 24x24 images have 576 pixels <= 8 x 128 rays: the pixels
+# are drawn with torch.randperm; the 64x64 ones with torch.randint.
+GRAPH_KINDS = {
+    "importance stage 1": (1, 64, {}, {}),
+    "importance stage 2": (2, 64, {}, {}),
+    "randperm pixels": (1, 24, {}, {}),
+    "grid stage 1": (1, 64, {"fine_mode": "grid"}, {}),
+    "grid remat_shade": (1, 64, {"fine_mode": "grid", "remat_shade": True}, {}),
+    "coarse-free stage 2": (2, 64, {}, {"coarse_free": True, "coarse_free_from_stage": 2,
+                                        "cf_uniform_samples": 8, "occ_map_dtype": "bitpack"}),
+    "cam_param stage 0": (0, 64, {}, {}),
+}
+
+
+def _graph_workload(kind, device):
+    from mc_nerf_torch.config import Config, TrainConfig
+    from mc_nerf_torch.tools.scene import train_workload
+    from mc_nerf_torch.train.optim import build_optimizers, counter, flatten_params
+    from mc_nerf_torch.train.steps import TrainState
+
+    stage, side, train_kw, nerf_kw = GRAPH_KINDS[kind]
+    cfg = Config(train=TrainConfig(rays_per_batch=128, importance_samples=16, **train_kw),
+                 nerf=NerfConfig(**NARROW, **nerf_kw))
+    params, data = train_workload(cfg, 0, device, n_images=4, img_h=side, img_w=side)
+    p_flat = flatten_params(params)
+    txs, states = build_optimizers(cfg, params, p_flat, 10)
+    # the middle of the protocol: the BARF gate moves every step
+    return cfg, stage, side, TrainState(params, p_flat, states, counter(143000, device)), data, txs
+
+
+def _graph_state(state, stage):
+    o = state.opt_states[stage]
+    return [state.p_flat, o.mu, o.nu, o.count, state.step]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(GRAPH_KINDS))
+def test_graph_epoch_matches_the_loop_bit_for_bit(cuda, kind):
+    """Two epochs of 6 steps through the captured step and
+    through the loop, from the same state and seeds: the same p_flat,
+    moments, count and step, bit for bit, and the same metric means; the
+    graph was captured once (after its warm-up) and replayed 12 times."""
+    from mc_nerf_torch.train.steps import WARMUP_STEPS, make_stage_epoch
+
+    cfg, stage, side, state, data, txs = _graph_workload(kind, cuda)
+    start = [t.clone() for t in _graph_state(state, stage)]
+    out = {}
+    for graph in (False, True):
+        for t, s in zip(_graph_state(state, stage), start):
+            t.copy_(s)
+        ep = make_stage_epoch(cfg, stage, txs[stage], side, side, 286000, 6, graph=graph)
+        gen = torch.Generator(device=cuda)
+        means = [ep(state, data, gen.manual_seed(seed)) for seed in (1, 2)]
+        torch.cuda.synchronize()
+        out[graph] = [t.clone() for t in _graph_state(state, stage)], means, dict(ep.counts)
+    (a, ma, ca), (b, mb, cb) = out[False], out[True]
+    assert ca == {"warmup": 0, "captured": 0, "replayed": 0, "looped": 12}
+    assert cb == {"warmup": WARMUP_STEPS, "captured": 1, "replayed": 12, "looped": 0}
+    for name, x, y in zip(("p_flat", "mu", "nu", "count", "step"), a, b):
+        assert torch.equal(x, y), name
+    assert int(b[4]) == 143012 and not torch.equal(a[0], start[0])
+    for m, n in zip(ma, mb):
+        assert {k: float(v) for k, v in m.items()} == {k: float(v) for k, v in n.items()}
+
+
+@pytest.mark.gpu
+def test_graph_epoch_refuses_a_rebound_map(cuda):
+    """A map rebound after the capture (``data._replace(occ=...)``) is
+    refused before the first replay of the epoch, naming it; the map
+    written in place is taken."""
+    from mc_nerf_torch.train.steps import StaleGraphBuffer, make_stage_epoch
+
+    cfg, stage, side, state, data, txs = _graph_workload("importance stage 1", cuda)
+    ep = make_stage_epoch(cfg, stage, txs[stage], side, side, 286000, 3, graph=True)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ep(state, data, gen)
+    data.occ.copy_(torch.zeros_like(data.occ))
+    ep(state, data, gen)
+    with pytest.raises(StaleGraphBuffer, match="occ"):
+        ep(state, data._replace(occ=data.occ.clone()), gen)
+    assert ep.counts["replayed"] == 6

@@ -273,7 +273,7 @@ def test_grid_stage_step_matches_jax():
     p_flat = t_optim.flatten_params(tp)
     before = [p.detach().clone() for p in tp.parameters()]
     ttxs, tstates = t_optim.build_optimizers(tc, tp, p_flat, steps_per_epoch=10)
-    state = t_steps.TrainState(tp, p_flat, tstates, STEP)
+    state = t_steps.TrainState(tp, p_flat, tstates, t_optim.counter(STEP, CPU))
     metrics = t_steps.make_stage_step(tc, 1, ttxs[1], H, W, TOTAL_STEPS)(
         state, tdata, _step_draws(key, tc))
     assert abs(float(metrics["loss"]) - float(j_loss)) <= 2e-3 * abs(float(j_loss))

@@ -188,7 +188,7 @@ _RANK = textwrap.dedent("""
     from mc_nerf_torch.models.nerf import init_nerf_params
     from mc_nerf_torch.parallel.distributed import initialize_distributed
     from mc_nerf_torch.train import steps
-    from mc_nerf_torch.train.optim import Params, build_optimizers, flatten_params
+    from mc_nerf_torch.train.optim import Params, build_optimizers, counter, flatten_params
 
     work, h, w, total, step_at = sys.argv[1], *map(int, sys.argv[2:])
     topo = initialize_distributed(device="cpu", init_method=f"file://{work}/store")
@@ -208,7 +208,7 @@ _RANK = textwrap.dedent("""
         with torch.no_grad():
             p_flat.copy_(c["p_flat"])
         txs, states = build_optimizers(cfg, params, p_flat, steps_per_epoch=10)
-        state = steps.TrainState(params, p_flat, states, step_at)
+        state = steps.TrainState(params, p_flat, states, counter(step_at, "cpu"))
         fn = steps.make_stage_step(cfg, stage, txs[stage], h, w, total, topo.world)
         cuts.clear()
         m = fn(state, c["data"], steps.rank_block(c["draws"], topo.rank, topo.world))

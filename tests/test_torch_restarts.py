@@ -51,7 +51,7 @@ from mc_nerf_torch.train import engine as t_engine
 from mc_nerf_torch.train import optim as t_optim
 from mc_nerf_torch.train import restarts as t_restarts
 from mc_nerf_torch.train.checkpoint import STATE_FILE, Checkpointer
-from mc_nerf_torch.train.optim import FlatOptState
+from mc_nerf_torch.train.optim import FlatOptState, counter
 from mc_nerf_torch.train.steps import TrainState, train_state_from_numpy
 
 CPU = "cpu"
@@ -224,7 +224,8 @@ def test_per_camera_losses_match_jax(cal_scene):
 
 def _port_state(e):
     z = torch.zeros(2)
-    return TrainState(None, torch.full((4,), float(e)), (FlatOptState(z, z + e, e),), e)
+    return TrainState(None, torch.full((4,), float(e)),
+                      (FlatOptState(z, z + e, counter(e, "cpu")),), counter(e, "cpu"))
 
 
 def _jax_state(e):
@@ -262,7 +263,9 @@ def test_checkpoint_round_trip_and_atomic_name(tmp_path):
     assert torch.equal(buf, torch.full((4,), 3.0))
     assert state.opt_states[0].count == 3 and torch.equal(state.opt_states[0].nu, torch.full((2,), 3.0))
     with pytest.raises(ValueError, match="parameters"):
-        ck.restore(TrainState(None, torch.zeros(5), (FlatOptState(torch.zeros(5), torch.zeros(5)),), 0))
+        ck.restore(TrainState(None, torch.zeros(5), (FlatOptState(torch.zeros(5), torch.zeros(5),
+                                                                  counter(0, "cpu")),),
+                              counter(0, "cpu")))
     with pytest.raises(FileNotFoundError):
         Checkpointer(str(tmp_path / "none")).restore(_port_state(0))
 

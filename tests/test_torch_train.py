@@ -403,7 +403,7 @@ def test_stage_step_update_matches_jax():
     p_flat = t_optim.flatten_params(tp)
     before = [p.detach().clone() for p, _, _ in _leaf_pairs(tp, jp)]
     ttxs, tstates = t_optim.build_optimizers(tc, tp, p_flat, steps_per_epoch=10)
-    tstate = t_steps.TrainState(tp, p_flat, tstates, STEP)
+    tstate = t_steps.TrainState(tp, p_flat, tstates, t_optim.counter(STEP, "cpu"))
     step = t_steps.make_stage_step(tc, 1, ttxs[1], H, W, TOTAL_STEPS)
     metrics = step(tstate, tdata, _draws_from_key(key, tc, 1, True))
     assert tstate.step == STEP + 1 and tstate.opt_states[1].count == 1
@@ -422,7 +422,7 @@ def test_stage_epoch_runs_with_its_own_generator():
     _, tp, _, tdata = _scene(True)
     p_flat = t_optim.flatten_params(tp)
     txs, states = t_optim.build_optimizers(tc, tp, p_flat, steps_per_epoch=2)
-    state = t_steps.TrainState(tp, p_flat, states, 0)
+    state = t_steps.TrainState(tp, p_flat, states, t_optim.counter(0, "cpu"))
     nerf_before = torch.cat([p.detach().reshape(-1).clone() for p in tp.nerf.parameters()])
     gen = torch.Generator().manual_seed(0)
     m0 = t_steps.make_stage_epoch(tc, 0, txs[0], H, W, 10, 2)(state, tdata, gen)
