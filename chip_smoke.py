@@ -99,12 +99,25 @@ on a reference-format scene.
    parameters bit-stable through FINE_TUNE; its ``--demo`` with LPIPS on
    seeded random weights (against the CPU's fp32 value) and with the
    density PMF; each kernel held on those inputs as above.
+8b. Data parallelism (``dp_phase``): 2 gloo ranks on the one card, each
+   a subprocess, ``main()`` ``--train`` / ``--demo`` on both (the step as
+   a loop: gloo's collectives run on the host; the host's wait for the
+   card before the gradient all-reduce and the all-reduce timed) against
+   one process with twice the images, and ``torchrun`` itself.  With two
+   cards or more (``nccl_phase``): ``torchrun`` of one rank a card over
+   NCCL, the four step kinds of 6b at full width, 7000 rays a rank, the
+   loop and the step as one graph, its collectives captured, in turns
+   (the same bits on both routes and every rank, the profiled launches a
+   step, ms a step a rank, busy share, the all-reduce, global rays/s
+   against 6b's one process), and ``-m mc_nerf_torch --train``; skipped,
+   and said so, on one card.
 9. Prints the ``kernels`` JSON line, one entry per kernel and path (the
    demo; the train step; the grid demo; the grid train step; the
    fused_mlp VJP; the engine's training steps, validation renders and
-   demo; the CLI's importance and grid ``--train`` and ``--demo``): that
-   path's launches, time per launch at its shapes, bound, plain and
-   library times; then ``{"ok": true, "device": ...}`` last.
+   demo; the CLI's importance and grid ``--train`` and ``--demo``; the
+   data-parallel ``--train`` and ``--demo``): that path's launches, time
+   per launch at its shapes, bound, plain and library times; then
+   ``{"ok": true, "device": ...}`` last.
 
 Every kernel check also measures planted faults against the same plain
 version (points mixed up, tiles swapped in pairs, the skip input dropped,
@@ -126,12 +139,15 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import hashlib
 import json
 import math
+import signal
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -264,6 +280,22 @@ DP_CUTS = {"stages": (1, 1, 1), "launch stages": (1, 1, 0), "occ_warmup_steps": 
 # into whole steps); the demo's scores against the 1-rank demo of the
 # same checkpoint (relative; measured equal)
 DP_TOL = {"metrics rel": 1.5e-4, "params": 2e-2, "demo rel": 1e-6}
+# the step kinds on NCCL ranks (nccl_kinds: GRAPH_KINDS, each rank's image of
+# the global batch): steps an epoch of each route, and each kind's
+# launches a step of the csrc/ kernel its wrappers launch once a call
+# (SIGNATURE's), which the profiler counts in the graph route's replays
+DP_STEPS = 5
+# the route every stage of the gloo ranks' CLI run logs
+GLOO_ROUTE = (f"the step as a loop ({DP_WORLD} gloo ranks: their collectives run on the "
+              "host)")
+DP_LAUNCHES = {
+    "importance GLOBAL_OPTIM": {"composite_fwd_kernel": 2, "mlp_points_kernel": 2,
+                                "weight_grad_kernel": 2},
+    "grid GLOBAL_OPTIM": {"shaded_fwd_kernel": 2, "mlp_points_kernel": 2},
+    "coarse-free FINE_TUNE": {"composite_fwd_kernel": 1, "mlp_points_kernel": 1,
+                              "weight_grad_kernel": 1},
+    "CAM_PARAM": {"composite_fwd_kernel": 0, "mlp_points_kernel": 0, "weight_grad_kernel": 0,
+                  "shaded_fwd_kernel": 0}}
 
 
 def fail(msg: str) -> None:
@@ -891,6 +923,28 @@ def train_phase(cfg, dev, h: int, w: int, counters, n_steps: int, route_tol: dic
             "profiles": profiles, "launches": launches}
 
 
+def kind_workload(dev, stage: int, train_kw: dict, nerf_kw: dict) -> tuple:
+    """A step kind of ``GRAPH_KINDS`` on the workload bench.py times
+    (``tools/scene.train_workload`` at ``Config()`` widths with the
+    kind's changes), from step 143,000 of 286,000 (the BARF gate moves
+    every step): (cfg, state, data, the optimizers, [p_flat, the stage's
+    mu, nu and count, step])."""
+    from mc_nerf_torch.config import Config
+    from mc_nerf_torch.tools.scene import STEPS_PER_EPOCH, TOTAL_STEPS, train_workload
+    from mc_nerf_torch.train.optim import build_optimizers, counter, flatten_params
+    from mc_nerf_torch.train.steps import TrainState
+
+    cfg = Config()
+    cfg = cfg.replace(train=dataclasses.replace(cfg.train, **train_kw),
+                      nerf=dataclasses.replace(cfg.nerf, **nerf_kw))
+    params, data = train_workload(cfg, SEED, dev)
+    p_flat = flatten_params(params)
+    txs, states = build_optimizers(cfg, params, p_flat, STEPS_PER_EPOCH)
+    state = TrainState(params, p_flat, states, counter(TOTAL_STEPS // 2, dev))
+    opt = state.opt_states[stage]
+    return cfg, state, data, txs, [state.p_flat, opt.mu, opt.nu, opt.count, state.step]
+
+
 def graph_phase(dev, smi: str, counters: dict) -> dict:
     """The compiled epoch (``train/steps.py:StageEpoch``) against the loop
     of eager steps, on the workload bench.py times at full width, for each
@@ -914,26 +968,17 @@ def graph_phase(dev, smi: str, counters: dict) -> dict:
     with it must not.  Prints each kind's wall ms a step in turns, rays/s,
     and the profiled device ms and busy share."""
     import mc_nerf_torch.train.steps as steps_module
-    from mc_nerf_torch.config import Config
     from mc_nerf_torch.tools.profile_step import profile_routes, routes_in_turns
-    from mc_nerf_torch.tools.scene import STEPS_PER_EPOCH, TOTAL_STEPS, train_workload
-    from mc_nerf_torch.train.optim import FlatRAdam, build_optimizers, counter, flatten_params
-    from mc_nerf_torch.train.steps import StaleGraphBuffer, TrainState, make_stage_epoch
+    from mc_nerf_torch.tools.scene import TOTAL_STEPS
+    from mc_nerf_torch.train.optim import FlatRAdam
+    from mc_nerf_torch.train.steps import StaleGraphBuffer, make_stage_epoch
 
     t_phase = time.perf_counter()
     names = csrc_kernel_names()
     n, pool = GRAPH_STEPS, torch.cuda.graph_pool_handle()
 
     def one_kind(kind, stage, train_kw, nerf_kw) -> dict:
-        cfg = Config()
-        cfg = cfg.replace(train=dataclasses.replace(cfg.train, **train_kw),
-                          nerf=dataclasses.replace(cfg.nerf, **nerf_kw))
-        params, data = train_workload(cfg, SEED, dev)
-        p_flat = flatten_params(params)
-        txs, states = build_optimizers(cfg, params, p_flat, STEPS_PER_EPOCH)
-        state = TrainState(params, p_flat, states, counter(TOTAL_STEPS // 2, dev))
-        opt = state.opt_states[stage]
-        live = [state.p_flat, opt.mu, opt.nu, opt.count, state.step]
+        cfg, state, data, txs, live = kind_workload(dev, stage, train_kw, nerf_kw)
         start = [t.clone() for t in live]
         gen = torch.Generator(device=dev)
 
@@ -1696,18 +1741,102 @@ def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
             "graph_launches": {"cli_train_cf": graph_launches}}
 
 
+def nccl_kinds(dev, world: int, reduces: list) -> dict:
+    """This rank's part of the data-parallel step kinds over NCCL: for
+    each of ``GRAPH_KINDS``, on the workload of ``graph_phase``
+    (``Config()`` widths, 7000 rays a rank: each rank keeps its image of
+    the global batch), epochs of ``DP_STEPS`` steps from one state and
+    seed through the loop and through the graph route (``graph=True``:
+    one graph a step, its collectives captured in it), the first of each
+    untimed (the graph's warm-up and capture), then four timed in turns
+    (``routes_in_turns``) and one of each under the profiler
+    (``profile_routes``: the graph route's is its replays); then the
+    graph is released (``StageEpoch.release``).  ``reduces``
+    is the list the rank's timed gradient all-reduce appends to (numel,
+    bytes an element, the host's wait for the card before it, its own
+    seconds, the end): each route's timed epochs' entries are kept.
+    Returns {kind: the routes' ms a step in turns, the graph route's
+    state against the loop's (the gap, bit for bit), the sha256 of each
+    route's last state (p_flat, mu, nu, count, step), the profiled
+    launches a step of each kernel of csrc/, busy shares, NCCL kernel ms
+    a step, the all-reduces and the route}."""
+    from mc_nerf_torch.tools.profile_step import profile_routes, routes_in_turns
+    from mc_nerf_torch.tools.scene import TOTAL_STEPS
+    from mc_nerf_torch.train.steps import make_stage_epoch
+
+    names, n, out = csrc_kernel_names(), DP_STEPS, {}
+    for kind, (stage, train_kw, nerf_kw) in GRAPH_KINDS.items():
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg, state, data, txs, live = kind_workload(dev, stage, train_kw, nerf_kw)
+        p_flat = state.p_flat
+        start = [t.clone() for t in live]
+        gen = torch.Generator(device=dev)
+        eps = {route: make_stage_epoch(cfg, stage, txs[stage], 800, 800, TOTAL_STEPS, n, world,
+                                       graph=route == "graph")
+               for route in ("loop", "graph")}
+        route_of = {id(ep): route for route, ep in eps.items()}
+        runs = []
+
+        def reset():
+            with torch.no_grad():
+                for t, v in zip(live, start):
+                    t.copy_(v)
+            gen.manual_seed(SEED + 1)
+
+        def run(ep):
+            i = len(reduces)
+            m = ep(state, data, gen)
+            runs.append((route_of[id(ep)], [r for r in reduces[i:] if r[0] == p_flat.numel()]))
+            if not all(math.isfinite(float(v)) for v in m.values()):
+                fail(f"kinds {kind}: epoch metrics not finite: {m}")
+
+        first, timed = routes_in_turns(eps, run, n, reset, lambda: [t.clone() for t in live])
+        ends = {route: [first[route]] + [kept for _, kept in timed[route]] for route in eps}
+        turns = {route: [ms for ms, _ in v] for route, v in timed.items()}
+        gap = max(float((x.double() - y.double()).abs().max())
+                  for e in ends["graph"] for x, y in zip(e, ends["loop"][0]))
+        same = all(torch.equal(x, y) for e in ends["graph"] + ends["loop"]
+                   for x, y in zip(e, ends["loop"][0]))
+        timed_runs = runs[len(eps):]
+        prof = profile_routes(eps, run, n, names)
+        for p in prof.values():
+            p["nccl_ms"] = sum(ms for ms, _, nm in p.pop("rows") if "nccl" in nm.lower())
+        grad = {route: [r for rt, rs in timed_runs if rt == route for r in rs] for route in eps}
+        out[kind] = {
+            "stage": stage, "turns_ms": turns, "gap": gap, "bit_identical": same,
+            "digests": {route: [digest(t) for t in e[-1]] for route, e in ends.items()},
+            "named_a_step": {r: p["named_a_step"] for r, p in prof.items()},
+            "profiles": prof, "counts": {r: dict(ep.counts) for r, ep in eps.items()},
+            "route": eps["graph"].route(dev), "grad_bytes": p_flat.numel() * 4,
+            "peak_gib": torch.cuda.max_memory_reserved(dev) / 2**30,
+            "grad_reduces": {r: len(v) / (2 * n) for r, v in grad.items()},
+            "grad_wait_ms": {r: float(np.median([x[2] for x in v])) * 1e3 if v else None
+                             for r, v in grad.items()},
+            "grad_reduce_ms": {r: float(np.median([x[3] for x in v])) * 1e3 if v else None
+                               for r, v in grad.items()}}
+        eps["graph"].release()
+        del eps, state, data, live, start
+        torch.cuda.empty_cache()
+    return out
+
+
 def dp_rank(spec: dict) -> None:
-    """One rank of ``dp_phase``, started with torchrun's environment
-    (``python3 chip_smoke.py --dp-rank <spec>``).  Joins the group
+    """One rank of ``dp_phase`` (``spec["cli"]``) or of ``nccl_phase``
+    (``spec["kinds"]``), started with torchrun's environment (``python3
+    chip_smoke.py --dp-rank <spec>``).  Joins the group
     (``initialize_distributed``: the rank's card by the device rule, the
-    backend by the backend rule), then drives ``mc_nerf_torch.main.main``
-    under the CLI phases' instrumentation (``cli_recording``): ``dp_train``
-    (``--train``) and ``dp_demo`` (``--demo``), each path's launches counted
-    from 0 just before it.  The step's gradient all-reduce is timed (the
-    card synchronized on each side), the demo's PNG writes recorded.  Writes
-    ``rank<r>.json`` under the phase's directory, and on rank 0 the
-    recorded kernel inputs (``calls.pt``) after checking them against the
-    launches counted."""
+    backend by the backend rule) and times the step's gradient all-reduce
+    (``steps.all_reduce_mean_``: the host's wait for the card before it,
+    then the all-reduce itself, the card synchronized on each side; under
+    capture, where NCCL's is captured in the step's graph, untimed).
+    With ``spec["kinds"]`` it runs the step kinds (``nccl_kinds``).  With
+    ``spec["cli"]`` it drives ``mc_nerf_torch.main.main`` under the CLI
+    phases' instrumentation (``cli_recording``): ``dp_train``
+    (``--train``) and ``dp_demo`` (``--demo``), each path's launches
+    counted from 0 just before it, the demo's PNG writes recorded.
+    Writes ``rank<r>.json`` under the phase's directory, and on rank 0 of
+    the CLI run the recorded kernel inputs (``calls.pt``) after checking
+    them against the launches counted."""
     import pathlib
 
     import torch.distributed as dist
@@ -1730,12 +1859,15 @@ def dp_rank(spec: dict) -> None:
     mean_, write = steps_module.all_reduce_mean_, engine_module._write_pngs
 
     def timed_mean_(t):
-        torch.cuda.synchronize()
+        if torch.cuda.is_current_stream_capturing():
+            return mean_(t)
         t0 = time.perf_counter()
-        out = mean_(t)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        reduces.append((t.numel(), t.element_size(), t1 - t0, t1))
+        out = mean_(t)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        reduces.append((t.numel(), t.element_size(), t1 - t0, t2 - t1, t2))
         return out
 
     def recorded_write(dirs, i, *a):
@@ -1743,30 +1875,119 @@ def dp_rank(spec: dict) -> None:
         return write(dirs, i, *a)
 
     steps_module.all_reduce_mean_, engine_module._write_pngs = timed_mean_, recorded_write
+    out = {"rank": topo.rank, "world": topo.world, "backend": dist.get_backend(),
+           "device": str(topo.device), "current_device": torch.cuda.current_device()}
     try:
-        with cli_recording(work, spec["name"], counters) as (cli, calls, cache_s, epochs):
-            state, train_s, l_train, eng = cli("dp_train", "dp", "--train")
-            demo, demo_s, l_demo, _ = cli("dp_demo", "dp", "--demo")
+        if spec.get("kinds"):
+            t0 = time.perf_counter()
+            out["kinds"] = nccl_kinds(topo.device, topo.world, reduces)
+            out["kinds_s"] = time.perf_counter() - t0
+        if spec.get("cli"):
+            with cli_recording(work, spec["name"], counters) as (cli, calls, cache_s, epochs):
+                state, train_s, l_train, eng = cli("dp_train", "dp", "--train")
+                demo, demo_s, l_demo, _ = cli("dp_demo", "dp", "--demo")
+            grads = [(n * size, wait, dt, end) for n, size, wait, dt, end in reduces
+                     if n == state.p_flat.numel()]
+            out.update({
+                "steps_per_epoch": eng.steps_per_epoch, "step": int(state.step),
+                "history": eng.history, "epochs": epochs, "final_occ": digest(eng._occ_map),
+                "train_s": train_s, "demo_s": demo_s,
+                "launches": {"dp_train": l_train, "dp_demo": l_demo},
+                "routes": {s: ep.route(topo.device) for s, ep in eng._epoch_fns.items()},
+                "demo": demo, "written": written, "cache_builds": len(cache_s),
+                "kept": eng.ckpt.epochs(), "grad_reduces": len(grads),
+                "p_flat_bytes": state.p_flat.numel() * state.p_flat.element_size(),
+                "grad_reduce_bytes": grads[0][0] if grads else 0,
+                "grad_wait_ms": [wait * 1e3 for _, wait, _, _ in grads],
+                "grad_reduce_ms": [dt * 1e3 for _, _, dt, _ in grads],
+                "grad_reduce_end_s": [end for *_, end in grads]})
+            if topo.rank == 0:
+                check_recorded(calls, {"dp_train": l_train, "dp_demo": l_demo})
+                torch.save(calls, work / "calls.pt")
     finally:
         steps_module.all_reduce_mean_, engine_module._write_pngs = mean_, write
-    grads = [(n * size, dt, end) for n, size, dt, end in reduces if n == state.p_flat.numel()]
-    out = {"rank": topo.rank, "world": topo.world, "backend": dist.get_backend(),
-           "device": str(topo.device), "current_device": torch.cuda.current_device(),
-           "steps_per_epoch": eng.steps_per_epoch, "step": int(state.step),
-           "history": eng.history, "epochs": epochs, "final_occ": digest(eng._occ_map),
-           "train_s": train_s, "demo_s": demo_s, "launches": {"dp_train": l_train,
-                                                             "dp_demo": l_demo},
-           "demo": demo, "written": written, "cache_builds": len(cache_s),
-           "kept": eng.ckpt.epochs(), "grad_reduces": len(grads),
-           "p_flat_bytes": state.p_flat.numel() * state.p_flat.element_size(),
-           "grad_reduce_bytes": grads[0][0] if grads else 0,
-           "grad_reduce_ms": [dt * 1e3 for _, dt, _ in grads],
-           "grad_reduce_end_s": [end for *_, end in grads]}
-    if topo.rank == 0:
-        check_recorded(calls, {"dp_train": l_train, "dp_demo": l_demo})
-        torch.save(calls, work / "calls.pt")
     (work / f"rank{topo.rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
+
+
+def check_nccl_kinds(ranks: list, one_process: dict, smi: str) -> dict:
+    """Checks and prints the step kinds ``nccl_kinds`` ran on each rank of
+    ``ranks`` (their ``rank<r>.json``): on every rank the graph route's
+    state equal to the loop's bit for bit after every epoch, the same
+    bits on every rank, the graph captured once after its warm-up, one
+    graph over the ranks, the profiled launches a step of the kernels of
+    csrc/ the same on both routes and ``DP_LAUNCHES[kind]`` of each
+    wrapper's ``SIGNATURE`` kernel, one gradient all-reduce a step on the
+    host in the loop and none outside the graph.  Prints each kind's ms
+    a step a rank in turns, busy share, the all-reduce's ms and bytes and
+    the global rays/s against ``one_process`` (the graph phase's kinds:
+    one process's graph route).  Returns {kind: summary}."""
+    from mc_nerf_torch.config import Config
+    from mc_nerf_torch.train.steps import WARMUP_STEPS
+
+    out, rays_a_rank = {}, Config().train.rays_per_batch
+    for kind, (stage, *_) in GRAPH_KINDS.items():
+        xs = [r["kinds"][kind] for r in ranks]
+        x = xs[0]
+        want = DP_LAUNCHES[kind]
+        got = [{k: y["named_a_step"]["graph"].get(k, 0) for k in want} for y in xs]
+        bad = [r for r, y in enumerate(xs) if not (
+            y["bit_identical"] and y["digests"] == x["digests"]
+            and y["counts"]["graph"] == {"warmup": WARMUP_STEPS, "captured": 1,
+                                         "replayed": 4 * DP_STEPS, "looped": 0}
+            and f"one CUDA graph of the step over {len(xs)} ranks" in y["route"]
+            and y["named_a_step"]["graph"] == y["named_a_step"]["loop"] and got[r] == want
+            and y["grad_reduces"]["loop"] == 1.0 and y["grad_reduces"]["graph"] == 0.0)]
+        ms = {route: [float(np.mean(y["turns_ms"][route])) for y in xs] for route in ("loop",
+                                                                                     "graph")}
+        rays = rays_a_rank * len(xs) if stage else 0
+        one = one_process[kind]["graph_ms"]
+        summary = {
+            "turns_ms": [y["turns_ms"] for y in xs], "loop_ms": ms["loop"],
+            "graph_ms": ms["graph"],
+            "busy_share": [{r: p["busy_share"] for r, p in y["profiles"].items()} for y in xs],
+            "kernel_ms": [{r: p["kernel_ms"] for r, p in y["profiles"].items()} for y in xs],
+            "nccl_ms": [{r: p["nccl_ms"] for r, p in y["profiles"].items()} for y in xs],
+            "grad_wait_ms": [y["grad_wait_ms"] for y in xs],
+            "grad_reduce_ms": [y["grad_reduce_ms"] for y in xs], "grad_bytes": x["grad_bytes"],
+            "gap": [y["gap"] for y in xs], "bit_identical": [y["bit_identical"] for y in xs],
+            "launches_a_step": got, "route": x["route"],
+            "one_process_graph_ms": one,
+            "global_rays_per_s": ({r: rays / max(v) * 1e3 for r, v in ms.items()}
+                                  if rays else None),
+            "one_process_rays_per_s": rays_a_rank / one * 1e3 if rays else None}
+        out[kind] = summary
+        turns = "; ".join(f"rank {r} " + ", ".join(f"{v:.3f}" for v in (
+            t["loop"][0], t["graph"][0], t["graph"][1], t["loop"][1]))
+            for r, t in enumerate(summary["turns_ms"]))
+        busy = ", ".join(f"{b['loop']:.3f} / {b['graph']:.3f}" for b in summary["busy_share"])
+        reduce = ", ".join(" / ".join(
+            "captured" if y["grad_reduce_ms"][r] is None
+            else f"{y['grad_wait_ms'][r]:.3f} + {y['grad_reduce_ms'][r]:.3f}"
+            for r in ("loop", "graph")) for y in xs)
+        # an NCCL kernel waits on the card for every peer: the least over the
+        # ranks is the last to arrive's, the all-reduce's own time
+        least = {r: min(n[r] for n in summary["nccl_ms"]) for r in ("loop", "graph")}
+        summary["nccl_least_ms"] = least
+        nccl = (f"; NCCL kernels a step on the card, least over the ranks (loop / graph) "
+                f"{least['loop']:.3f} / {least['graph']:.3f} (by rank, waits included: "
+                + ", ".join(f"{n['loop']:.3f} / {n['graph']:.3f}" for n in summary["nccl_ms"])
+                + ")" if least["loop"] or least["graph"] else "")
+        g = summary["global_rays_per_s"]
+        print(f"nccl {kind}: ms a step a rank in turns (loop, graph, graph, loop) {turns}: "
+              f"loop {max(ms['loop']):.3f}, graph {max(ms['graph']):.3f} "
+              f"({max(ms['loop']) / max(ms['graph']):.2f}x); busy share (loop / graph) {busy}; "
+              f"gradient all-reduce of {x['grad_bytes']} bytes a step, median ms of the host's "
+              f"wait for the card + the all-reduce (loop / graph) {reduce}{nccl}"
+              + (f"; global {g['graph']:.0f} rays/s on the graph route ({g['loop']:.0f} on the "
+                 f"loop) against one process's graph route "
+                 f"{summary['one_process_rays_per_s']:.0f}" if rays else "")
+              + f"; graph against loop {summary['gap']} (bit-identical: "
+              f"{summary['bit_identical']}); launches a step {got} ({smi})", flush=True)
+        if bad:
+            fail(f"nccl {kind}: ranks {bad} stray from the loop, from each other or from "
+                 f"the launches and route wanted: {[xs[r] for r in bad]}")
+    return out
 
 
 def dp_phase(dev, smi: str) -> dict:
@@ -1779,7 +2000,9 @@ def dp_phase(dev, smi: str) -> dict:
     share the card) and both ranks on ``cuda:0``; per rank and training
     epoch, ``fused_render``, ``render_bwd_points`` and
     ``render_bwd_weights`` exactly 2 a step in the NeRF stages and 0 in
-    CAM_PARAM, steps per epoch half the 1-rank run's; ``p_flat`` after
+    CAM_PARAM, every step on the loop (gloo's collectives run on the
+    host: no graph holds them) and the route logged so, steps per epoch
+    half the 1-rank run's; ``p_flat`` after
     every epoch and the occupancy map of every epoch the same bits on both
     ranks; rank 0 alone built the cache; the run against a 1-rank
     ``Engine`` with ``images_per_batch=2`` from the same seed and draws
@@ -1788,7 +2011,8 @@ def dp_phase(dev, smi: str) -> dict:
     demo of the same checkpoint; then ``torchrun`` itself
     (``python -m torch.distributed.run --standalone``) trains stages
     ``DP_CUTS["launch stages"]`` to the end.  Times: each rank's step ms
-    by stage, the gradient all-reduce's ms and bytes, the global rays/s
+    by stage, the host's wait for the card before the gradient all-reduce
+    and the all-reduce's ms and bytes, the global rays/s
     against the 1-rank run's, the demo's seconds on 2 ranks and on 1.
     Returns the summary, rank 0's recorded kernel inputs and the
     launches."""
@@ -1821,10 +2045,18 @@ def dp_phase(dev, smi: str) -> dict:
           f"at {res}x{res}, its cache deleted); Config() widths, stages {stages} of (20, 16, "
           f"16), occ_warmup_steps {warmup} of 3000", flush=True)
 
+    # the ranks share the card with this process: hand its cache back
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"dp: this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card "
+          "while the ranks run", flush=True)
+    # every rank on the one card (on a machine with more, the backend rule
+    # would give each its own card and NCCL: nccl_phase's case)
+    one_card = {"CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]}
     t0 = time.perf_counter()
     spawn_ranks(DP_WORLD, [str(pathlib.Path(__file__).resolve()), "--dp-rank",
-                           json.dumps({"work": str(work), "name": name})], str(work),
-                timeout=900)
+                           json.dumps({"work": str(work), "name": name, "cli": True})],
+                str(work), env=one_card, timeout=900)
     ranks_s = time.perf_counter() - t0
     ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
     calls = torch.load(work / "calls.pt", weights_only=False)
@@ -1840,14 +2072,17 @@ def dp_phase(dev, smi: str) -> dict:
                  "wanted")
         if x["steps_per_epoch"] != n_train * 50 // DP_WORLD or x["step"] != spe * sum(stages):
             fail(f"dp rank {r}: {x['steps_per_epoch']} steps an epoch, {x['step']} in all")
-        trained = [(stage, n) for path, stage, n, *_ in x["epochs"] if path == "dp_train"]
-        if [s for s, _ in trained] != [0, 1, 2]:
-            fail(f"dp rank {r} trained stages {[s for s, _ in trained]}")
-        for stage, n in trained:
-            want = {k: (2 * spe if stage and k in ("fused_render", "render_bwd_points",
-                                                   "render_bwd_weights") else 0) for k in n}
-            if n != want:
-                fail(f"dp rank {r} {STAGE_NAMES[stage]}: launches {n}, wanted {want}")
+        trained = [(stage, n, c) for path, stage, n, _, c in x["epochs"] if path == "dp_train"]
+        if [s for s, *_ in trained] != [0, 1, 2]:
+            fail(f"dp rank {r} trained stages {[s for s, *_ in trained]}")
+        for stage, n, c in trained:
+            want = {k: (2 * host_steps(c) if stage and k in (
+                "fused_render", "render_bwd_points", "render_bwd_weights") else 0) for k in n}
+            if n != want or (c["captured"], c["looped"], c["replayed"]) != (0, spe, 0):
+                fail(f"dp rank {r} {STAGE_NAMES[stage]}: launches {n}, wanted {want}; steps by "
+                     f"route {c}: {spe} on the loop wanted")
+        if not all(v == GLOO_ROUTE for v in x["routes"].values()):
+            fail(f"dp rank {r}: routes {x['routes']}, {GLOO_ROUTE!r} wanted")
         if (x["grad_reduces"] != spe * sum(stages)
                 or x["grad_reduce_bytes"] != x["p_flat_bytes"]):
             fail(f"dp rank {r}: {x['grad_reduces']} gradient all-reduces of "
@@ -1932,13 +2167,16 @@ def dp_phase(dev, smi: str) -> dict:
     proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
                            "--nproc_per_node", str(DP_WORLD), "-m", "mc_nerf_torch",
                            *flags("launch", "--train")], capture_output=True, text=True,
-                          timeout=900)
+                          env={**os.environ, **one_card}, timeout=900)
     launch_s = time.perf_counter() - t0
+    routes = launched_routes(proc.stdout + proc.stderr)
     launch_dir = work / "launch" / "weights" / "train" / name
     launch_kept = sorted(int(n) for n in os.listdir(launch_dir)) if launch_dir.is_dir() else []
     print(f"dp torchrun --nproc_per_node {DP_WORLD} -m mc_nerf_torch --train: rc "
-          f"{proc.returncode} in {launch_s:.1f} s; checkpoints {launch_kept}", flush=True)
-    if proc.returncode != 0 or launch_kept != list(range(sum(DP_CUTS["launch stages"]))):
+          f"{proc.returncode} in {launch_s:.1f} s; checkpoints {launch_kept}; routes {routes}",
+          flush=True)
+    if (proc.returncode != 0 or launch_kept != list(range(sum(DP_CUTS["launch stages"])))
+            or routes != [GLOO_ROUTE]):
         fail("torchrun's run failed:\n" + proc.stdout[-3000:] + proc.stderr[-6000:])
 
     # times
@@ -1947,27 +2185,30 @@ def dp_phase(dev, smi: str) -> dict:
                "one_rank_demo_s": demo1_s, "metric_err": metric_err, "param_err": param_err,
                "param_errs": param_errs, "demo_err": demo_err,
                "grad_reduce_bytes": r0["grad_reduce_bytes"], "step_ms": {}, "rays_per_s": {},
-               "grad_reduce_ms": {}, "median_step_ms": {}, "card": smi}
+               "grad_reduce_ms": {}, "grad_wait_ms": {}, "median_step_ms": {}, "card": smi}
     for stage in (0, 1, 2):
         sn = STAGE_NAMES[stage]
+        epoch = slice(stage * spe, (stage + 1) * spe)     # an epoch's all-reduces
         summary["step_ms"][sn] = {
             "ranks": [x["history"][stage]["seconds"] / spe * 1e3 for x in ranks],
             "one_rank": eng1.history[stage]["seconds"] / spe * 1e3}
         summary["rays_per_s"][sn] = {"ranks": r0["history"][stage]["rays_per_s"],
                                      "one_rank": eng1.history[stage]["rays_per_s"]}
-        summary["grad_reduce_ms"][sn] = [
-            float(np.median(x["grad_reduce_ms"][stage * spe:(stage + 1) * spe])) for x in ranks]
+        summary["grad_reduce_ms"][sn] = [float(np.median(x["grad_reduce_ms"][epoch]))
+                                         for x in ranks]
+        summary["grad_wait_ms"][sn] = [float(np.median(x["grad_wait_ms"][epoch])) for x in ranks]
         # from one gradient all-reduce's end to the next: a step, without
         # the epoch's first (start-up, the other rank's checkpoint)
         summary["median_step_ms"][sn] = [
-            float(np.median(np.diff(x["grad_reduce_end_s"][stage * spe:(stage + 1) * spe])))
-            * 1e3 for x in ranks]
+            float(np.median(np.diff(x["grad_reduce_end_s"][epoch]))) * 1e3 for x in ranks]
         print(f"dp {sn}: step {summary['step_ms'][sn]['ranks'][0]:.2f} / "
               f"{summary['step_ms'][sn]['ranks'][1]:.2f} ms, median "
               f"{summary['median_step_ms'][sn][0]:.2f} / "
               f"{summary['median_step_ms'][sn][1]:.2f} (rank 0 / 1; 1 rank with "
-              f"{DP_WORLD} images: {summary['step_ms'][sn]['one_rank']:.2f}), gradient "
-              f"all-reduce median {summary['grad_reduce_ms'][sn][0]:.3f} / "
+              f"{DP_WORLD} images: {summary['step_ms'][sn]['one_rank']:.2f}), the host's wait "
+              f"for the card before the gradient all-reduce median "
+              f"{summary['grad_wait_ms'][sn][0]:.3f} / {summary['grad_wait_ms'][sn][1]:.3f} "
+              f"ms, the all-reduce {summary['grad_reduce_ms'][sn][0]:.3f} / "
               f"{summary['grad_reduce_ms'][sn][1]:.3f} ms of {r0['grad_reduce_bytes']} bytes, "
               f"global {summary['rays_per_s'][sn]['ranks']:.0f} rays/s (1 rank "
               f"{summary['rays_per_s'][sn]['one_rank']:.0f}) ({smi}; two processes on one "
@@ -1981,6 +2222,110 @@ def dp_phase(dev, smi: str) -> dict:
     return {"summary": summary, "calls": calls, "nerf": eng1.cfg.nerf, "launches": launches,
             "by_epoch": [[(stage, n) for path, stage, n, *_ in x["epochs"]
                           if path == "dp_train"] for x in ranks]}
+
+
+def nccl_phase(smi: str, graph: dict) -> Optional[dict]:
+    """NCCL on every card of the machine, where it has two or more:
+    ``torchrun --standalone --nproc_per_node <cards>`` (``python -m
+    torch.distributed.run``) of ``dp_rank`` without the CLI, one rank a
+    card (the backend rule picks NCCL), each running the step kinds
+    (``nccl_kinds``): the graph route is one CUDA graph a step, its
+    collectives captured in it.  Checks (``check_nccl_kinds``): the graph's
+    state equal to the loop's bit for bit on every rank and the same on
+    all ranks, one graph a step, the launches a step; prints the ms a step of
+    both routes in turns, the loop's all-reduce on the host and the NCCL
+    kernels' ms a step on the card.  With one card it prints that it is
+    skipped and returns None."""
+    import os
+    import pathlib
+    import shutil
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"nccl phase: skipped: {n} card (one graph a step over NCCL needs two or more)",
+              flush=True)
+        return None
+    t_phase = time.perf_counter()
+    work = pathlib.Path(__file__).resolve().parent / "build" / f"nccl_smoke_{os.getpid()}"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    rc, out = torchrun(n, [str(pathlib.Path(__file__).resolve()), "--dp-rank",
+                           json.dumps({"work": str(work), "kinds": True})], 600)
+    if rc != 0:
+        fail(f"nccl phase: torchrun over {n} cards exited {rc}:\n" + out[-8000:])
+    ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(n)]
+    for r, x in enumerate(ranks):
+        if (x["rank"], x["world"], x["backend"], x["device"]) != (r, n, "nccl", f"cuda:{r}"):
+            fail(f"nccl rank {r}: {x['rank']} of {x['world']}, {x['backend']} on {x['device']}: "
+                 f"rank {r} of {n}, nccl on cuda:{r} wanted")
+    kinds = check_nccl_kinds(ranks, graph["kinds"], smi)
+
+    launch_s = nccl_cli(work, n, smi)
+    shutil.rmtree(work, ignore_errors=True)
+    seconds = time.perf_counter() - t_phase
+    print(f"nccl phase: {n} cards, {seconds:.1f} s", flush=True)
+    return {"cards": n, "kinds": kinds, "launch_s": launch_s, "seconds": seconds, "card": smi}
+
+
+def nccl_cli(work, n: int, smi: str, timeout: float = 300.0) -> float:
+    """``torchrun --standalone --nproc_per_node n -m mc_nerf_torch --train``
+    on a seeded scene under ``work`` (``CLI_VIEWS`` at ``ENGINE_RES``,
+    the analytic calibration), stages ``DP_CUTS["launch stages"]``: the
+    engine over NCCL, one rank a card.  Fails unless it exits 0 within
+    ``timeout`` seconds (printing what the ranks wrote if not), keeps
+    every checkpoint and logs one graph of the step over the ``n`` ranks.
+    Returns its seconds."""
+    import os
+
+    from mc_nerf_torch.data.synthetic import make_dataset
+
+    name, (n_train, n_val, n_test) = "Ball_Nccl", CLI_VIEWS
+    make_dataset(str(work / "data" / name), n_train=n_train, n_val=n_val, n_test=n_test,
+                 img_h=ENGINE_RES, img_w=ENGINE_RES, seed=SEED)
+    (work / "config").mkdir()
+    (work / "config" / "config.yaml").write_text(cli_yaml(
+        ENGINE_RES, "importance", DP_CUTS["launch stages"], DP_CUTS["occ_warmup_steps"],
+        work / "launch"))
+    t0 = time.perf_counter()
+    rc, out = torchrun(n, ["-m", "mc_nerf_torch", "--train", "--config", str(work / "config"),
+                           "--root_data", str(work / "data"), "--data_name", name], timeout)
+    launch_s = time.perf_counter() - t0
+    routes = launched_routes(out)
+    launch_dir = work / "launch" / "weights" / "train" / name
+    kept = sorted(int(e) for e in os.listdir(launch_dir)) if launch_dir.is_dir() else []
+    print(f"nccl torchrun --nproc_per_node {n} -m mc_nerf_torch --train: rc {rc} "
+          f"in {launch_s:.1f} s; checkpoints {kept}; routes {routes} ({smi})", flush=True)
+    if (rc != 0 or kept != list(range(sum(DP_CUTS["launch stages"])))
+            or not routes or not all(f"one CUDA graph of the step over {n} ranks" in r
+                                     for r in routes)):
+        fail("nccl: torchrun's run failed:\n" + out[-8000:])
+    return launch_s
+
+
+def torchrun(n: int, args: list, timeout: float) -> tuple:
+    """``python -m torch.distributed.run --standalone --nproc_per_node n
+    <args>`` in a session of its own, its output and errors merged:
+    (exit code, output).  Fails, printing the output, if it runs past
+    ``timeout`` seconds; the ranks are stopped with it."""
+    import os
+
+    proc = subprocess.Popen([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc_per_node", str(n), *args], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+        fail(f"torchrun {' '.join(args[:3])} ran past {timeout:.0f} s:\n" + out[-8000:])
+    return proc.returncode, out
+
+
+def launched_routes(output: str) -> list:
+    """The distinct routes an engine under ``torchrun`` logged in
+    ``output`` (``train steps: ...``; every rank logs its own)."""
+    return sorted({line.split("train steps: ", 1)[1]
+                   for line in output.splitlines() if "train steps: " in line})
 
 
 def check_recorded(calls: dict, counted: dict) -> None:
@@ -2109,7 +2454,7 @@ def digest(t) -> str:
     """The sha256 of a tensor's bytes (None: "none")."""
     if t is None:
         return "none"
-    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+    return hashlib.sha256(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
                           .tobytes()).hexdigest()
 
 
@@ -2274,8 +2619,6 @@ def path_kernel_numbers(calls: dict, nc, rng, render_tol: dict, mlp_tol: dict,
     noise) is held again with its depths spread (``EVAL_SPREAD``).
     Returns {(path, kernel): {shape: numbers with the shape's "launches"
     and "max_abs_err"}}."""
-    import gc
-
     from mc_nerf_torch.ops.cuda.fused_mlp import (
         PackedMLP, fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd,
         fused_shaded_mlp_bwd_plain, fused_shaded_mlp_plain, mlp_plain)
@@ -3006,6 +3349,9 @@ def main() -> None:
     # ---- data parallelism: 2 ranks on the card through main(), torchrun
     dp = dp_phase(dev, smi)
 
+    # ---- NCCL: one graph a step over the cards, where there are two or more
+    nccl = nccl_phase(smi, graph)
+
     replaces = {"fused_mlp_apply": "mc_nerf_tpu/ops/pallas/fused_mlp.py:241",
                 "fused_render": "mc_nerf_tpu/ops/pallas/fused_render.py:211",
                 "render_bwd_points": "mc_nerf_tpu/ops/pallas/fused_render.py:290",
@@ -3163,14 +3509,48 @@ def main() -> None:
     print(json.dumps({"cli_cf": cli_cf["summary"], "cli_cf_launches": cli_cf["launches"],
                       "card": smi}))
     print(json.dumps({"dp": dp["summary"], "dp_launches": dp["launches"], "card": smi}))
+    print(json.dumps({"nccl": nccl, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
 
 
+def nccl_main() -> None:
+    """``python3 chip_smoke.py --nccl``: on a machine with two cards or
+    more, the build, the graph phase (one process's graph route, what
+    the ranks are held to) and ``nccl_phase`` alone; its result line
+    last."""
+    from mc_nerf_torch.ops.cuda import _build
+    from mc_nerf_torch.ops.cuda.fused_mlp import (
+        fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd)
+    from mc_nerf_torch.ops.cuda.fused_render import (
+        fused_render, render_bwd_points, render_bwd_weights)
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build_dir = _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s into {build_dir}", flush=True)
+    graph = graph_phase(torch.device("cuda"), smi, {k.__name__: k for k in (
+        fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, fused_shaded_mlp,
+        fused_shaded_mlp_bwd)})
+    nccl = nccl_phase(smi, graph)
+    if nccl is None:
+        fail("--nccl needs two cards or more")
+    print(json.dumps({"nccl": nccl, "card": smi}))
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--dp-rank"]:     # a rank that dp_phase starts
+    if sys.argv[1:2] == ["--dp-rank"]:     # a rank that dp_phase or nccl_phase starts
         dp_rank(json.loads(sys.argv[2]))
+    elif sys.argv[1:2] == ["--nccl"]:
+        nccl_main()
     else:
         main()

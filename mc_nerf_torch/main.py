@@ -29,11 +29,13 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
     ``--train`` or ``--demo`` on ``device`` (default ``cuda:<start_device>``,
     under ``torchrun`` the rank's card).  Returns the train state, or the
     demo's scores.  A process group this call creates is destroyed on the
-    way out; one that already exists is used and left."""
+    way out, after the engine's step graphs are released (``Engine.close``);
+    one that already exists is used and left."""
     args = build_argparser().parse_args(argv)
     cfg = from_args(args)
     logging.info("config: %s", cfg)
     topo = initialize_distributed(cfg.start_device, device)
+    engine = None
     try:
         from mc_nerf_torch.train.engine import Engine
 
@@ -43,4 +45,6 @@ def main(argv: Optional[Sequence[str]] = None, device=None):
         return engine.demo()
     finally:
         if topo.created:
+            if engine is not None:
+                engine.close()     # over NCCL its step graphs hold the group's communicator
             dist.destroy_process_group()

@@ -57,6 +57,12 @@ def check_data_parallel(parallel, world: int) -> int:
     return n
 
 
+def collectives_capturable() -> bool:
+    """Whether the group's collectives can be captured in a CUDA graph:
+    NCCL's are kernels on the card, gloo's run on the host."""
+    return _group() and dist.get_backend() == "nccl"
+
+
 def batch_slice(n_global: int, rank: int, world: int) -> slice:
     """Rank ``rank``'s contiguous block of a leading axis of ``n_global``
     (``P("data")`` of the JAX mesh)."""

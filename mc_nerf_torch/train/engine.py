@@ -13,9 +13,10 @@ where a weights file is found).  The coarse-free modes and the density
 PMF are checked as the JAX engine checks them, training configurations
 measured to collapse refused unless ``allow_measured_harmful``.  An
 epoch is ``train/steps.py``'s :class:`StageEpoch` of its stage: on the
-card, with one process, each stage's step captured once as a CUDA graph
-and replayed once a step; on the CPU or over several ranks, the same
-step as a loop.  Its draws come
+card, with one process or over NCCL ranks, each stage's step captured
+once as a CUDA graph (over NCCL its collectives in it) and replayed once
+a step; on the CPU or over gloo ranks, the same step as a loop
+(:meth:`Engine.close` drops the graphs).  Its draws come
 from the engine's one generator on the device, reseeded from
 ``(train.seed, epoch)`` every epoch, so a resumed run draws what an
 uninterrupted one does.  What a captured step reads stays in its
@@ -410,6 +411,17 @@ class Engine:
             if not self._epoch_fns.keys() - {stage}:     # the first: say which route, once
                 logging.info("train steps: %s", self._epoch_fns[stage].route(self.device))
         return self._epoch_fns[stage]
+
+    def close(self) -> None:
+        """Release every stage's step graph (``StageEpoch.release``); a
+        later epoch captures anew, in a new pool.  Over NCCL a graph holds
+        the group's communicator: close the engine before the group is
+        destroyed."""
+        for ep in self._epoch_fns.values():
+            ep.release()
+        self._epoch_fns.clear()
+        if self.device.type == "cuda":
+            self._graph_pool = torch.cuda.graph_pool_handle()
 
     def _render_fn(self, img_h: int, img_w: int):
         if (img_h, img_w) not in self._render_fns:

@@ -17,8 +17,10 @@ buffers.  The JAX package scans an epoch in one compiled program
 (``mc_nerf_tpu/train/steps.py:234-287``); here (:func:`make_stage_epoch`)
 each stage's step, its draws included, is captured once as a CUDA graph
 and replayed once a step, the metric sums kept on the device to the
-epoch's end.  On CPU tensors, and over more than one rank (the gradient
-all-reduce is not captured), the same step body runs as a loop.
+epoch's end; over NCCL ranks the graph holds the step's collectives, as
+the JAX package's scan holds its ``psum``.  On CPU tensors, and over
+gloo ranks (their collectives run on the host), the same step body runs
+as a loop.
 
 Data parallelism (``world`` > 1 ranks of the default process group, the
 JAX package's ``mesh``): every rank draws the global batch of
@@ -64,6 +66,7 @@ from mc_nerf_torch.parallel.mesh import (
     all_reduce_max,
     all_reduce_mean_,
     batch_slice,
+    collectives_capturable,
     rank,
     world_size,
 )
@@ -325,34 +328,41 @@ class StageEpoch:
 
     The metric sums stay on the device (float64) through the epoch: no
     step waits for the host.  ``graph`` picks the route (None: CUDA
-    tensors and one rank):
+    tensors, and one rank or ranks whose collectives a graph captures):
 
-    * the graph route (CUDA, one rank): at the first call, after
+    * the graph route (CUDA; one rank, or NCCL ranks): at the first call, after
       ``WARMUP_STEPS`` eager steps on a side stream whose effects are put
       back (parameters, moments, count, step, the generator's state), one
       step (draws, forward, backward, flat gradient, RAdam update, step
       increment, metric sums) is captured as a ``torch.cuda.CUDAGraph``
       with ``generator`` registered to it, so replay k draws what the k-th
-      step of the loop draws; every step is then one replay.  Before each
+      step of the loop draws; every step is then one replay.  Over NCCL
+      ranks the gradient's mean (and the grid mode's cutoff max) is
+      captured in the graph; every rank warms up, with real collectives,
+      and captures in lockstep.  Before each
       epoch, every buffer the graph reads or writes is checked against
       the one it was captured with (:class:`StaleGraphBuffer`).  A failed
       capture or replay raises: nothing falls back to the loop.
-    * the loop (CPU tensors, or ``graph=False``): the same step body,
-      once a step.  The collectives of more than one rank cannot be
-      captured, so ``world`` > 1 takes it.
+    * the loop (CPU tensors, gloo ranks, or ``graph=False``): the same
+      step body, once a step.  Gloo runs a collective on the host, which a
+      graph cannot capture, so its ranks take it.
 
     ``pool`` (``torch.cuda.graph_pool_handle()``) lets the stages' graphs
     share one memory pool: each graph writes every block it uses before
     reading it within a replay, and what outlives a replay (the state,
-    the sums) is allocated outside the pool.  ``counts`` tallies the steps
-    each way ran: "warmup", "captured", "replayed" and "looped"."""
+    the sums) is allocated outside the pool.  :meth:`release` drops the
+    graph (over NCCL it holds the group's communicator: release it before
+    the group is destroyed).  ``counts`` tallies the steps each way ran:
+    "warmup", "captured", "replayed" and "looped"."""
 
     def __init__(self, cfg: Config, stage: int, tx: FlatRAdam, img_h: int, img_w: int,
                  total_steps: int, steps_per_epoch: int, world: int = 1,
                  graph: Optional[bool] = None, pool=None):
-        if graph and world > 1:
-            raise ValueError(f"a step over {world} ranks runs collectives, which a CUDA graph "
-                             "does not capture")
+        # NCCL's collectives are captured where the step calls them
+        self.in_graph = world == 1 or collectives_capturable()
+        if graph and not self.in_graph:
+            raise ValueError(f"a step over {world} ranks runs collectives on the host (gloo), "
+                             "which a CUDA graph does not capture")
         self.step_fn = make_stage_step(cfg, stage, tx, img_h, img_w, total_steps, world)
         self.draw_cfg = cfg.replace(train=dataclasses.replace(
             cfg.train, images_per_batch=cfg.train.images_per_batch * world))
@@ -369,7 +379,7 @@ class StageEpoch:
     def uses_graph(self, device: torch.device) -> bool:
         """Whether an epoch on ``device`` takes the graph route."""
         if self.graph is None:
-            return device.type == "cuda" and self.world == 1
+            return device.type == "cuda" and self.in_graph
         if self.graph and device.type != "cuda":
             raise ValueError(f"a CUDA graph needs CUDA tensors, not {device}")
         return self.graph
@@ -377,9 +387,11 @@ class StageEpoch:
     def route(self, device: torch.device) -> str:
         """The route an epoch on ``device`` takes, in words."""
         if self.uses_graph(device):
-            return "one CUDA graph of the step, captured once and replayed once a step"
-        why = (f"{self.world} ranks: collectives are not captured" if self.world > 1
-               else "graph=False" if device.type == "cuda" else "CPU tensors")
+            over = (f" over {self.world} ranks, its collectives captured in it"
+                    if self.world > 1 else "")
+            return f"one CUDA graph of the step{over}, captured once and replayed once a step"
+        why = ("CPU tensors" if device.type != "cuda" else "graph=False" if self.graph is False
+               else f"{self.world} gloo ranks: their collectives run on the host")
         return f"the step as a loop ({why})"
 
     def _sums_on(self, device: torch.device) -> torch.Tensor:
@@ -453,6 +465,13 @@ class StageEpoch:
         self._cuda_graph = g
         self.bind(state, data, generator)
 
+    def release(self) -> None:
+        """Drop the captured graph and its binding; a later epoch on the
+        graph route captures anew."""
+        if self._cuda_graph is not None:
+            self._cuda_graph.reset()
+        self._cuda_graph, self._captured, self._generator = None, {}, None
+
     def bind(self, state: TrainState, data: TrainData, generator: torch.Generator) -> None:
         """Record the buffers (and the generator) that :meth:`check_buffers`
         holds every later epoch to: those of the capture."""
@@ -485,7 +504,7 @@ def make_stage_epoch(cfg: Config, stage: int, tx: FlatRAdam, img_h: int, img_w: 
                      graph: Optional[bool] = None, pool=None) -> StageEpoch:
     """One epoch of ``stage``: a :class:`StageEpoch` (``(state, data,
     generator) -> mean metrics``), as a replayed CUDA graph on the card
-    (``graph`` None: CUDA and one rank), else as a loop."""
+    (``graph`` None: CUDA, and one rank or NCCL ranks), else as a loop."""
     return StageEpoch(cfg, stage, tx, img_h, img_w, total_steps, steps_per_epoch, world,
                       graph, pool)
 

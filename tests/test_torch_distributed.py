@@ -51,6 +51,7 @@ def test_one_process_initializes_nothing(no_launcher, world):
     x = torch.tensor([1.0, -2.0])
     assert t_mesh.all_reduce_mean_(x) is x and x.tolist() == [1.0, -2.0]
     assert float(t_mesh.all_reduce_max(torch.tensor(3.0))) == 3.0
+    assert not t_mesh.collectives_capturable()
     assert t_mesh.batch_slice(4, 0, 1) == slice(0, 4)
     t_mesh.barrier()
 
@@ -67,6 +68,7 @@ _GROUP = textwrap.dedent("""
            "again_created": again.created, "ws": m.world_size(), "rank": m.rank(),
            "mean": m.all_reduce_mean_(torch.tensor([1.0 + r, 10.0 * r])).tolist(),
            "max": float(m.all_reduce_max(torch.tensor(float(r)))),
+           "capturable": m.collectives_capturable(),
            "sum": m.all_reduce_sum_(torch.tensor([r + 1.0], dtype=torch.float64)).tolist(),
            "bcast": m.broadcast_(torch.tensor([100 + r])).tolist()}
     m.barrier()
@@ -85,6 +87,7 @@ def test_two_gloo_ranks_form_a_group_and_all_reduce(tmp_path):
         assert (x["ws"], x["rank"]) == (2, r)
         assert x["mean"] == [1.5, 5.0] and x["max"] == 1.0
         assert x["sum"] == [3.0] and x["bcast"] == [100]
+        assert x["capturable"] is False     # gloo: collectives on the host
 
 
 @pytest.mark.parametrize("case", ["MASTER_ADDR unset", "nothing listening"])

@@ -5,7 +5,9 @@ steps taken by hand, and the buffers a captured step keeps reading: the
 engine's occupancy map across a refresh, a checkpoint restore, and the
 guard that refuses a rebound buffer.  On the CPU the epoch runs its step body as a loop; the graph
 route against that loop, bit for bit, is in ``tests/test_torch_gpu.py``
-(marker ``gpu``).
+(marker ``gpu``).  The route rule (one graph on one rank or over NCCL
+ranks, the loop over gloo ranks) and ``Engine.close``, which releases
+the step graphs before a group is destroyed, are held here too.
 """
 
 import dataclasses
@@ -146,13 +148,64 @@ def test_epoch_loop_matches_steps_taken_by_hand(stage):
         np.testing.assert_allclose(float(ma[k]), mb[k], rtol=1e-6)
 
 
-def test_epoch_graph_route_needs_cuda_and_one_rank():
+def test_epoch_graph_route_needs_cuda():
+    """``graph=True`` on CPU tensors raises, and so does ``graph=True``
+    over more than one rank whose collectives run on the host (no NCCL
+    group here)."""
     cfg, state, data, txs = _workload()
     with pytest.raises(ValueError, match="CUDA tensors"):
         t_steps.make_stage_epoch(cfg, 1, txs[1], H, W, 100, 2, graph=True)(
             state, data, torch.Generator())
-    with pytest.raises(ValueError, match="collectives"):
+    with pytest.raises(ValueError, match="collectives on the host"):
         t_steps.make_stage_epoch(cfg, 1, txs[1], H, W, 100, 2, world=2, graph=True)
+
+
+ONE = "one CUDA graph of the step, captured once and replayed once a step"
+OVER_NCCL = ("one CUDA graph of the step over 2 ranks, its collectives captured in it, "
+             "captured once and replayed once a step")
+ROUTES = {  # (world, backend, device, graph) -> the route, or the ValueError's words
+    (1, None, "cuda", None): ONE,
+    (1, None, "cpu", None): "the step as a loop (CPU tensors)",
+    (1, None, "cuda", False): "the step as a loop (graph=False)",
+    (2, "gloo", "cuda", None): "the step as a loop (2 gloo ranks: their collectives run on "
+                               "the host)",
+    (2, "gloo", "cuda", False): "the step as a loop (graph=False)",
+    (2, "gloo", "cuda", True): ValueError("collectives on the host"),
+    (2, "nccl", "cuda", None): OVER_NCCL,
+    (2, "nccl", "cuda", True): OVER_NCCL,
+    (2, "nccl", "cpu", None): "the step as a loop (CPU tensors)",
+    (2, "nccl", "cpu", True): ValueError("CUDA tensors"),
+}
+
+
+@pytest.mark.parametrize("case", list(ROUTES), ids=lambda c: "-".join(map(str, c)))
+def test_the_route_by_ranks_backend_and_device(monkeypatch, case):
+    """The route an epoch takes, by world, backend, device and ``graph``:
+    one graph on one rank or over NCCL ranks (their collectives captured
+    in it), the loop on CPU tensors, over gloo ranks or with
+    ``graph=False``; ``graph=True`` where no graph can hold the step
+    raises.  The group is faked: only the rule is under test here."""
+    world, backend, device, graph = case
+    monkeypatch.setattr(t_steps, "world_size", lambda: world)
+    monkeypatch.setattr(t_steps, "rank", lambda: 0)
+    monkeypatch.setattr(t_steps, "collectives_capturable", lambda: backend == "nccl")
+    cfg, state, data, txs = _workload()
+    want, dev = ROUTES[case], torch.device(device)
+    if isinstance(want, ValueError):
+        with pytest.raises(ValueError, match=str(want)):
+            t_steps.make_stage_epoch(cfg, 1, txs[1], H, W, 100, 2, world, graph).route(dev)
+        return
+    ep = t_steps.make_stage_epoch(cfg, 1, txs[1], H, W, 100, 2, world, graph)
+    assert ep.route(dev) == want
+    assert ep.uses_graph(dev) == want.startswith("one CUDA graph")
+
+
+class _Graph:
+    def __init__(self):
+        self.resets = 0
+
+    def reset(self):
+        self.resets += 1
 
 
 REBOUND = {
@@ -209,17 +262,13 @@ def test_checkpoint_restore_keeps_every_buffer(tmp_path):
         assert torch.equal(t, s)
 
 
-def test_engine_keeps_its_map_and_generator_across_refreshes(tmp_path, capfd):
-    """Through ``Engine.train`` (0 + 3 + 0 epochs, no warm-up: a refresh
-    before the first and after each): every epoch's step reads the one
-    map buffer the first map was written into, and the one generator;
-    each later refresh writes its map into that buffer; the route is
-    logged once."""
+def _engine(tmp_path, stages: StageConfig) -> t_engine.Engine:
+    """A CPU engine on a 2-view scene under ``tmp_path``, refreshing its
+    map before every epoch."""
     d = str(tmp_path / "data" / "Tiny")
     make_dataset(d, n_train=2, n_val=1, n_test=1, img_h=H, img_w=W, seed=5)
     out = str(tmp_path / "out")
-    cfg = Config(data_root=str(tmp_path / "data"), data_name="Tiny",
-                 stages=StageConfig(0, 3, 0),
+    cfg = Config(data_root=str(tmp_path / "data"), data_name="Tiny", stages=stages,
                  train=TrainConfig(rays_per_batch=64, importance_samples=8,
                                    steps_per_image_epoch=2, use_pallas=False),
                  nerf=NerfConfig(**NERF_KW, occ_warmup_steps=0, occ_update_every=1),
@@ -228,7 +277,41 @@ def test_engine_keeps_its_map_and_generator_across_refreshes(tmp_path, capfd):
                                    root_out=os.path.join(out, "r"),
                                    log_path=os.path.join(out, "log"),
                                    tb_path=os.path.join(out, "tb")))
-    eng = t_engine.Engine(cfg, "cpu")
+    return t_engine.Engine(cfg, "cpu")
+
+
+def test_engine_close_releases_every_step_graph(tmp_path):
+    """``Engine.close`` releases each stage's step graph (``reset``, then
+    dropped with its binding) and forgets the stages' epochs: none is
+    left to hold a group's communicator.  Training again afterwards
+    builds them anew."""
+    eng = _engine(tmp_path, StageConfig(1, 1, 0))
+    eng.train()
+    eps = dict(eng._epoch_fns)
+    assert sorted(eps) == [0, 1]
+    graphs = {}
+    for stage, ep in eps.items():      # stand-ins for the captures the card makes
+        graphs[stage] = ep._cuda_graph = _Graph()
+        ep.bind(eng.state, eng._data, eng._gen)
+    eng.close()
+    assert eng._epoch_fns == {}
+    for stage, ep in eps.items():
+        assert graphs[stage].resets == 1
+        assert ep._cuda_graph is None and ep._captured == {} and ep._generator is None
+    eng.close()                        # nothing left: a second close does nothing
+    eng.train()
+    assert sorted(eng._epoch_fns) == [0, 1]
+    assert all(ep is not eps[s] for s, ep in eng._epoch_fns.items())
+
+
+def test_engine_keeps_its_map_and_generator_across_refreshes(tmp_path, capfd):
+    """Through ``Engine.train`` (0 + 3 + 0 epochs, no warm-up: a refresh
+    before the first and after each): every epoch's step reads the one
+    map buffer the first map was written into, and the one generator;
+    each later refresh writes its map into that buffer; the route is
+    logged once."""
+    eng = _engine(tmp_path, StageConfig(0, 3, 0))
+    cfg = eng.cfg
     seen, refreshed = [], []
     epoch_fn, refresh = eng._epoch_fn, eng._refresh_occupancy
 

@@ -13,9 +13,11 @@ mode (occupancy-culled); stage 1 in the grid mode; and a grid step built
 so that one rank's local max of the selection weights lies below
 ``weight_thresh`` and the global max does not (one camera looks into a
 dense half-space, the other into an empty one): a rank-local cutoff
-selects other bins on that rank and fails it.  The mean of the ranks'
+selects other bins on that rank and fails it; and stage 2 (FINE_TUNE) of
+the coarse-free hybrid schedule, the fine pass alone drawn from the
+occupancy PMF.  The mean of the ranks'
 losses is held to JAX's global loss at rtol 1e-5 (measured: 4.1e-7 at
-most over the four cases), every parameter leaf's update to 5e-3 of the
+most over the first four cases), every parameter leaf's update to 5e-3 of the
 reference update's largest entry (``test_stage_step_update_matches_jax``'s
 tolerance; measured 4.9e-4 at most), and the ranks' ``p_flat`` to the
 same bits.  The render: the port's ``make_render_fn`` against JAX's on a
@@ -56,7 +58,8 @@ NERF_KW = dict(samples_coarse=16, sample_scale=4, fine_bins_topk=4, emb_freqs_xy
                fine_skips=(1,), occ_grid_size=16, occ_probes=16, occ_coarse_samples=16)
 CASES = {"stage 0": ("importance", 0, False), "stage 1 importance": ("importance", 1, False),
          "stage 1 grid": ("grid", 1, False), "grid, one rank's max below the cutoff": (
-             "grid", 1, True)}
+             "grid", 1, True), "coarse-free stage 2": ("importance", 2, False, True)}
+CF_UNIFORM = 4
 LOSS_RTOL = 1e-5
 UPDATE_TOL = 5e-3
 
@@ -65,9 +68,12 @@ def _t(x, dtype=torch.float32):
     return torch.tensor(np.asarray(x)).to(dtype)
 
 
-def _configs(mode):
+def _configs(mode, coarse_free=False):
+    cf = (dict(coarse_free=True, coarse_free_from_stage=2, cf_uniform_samples=CF_UNIFORM)
+          if coarse_free else {})
+
     def make(m):
-        return m.Config(nerf=m.NerfConfig(**NERF_KW),
+        return m.Config(nerf=m.NerfConfig(**NERF_KW, **cf),
                         train=dataclasses.replace(m.TrainConfig(), rays_per_batch=RAYS,
                                                   importance_samples=IMP, use_pallas=False,
                                                   fine_mode=mode),
@@ -91,7 +97,14 @@ def _global_draws(key, cfg, stage, culled):
         jax.random.split(k_pix, WORLD))
     kj, kn_c, kn_sel, kn_pdf, kn_f = jax.random.split(k_render, 5)
     nc, n = cfg.nerf, WORLD * RAYS
-    if cfg.train.fine_mode == "grid":
+    if nc.coarse_free_at(stage):
+        # no coarse pass: the PMF draw's jitter, its uniform share, the noise
+        # (``tests/test_torch_coarse_free.py::_cf_draws``)
+        render = RenderDraws(None, None, None,
+                             _t(jax.random.uniform(kn_pdf, (n, IMP - nc.cf_uniform_samples))),
+                             _t(jax.random.normal(kn_f, (n, IMP))),
+                             _t(jax.random.uniform(kn_sel, (n, nc.cf_uniform_samples))))
+    elif cfg.train.fine_mode == "grid":
         sc = nc.samples_coarse
         render = RenderDraws(
             _t(jax.random.uniform(kj, (n, 1), jnp.float32, 0.0, (nc.far - nc.near) / sc)),
@@ -132,9 +145,10 @@ def _dense_half_space(mlp, in_dim):
                         sigma_b1=np.full_like(mlp.sigma_b1, -60.0))
 
 
-def _case(mode, stage, split_max):
+def _case(mode, stage, split_max, coarse_free=False):
     """(jc, tc, JAX params, JAX data, key, the port's case for the ranks)."""
-    jc, tc = _configs(mode)
+    jc, tc = _configs(mode, coarse_free)
+    assert jc.nerf.coarse_free_at(stage) == tc.nerf.coarse_free_at(stage) == coarse_free
     rng = np.random.default_rng(7)
     se3 = np.concatenate([rng.normal(size=(N_IMG, 3)) * 0.3,
                           rng.normal(size=(N_IMG, 3)) * 0.3 + [0, 0, 4]], 1).astype(np.float32)
