@@ -15,8 +15,11 @@ on a reference-format scene.
    coarse, 32 fine samples per ray).
 3. Drives the demo (``mc_nerf_torch.train.engine.demo``) at the library's
    default full width over two 800x800 views, with the occupancy refresh,
-   and checks through the launch counters that both kernels ran; renders
-   one chunk through the plain route and compares; times frames.
+   through a renderer whose first frame captures the frame as a CUDA
+   graph, and checks that both kernels ran (the wrappers count the
+   warm-up's and the capture's launches, the profiler those of a replay
+   of the graph, times its replays: ``replayed_frames``); renders one
+   chunk through the plain route and compares; times frames.
 4. The training slice: ``fused_render`` at the training packs and flags
    (coarse full 4x128, s=48, noise + wsel; fine 8x256, s=32, noise; 7000
    rays); the backward's two launches (``render_bwd_points``,
@@ -57,6 +60,15 @@ on a reference-format scene.
    the same (the wrappers' over the warm-up and capture, the profiler's
    over the replays), a rebound map and a value frozen by the capture
    caught; wall ms, rays/s, device ms and busy share of each route.
+6c. The compiled frame (``frame_graph_phase``): for four eval modes
+   (importance on a fresh map, importance unculled, coarse-free on a
+   bitpacked map, grid) at 800x800 and 200x200, the frame captured as a
+   CUDA graph against the chunk loop: the same bits, the eval kernels'
+   launches a frame the same (the loop's wrappers, the profiler on a
+   replay), new weights, pose and map reaching the replay, a first
+   frame's tensors left as they were; ms a frame in turns, the capture's
+   seconds and memory, device ms and busy share of both routes; each
+   kernel then held on the tensors the graphs' last replays gave it.
 7. The engine (``mc_nerf_torch.train.engine.Engine``) at the default model
    and sampler widths on a scene the port's ``make_dataset`` writes under
    ``build/`` (8 train + 1 val + 2 test views at 200x200), cut to stages
@@ -66,7 +78,8 @@ on a reference-format scene.
    GLOBAL_OPTIM / FINE_TUNE step of the warm-ups and captures, which the
    wrappers count, and twice in a replay of each stage's step graph,
    which the profiler counts after the run; ``fused_mlp_apply`` and
-   ``fused_render`` in the validation renders), run B resumes from run
+   ``fused_render`` in the validation frames, one graph replayed once a
+   frame), run B resumes from run
    A's epoch-0 checkpoint and must end on the same bits, the demo
    restores the latest checkpoint and scores the test views.  The calls
    of the kernels' entry points are recorded by path and shape (the
@@ -113,11 +126,13 @@ on a reference-format scene.
    and said so, on one card.
 9. Prints the ``kernels`` JSON line, one entry per kernel and path (the
    demo; the train step; the grid demo; the grid train step; the
-   fused_mlp VJP; the engine's training steps, validation renders and
-   demo; the CLI's importance and grid ``--train`` and ``--demo``; the
-   data-parallel ``--train`` and ``--demo``): that path's launches, time
-   per launch at its shapes, bound, plain and library times; then
-   ``{"ok": true, "device": ...}`` last.
+   fused_mlp VJP; the frame graph phase; the engine's training steps,
+   validation renders and demo; the CLI's importance and grid ``--train``
+   and ``--demo``; the data-parallel ``--train`` and ``--demo``): that
+   path's launches (an eval path's: its frame graphs' replays, profiled;
+   ``launches_counted`` the wrappers'), time per launch at its shapes,
+   bound, plain and library times; then ``{"ok": true, "device": ...}``
+   last.
 
 Every kernel check also measures planted faults against the same plain
 version (points mixed up, tiles swapped in pairs, the skip input dropped,
@@ -143,6 +158,7 @@ import gc
 import hashlib
 import json
 import math
+import re
 import signal
 import subprocess
 import sys
@@ -217,6 +233,23 @@ GRAPH_KINDS = {"importance GLOBAL_OPTIM": (1, {}, {}),
                                                  "cf_uniform_samples": 8,
                                                  "occ_map_dtype": "bitpack"}),
                "CAM_PARAM": (0, {}, {})}
+# the frame graph phase: the eval modes (the eval and NeRF config changes
+# from Config(); whether a fresh map is refreshed from the weights: the
+# demo's), at the demo's size and the engine's and CLI's validation size
+# (3 chunks, the last padded), and the frames a route timed
+FRAME_MODES = {"importance culled": ({}, {}, True),
+               "importance unculled": ({}, {}, False),
+               "coarse-free bitpack": ({}, {"coarse_free": True, "occ_map_dtype": "bitpack"},
+                                       True),
+               "grid": ({"fine_mode": "grid"}, {}, False)}
+FRAME_SIDES = (800, 200)
+FRAME_ITERS = {800: 2, 200: 10}
+# the kernel of csrc/ each eval wrapper launches once a call, as the
+# profiler names it: K1 the forward kernel's FWD_RAW instance, K2 its
+# composite; K4 the FWD_SHADED instance, which K2 also runs
+FRAME_SIGNATURE = {"fused_mlp_apply": r"shaded_fwd_kernel<\D*1>",
+                   "fused_render": r"\bcomposite_fwd_kernel\b",
+                   "fused_shaded_mlp": r"shaded_fwd_kernel<\D*0>"}
 # the engine phase's cuts of the protocol (52 epochs of 50 steps a train
 # image, 3000 warm-up steps, 800x800 images, 200 test views)
 ENGINE_CUTS = {"stages": (1, 1, 1), "steps_per_image_epoch": 2, "occ_warmup_steps": 16}
@@ -1127,6 +1160,191 @@ def graph_phase(dev, smi: str, counters: dict) -> dict:
     return {"kinds": out, "seconds": seconds, "card": smi}
 
 
+def frame_launches_in(rows) -> dict:
+    """The eval kernels' launches in profiler ``rows`` (``profile_steps``'),
+    by wrapper: each wrapper's ``FRAME_SIGNATURE`` kernel; K2 runs the
+    same ``shaded_fwd_kernel<FWD_SHADED>`` as K4 before its composite, so
+    K4's are those beyond K2's."""
+    found = {w: sum(c for _, c, name in rows if re.search(p, name))
+             for w, p in FRAME_SIGNATURE.items()}
+    found["fused_shaded_mlp"] -= found["fused_render"]
+    return found
+
+
+def replayed_frames(renders, path: str) -> tuple:
+    """The launches that the frame graphs of ``renders``
+    (``train/steps.py::FrameRender``) made on the card in a path's run:
+    each graph replayed once more under the profiler, its eval kernels
+    counted (``frame_launches_in``), times the replays the run made
+    (``FrameRender.captures``).  A replay writes only the graph's own
+    outputs, from the inputs the run wrote last.  Returns ({wrapper:
+    launches in the run's replays}, {graph: {"per_replay": {wrapper:
+    launches}, "replays": n}})."""
+    from mc_nerf_torch.tools.profile_step import profile_steps
+
+    total, graphs = dict.fromkeys(FRAME_SIGNATURE, 0), {}
+    for render in renders:
+        for key, (g, _, _) in render._graphs.items():
+            _, rows, _ = profile_steps(g.replay, 1)
+            found, n = frame_launches_in(rows), render.captures[key]["replays"]
+            graphs[f"{render.img_h}x{render.img_w} {key}"] = {"per_replay": found, "replays": n}
+            for w, v in found.items():
+                total[w] += v * n
+    print(f"{path}: the frame graphs' eval kernels a replay (profiled) {graphs}; in the run's "
+          f"replays {total}", flush=True)
+    return total, graphs
+
+
+def frame_graph_phase(dev, smi: str, counters: dict) -> dict:
+    """The compiled frame (``train/steps.py::FrameRender``) against the
+    chunk loop, in each eval mode of ``FRAME_MODES`` at each of
+    ``FRAME_SIDES``, at ``Config()`` widths on the seeded scene's weights
+    (``tools/scene.scene_params``) and, where the mode has one, a fresh
+    map refreshed from them.  Checks, each route from its own renderer:
+    the graph's first frame (one chunk of warm-up, the capture, a replay)
+    equal to the loop's frame bit for bit; each eval kernel's launches a
+    frame the same on both routes (the loop's by its wrapper, the graph's
+    by the profiler on one replay; the loop's by the profiler too): one a
+    chunk where the mode runs it; new weights (every weight x 1.01), a new
+    pose and a new map of the same kind (half of the box emptied) reach
+    the replay, which equals the loop
+    on them bit for bit without a second capture, and leave the first
+    frame's tensors as they were.  Times the loop and the graph in turns
+    (loop, graph, graph, loop; ms a frame, CUDA events), and prints each
+    graph's warm-up and capture seconds and the memory its capture
+    reserved, and both routes' profiled device ms and busy share.  The
+    kernels' entry points are recorded at the captures (``engine_recorder``,
+    each shape's last call: a graph's own tensors, which its last replay
+    wrote) for ``path_kernel_numbers``.  ``counters``: name -> wrapper."""
+    import mc_nerf_torch.models.nerf as nerf_module
+    from mc_nerf_torch.config import Config
+    from mc_nerf_torch.tools.profile_step import profile_steps
+    from mc_nerf_torch.tools.scene import orbit_views, scene_params
+    from mc_nerf_torch.train.engine import refresh_occupancy
+    from mc_nerf_torch.train.steps import make_render_fn
+
+    t_phase = time.perf_counter()
+    where, calls = [None], {}
+    wrapped = {"fused_render": lambda a: f"{a[2].shape[0]} rays x {a[8]}",
+               "fused_mlp_apply": lambda a: f"{a[1].shape[0]} points",
+               "fused_shaded_mlp": lambda a: f"{a[2].shape[0]} rays x {a[5]}"}
+    originals = {name: getattr(nerf_module, name) for name in wrapped}
+    for name, shape_of in wrapped.items():
+        setattr(nerf_module, name, engine_recorder(originals[name], name, shape_of, where, calls,
+                                                   last=True))
+    out, replayed = {}, dict.fromkeys(FRAME_SIGNATURE, 0)
+
+    def launches():
+        return {k: counters[k].launches for k in FRAME_SIGNATURE}
+
+    def one(mode, side, ev_kw, nerf_kw, with_map) -> dict:
+        cfg = Config()
+        cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, **ev_kw),
+                          nerf=dataclasses.replace(cfg.nerf, **nerf_kw))
+        params = scene_params(cfg.nerf, SEED, device=dev)
+        occ = refresh_occupancy(params, cfg, dev, 0) if with_map else None
+        (pose, pose2), K = orbit_views((0.3, 2.2), side, side)
+        chunks = -(-side * side // cfg.eval.rays_per_chunk)
+        loop = make_render_fn(cfg, side, side, device=dev, graph=False)
+        graph = make_render_fn(cfg, side, side, device=dev, graph=True)
+        for c in counters.values():
+            c.launches = 0
+        # the loop's own peak over what it started from: one chunk's working
+        # set, what the graph's pool holds for good
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        a = loop(params, pose, K, occ)
+        torch.cuda.synchronize()
+        loop_peak_mib = (torch.cuda.max_memory_allocated(dev) - base) / 2**20
+        loop_launches = launches()
+        where[0] = "frame_graph"
+        b = graph(params, pose, K, occ)
+        torch.cuda.synchronize()
+        where[0] = None
+        captured = {k: v - loop_launches[k] for k, v in launches().items()}
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        key = graph.graph_key(occ)
+        prof = {}
+        for route, fn in (("loop", loop), ("graph", graph)):
+            wall, rows, _ = profile_steps(lambda: fn(params, pose, K, occ), 1)
+            kernel_ms = sum(r[0] for r in rows)
+            prof[route] = {"wall_ms": wall, "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall,
+                           "kernels": sum(r[1] for r in rows),
+                           "launches": frame_launches_in(rows)}
+        want = {k: (chunks if v else 0) for k, v in loop_launches.items()}
+        launches_ok = (loop_launches == prof["graph"]["launches"] == prof["loop"]["launches"]
+                       == want and any(want.values())
+                       and captured == {k: v + v // chunks for k, v in loop_launches.items()})
+        # new weights, pose and map, written by the caller (the map: this
+        # one with the half of the box at x < 0 emptied; the seeded scene's
+        # fresh map is all occupied, so a refresh would not change it)
+        kept = [t.clone() for t in b]
+        params2 = copy.deepcopy(params)
+        with torch.no_grad():
+            for p in params2.parameters():
+                p.mul_(1.01)
+        occ2 = None
+        if with_map:
+            occ2 = occ.clone()
+            occ2[: occ.shape[0] // 2] = 0
+        a2, b2 = loop(params2, pose2, K, occ2), graph(params2, pose2, K, occ2)
+        torch.cuda.synchronize()
+        new_ok = (all(torch.equal(x, y) for x, y in zip(a2, b2))
+                  and not torch.equal(a2[0], a[0])
+                  and (occ is None or not torch.equal(occ2, occ)))
+        first_ok = all(torch.equal(x, y) for x, y in zip(b, kept))
+        iters = FRAME_ITERS[side]
+        turns = {"loop": [], "graph": []}
+        for route in ("loop", "graph", "graph", "loop"):
+            fn = loop if route == "loop" else graph
+            turns[route].append(cuda_ms(lambda: fn(params, pose, K, occ), iters))
+        ms = {r: sum(v) / len(v) for r, v in turns.items()}
+        cap = graph.captures[key]
+        counts = {"loop": dict(loop.counts), "graph": dict(graph.counts)}
+        finite = bool(torch.isfinite(a[0]).all() & torch.isfinite(a[1]).all())
+        print(f"frame graph, {mode} {side}x{side} ({chunks} chunks): bit-identical {same}, new "
+              f"weights / pose / map {new_ok}, first frame kept {first_ok}; launches a frame: "
+              f"loop {loop_launches}, graph replay (profiled) {prof['graph']['launches']}, "
+              f"capture {captured}; ms a frame in turns (loop, graph, graph, loop) "
+              f"{turns['loop'][0]:.3f}, {turns['graph'][0]:.3f}, {turns['graph'][1]:.3f}, "
+              f"{turns['loop'][1]:.3f}: loop {ms['loop']:.3f}, graph {ms['graph']:.3f} "
+              f"({ms['loop'] / ms['graph']:.3f}x); warm-up {cap['warmup_s']:.3f} s, capture "
+              f"{cap['capture_s']:.3f} s, {cap['pool_mib']:.1f} MiB reserved (the loop's peak "
+              f"{loop_peak_mib:.1f} MiB allocated); profiled: "
+              + "; ".join(f"{r} {p['wall_ms']:.3f} ms wall, {p['kernel_ms']:.3f} ms of kernels, "
+                          f"busy share {p['busy_share']:.3f}, {p['kernels']} kernels"
+                          for r, p in prof.items()) + f" ({smi})", flush=True)
+        if not (same and new_ok and first_ok and launches_ok and finite):
+            fail(f"frame graph {mode} {side}x{side}: the graph frame strays from the loop or "
+                 f"launches otherwise (bit-identical {same}, new values {new_ok}, first frame "
+                 f"kept {first_ok}, launches {launches_ok}, finite {finite})")
+        if counts["graph"] != {"captured": 1, "replayed": 3 + 2 * (iters + 1), "looped": 0}:
+            fail(f"frame graph {mode} {side}x{side}: frames by route {counts}")
+        for k, v in prof["graph"]["launches"].items():
+            replayed[k] += v * cap["replays"]
+        graph.release()
+        return {"bit_identical": same, "new_values": new_ok, "first_kept": first_ok,
+                "chunks": chunks, "launches_a_frame": loop_launches,
+                "capture_launches": captured, "profiles": prof, "turns_ms": turns,
+                "loop_ms": ms["loop"], "graph_ms": ms["graph"],
+                "speedup": ms["loop"] / ms["graph"], "capture": cap,
+                "loop_peak_mib": loop_peak_mib, "frames_by_route": counts}
+
+    try:
+        for mode, (ev_kw, nerf_kw, with_map) in FRAME_MODES.items():
+            for side in FRAME_SIDES:
+                out[f"{mode} {side}"] = one(mode, side, ev_kw, nerf_kw, with_map)
+                torch.cuda.empty_cache()
+    finally:
+        for name, fn in originals.items():
+            setattr(nerf_module, name, fn)
+    seconds = time.perf_counter() - t_phase
+    print(f"frame graph phase: {seconds:.1f} s; launches in the replays {replayed}", flush=True)
+    return {"modes": out, "seconds": seconds, "card": smi, "calls": calls,
+            "replayed_launches": replayed}
+
+
 def engine_phase(dev, smi: str, counters: dict) -> dict:
     """The engine (``mc_nerf_torch.train.engine.Engine``) at ``Config()``'s
     model and sampler widths on a scene the port's ``make_dataset`` writes
@@ -1253,6 +1471,15 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
     if train_launches["fused_mlp_apply"] != 0 or not all(
             val_launches[n] > 0 for n in ("fused_mlp_apply", "fused_render")):
         fail(f"engine validation launches {val_launches}, training {train_launches}")
+    # the validation frames: one graph of the frame, captured once and
+    # replayed once a frame (the wrappers count the warm-up and capture)
+    frame_routes = {"engine_validation": [dict(r.counts) for r in eng_a._render_fns.values()]}
+    val_frames, _ = replayed_frames(eng_a._render_fns.values(), "engine_validation")
+    if not (frame_routes["engine_validation"] == [{"captured": 1, "replayed": stages[1] + stages[2],
+                                                   "looped": 0}]
+            and val_frames["fused_mlp_apply"] > 0 and val_frames["fused_render"] > 0):
+        fail(f"engine validation frames by route {frame_routes}, launches in their replays "
+             f"{val_frames}")
 
     # the camera restarts (which one CAM_PARAM epoch never reaches) on run
     # A's cameras: the card's answer against the CPU's
@@ -1305,12 +1532,19 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
     demo_launches = launches()
     for (module, name), fn in originals.items():
         setattr(module, name, fn)
-    print(f"engine demo: {demo} in {demo_s:.2f} s ({smi}); launches {demo_launches}", flush=True)
+    frame_routes["engine_demo"] = [dict(r.counts) for r in eng_d._render_fns.values()]
+    demo_frames, _ = replayed_frames(eng_d._render_fns.values(), "engine_demo")
+    print(f"engine demo: {demo} in {demo_s:.2f} s ({smi}); launches by the wrappers (warm-up "
+          f"and capture) {demo_launches}, in the frame graphs' replays {demo_frames}; frames by "
+          f"route {frame_routes}", flush=True)
     if not (demo["count"] == 2 and math.isfinite(demo["psnr"]) and math.isfinite(demo["ssim"])):
         fail(f"engine demo result is not finite: {demo}")
     if not (demo_launches["fused_mlp_apply"] > 0 and demo_launches["fused_render"] > 0
-            and demo_launches["render_bwd_points"] == 0):
-        fail(f"engine demo launches {demo_launches}")
+            and demo_launches["render_bwd_points"] == 0
+            and demo_frames["fused_mlp_apply"] > 0 and demo_frames["fused_render"] > 0
+            and frame_routes["engine_demo"] == [{"captured": 1, "replayed": 2, "looped": 0}]):
+        fail(f"engine demo launches {demo_launches}, in its frame graphs {demo_frames}; frames "
+             f"by route {frame_routes['engine_demo']}")
     shutil.rmtree(work, ignore_errors=True)
     seconds = time.perf_counter() - t_phase
     print(f"engine phase: {seconds:.1f} s", flush=True)
@@ -1331,6 +1565,8 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
             "steps_by_route": routes, "graph_launches": {"engine_train": graph_launches},
             "per_replay": per_replay,
             "validation_launches": val_launches, "demo_launches": demo_launches,
+            "frame_launches": {"engine_validation": val_frames, "engine_demo": demo_frames},
+            "frames_by_route": frame_routes,
             "resume_bit_identical": all(same.values()), "cuts": ENGINE_CUTS,
             "calls": calls, "nerf": cfg.nerf}
 
@@ -1439,7 +1675,7 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
           f"{CLI_CUTS['ckpt_max_keep']} of 5, {res}x{res} images of 800x800, {n_train} train "
           f"views ({n_train * 50} steps an epoch)", flush=True)
 
-    with cli_recording(work, name, counters) as (cli, calls, cache_s, _):
+    with cli_recording(work, name, counters) as (cli, calls, cache_s, _, frames):
         state_i, train_s, l_train, eng_i = cli("cli_train", "importance", "--train")
         demo_i, demo_s, l_demo, _ = cli("cli_demo", "importance", "--demo")
         state_g, train_g_s, l_train_g, eng_g = cli("cli_train_grid", "grid", "--train")
@@ -1535,6 +1771,20 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
         if sorted(n for n, v in launches.items() if v) != sorted(kernels):
             fail(f"{path} launches {launches}, only {kernels} wanted")
         summary[path] = {"seconds": dt, "psnr": result["psnr"], "ssim": result["ssim"]}
+    # every frame on the graph route: one capture a renderer, a replay a frame
+    for path, kernels, n_frames in (
+            ("cli_train", ("fused_mlp_apply", "fused_render"), sum(runs["importance"][0][1:])),
+            ("cli_demo", ("fused_mlp_apply", "fused_render"), n_test),
+            ("cli_train_grid", ("fused_mlp_apply", "fused_shaded_mlp"), sum(runs["grid"][0][1:])),
+            ("cli_demo_grid", ("fused_mlp_apply", "fused_shaded_mlp"), n_test)):
+        fr = frames[path]
+        print(f"{path}: frames by route {fr['routes']}, launches in the frame graphs' replays "
+              f"{fr['launches']}", flush=True)
+        if (fr["routes"] != [{"captured": 1, "replayed": n_frames, "looped": 0}]
+                or sorted(k for k, v in fr["launches"].items() if v) != sorted(kernels)):
+            fail(f"{path}: frames by route {fr['routes']} ({n_frames} replays of one capture "
+                 f"wanted), launches in their replays {fr['launches']} ({kernels} wanted)")
+    summary["frames"] = frames
     print(f"cli resumed --train: {resume_s:.2f} s, epochs trained {len(eng_r.history)}, step "
           f"{int(state_r.step)}; launches {l_resume}", flush=True)
     if eng_r.history or state_r.step != state_i.step or any(l_resume.values()):
@@ -1549,7 +1799,8 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
     summary["seconds"] = time.perf_counter() - t_phase
     print(f"cli phase: {summary['seconds']:.1f} s", flush=True)
     return {"summary": summary, "calls": calls, "nerf": eng_i.cfg.nerf, "launches": counted,
-            "graph_launches": graph_launches}
+            "graph_launches": graph_launches,
+            "frame_launches": {path: fr["launches"] for path, fr in frames.items()}}
 
 
 def lpips_weights(path) -> None:
@@ -1630,7 +1881,7 @@ def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
 
     env = os.environ.get(lpips_net.ENV_VAR)
     with tempfile.TemporaryDirectory() as tmp, \
-            cli_recording(work, name, counters) as (cli, calls, cache_s, epochs):
+            cli_recording(work, name, counters) as (cli, calls, cache_s, epochs, frames):
         weights = os.path.join(tmp, "lpips_alex_seeded.npz")
         lpips_weights(weights)
         state, train_s, l_train, eng = cli("cli_train_cf", "cf", "--train")
@@ -1687,14 +1938,29 @@ def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
         fail(f"cli_train_cf trained stages {[s for s, _ in trained]}")
     graph_launches, summary["per_replay"] = replayed_launches(
         eng, "cli_train_cf", wrappers, per_step, csrc_kernel_names())
+    # the validation frames: the wrappers count a chunk of warm-up and the
+    # capture's chunks, once (every validation renders coarse-free on the
+    # bitpacked map: one graph); the profiler a chunk's launch a replay
     val = {k: l_train[k] - sum(n[k] for _, n in trained) for k in l_train}
     chunks = -(-res * res // eng.cfg.eval.rays_per_chunk)
-    if val != {k: (2 * chunks if k == "fused_render" else 0) for k in val}:
-        fail(f"cli_train_cf validation launches {val}: {chunks} fused_render a view wanted")
+    n_val = sum(1 for h in eng.history if h["stage"])
+    fr = frames["cli_train_cf"]
+    if (val != {k: (1 + chunks if k == "fused_render" else 0) for k in val}
+            or fr["routes"] != [{"captured": 1, "replayed": n_val, "looped": 0}]
+            or fr["launches"] != {k: (chunks * n_val if k == "fused_render" else 0)
+                                  for k in fr["launches"]}):
+        fail(f"cli_train_cf validation launches {val} ({1 + chunks} fused_render wanted), "
+             f"frames by route {fr['routes']}, in their replays {fr['launches']} ({chunks} "
+             f"fused_render a view wanted)")
     for path, launches in (("cli_demo_cf", l_demo), ("cli_demo_density", l_density)):
+        fr = frames[path]
         if not (launches["fused_render"] > 0
-                and all(v == 0 for k, v in launches.items() if k != "fused_render")):
-            fail(f"{path} launches {launches}: fused_render only (K1 never) wanted")
+                and all(v == 0 for k, v in launches.items() if k != "fused_render")
+                and fr["routes"] == [{"captured": 1, "replayed": n_test, "looped": 0}]
+                and fr["launches"]["fused_render"] == chunks * n_test
+                and all(v == 0 for k, v in fr["launches"].items() if k != "fused_render")):
+            fail(f"{path} launches {launches}, in its frame graphs' replays {fr['launches']}, "
+                 f"frames by route {fr['routes']}: fused_render only (K1 never) wanted")
     print(f"cli_train_cf: {train_s:.2f} s; launches {l_train} (by epoch {trained}, validation "
           f"{val}); cache built in {cache_s[0]:.3f} s", flush=True)
 
@@ -1733,12 +1999,13 @@ def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
                     "lpips_card": card, "lpips_cpu": lpips_cpu, "lpips_rel_err": max(rel),
                     "lpips_s": sum(t for *_, t in lpips_seen), "coarse_frozen": frozen,
                     "launches_by_epoch": trained, "steps_by_route": routes,
-                    "validation_launches": val,
+                    "validation_launches": val, "frames": frames,
                     "seconds": time.perf_counter() - t_phase})
     print(f"cli_cf phase: {summary['seconds']:.1f} s", flush=True)
     return {"summary": summary, "calls": calls, "nerf": nc, "launches": counted,
             "nerf_steps": spe * sum(stages[1:]),
-            "graph_launches": {"cli_train_cf": graph_launches}}
+            "graph_launches": {"cli_train_cf": graph_launches},
+            "frame_launches": {path: fr["launches"] for path, fr in frames.items()}}
 
 
 def nccl_kinds(dev, world: int, reduces: list) -> dict:
@@ -1883,7 +2150,8 @@ def dp_rank(spec: dict) -> None:
             out["kinds"] = nccl_kinds(topo.device, topo.world, reduces)
             out["kinds_s"] = time.perf_counter() - t0
         if spec.get("cli"):
-            with cli_recording(work, spec["name"], counters) as (cli, calls, cache_s, epochs):
+            with cli_recording(work, spec["name"], counters) as (cli, calls, cache_s, epochs,
+                                                                 frames):
                 state, train_s, l_train, eng = cli("dp_train", "dp", "--train")
                 demo, demo_s, l_demo, _ = cli("dp_demo", "dp", "--demo")
             grads = [(n * size, wait, dt, end) for n, size, wait, dt, end in reduces
@@ -1892,7 +2160,7 @@ def dp_rank(spec: dict) -> None:
                 "steps_per_epoch": eng.steps_per_epoch, "step": int(state.step),
                 "history": eng.history, "epochs": epochs, "final_occ": digest(eng._occ_map),
                 "train_s": train_s, "demo_s": demo_s,
-                "launches": {"dp_train": l_train, "dp_demo": l_demo},
+                "launches": {"dp_train": l_train, "dp_demo": l_demo}, "frames": frames,
                 "routes": {s: ep.route(topo.device) for s, ep in eng._epoch_fns.items()},
                 "demo": demo, "written": written, "cache_builds": len(cache_s),
                 "kept": eng.ckpt.epochs(), "grad_reduces": len(grads),
@@ -2097,6 +2365,20 @@ def dp_phase(dev, smi: str) -> dict:
         fail(f"dp: cache builds by rank {[x['cache_builds'] for x in ranks]}: rank 0's alone")
     if r0["kept"] != [0, 1, 2]:
         fail(f"dp: checkpoints {r0['kept']}")
+    # the frames: rank 0 validates, each rank renders its demo views, every
+    # frame a replay of one graph (the frame has no collective)
+    n_val = sum(1 for h in r0["history"] if h["stage"])
+    frame_routes = [{path: x["frames"].get(path, {}).get("routes") for path in ("dp_train",
+                                                                             "dp_demo")}
+                    for x in ranks]
+    want = [{"dp_train": [{"captured": 1, "replayed": n_val, "looped": 0}],
+             "dp_demo": [{"captured": 1, "replayed": len(range(r, n_test, DP_WORLD)),
+                          "looped": 0}]} for r in range(DP_WORLD)]
+    for w in want[1:]:
+        w["dp_train"] = []
+    print(f"dp: frames by route and rank {frame_routes}", flush=True)
+    if frame_routes != want:
+        fail(f"dp: frames by route {frame_routes}, {want} wanted")
 
     # the 1-rank run with twice the images a step, and its demo
     cfg1 = from_args(build_argparser().parse_args(flags("dp", "--train")))
@@ -2219,7 +2501,10 @@ def dp_phase(dev, smi: str) -> dict:
     summary["seconds"] = time.perf_counter() - t_phase
     print(f"dp phase: {summary['seconds']:.1f} s", flush=True)
     launches = {path: [x["launches"][path] for x in ranks] for path in ("dp_train", "dp_demo")}
+    frame_launches = {path: [x["frames"][path]["launches"] for x in ranks]
+                      for path in ("dp_train", "dp_demo")}
     return {"summary": summary, "calls": calls, "nerf": eng1.cfg.nerf, "launches": launches,
+            "frame_launches": frame_launches,
             "by_epoch": [[(stage, n) for path, stage, n, *_ in x["epochs"]
                           if path == "dp_train"] for x in ranks]}
 
@@ -2260,23 +2545,28 @@ def nccl_phase(smi: str, graph: dict) -> Optional[dict]:
                  f"rank {r} of {n}, nccl on cuda:{r} wanted")
     kinds = check_nccl_kinds(ranks, graph["kinds"], smi)
 
-    launch_s = nccl_cli(work, n, smi)
+    launch_s, frames, epochs = nccl_cli(work, n, smi)
     shutil.rmtree(work, ignore_errors=True)
     seconds = time.perf_counter() - t_phase
     print(f"nccl phase: {n} cards, {seconds:.1f} s", flush=True)
-    return {"cards": n, "kinds": kinds, "launch_s": launch_s, "seconds": seconds, "card": smi}
+    return {"cards": n, "kinds": kinds, "launch_s": launch_s, "launch_frames": frames,
+            "launch_epochs": epochs, "seconds": seconds, "card": smi}
 
 
-def nccl_cli(work, n: int, smi: str, timeout: float = 300.0) -> float:
+def nccl_cli(work, n: int, smi: str, timeout: float = 300.0) -> tuple:
     """``torchrun --standalone --nproc_per_node n -m mc_nerf_torch --train``
     on a seeded scene under ``work`` (``CLI_VIEWS`` at ``ENGINE_RES``,
     the analytic calibration), stages ``DP_CUTS["launch stages"]``: the
     engine over NCCL, one rank a card.  Fails unless it exits 0 within
     ``timeout`` seconds (printing what the ranks wrote if not), keeps
-    every checkpoint and logs one graph of the step over the ``n`` ranks.
-    Returns its seconds."""
+    every checkpoint, logs one graph of the step over the ``n`` ranks and
+    renders rank 0's validation frame through one graph of the frame,
+    captured while the group and the step graphs live.  Returns (its
+    seconds, the frames' routes logged, {epoch: its seconds and ms a
+    step, from the engine's log})."""
     import os
 
+    from mc_nerf_torch.config import Config
     from mc_nerf_torch.data.synthetic import make_dataset
 
     name, (n_train, n_val, n_test) = "Ball_Nccl", CLI_VIEWS
@@ -2291,15 +2581,28 @@ def nccl_cli(work, n: int, smi: str, timeout: float = 300.0) -> float:
                            "--root_data", str(work / "data"), "--data_name", name], timeout)
     launch_s = time.perf_counter() - t0
     routes = launched_routes(out)
+    frames = launched_routes(out, "frames: ")
     launch_dir = work / "launch" / "weights" / "train" / name
     kept = sorted(int(e) for e in os.listdir(launch_dir)) if launch_dir.is_dir() else []
+    # the engine's epochs (Engine.history as the log gives it): ms a step
+    # from the epoch's seconds, and, in the NeRF stages, from its global
+    # rays/s (finer than the seconds' 0.1 s), warm-up and capture included
+    spe = CLI_VIEWS[0] * Config().train.steps_per_image_epoch // n
+    epochs = {}
+    for m in re.finditer(r"(\w+_EPOCH) (\d+) \|.*\| ([\d.]+)s \((\d+) rays/s\)", out):
+        stage, epoch, sec, rays = m.group(1), int(m.group(2)), float(m.group(3)), int(m.group(4))
+        epochs[epoch] = {"stage": stage, "seconds": sec, "ms_a_step": sec / spe * 1e3,
+                         "ms_a_step_by_rays": (n * Config().train.rays_per_batch / rays * 1e3
+                                               if rays else None)}
     print(f"nccl torchrun --nproc_per_node {n} -m mc_nerf_torch --train: rc {rc} "
-          f"in {launch_s:.1f} s; checkpoints {kept}; routes {routes} ({smi})", flush=True)
+          f"in {launch_s:.1f} s; checkpoints {kept}; routes {routes}; frames {frames}; epochs "
+          f"({spe} steps each) {epochs} ({smi})", flush=True)
     if (rc != 0 or kept != list(range(sum(DP_CUTS["launch stages"])))
             or not routes or not all(f"one CUDA graph of the step over {n} ranks" in r
-                                     for r in routes)):
+                                     for r in routes)
+            or not frames or not all(r.startswith("one CUDA graph of the frame") for r in frames)):
         fail("nccl: torchrun's run failed:\n" + out[-8000:])
-    return launch_s
+    return launch_s, frames, epochs
 
 
 def torchrun(n: int, args: list, timeout: float) -> tuple:
@@ -2321,11 +2624,11 @@ def torchrun(n: int, args: list, timeout: float) -> tuple:
     return proc.returncode, out
 
 
-def launched_routes(output: str) -> list:
+def launched_routes(output: str, what: str = "train steps: ") -> list:
     """The distinct routes an engine under ``torchrun`` logged in
-    ``output`` (``train steps: ...``; every rank logs its own)."""
-    return sorted({line.split("train steps: ", 1)[1]
-                   for line in output.splitlines() if "train steps: " in line})
+    ``output`` (``train steps: ...``, every rank its own; ``frames: ...``,
+    the ranks that render)."""
+    return sorted({line.split(what, 1)[1] for line in output.splitlines() if what in line})
 
 
 def check_recorded(calls: dict, counted: dict) -> None:
@@ -2346,7 +2649,7 @@ def check_recorded(calls: dict, counted: dict) -> None:
 @contextlib.contextmanager
 def cli_recording(work, name: str, counters: dict):
     """Instruments ``mc_nerf_torch.main.main`` for a CLI phase and yields
-    ``(cli, calls, cache_s, epochs)``.  ``cli(path, run, mode)`` runs
+    ``(cli, calls, cache_s, epochs, frames)``.  ``cli(path, run, mode)`` runs
     ``main([mode, "--config", work/config_<run>, ...])`` on the scene
     ``work/data/<name>`` with every count in ``counters`` set to 0 just
     before, and returns (its result, seconds, the launches counted, the
@@ -2362,15 +2665,19 @@ def cli_recording(work, name: str, counters: dict):
     epoch's launches are appended to ``epochs`` as (path, stage,
     {kernel: launches}, {"p_flat": the sha256 of ``p_flat`` after the
     epoch, "occ": of the occupancy map it trained on}, the epoch's steps
-    by how they ran: ``StageEpoch.counts``' growth over it).  Everything
-    is restored on exit."""
+    by how they ran: ``StageEpoch.counts``' growth over it).  After each
+    ``Engine.train`` and ``Engine.demo`` on a path, its frame graphs are
+    profiled (``replayed_frames``) into ``frames[path]``: {"launches":
+    {wrapper: launches in the replays}, "graphs": each graph's, "routes":
+    each renderer's ``FrameRender.counts``}.  Everything is restored on
+    exit."""
     import mc_nerf_torch.models.nerf as nerf_module
     import mc_nerf_torch.ops.cuda.fused_mlp as mlp_module
     import mc_nerf_torch.ops.cuda.fused_render as render_module
     import mc_nerf_torch.train.engine as engine_module
     from mc_nerf_torch.main import main as cli_main
 
-    where, calls, epochs = [None], {}, []
+    where, calls, epochs, frames = [None], {}, [], {}
     wrapped = {(nerf_module, "fused_render"): lambda a: f"{a[2].shape[0]} rays x {a[8]}",
                (nerf_module, "fused_mlp_apply"): lambda a: f"{a[1].shape[0]} points",
                (nerf_module, "fused_shaded_mlp"): lambda a: f"{a[2].shape[0]} rays x {a[5]}",
@@ -2413,11 +2720,24 @@ def cli_recording(work, name: str, counters: dict):
             return run
 
         self._epoch_fn = counted_epoch_fn
-        return engine_train(self, *a, **kw)
+        out = engine_train(self, *a, **kw)
+        profile_frames(self)
+        return out
 
     def demo(self, *a, **kw):
         engines.append(self)
-        return engine_demo(self, *a, **kw)
+        out = engine_demo(self, *a, **kw)
+        profile_frames(self)
+        return out
+
+    def profile_frames(eng):
+        """The path's frame graphs, profiled while they live (``main()``
+        closes the engine on its way out under a process group)."""
+        if where[0] is not None:
+            renders = list(eng._render_fns.values())
+            total, graphs = replayed_frames(renders, where[0])
+            frames[where[0]] = {"launches": total, "graphs": graphs,
+                                "routes": [dict(r.counts) for r in renders]}
 
     def timed_build(*a, **kw):
         t = time.perf_counter()
@@ -2441,7 +2761,7 @@ def cli_recording(work, name: str, counters: dict):
         return out, dt, {n: c.launches for n, c in counters.items()}, engines[-1]
 
     try:
-        yield cli, calls, cache_s, epochs
+        yield cli, calls, cache_s, epochs, frames
     finally:
         for (module, fn_name), fn in originals.items():
             setattr(module, fn_name, fn)
@@ -2975,19 +3295,21 @@ def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> 
     nc = cfg.nerf
     cfg_g = dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval, fine_mode="grid"))
     render = make_render_fn(cfg_g, h, w, device=dev)
-    render(params, poses[0], K)               # warm-up frame
-    torch.cuda.synchronize()
     fused_mlp_apply.launches = 0
     fused_shaded_mlp.launches = 0
     t0 = time.perf_counter()
-    result = demo(params, split, cfg_g, device=dev, cull=True)
+    result = demo(params, split, cfg_g, device=dev, cull=True, render=render)
     torch.cuda.synchronize()
     demo_s = time.perf_counter() - t0
-    launches = {"fused_mlp_apply": fused_mlp_apply.launches,
-                "fused_shaded_mlp": fused_shaded_mlp.launches}
-    print(f"grid demo: {result} in {demo_s:.2f} s; launches {launches}", flush=True)
-    if not all(n > 0 for n in launches.values()):
-        fail(f"a kernel of the grid demo was not launched: {launches}")
+    counted = {"fused_mlp_apply": fused_mlp_apply.launches,
+               "fused_shaded_mlp": fused_shaded_mlp.launches}
+    replays, _ = replayed_frames([render], "demo_grid")
+    launches = {k: replays[k] for k in counted}
+    print(f"grid demo: {result} in {demo_s:.2f} s (its capture included); launches in its frame "
+          f"graph's replays {launches}, by the wrappers (warm-up and capture) {counted}",
+          flush=True)
+    if not all(n > 0 for n in (*launches.values(), *counted.values())):
+        fail(f"a kernel of the grid demo was not launched: {launches}, {counted}")
     if not (result["count"] == 2 and math.isfinite(result["psnr"])
             and math.isfinite(result["ssim"])):
         fail(f"grid demo result is not finite: {result}")
@@ -3068,8 +3390,9 @@ def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> 
         print(f"{name} grid eval chunk: {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}, bf16 "
               f"matmul chain {t['library_ms']:.3f}, bound {t['bound_ms']:.3f} by "
               f"{t['bound_by']})", flush=True)
-    return {"launches": launches, "frame_ms": frame_ms, "rays_per_s": h * w / frame_ms * 1e3,
-            "demo_s": demo_s, "result": result, "numbers": numbers}
+    return {"launches": launches, "launches_counted": counted, "frame_ms": frame_ms,
+            "rays_per_s": h * w / frame_ms * 1e3, "demo_s": demo_s, "result": result,
+            "numbers": numbers}
 
 
 def main() -> None:
@@ -3235,21 +3558,25 @@ def main() -> None:
     occ_share = float(occ.float().mean())
     print(f"occupancy: {occ_share:.4f} of the G={nc.occ_grid_size} map's cells occupied "
           "(the rest culled)", flush=True)
-    render(params, poses[0], K, occ)          # warm-up frame
-    torch.cuda.synchronize()
-
+    # the demo's frames through the renderer passed in: its first frame
+    # warms up one chunk and captures the frame graph, every frame is a
+    # replay; the wrappers count the warm-up's and the capture's launches,
+    # the profiler those of a replay
     fused_mlp_apply.launches = 0
     fused_render.launches = 0
     t0 = time.perf_counter()
-    result = demo(params, split, cfg, device=dev, cull=True)
+    result = demo(params, split, cfg, device=dev, cull=True, render=render)
     torch.cuda.synchronize()
     demo_s = time.perf_counter() - t0
-    launches = {"fused_mlp_apply": fused_mlp_apply.launches,
-                "fused_render": fused_render.launches}
-    demo_launches = dict(launches)
-    print(f"demo: {result} in {demo_s:.2f} s; launches {launches}", flush=True)
-    if not all(n > 0 for n in launches.values()):
-        fail(f"a kernel of the main path was not launched: {launches}")
+    demo_counted = {"fused_mlp_apply": fused_mlp_apply.launches,
+                    "fused_render": fused_render.launches}
+    replays, _ = replayed_frames([render], "demo")
+    demo_launches = {k: replays[k] for k in demo_counted}
+    print(f"demo: {result} in {demo_s:.2f} s (its capture included); launches in its frame "
+          f"graph's replays {demo_launches}, by the wrappers (warm-up and capture) "
+          f"{demo_counted}", flush=True)
+    if not all(n > 0 for n in (*demo_launches.values(), *demo_counted.values())):
+        fail(f"a kernel of the main path was not launched: {demo_launches}, {demo_counted}")
     if not (result["count"] == 2 and math.isfinite(result["psnr"]) and math.isfinite(result["ssim"])):
         fail(f"demo result is not finite: {result}")
 
@@ -3332,6 +3659,10 @@ def main() -> None:
         fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, fused_shaded_mlp,
         fused_shaded_mlp_bwd)})
 
+    # ---- the compiled frame: the captured frame against the chunk loop, four eval modes
+    frame = frame_graph_phase(dev, smi, {k.__name__: k for k in (
+        fused_mlp_apply, fused_render, fused_shaded_mlp)})
+
     # ---- the engine: three stages, a resume, the demo from a checkpoint
     engine = engine_phase(dev, smi, {k.__name__: k for k in (
         fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply)})
@@ -3382,7 +3713,8 @@ def main() -> None:
                          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                          "library_ms": times[name][2]}
         kernels.append(entry(name, "demo", demo_launches[name],
-                             {**chunk_numbers, "per_pass": {"eval chunk": chunk_numbers}}))
+                             {**chunk_numbers, "launches_counted": demo_counted[name],
+                              "per_pass": {"eval chunk": chunk_numbers}}))
     kernels += [{
         "name": name, "path": "train_step", "route": "cuda", "source": sources[name],
         "replaces": replaces[name], "launches": train["launches"][name],
@@ -3394,6 +3726,7 @@ def main() -> None:
     # the fused_mlp VJP (one launch per pack; the mean of both packs)
     kernels += [entry(name, "demo_grid", grid_demo["launches"][name],
                       {**grid_demo["numbers"][name],
+                       "launches_counted": grid_demo["launches_counted"][name],
                        "per_pass": {"grid eval chunk": grid_demo["numbers"][name]}})
                 for name in ("fused_mlp_apply", "fused_shaded_mlp")]
     kernels += [{**entry(name, "train_step_grid", grid_train["launches"][name],
@@ -3411,6 +3744,35 @@ def main() -> None:
     # per-step figures are the latter's
     nerf_steps = engine["steps_per_epoch"] * sum(engine["cuts"]["stages"][1:])
     in_graphs = {**engine["graph_launches"], **cli["graph_launches"], **cli_cf["graph_launches"]}
+    # the frames (one graph a frame): an eval path's "launches" are
+    # those of its frame graphs' replays, by the profiler (replayed_frames),
+    # "launches_counted" the wrappers' (each capture's warm-up chunk and
+    # capture); a train path's validation frames add "launches_in_frame_graphs"
+    in_frames = {**engine["frame_launches"], **cli["frame_launches"],
+                 **cli_cf["frame_launches"], "frame_graph": frame["replayed_launches"]}
+
+    def frame_numbers(path, name, numbers):
+        found = in_frames.get(path)
+        if found is None:
+            return {}
+        if "_train" in path:
+            return {"launches_in_frame_graphs": found.get(name, 0)}
+        return {"launches": found[name], "launches_counted": numbers["launches"]}
+
+    # the frame graph phase's kernels, held on the captured tensors its
+    # graphs' last replays wrote, with the planted faults
+    failures = []
+    frame_checked = path_kernel_numbers(frame["calls"], nc, rng, render_tol, mlp_tol,
+                                        plants=True, failures=failures)
+    if failures:
+        fail("the frame graph phase's kernel checks failed: " + "; ".join(failures))
+    if set(frame_checked) != {("frame_graph", n) for n in FRAME_SIGNATURE}:
+        fail(f"kernels checked on the frame graph path {sorted(frame_checked)}")
+    for (path, name), shapes in frame_checked.items():
+        numbers = per_launch_over_shapes(shapes)
+        kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
+                        "replaces": replaces[name], **numbers,
+                        **frame_numbers(path, name, numbers)})
     for (path, name), shapes in path_kernel_numbers(engine["calls"], engine["nerf"], rng,
                                                     render_tol, mlp_tol).items():
         numbers = per_launch_over_shapes(shapes)
@@ -3419,7 +3781,8 @@ def main() -> None:
                         "replaces": replaces[name], **numbers,
                         **({"launches_in_graphs": graphed,
                             "launches_per_step": graphed / nerf_steps}
-                           if path == "engine_train" else {})})
+                           if path == "engine_train" else {}),
+                        **frame_numbers(path, name, numbers)})
     # the CLI's four paths, each kernel held on the inputs the CLI gave it
     # with the planted faults of the other phases at 2x or more
     failures = []
@@ -3436,7 +3799,8 @@ def main() -> None:
                         "replaces": replaces[name], **numbers,
                         **({"launches_in_graphs": graphed,
                             "launches_per_nerf_step": graphed / cli_steps[path]}
-                           if path in cli_steps else {})})
+                           if path in cli_steps else {}),
+                        **frame_numbers(path, name, numbers)})
     wanted = {("cli_train", n) for n in ("fused_mlp_apply", "fused_render", "render_bwd_points",
                                          "render_bwd_weights")}
     wanted |= {("cli_demo", "fused_mlp_apply"), ("cli_demo", "fused_render"),
@@ -3463,7 +3827,8 @@ def main() -> None:
         kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
                         "replaces": replaces[name], **numbers,
                         **({"launches_in_graphs": in_graphs[path][name],
-                            "launches_per_step_by_stage": by_stage} if by_stage else {})})
+                            "launches_per_step_by_stage": by_stage} if by_stage else {}),
+                        **frame_numbers(path, name, numbers)})
     wanted = {("cli_train_cf", n) for n in ("fused_render", "render_bwd_points",
                                             "render_bwd_weights")}
     wanted |= {("cli_demo_cf", "fused_render"), ("cli_demo_density", "fused_render")}
@@ -3481,10 +3846,15 @@ def main() -> None:
         numbers = per_launch_over_shapes(shapes)
         by_stage = ({STAGE_NAMES[stage]: n[name] / spe for stage, n in dp["by_epoch"][0]}
                     if path == "dp_train" else None)
+        in_frames_by_rank = [f.get(name, 0) for f in dp["frame_launches"][path]]
         kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
                         "replaces": replaces[name], **numbers,
                         "launches_by_rank": [n[name] for n in dp["launches"][path]],
-                        **({"launches_per_step_by_stage": by_stage} if by_stage else {})})
+                        **({"launches_per_step_by_stage": by_stage} if by_stage else {}),
+                        **({"launches_in_frame_graphs_by_rank": in_frames_by_rank}
+                           if path == "dp_train" else
+                           {"launches": sum(in_frames_by_rank),
+                            "launches_counted": numbers["launches"]})})
     wanted = {(p, n) for p in ("dp_train", "dp_demo") for n in ("fused_mlp_apply", "fused_render")}
     wanted |= {("dp_train", "render_bwd_points"), ("dp_train", "render_bwd_weights")}
     if set(dp_numbers) != wanted:
@@ -3505,6 +3875,7 @@ def main() -> None:
                                  if not k.endswith("launches") and k not in ("calls", "nerf")},
                       "card": smi}))
     print(json.dumps({"graph": graph}))
+    print(json.dumps({"frame_graph": {k: v for k, v in frame.items() if k != "calls"}}))
     print(json.dumps({"cli": cli["summary"], "cli_launches": cli["launches"], "card": smi}))
     print(json.dumps({"cli_cf": cli_cf["summary"], "cli_cf_launches": cli_cf["launches"],
                       "card": smi}))

@@ -1,16 +1,22 @@
-"""Where one 800x800 demo frame spends its time on the card.
+"""Where one demo frame spends its time on the card.
 
-    python3 -m mc_nerf_torch.tools.profile_frame [--frames N] [--top K] [--grid]
+    python3 -m mc_nerf_torch.tools.profile_frame [--frames N] [--top K] [--grid] [--graph]
+                                                 [--side S]
 
-Renders ``--frames`` frames (after a warm-up frame) with the library's
-default ``Config()``, the seeded test scene and the occupancy refresh, as
-``chip_smoke.py`` does, under ``torch.profiler`` (``--grid``: the grid fine
-mode, 128 uniform coarse and 130 fine samples per ray, no occupancy map,
-as ``chip_smoke.py``'s grid demo); prints the card's name
-and power limit, the wall time per frame, the summed device time of every
-CUDA kernel by name (top K), and the device's busy share (summed kernel
-time over wall time; kernels on one stream do not overlap).  Needs a CUDA
-card.
+Renders ``--frames`` frames of ``--side`` x ``--side`` pixels (800 by
+default; after a warm-up frame) with the library's default ``Config()``,
+the seeded test scene and the occupancy refresh, as ``chip_smoke.py``
+does, under ``torch.profiler`` (``--grid``: the grid fine mode, 128
+uniform coarse and 130 fine samples per ray, no occupancy map, as
+``chip_smoke.py``'s grid demo), through the chunk loop; with ``--graph``
+also through the frame captured as a CUDA graph and replayed
+(``train/steps.py::FrameRender``; its warm-up frame captures the graph), the
+routes in turns (loop, graph, graph, loop).  Prints the card's name and
+power limit and, per route and turn, the wall time per frame, the summed
+device time of every CUDA kernel by name (top K) and the device's busy
+share (summed kernel time over wall time; kernels on one stream do not
+overlap); for the graph, the capture's seconds and the memory it
+reserved.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -19,7 +25,6 @@ import argparse
 import dataclasses
 import json
 import subprocess
-import time
 
 import torch
 
@@ -29,14 +34,14 @@ def main() -> None:
     ap.add_argument("--frames", type=int, default=2)
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--grid", action="store_true")
+    ap.add_argument("--graph", action="store_true")
+    ap.add_argument("--side", type=int, default=800)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA card")
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from mc_nerf_torch.config import Config
+    from mc_nerf_torch.tools.profile_step import profile_steps
     from mc_nerf_torch.tools.scene import orbit_views, scene_params
     from mc_nerf_torch.train.engine import refresh_occupancy
     from mc_nerf_torch.train.steps import make_render_fn
@@ -49,35 +54,35 @@ def main() -> None:
     if args.grid:
         cfg = dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval, fine_mode="grid"))
     params = scene_params(cfg.nerf, 0, device=dev)
-    h = w = 800
+    h = w = args.side
     poses, K = orbit_views((0.3,), h, w)
-    pose = poses[0]
-    render = make_render_fn(cfg, h, w, device=dev)
     occ = None if args.grid else refresh_occupancy(params, cfg, dev, 0)
-    render(params, pose, K, occ)
+    frame = (params, poses[0], K, occ)
+    renders = {"loop": make_render_fn(cfg, h, w, device=dev, graph=False)}
+    if args.graph:
+        renders["graph"] = make_render_fn(cfg, h, w, device=dev, graph=True)
+    for render in renders.values():       # warm-up frames (the graph's capture)
+        render(*frame)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.frames):
-            render(params, pose, K, occ)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) / args.frames
-
-    # kernels only: a CPU-side op also reports its kernels' device time
-    rows = [(e.self_device_time_total / args.frames / 1e3, e.count // args.frames, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
+    turns = ("loop", "graph", "graph", "loop") if args.graph else ("loop",)
     print(f"card: {card}")
-    print(f"frame ({cfg.eval.fine_mode} fine mode): {wall * 1e3:.1f} ms wall, {busy:.1f} ms of "
-          f"CUDA kernels (busy share {busy / (wall * 1e3):.3f})")
-    for ms, n, name in rows[: args.top]:
-        print(f"{ms:10.3f} ms {n:6d} x  {name[:110]}")
-    print(json.dumps({"frame_ms": wall * 1e3, "kernel_ms": busy, "fine_mode": cfg.eval.fine_mode,
-                      "busy_share": busy / (wall * 1e3), "card": card,
-                      "top": [{"ms": ms, "calls": n, "name": name}
-                              for ms, n, name in rows[: args.top]]}))
+    results = []
+    for route in turns:
+        wall, rows, _ = profile_steps(lambda: renders[route](*frame), args.frames)
+        busy = sum(r[0] for r in rows)
+        print(f"{h}x{w} frame ({cfg.eval.fine_mode} fine mode, {route}): {wall:.3f} ms wall, "
+              f"{busy:.3f} ms of CUDA kernels (busy share {busy / wall:.3f})")
+        for ms, n, name in rows[: args.top]:
+            print(f"{ms:10.3f} ms {n:6d} x  {name[:110]}")
+        results.append({"route": route, "frame_ms": wall, "kernel_ms": busy,
+                        "busy_share": busy / wall, "kernels": sum(n for _, n, _ in rows),
+                        "top": [{"ms": ms, "calls": n, "name": name}
+                                for ms, n, name in rows[: args.top]]})
+    captures = {str(k): v for k, v in renders["graph"].captures.items()} if args.graph else {}
+    if captures:
+        print(f"graph captures (warm-up s, capture s, MiB reserved): {captures}")
+    print(json.dumps({"side": h, "fine_mode": cfg.eval.fine_mode, "card": card,
+                      "turns": results, "captures": captures}))
 
 
 if __name__ == "__main__":

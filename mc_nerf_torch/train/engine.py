@@ -15,13 +15,16 @@ measured to collapse refused unless ``allow_measured_harmful``.  An
 epoch is ``train/steps.py``'s :class:`StageEpoch` of its stage: on the
 card, with one process or over NCCL ranks, each stage's step captured
 once as a CUDA graph (over NCCL its collectives in it) and replayed once
-a step; on the CPU or over gloo ranks, the same step as a loop
-(:meth:`Engine.close` drops the graphs).  Its draws come
-from the engine's one generator on the device, reseeded from
+a step; on the CPU or over gloo ranks, the same step as a loop.  Its
+draws come from the engine's one generator on the device, reseeded from
 ``(train.seed, epoch)`` every epoch, so a resumed run draws what an
 uninterrupted one does.  What a captured step reads stays in its
 buffers: the train data is made once, the occupancy map is refreshed,
-the cameras restarted and a checkpoint restored in place.
+the cameras restarted and a checkpoint restored in place.  A frame
+(validation, the demo) goes through ``train/steps.py``'s
+:class:`FrameRender` of its size, which the engine keeps: on the card one
+CUDA graph a map kind, replayed once a frame; on the CPU the chunk loop
+(:meth:`Engine.close` drops the step and frame graphs).
 
 A scene without a detection cache (a reference-format scene: calib and
 coord images only) gets one from the tag36h11 detector before training.
@@ -81,6 +84,7 @@ from mc_nerf_torch.train.checkpoint import Checkpointer
 from mc_nerf_torch.train.optim import Params, build_optimizers, counter, flatten_params
 from mc_nerf_torch.train.restarts import improve_cameras
 from mc_nerf_torch.train.steps import (
+    FrameRender,
     StageEpoch,
     TrainData,
     TrainState,
@@ -145,17 +149,22 @@ def refresh_occupancy(nerf_params: NerfParams, cfg: Config, device, epoch: int,
 
 
 def demo(nerf_params: NerfParams, test_split: SplitData, cfg: Config,
-         device=None, cull: bool = True, out_dir: Optional[str] = None, epoch: int = 0) -> dict:
+         device=None, cull: bool = True, out_dir: Optional[str] = None, epoch: int = 0,
+         render: Optional[FrameRender] = None, occ: Optional[torch.Tensor] = None) -> dict:
     """Render every test view with its camera and score it.
 
-    With ``cull`` (and occupancy enabled in ``cfg``, in the importance fine
-    mode: the grid mode stays unculled, as ``Engine._occ_eval`` has it) the
-    sampler map is rebuilt fresh first, with ``epoch``'s jitter, from the
-    MLP ``cfg.nerf.refresh_source`` names for ``epoch``'s stage, and the
-    samples follow it; otherwise the views render unculled, or, when the
-    renders are coarse-free (``cfg.eval_coarse_free``: the map is the only
-    proposal), from the uniform prior.  With ``out_dir`` the pred, depth
-    and gt PNGs are written under it.
+    ``occ``, where given, is the sampler map the views render with.
+    Otherwise, with ``cull`` (and occupancy enabled in ``cfg``, in the
+    importance fine mode: the grid mode stays unculled, as
+    ``Engine._occ_eval`` has it) the sampler map is rebuilt fresh first,
+    with ``epoch``'s jitter, from the MLP ``cfg.nerf.refresh_source`` names
+    for ``epoch``'s stage, and the samples follow it; else the views render
+    unculled, or, when the renders are coarse-free
+    (``cfg.eval_coarse_free``: the map is the only proposal), from the
+    uniform prior.  ``render`` is the renderer of the views' size (an
+    engine passes its own, whose graphs its validation shares); None makes
+    one (``make_render_fn``).  With ``out_dir`` the pred, depth and gt PNGs
+    are written under it.
 
     Under a process group the views are sharded round robin over the ranks
     (the JAX demo's ``range(rank, count, world)``): each rank renders,
@@ -169,9 +178,9 @@ def demo(nerf_params: NerfParams, test_split: SplitData, cfg: Config,
     """
     dev = resolve_device(device)
     test = test_split
-    render = make_render_fn(cfg, test.img_h, test.img_w, device=dev)
-    occ = None
-    if cfg.nerf.occ_grid_size > 0 and cfg.eval.fine_mode == "importance":
+    if render is None:
+        render = make_render_fn(cfg, test.img_h, test.img_w, device=dev)
+    if occ is None and cfg.nerf.occ_grid_size > 0 and cfg.eval.fine_mode == "importance":
         if cull:
             occ = refresh_occupancy(nerf_params, cfg, dev, epoch,
                                     cfg.nerf.refresh_source(cfg.stages.stage_of_epoch(epoch)))
@@ -343,13 +352,14 @@ class Engine:
                                    delete_old=cfg.paths.tb_delete_old,
                                    enabled=cfg.tensorboard and is_main_process())
         self._epoch_fns: Dict[int, StageEpoch] = {}
-        self._render_fns: Dict[tuple, object] = {}
+        self._render_fns: Dict[tuple, FrameRender] = {}
         # one generator, reseeded every epoch, and one memory pool for the
         # stages' step graphs: a captured step keeps reading both
         self._gen = torch.Generator(device=self.device)
         self._graph_pool = (torch.cuda.graph_pool_handle() if self.device.type == "cuda"
                             else None)
         self._data: Optional[TrainData] = None
+        self._frame_route_logged = False
         self._table_rows = []
         # per trained epoch: epoch, stage, the mean metrics, seconds, rays/s,
         # checkpoint seconds and (stages 1-2) the validation scores
@@ -413,20 +423,30 @@ class Engine:
         return self._epoch_fns[stage]
 
     def close(self) -> None:
-        """Release every stage's step graph (``StageEpoch.release``); a
-        later epoch captures anew, in a new pool.  Over NCCL a graph holds
-        the group's communicator: close the engine before the group is
+        """Release every stage's step graph (``StageEpoch.release``) and
+        every frame graph (``FrameRender.release``); a later epoch or frame
+        captures anew, in a new pool.  Over NCCL a step graph holds the
+        group's communicator: close the engine before the group is
         destroyed."""
         for ep in self._epoch_fns.values():
             ep.release()
         self._epoch_fns.clear()
+        for render in self._render_fns.values():
+            render.release()
+        self._render_fns.clear()
         if self.device.type == "cuda":
             self._graph_pool = torch.cuda.graph_pool_handle()
 
-    def _render_fn(self, img_h: int, img_w: int):
+    def _render_fn(self, img_h: int, img_w: int) -> FrameRender:
+        """The renderer of ``img_h`` x ``img_w`` frames, made once and kept:
+        validation and the demo share its graphs (the JAX engine's one
+        compiled program per image size)."""
         if (img_h, img_w) not in self._render_fns:
-            self._render_fns[(img_h, img_w)] = make_render_fn(self.cfg, img_h, img_w,
-                                                              device=self.device)
+            self._render_fns[(img_h, img_w)] = render = make_render_fn(
+                self.cfg, img_h, img_w, device=self.device)
+            if not self._frame_route_logged:     # say which route, once
+                logging.info("frames: %s", render.route())
+                self._frame_route_logged = True
         return self._render_fns[(img_h, img_w)]
 
     def train(self, resume: bool = False) -> TrainState:
@@ -577,7 +597,11 @@ class Engine:
         the latest) and score every test view with its camera (the
         reference's demo, ``main.py:98-173``, with its two scoring faults
         fixed).  The PNGs go to ``<paths.render_dir>_<time stamp>``, rank 0's
-        stamp on every rank."""
+        stamp on every rank.  The views render through the engine's own
+        renderer of their size (``_render_fn``: on the card, the frame
+        graphs validation captured) and, culled, on the engine's own map,
+        refreshed fresh from the restored MLP, as the JAX demo does
+        (``mc_nerf_tpu/train/engine.py:648-663``)."""
         cfg = self.cfg
         if ckpt_epoch is None:
             ckpt_epoch = _parse_demo_ckpt(cfg.eval.demo_ckpt)
@@ -600,10 +624,16 @@ class Engine:
                          cfg.nerf.occ_warmup_steps, max(0, nerf_steps),
                          " (coarse-free: from the uniform prior)" if cfg.eval_coarse_free
                          else "")
+        if cull:
+            # the engine's own grid and map, rebuilt fresh from the restored
+            # MLP (the grid is never checkpointed), as the JAX demo does
+            self.occ_grid = None
+            self._refresh_occupancy(epoch)
         now = broadcast_(torch.tensor([int(time.time())], dtype=torch.int64,
                                       device=self.device))
         base = cfg.paths.render_dir + "_" + time.strftime("%Y-%m-%d-%H-%M-%S",
                                                           time.localtime(int(now[0])))
         result = demo(self.state.params.nerf, test, cfg, self.device, cull=cull, out_dir=base,
-                      epoch=epoch)
+                      epoch=epoch, render=self._render_fn(test.img_h, test.img_w),
+                      occ=self._occ_map if cull else None)
         return {**result, "out_dir": base}

@@ -20,7 +20,10 @@ and replayed once a step, the metric sums kept on the device to the
 epoch's end; over NCCL ranks the graph holds the step's collectives, as
 the JAX package's scan holds its ``psum``.  On CPU tensors, and over
 gloo ranks (their collectives run on the host), the same step body runs
-as a loop.
+as a loop.  The frame (:func:`make_render_fn`, the JAX ``jax.jit`` over
+``lax.map``) is likewise one CUDA graph on the card, captured once for
+each image size and map kind and replayed once a frame; on the CPU, a
+loop over its chunks.
 
 Data parallelism (``world`` > 1 ranks of the default process group, the
 JAX package's ``mesh``): every rank draws the global batch of
@@ -35,7 +38,10 @@ calibration terms are the same on every rank.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import gc
+import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -509,50 +515,193 @@ def make_stage_epoch(cfg: Config, stage: int, tx: FlatRAdam, img_h: int, img_w: 
                       graph, pool)
 
 
-def make_render_fn(cfg: Config, img_h: int, img_w: int,
-                   rays_per_chunk: Optional[int] = None,
-                   device=None) -> Callable:
-    """Full-image renderer: a loop over fixed-size ray chunks (the JAX
-    package's ``lax.map``); the last chunk is padded to full size, so every
-    chunk has the same shapes.
+class FrameRender:
+    """Full-image renderer: ``(nerf_params, pose_w2c [3,4], K [3,3],
+    occ=None) -> (rgb [H,W,3], depth [H,W], opacity [H,W])``, fresh tensors
+    every call (a caller may keep a frame while it renders the next).
 
-    ``(nerf_params, pose_w2c [3,4], K [3,3], occ=None) ->
-      (rgb [H,W,3], depth [H,W], opacity [H,W])``
+    The frame is the padded pixel grid's rays, the weights packed once,
+    fixed-size ray chunks through ``render_rays_eval`` (the last chunk
+    padded to full size, so every chunk has the same shapes) and their
+    concatenation: the body of the JAX package's ``jax.jit`` over
+    ``lax.map`` (``mc_nerf_tpu/train/steps.py:290-362``).  ``graph`` picks
+    the route (None: a graph on CUDA, the loop on the CPU; the frame has
+    no collective, so the world size does not enter):
 
-    ``cfg.eval.use_pallas`` picks the route: None or True renders through
-    the Hopper kernels (the weights are packed once per render), False
-    through the plain route in ``cfg.compute_dtype``.  ``cfg.eval.fine_mode``
-    picks the fine mode; in grid mode the selection's cutoff is a max over
-    each chunk, padding rays included, as in the JAX package's ``lax.map``.
-    ``occ`` is an optional ``[G*G, G]`` sampler map for culled coarse
-    sampling (importance mode only); with ``cfg.eval_coarse_free`` the fine
-    depths come from its PMF and no coarse pass runs.
-    """
-    dev = resolve_device(device)
-    chunk = rays_per_chunk or cfg.eval.rays_per_chunk
-    hw = img_h * img_w
-    n_chunks = -(-hw // chunk)
-    padded = n_chunks * chunk
-    use_kernels = cfg.eval.use_pallas is not False
-    cd = _dtype(cfg.compute_dtype)
+    * the graph route (CUDA): the first frame of each map kind
+      (:meth:`graph_key`: no map, or the map's dtype and shape, on which
+      the JAX jit recompiles too) runs one chunk eagerly on a side stream
+      (the kernels' libraries, cached device constants and workspaces are
+      made outside any capture), then the whole frame is captured as a
+      ``torch.cuda.CUDAGraph`` in this renderer's memory pool; every frame
+      is then one replay.  The graph owns its inputs: the weights are
+      copied into its own copy of the parameters, the pose and K into
+      device buffers and the map into the graph's buffer, in place,
+      before each replay, so any values a caller passes go in.  A failed
+      capture or replay raises: nothing falls back to the loop.
+    * the loop (CPU tensors, or ``graph=False``): the same body, eagerly.
+
+    ``cfg.eval.use_pallas`` picks the numeric route: None or True renders
+    through the Hopper kernels, False through the plain route in
+    ``cfg.compute_dtype``.  ``cfg.eval.fine_mode`` picks the fine mode; in
+    grid mode the selection's cutoff is a max over each chunk, padding rays
+    included, as in the JAX package's ``lax.map``.  ``occ`` is an optional
+    sampler map (``ops/occupancy.sampler_map``) for culled coarse sampling
+    (importance mode only); with ``cfg.eval_coarse_free`` the fine depths
+    come from its PMF and no coarse pass runs.
+
+    ``counts`` tallies the frames each way ran ("captured", "replayed",
+    "looped"); ``captures`` holds, per map kind, the warm-up's and the
+    capture's seconds, the memory the capture reserved (MiB) and the
+    replays.  :meth:`release` drops the graphs."""
+
+    def __init__(self, cfg: Config, img_h: int, img_w: int,
+                 rays_per_chunk: Optional[int] = None, device=None,
+                 graph: Optional[bool] = None):
+        self.device = resolve_device(device)
+        self.cfg, self.img_h, self.img_w = cfg, img_h, img_w
+        self.chunk = rays_per_chunk or cfg.eval.rays_per_chunk
+        self.hw = img_h * img_w
+        self.n_chunks = -(-self.hw // self.chunk)
+        self.padded = self.n_chunks * self.chunk
+        self.use_kernels = cfg.eval.use_pallas is not False
+        self.cd = _dtype(cfg.compute_dtype)
+        self.graph = graph
+        self.uses_graph()
+        self.counts = dict.fromkeys(("captured", "replayed", "looped"), 0)
+        self.captures: Dict[tuple, Dict[str, float]] = {}
+        self.pool = None
+        # per map kind: (graph, its map buffer, its outputs)
+        self._graphs: Dict[tuple, tuple] = {}
+        self._params: Optional[torch.nn.Module] = None
+        self._pose = self._K = None
+
+    def uses_graph(self) -> bool:
+        """Whether a frame takes the graph route."""
+        if self.graph is None:
+            return self.device.type == "cuda"
+        if self.graph and self.device.type != "cuda":
+            raise ValueError(f"a CUDA graph needs CUDA tensors, not {self.device}")
+        return self.graph
+
+    def route(self) -> str:
+        """The route a frame takes, in words."""
+        chunks = f"{self.n_chunks} chunks of {self.chunk} rays"
+        if self.uses_graph():
+            return (f"one CUDA graph of the frame ({chunks}), captured once a map kind and "
+                    "replayed once a frame")
+        why = "CPU tensors" if self.device.type != "cuda" else "graph=False"
+        return f"the chunk loop ({why}; {chunks})"
+
+    @staticmethod
+    def graph_key(occ: Optional[torch.Tensor]) -> tuple:
+        """The map kind a graph is captured for: no map, or its dtype and
+        shape (the bitpacked ``int32`` map, a ``[G*G, G]`` bf16 map...)."""
+        return ("none",) if occ is None else (str(occ.dtype), tuple(occ.shape))
+
+    def _chunks(self, nerf_params, pose_w2c, K, occ, starts) -> list:
+        """The frame body up to the chunks starting at ``starts``: their
+        (rgb, depth, opacity)."""
+        pix = F.pad(pixel_grid(self.img_h, self.img_w, device=self.device),
+                    (0, 0, 0, self.padded - self.hw))
+        rays_d, rays_o = rays_for_pixels(pix, pose_w2c, K)
+        packed = pack_eval_params(nerf_params, self.cfg.nerf) if self.use_kernels else None
+        ev, c = self.cfg.eval, self.chunk
+        return [render_rays_eval(nerf_params, rays_d[i:i + c], rays_o[i:i + c], self.cfg.nerf,
+                                 self.cd, fine_mode=ev.fine_mode,
+                                 importance_samples=ev.importance_samples, packed=packed,
+                                 occ=occ, coarse_free=self.cfg.eval_coarse_free)
+                for i in starts]
+
+    def _frame(self, nerf_params, pose_w2c, K, occ) -> Tuple[torch.Tensor, ...]:
+        """The whole frame, as both routes run it."""
+        outs = self._chunks(nerf_params, pose_w2c, K, occ, range(0, self.padded, self.chunk))
+        rgb, depth, opacity = (torch.cat(t)[:self.hw] for t in zip(*outs))
+        h, w = self.img_h, self.img_w
+        return rgb.reshape(h, w, 3), depth.reshape(h, w), opacity.reshape(h, w)
+
+    def _write_inputs(self, nerf_params, pose_w2c, K) -> None:
+        """The weights, pose and K, written in place into the graphs'
+        own buffers (made at the first frame, outside any pool)."""
+        if self._params is None:
+            self._params = copy.deepcopy(nerf_params).to(self.device)
+            self._pose = torch.empty((3, 4), dtype=torch.float32, device=self.device)
+            self._K = torch.empty((3, 3), dtype=torch.float32, device=self.device)
+        own, given = list(self._params.parameters()), list(nerf_params.parameters())
+        if [p.shape for p in own] != [p.shape for p in given]:
+            raise ValueError("these weights are not shaped as the ones the graphs render")
+        for p, q in zip(own, given):
+            p.copy_(q)
+        for buf, x in ((self._pose, pose_w2c), (self._K, K)):
+            t = torch.as_tensor(x, dtype=torch.float32)
+            if t.device.type == "cpu":
+                t = t.pin_memory()     # from pinned memory the copy needs no host sync
+            buf.copy_(t, non_blocking=True)
+
+    def capture(self, occ: Optional[torch.Tensor]) -> None:
+        """Warm up on one chunk and capture the frame for ``occ``'s map
+        kind (see the class), on the inputs written last."""
+        dev, key = self.device, self.graph_key(occ)
+        occ_buf = None if occ is None else torch.empty_like(occ, device=dev).copy_(occ)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        t0 = time.perf_counter()
+        with torch.cuda.stream(side):
+            self._chunks(self._params, self._pose, self._K, occ_buf, (0,))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        # torch.cuda.graph empties the cache on entry: do it first, so that
+        # the growth below is the capture's own
+        gc.collect()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=self.pool, stream=side):
+            outs = self._frame(self._params, self._pose, self._K, occ_buf)
+        self.captures[key] = {"warmup_s": t1 - t0, "capture_s": time.perf_counter() - t1,
+                              "pool_mib": (torch.cuda.memory_reserved(dev) - reserved) / 2**20,
+                              "replays": 0}
+        self._graphs[key] = (g, occ_buf, outs)
+        self.counts["captured"] += 1
+
+    def release(self) -> None:
+        """Drop every captured graph; a later frame captures anew, in a new
+        pool."""
+        for g, _, _ in self._graphs.values():
+            g.reset()
+        self._graphs.clear()
+        self.pool = None
 
     @torch.no_grad()
-    def render(nerf_params, pose_w2c, K, occ=None):
-        pose_w2c = torch.as_tensor(pose_w2c, dtype=torch.float32, device=dev)
-        K = torch.as_tensor(K, dtype=torch.float32, device=dev)
-        pix = F.pad(pixel_grid(img_h, img_w, device=dev), (0, 0, 0, padded - hw))
-        rays_d, rays_o = rays_for_pixels(pix, pose_w2c, K)
-        packed = pack_eval_params(nerf_params, cfg.nerf) if use_kernels else None
-        outs = [
-            render_rays_eval(
-                nerf_params, rays_d[i:i + chunk], rays_o[i:i + chunk], cfg.nerf, cd,
-                fine_mode=cfg.eval.fine_mode, importance_samples=cfg.eval.importance_samples,
-                packed=packed, occ=occ, coarse_free=cfg.eval_coarse_free,
-            )
-            for i in range(0, padded, chunk)
-        ]
-        rgb, depth, opacity = (torch.cat(t)[:hw] for t in zip(*outs))
-        return (rgb.reshape(img_h, img_w, 3), depth.reshape(img_h, img_w),
-                opacity.reshape(img_h, img_w))
+    def __call__(self, nerf_params, pose_w2c, K, occ=None):
+        if not self.uses_graph():
+            self.counts["looped"] += 1
+            # contiguous, as the graph's buffers are: the rays' sums over a
+            # transposed pose (a w2c from a c2w) would run in another order
+            pose_w2c, K = (torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                           .contiguous() for x in (pose_w2c, K))
+            return self._frame(nerf_params, pose_w2c, K, occ)
+        key = self.graph_key(occ)
+        self._write_inputs(nerf_params, pose_w2c, K)
+        if key not in self._graphs:
+            self.capture(occ)
+        g, occ_buf, outs = self._graphs[key]
+        if occ is not None:
+            occ_buf.copy_(occ)
+        g.replay()
+        self.counts["replayed"] += 1
+        self.captures[key]["replays"] += 1
+        return tuple(t.clone() for t in outs)
 
-    return render
+
+def make_render_fn(cfg: Config, img_h: int, img_w: int,
+                   rays_per_chunk: Optional[int] = None,
+                   device=None, graph: Optional[bool] = None) -> FrameRender:
+    """Full-image renderer: a :class:`FrameRender` (``(nerf_params,
+    pose_w2c, K, occ=None) -> (rgb, depth, opacity)``), one replayed CUDA
+    graph a frame on the card (``graph`` None: CUDA), else a loop over the
+    chunks."""
+    return FrameRender(cfg, img_h, img_w, rays_per_chunk, device, graph)

@@ -169,15 +169,15 @@ def test_demo_before_the_warm_up_renders_coarse_free_from_the_uniform_prior(hybr
     r = hybrid_runs
     teng = r["teng"]
     maps = []
-    make_render_fn = t_engine.make_render_fn
+    render_fn = teng._render_fn
 
-    def spy_render(cfg, h, w, **kw):
-        fn = make_render_fn(cfg, h, w, **kw)
+    def spy_render_fn(h, w):     # the engine's own renderer of the views' size
+        fn = render_fn(h, w)
         return lambda params, pose, K, occ=None: maps.append(occ) or fn(params, pose, K, occ)
 
-    monkeypatch.setattr(t_engine, "refresh_occupancy",
-                        lambda *a: pytest.fail("refreshed before the warm-up"))
-    monkeypatch.setattr(t_engine, "make_render_fn", spy_render)
+    for obj, name in ((t_engine, "refresh_occupancy"), (teng, "_refresh_occupancy")):
+        monkeypatch.setattr(obj, name, lambda *a: pytest.fail("refreshed before the warm-up"))
+    monkeypatch.setattr(teng, "_render_fn", spy_render_fn)
     got = teng.demo(ckpt_epoch=0)
     want = r["jeng"].demo(ckpt_epoch=0)
     prior = t_occ.uniform_prior_map(teng.cfg.nerf, CPU)

@@ -305,17 +305,16 @@ def test_two_refreshes_jitter_differently(run_a):
     assert not torch.equal(j1, j2)
 
 
-def test_demo_of_a_stage0_checkpoint_renders_unculled(run_a, monkeypatch):
+def test_demo_of_a_stage0_checkpoint_renders_unculled(run_a):
+    """The demo of the epoch-0 checkpoint refreshes no map; the latest's
+    refreshes the engine's own, fresh, with its epoch's jitter."""
     cfg = run_a["cfg"].replace(mode=1)
-    calls = []
-    orig = t_engine.refresh_occupancy
-    monkeypatch.setattr(t_engine, "refresh_occupancy",
-                        lambda *a: calls.append(a[3]) or orig(*a))
     eng = t_engine.Engine(cfg, device=CPU)
+    calls = _spy(eng, "_refresh_occupancy", lambda e: (e, eng.occ_grid is None))
     early = eng.demo(ckpt_epoch=0)
     assert calls == []
     late = eng.demo()      # the latest checkpoint: 2 NeRF epochs trained
-    assert calls == [2]
+    assert calls == [(2, True)]
     for res in (early, late):
         assert res["count"] == 2 and np.isfinite(res["psnr"]) and np.isfinite(res["ssim"])
         assert sorted(os.listdir(os.path.join(res["out_dir"], "pred"))) == ["0000.png", "0001.png"]

@@ -17,6 +17,7 @@ and sample counts from 2 to rays longer than any tile.
 Tolerances are about 10x the largest error measured on an H100 (PERF.md).
 """
 
+import copy
 import functools
 
 import numpy as np
@@ -985,3 +986,144 @@ def test_graph_epoch_refuses_a_rebound_map(cuda):
     with pytest.raises(StaleGraphBuffer, match="occ"):
         ep(state, data._replace(occ=data.occ.clone()), gen)
     assert ep.counts["replayed"] == 6
+
+
+# -------------------------------------------------------- the compiled frame
+
+# eval modes of the graph frame (train/steps.py FrameRender): (the eval
+# config's and the NeRF config's changes from the narrow widths, the map)
+FRAME_MODES = {
+    "importance culled": ({}, {}, "fresh"),
+    "importance unculled": ({}, {}, None),
+    "coarse-free bitpack": ({}, {"coarse_free": True, "occ_map_dtype": "bitpack"}, "fresh"),
+    "grid": ({"fine_mode": "grid"}, {}, None),
+}
+# 40 x 40 = 1600 pixels in chunks of 512 rays: the fourth chunk mostly padding
+FRAME_SIDE, FRAME_CHUNK = 40, 512
+
+
+def _frame_workload(mode, device, seed=0, epoch=0):
+    """A narrow config of ``mode``, seeded weights and, where the mode has
+    one, a fresh map refreshed from them with ``epoch``'s jitter."""
+    from mc_nerf_torch.config import Config, EvalConfig
+    from mc_nerf_torch.tools.scene import scene_params
+    from mc_nerf_torch.train.engine import refresh_occupancy
+
+    ev_kw, nerf_kw, occ = FRAME_MODES[mode]
+    cfg = Config(nerf=NerfConfig(**NARROW, occ_grid_size=32, **nerf_kw),
+                 eval=EvalConfig(rays_per_chunk=FRAME_CHUNK, **ev_kw))
+    params = scene_params(cfg.nerf, seed, device=device)
+    return cfg, params, refresh_occupancy(params, cfg, device, epoch) if occ else None
+
+
+def _frame_views(side=FRAME_SIDE):
+    from mc_nerf_torch.tools.scene import orbit_views
+
+    return orbit_views((0.3, 2.2), side, side)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(FRAME_MODES))
+def test_graph_frame_matches_the_loop_bit_for_bit(cuda, mode):
+    """One frame through the captured graph and through the chunk loop,
+    from the same weights, pose and map: rgb, depth and opacity the same
+    bits; the graph captured once, for the map's kind, and replayed once
+    a frame; each kernel the loop launches, launched at the capture as
+    often (the wrappers count the capture's launches once)."""
+    from mc_nerf_torch.train.steps import make_render_fn
+
+    cfg, params, occ = _frame_workload(mode, cuda)
+    (pose, _), K = _frame_views()
+    counters = (fused_mlp_apply, fused_render, fused_shaded_mlp)
+    loop = make_render_fn(cfg, FRAME_SIDE, FRAME_SIDE, device=cuda, graph=False)
+    graph = make_render_fn(cfg, FRAME_SIDE, FRAME_SIDE, device=cuda, graph=True)
+    launched = {}
+    for name, render in (("loop", loop), ("graph", graph)):
+        for c in counters:
+            c.launches = 0
+        out = render(params, pose, K, occ)
+        torch.cuda.synchronize()
+        launched[name] = [c.launches for c in counters]
+        launched[name + " out"] = out
+    a, b = launched["loop out"], launched["graph out"]
+    for name, x, y in zip(("rgb", "depth", "opacity"), a, b):
+        assert x.shape == y.shape and torch.equal(x, y), name
+    assert bool(torch.isfinite(a[0]).all()) and float(a[0].std()) > 0
+    chunks = -(-FRAME_SIDE ** 2 // FRAME_CHUNK)
+    # the capture's launches are the loop's, plus one chunk of warm-up
+    assert launched["graph"] == [n + n // chunks for n in launched["loop"]]
+    assert sum(launched["loop"]) > 0
+    assert loop.counts == {"captured": 0, "replayed": 0, "looped": 1}
+    assert graph.counts == {"captured": 1, "replayed": 1, "looped": 0}
+    assert list(graph.captures) == [graph.graph_key(occ)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", sorted(FRAME_MODES))
+def test_graph_frame_takes_new_weights_pose_and_map(cuda, mode):
+    """After the capture, new weights (the first scaled by 1.01), a new
+    pose and a new map of the same kind (the first with the half of the
+    box at x < 0 emptied) reach the replay: it equals the loop on them,
+    bit for bit, without a second capture; the first frame's tensors
+    still hold what they held."""
+    from mc_nerf_torch.train.steps import make_render_fn
+
+    cfg, params, occ = _frame_workload(mode, cuda)
+    (pose, pose2), K = _frame_views()
+    graph = make_render_fn(cfg, FRAME_SIDE, FRAME_SIDE, device=cuda, graph=True)
+    loop = make_render_fn(cfg, FRAME_SIDE, FRAME_SIDE, device=cuda, graph=False)
+    first = graph(params, pose, K, occ)
+    kept = [t.clone() for t in first]
+    params2 = copy.deepcopy(params)
+    with torch.no_grad():
+        for p in params2.parameters():
+            p.mul_(1.01)
+    occ2 = None
+    if occ is not None:
+        occ2 = occ.clone()
+        occ2[: occ.shape[0] // 2] = 0
+        assert not torch.equal(occ2, occ)
+    second = graph(params2, pose2, K, occ2)
+    want = loop(params2, pose2, K, occ2)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("rgb", "depth", "opacity"), second, want):
+        assert torch.equal(x, y), name
+    for x, y in zip(first, kept):
+        assert torch.equal(x, y)
+    assert not torch.equal(second[0], first[0])
+    assert graph.counts == {"captured": 1, "replayed": 2, "looped": 0}
+
+
+@pytest.mark.gpu
+def test_graph_frame_captures_anew_after_release(cuda, tmp_path):
+    """``Engine.close`` releases the frame graphs of the engine's
+    renderers and forgets them; the next frame captures anew, in a new
+    renderer, and renders the same bits.  A renderer released alone
+    captures again at its next frame."""
+    from mc_nerf_torch.config import PathsConfig
+    from mc_nerf_torch.data.synthetic import make_dataset
+    from mc_nerf_torch.train.engine import Engine
+
+    cfg, params, occ = _frame_workload("importance culled", cuda)
+    (pose, _), K = _frame_views()
+    make_dataset(str(tmp_path / "Tiny"), n_train=2, n_val=1, n_test=1, img_h=FRAME_SIDE,
+                 img_w=FRAME_SIDE, seed=3)
+    out = str(tmp_path / "out")
+    eng = Engine(cfg.replace(data_root=str(tmp_path), data_name="Tiny", tensorboard=False,
+                             paths=PathsConfig(root_weights=out, root_out=out, log_path=out,
+                                               tb_path=out)), device=cuda)
+    render = eng._render_fn(FRAME_SIDE, FRAME_SIDE)
+    a = render(params, pose, K, occ)
+    assert render.counts["captured"] == 1 and render._graphs
+    eng.close()
+    assert eng._render_fns == {} and render._graphs == {}
+    again = eng._render_fn(FRAME_SIDE, FRAME_SIDE)
+    assert again is not render
+    b = again(params, pose, K, occ)
+    assert again.counts == {"captured": 1, "replayed": 1, "looped": 0}
+    again.release()
+    c = again(params, pose, K, occ)
+    torch.cuda.synchronize()
+    assert again.counts == {"captured": 2, "replayed": 2, "looped": 0}
+    for x, y, z in zip(a, b, c):
+        assert torch.equal(x, y) and torch.equal(x, z)
