@@ -115,20 +115,29 @@ on a reference-format scene.
 8b. Data parallelism (``dp_phase``): 2 gloo ranks on the one card, each
    a subprocess, ``main()`` ``--train`` / ``--demo`` on both (the step as
    a loop: gloo's collectives run on the host; the host's wait for the
-   card before the gradient all-reduce and the all-reduce timed) against
-   one process with twice the images, and ``torchrun`` itself.  With two
-   cards or more (``nccl_phase``): ``torchrun`` of one rank a card over
-   NCCL, the four step kinds of 6b at full width, 7000 rays a rank, the
-   loop and the step as one graph, its collectives captured, in turns
-   (the same bits on both routes and every rank, the profiled launches a
-   step, ms a step a rank, busy share, the all-reduce, global rays/s
-   against 6b's one process), and ``-m mc_nerf_torch --train``; skipped,
-   and said so, on one card.
+   card before the gradient all-reduce and the all-reduce timed; every
+   validation and demo frame split over the ranks, each rank's blocks one
+   graph, the gather after its replay) against one process with twice the
+   images; an 800x800 importance-culled and a grid frame split over the 2
+   ranks (``split_frames``), each bit for bit against one process in
+   chunks of a block, with its ms and the gather's; and ``torchrun``
+   itself.  With two cards or more (``nccl_phase``): ``torchrun`` of one
+   rank a card over NCCL, the four step kinds of 6b at full width, 7000
+   rays a rank, the loop and the step as one graph, its collectives
+   captured, in turns (the same bits on both routes and every rank, the
+   profiled launches a step, ms a step a rank, busy share, the
+   all-reduce, global rays/s against 6b's one process); the four eval
+   modes of 6c at 800x800 and 200x200 split over the ranks (the same bits
+   on every rank and those of one process in chunks of a block, ms
+   against one process's graph frame, the gather, capture seconds and
+   pool, the launches a replay); and ``-m mc_nerf_torch --train``, its
+   validation split; skipped, and said so, on one card.
 9. Prints the ``kernels`` JSON line, one entry per kernel and path (the
    demo; the train step; the grid demo; the grid train step; the
    fused_mlp VJP; the frame graph phase; the engine's training steps,
    validation renders and demo; the CLI's importance and grid ``--train``
-   and ``--demo``; the data-parallel ``--train`` and ``--demo``): that
+   and ``--demo``; the data-parallel ``--train`` and ``--demo`` and the
+   frames split over its ranks): that
    path's launches (an eval path's: its frame graphs' replays, profiled;
    ``launches_counted`` the wrappers'), time per launch at its shapes,
    bound, plain and library times; then ``{"ok": true, "device": ...}``
@@ -179,6 +188,8 @@ SEED = 0
 MLP_RTOL = 2e-2            # max abs error over the max abs output (32 lanes)
 RENDER_ATOL = 2e-2         # rgb / opacity / wsel
 DEPTH_ATOL = 5e-2          # depth, in [near, far] = [1, 8]
+MLP_TOL = {"rel": MLP_RTOL}
+RENDER_TOL = {"rgb/opacity": RENDER_ATOL, "depth": DEPTH_ATOL, "wsel": RENDER_ATOL}
 # Kernel route vs the bf16 plain route on one chunk of the frame: two
 # numeric routes whose importance samples land apart where the coarse
 # weights differ a little, so the bound is the JAX package's own
@@ -329,6 +340,35 @@ DP_LAUNCHES = {
                               "weight_grad_kernel": 1},
     "CAM_PARAM": {"composite_fwd_kernel": 0, "mlp_points_kernel": 0, "weight_grad_kernel": 0,
                   "shaded_fwd_kernel": 0}}
+
+
+# the frame split over ranks (split_frames): the cells each phase splits
+# over its ranks (dp_phase's 2 gloo ranks on the one card: the demo's size
+# in both fine modes; nccl_phase's ranks, one a card: the frame graph
+# phase's eight), the eval kernels each mode launches once a chunk's block,
+# and the gathers timed alone
+DP_SPLIT_CELLS = (("importance culled", 800), ("grid", 800))
+NCCL_SPLIT_CELLS = tuple((mode, side) for mode in FRAME_MODES for side in FRAME_SIDES)
+SPLIT_KERNELS = {"importance culled": ("fused_mlp_apply", "fused_render"),
+                 "importance unculled": ("fused_mlp_apply", "fused_render"),
+                 "coarse-free bitpack": ("fused_render",),
+                 "grid": ("fused_mlp_apply", "fused_shaded_mlp")}
+GATHER_ITERS = 10
+# each wrapper's TPU kernel (the kernels line's "replaces") and its source
+REPLACES = {"fused_mlp_apply": "mc_nerf_tpu/ops/pallas/fused_mlp.py:241",
+            "fused_render": "mc_nerf_tpu/ops/pallas/fused_render.py:211",
+            "render_bwd_points": "mc_nerf_tpu/ops/pallas/fused_render.py:290",
+            "render_bwd_weights": "mc_nerf_tpu/ops/pallas/fused_render.py:290",
+            "fused_shaded_mlp": "mc_nerf_tpu/ops/pallas/fused_mlp.py:381",
+            "fused_shaded_mlp_bwd": "mc_nerf_tpu/ops/pallas/fused_mlp.py:423",
+            "fused_mlp_bwd": "mc_nerf_tpu/ops/pallas/fused_mlp.py:739"}
+SOURCES = {"fused_mlp_apply": "mc_nerf_torch/csrc/fused_mlp.cu",
+           "fused_render": "mc_nerf_torch/csrc/fused_render.cu",
+           "render_bwd_points": "mc_nerf_torch/csrc/fused_render_bwd.cu",
+           "render_bwd_weights": "mc_nerf_torch/csrc/fused_render_bwd.cu",
+           "fused_shaded_mlp": "mc_nerf_torch/csrc/fused_shaded.cu",
+           "fused_shaded_mlp_bwd": "mc_nerf_torch/csrc/fused_mlp_bwd.cu",
+           "fused_mlp_bwd": "mc_nerf_torch/csrc/fused_mlp_bwd.cu"}
 
 
 def fail(msg: str) -> None:
@@ -1195,6 +1235,38 @@ def replayed_frames(renders, path: str) -> tuple:
     return total, graphs
 
 
+def frame_cell(mode: str, side: int, dev, angles=(0.3,)) -> tuple:
+    """A cell of the frame phases: ``mode``'s change of ``Config()``
+    (``FRAME_MODES``), the seeded scene's weights (``tools/scene.scene_params``)
+    and, where the mode has one, a fresh map refreshed from them, and the
+    orbit's poses at ``angles`` with their K at ``side`` x ``side``.
+    Returns (cfg, params, occ or None, poses, K)."""
+    from mc_nerf_torch.config import Config
+    from mc_nerf_torch.tools.scene import orbit_views, scene_params
+    from mc_nerf_torch.train.engine import refresh_occupancy
+
+    ev_kw, nerf_kw, with_map = FRAME_MODES[mode]
+    cfg = Config()
+    cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, **ev_kw),
+                      nerf=dataclasses.replace(cfg.nerf, **nerf_kw))
+    params = scene_params(cfg.nerf, SEED, device=dev)
+    occ = refresh_occupancy(params, cfg, dev, 0) if with_map else None
+    poses, K = orbit_views(angles, side, side)
+    return cfg, params, occ, poses, K
+
+
+def in_turns(fns: dict, order, iters: int, before=None) -> dict:
+    """Each route of ``fns`` (route -> callable) timed in the turns of
+    ``order`` (``cuda_ms`` of ``iters`` calls a turn, ``before()`` ahead of
+    each turn where given): {route: [ms a call, a turn each]}."""
+    turns = {route: [] for route in fns}
+    for route in order:
+        if before is not None:
+            before()
+        turns[route].append(cuda_ms(fns[route], iters))
+    return turns
+
+
 def frame_graph_phase(dev, smi: str, counters: dict) -> dict:
     """The compiled frame (``train/steps.py::FrameRender``) against the
     chunk loop, in each eval mode of ``FRAME_MODES`` at each of
@@ -1216,34 +1288,18 @@ def frame_graph_phase(dev, smi: str, counters: dict) -> dict:
     kernels' entry points are recorded at the captures (``engine_recorder``,
     each shape's last call: a graph's own tensors, which its last replay
     wrote) for ``path_kernel_numbers``.  ``counters``: name -> wrapper."""
-    import mc_nerf_torch.models.nerf as nerf_module
-    from mc_nerf_torch.config import Config
     from mc_nerf_torch.tools.profile_step import profile_steps
-    from mc_nerf_torch.tools.scene import orbit_views, scene_params
-    from mc_nerf_torch.train.engine import refresh_occupancy
     from mc_nerf_torch.train.steps import make_render_fn
 
     t_phase = time.perf_counter()
     where, calls = [None], {}
-    wrapped = {"fused_render": lambda a: f"{a[2].shape[0]} rays x {a[8]}",
-               "fused_mlp_apply": lambda a: f"{a[1].shape[0]} points",
-               "fused_shaded_mlp": lambda a: f"{a[2].shape[0]} rays x {a[5]}"}
-    originals = {name: getattr(nerf_module, name) for name in wrapped}
-    for name, shape_of in wrapped.items():
-        setattr(nerf_module, name, engine_recorder(originals[name], name, shape_of, where, calls,
-                                                   last=True))
     out, replayed = {}, dict.fromkeys(FRAME_SIGNATURE, 0)
 
     def launches():
         return {k: counters[k].launches for k in FRAME_SIGNATURE}
 
-    def one(mode, side, ev_kw, nerf_kw, with_map) -> dict:
-        cfg = Config()
-        cfg = cfg.replace(eval=dataclasses.replace(cfg.eval, **ev_kw),
-                          nerf=dataclasses.replace(cfg.nerf, **nerf_kw))
-        params = scene_params(cfg.nerf, SEED, device=dev)
-        occ = refresh_occupancy(params, cfg, dev, 0) if with_map else None
-        (pose, pose2), K = orbit_views((0.3, 2.2), side, side)
+    def one(mode, side) -> dict:
+        cfg, params, occ, (pose, pose2), K = frame_cell(mode, side, dev, (0.3, 2.2))
         chunks = -(-side * side // cfg.eval.rays_per_chunk)
         loop = make_render_fn(cfg, side, side, device=dev, graph=False)
         graph = make_render_fn(cfg, side, side, device=dev, graph=True)
@@ -1285,7 +1341,7 @@ def frame_graph_phase(dev, smi: str, counters: dict) -> dict:
             for p in params2.parameters():
                 p.mul_(1.01)
         occ2 = None
-        if with_map:
+        if occ is not None:
             occ2 = occ.clone()
             occ2[: occ.shape[0] // 2] = 0
         a2, b2 = loop(params2, pose2, K, occ2), graph(params2, pose2, K, occ2)
@@ -1295,10 +1351,9 @@ def frame_graph_phase(dev, smi: str, counters: dict) -> dict:
                   and (occ is None or not torch.equal(occ2, occ)))
         first_ok = all(torch.equal(x, y) for x, y in zip(b, kept))
         iters = FRAME_ITERS[side]
-        turns = {"loop": [], "graph": []}
-        for route in ("loop", "graph", "graph", "loop"):
-            fn = loop if route == "loop" else graph
-            turns[route].append(cuda_ms(lambda: fn(params, pose, K, occ), iters))
+        turns = in_turns({"loop": lambda: loop(params, pose, K, occ),
+                          "graph": lambda: graph(params, pose, K, occ)},
+                         ("loop", "graph", "graph", "loop"), iters)
         ms = {r: sum(v) / len(v) for r, v in turns.items()}
         cap = graph.captures[key]
         counts = {"loop": dict(loop.counts), "graph": dict(graph.counts)}
@@ -1331,14 +1386,11 @@ def frame_graph_phase(dev, smi: str, counters: dict) -> dict:
                 "speedup": ms["loop"] / ms["graph"], "capture": cap,
                 "loop_peak_mib": loop_peak_mib, "frames_by_route": counts}
 
-    try:
-        for mode, (ev_kw, nerf_kw, with_map) in FRAME_MODES.items():
+    with recording_frames(where, calls):
+        for mode in FRAME_MODES:
             for side in FRAME_SIDES:
-                out[f"{mode} {side}"] = one(mode, side, ev_kw, nerf_kw, with_map)
+                out[f"{mode} {side}"] = one(mode, side)
                 torch.cuda.empty_cache()
-    finally:
-        for name, fn in originals.items():
-            setattr(nerf_module, name, fn)
     seconds = time.perf_counter() - t_phase
     print(f"frame graph phase: {seconds:.1f} s; launches in the replays {replayed}", flush=True)
     return {"modes": out, "seconds": seconds, "card": smi, "calls": calls,
@@ -2100,10 +2152,11 @@ def dp_rank(spec: dict) -> None:
     ``spec["cli"]`` it drives ``mc_nerf_torch.main.main`` under the CLI
     phases' instrumentation (``cli_recording``): ``dp_train``
     (``--train``) and ``dp_demo`` (``--demo``), each path's launches
-    counted from 0 just before it, the demo's PNG writes recorded.
-    Writes ``rank<r>.json`` under the phase's directory, and on rank 0 of
-    the CLI run the recorded kernel inputs (``calls.pt``) after checking
-    them against the launches counted."""
+    counted from 0 just before it, the demo's PNG writes recorded.  With
+    ``spec["split"]`` it then renders frames split over the ranks
+    (``split_rank``).  Writes ``rank<r>.json`` under the phase's
+    directory, and on rank 0 the recorded kernel inputs (``calls.pt``;
+    the CLI's checked against the launches counted)."""
     import pathlib
 
     import torch.distributed as dist
@@ -2149,6 +2202,7 @@ def dp_rank(spec: dict) -> None:
             t0 = time.perf_counter()
             out["kinds"] = nccl_kinds(topo.device, topo.world, reduces)
             out["kinds_s"] = time.perf_counter() - t0
+        calls = {}
         if spec.get("cli"):
             with cli_recording(work, spec["name"], counters) as (cli, calls, cache_s, epochs,
                                                                  frames):
@@ -2171,11 +2225,159 @@ def dp_rank(spec: dict) -> None:
                 "grad_reduce_end_s": [end for *_, end in grads]})
             if topo.rank == 0:
                 check_recorded(calls, {"dp_train": l_train, "dp_demo": l_demo})
-                torch.save(calls, work / "calls.pt")
+        if spec.get("split"):
+            out["split"] = split_rank(topo, spec["split"], counters, calls)
+        if topo.rank == 0:
+            torch.save(calls, work / "calls.pt")
     finally:
         steps_module.all_reduce_mean_, engine_module._write_pngs = mean_, write
     (work / f"rank{topo.rank}.json").write_text(json.dumps(out))
     dist.destroy_process_group()
+
+
+def split_rank(topo, which: str, counters: dict, calls: dict) -> dict:
+    """A rank's split frames (``split_frames``) of ``which``'s cells ("dp":
+    ``DP_SPLIT_CELLS``, "nccl": ``NCCL_SPLIT_CELLS``), the eval kernels'
+    entry points recorded into ``calls`` as path ``<which>_split`` during
+    each split graph's first frame (``engine_recorder``, each shape's last
+    call: the graph's own tensors, as its last replay left them)."""
+    where = [None]
+    cells = {"dp": DP_SPLIT_CELLS, "nccl": NCCL_SPLIT_CELLS}[which]
+    with recording_frames(where, calls):
+        return split_frames(topo.device, topo.world, cells,
+                            {k: counters[k] for k in FRAME_SIGNATURE}, (where, f"{which}_split"))
+
+
+def split_frames(dev, world: int, cells, counters: dict, record=None) -> dict:
+    """This rank's part of frames split over the ``world`` ranks of the
+    group (``make_render_fn(..., world=world)``, the graph route: this
+    rank's blocks one CUDA graph, the gather after its replay), one for
+    each (mode, side) of ``cells`` (``frame_cell``, as ``frame_graph_phase``
+    renders them).  For each: the split frame against this rank's own
+    one-process frame in chunks of a block (``world=1``, no collective: the
+    same rays in the same groups), bit for bit, and its digest, which the
+    ranks must share; the ms a frame of the split frame and of one
+    process's graph frame at the full chunk, in turns (split, one, one,
+    split; the ranks aligned by a barrier before each); the gather alone
+    (median of ``GATHER_ITERS``, the ranks aligned, the card synchronized
+    on each side); the split graph's capture seconds and pool; the eval
+    kernels' launches a replay of it (profiled, ``replayed_frames``) and in
+    the run's replays, and the wrappers' (``counters``, set to 0 just
+    before) in its first frame: a block of warm-up and the capture.
+    ``record``: (the kernels' recorders' path list, the path to name during
+    that first frame).  Returns {"mode side": numbers}."""
+    from mc_nerf_torch.parallel.mesh import all_gather_blocks, barrier
+    from mc_nerf_torch.train.steps import make_render_fn
+
+    def one(mode, side) -> dict:
+        cfg, params, occ, (pose,), K = frame_cell(mode, side, dev)
+        split = make_render_fn(cfg, side, side, device=dev, world=world)
+        ref = make_render_fn(cfg, side, side, rays_per_chunk=split.block, device=dev)
+        whole = make_render_fn(cfg, side, side, device=dev)
+        for c in counters.values():
+            c.launches = 0
+        if record is not None:
+            record[0][0] = record[1]
+        frame = split(params, pose, K, occ)
+        torch.cuda.synchronize()
+        if record is not None:
+            record[0][0] = None
+        counted = {k: c.launches for k, c in counters.items()}
+        want = ref(params, pose, K, occ)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(frame, want))
+        gap = max(float((a - b).abs().max()) for a, b in zip(frame, want))
+        finite = all(bool(torch.isfinite(t).all()) for t in frame)
+        turns = in_turns({"split": lambda: split(params, pose, K, occ),
+                          "one": lambda: whole(params, pose, K, occ)},
+                         ("split", "one", "one", "split"), FRAME_ITERS[side], barrier)
+        part = torch.zeros((split.n_chunks * split.block, 5), device=dev)
+        gathers = []
+        for _ in range(GATHER_ITERS):
+            barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            all_gather_blocks(part)
+            torch.cuda.synchronize()
+            gathers.append(time.perf_counter() - t0)
+        total, graphs = replayed_frames([split], f"split {mode} {side}x{side}")
+        (replay,) = graphs.values()
+        numbers = {
+            "bit_identical": same, "gap": gap, "finite": finite,
+            "digest": hashlib.sha256("".join(digest(t) for t in frame).encode()).hexdigest(),
+            "chunk": split.chunk, "block": split.block, "chunks": split.n_chunks,
+            "turns_ms": turns, "split_ms": float(np.mean(turns["split"])),
+            "one_ms": float(np.mean(turns["one"])),
+            "gather_ms": float(np.median(gathers)) * 1e3,
+            "gather_bytes": split.padded * 5 * 4, "capture": split.captures[split.graph_key(occ)],
+            "launches_a_replay": replay["per_replay"], "launches": total,
+            "launches_counted": counted, "route": split.route(),
+            "frames_by_route": dict(split.counts)}
+        for r in (split, ref, whole):
+            r.release()
+        return numbers
+
+    out = {}
+    for mode, side in cells:
+        out[f"{mode} {side}"] = one(mode, side)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_split_frames(ranks: list, cells, smi: str, label: str) -> dict:
+    """Checks and prints the split frames ``split_frames`` rendered on each
+    rank of ``ranks`` (their ``rank<r>.json``'s ``"split"``): on every rank
+    the frame equal to its one-process frame in chunks of a block, bit for
+    bit, finite, the same bits on every rank; the graph route with the
+    gather after its replay (``FrameRender.route``), captured once; each of
+    the mode's ``SPLIT_KERNELS`` launched once a chunk's block in a replay
+    (profiled) and none other.  Prints each cell's ms a frame against one
+    process's graph frame, the gather's ms, and each rank's capture seconds,
+    pool and launches a replay.  Returns {cell: summary}."""
+    world, out = len(ranks), {}
+    for mode, side in cells:
+        cell = f"{mode} {side}"
+        xs = [r["split"][cell] for r in ranks]
+        want = {k: (xs[0]["chunks"] if k in SPLIT_KERNELS[mode] else 0) for k in FRAME_SIGNATURE}
+        bad = [r for r, x in enumerate(xs) if not (
+            x["bit_identical"] and x["finite"] and x["digest"] == xs[0]["digest"]
+            and x["launches_a_replay"] == want
+            and x["route"].startswith("one CUDA graph of the frame")
+            and f"split over {world} ranks, one all-gather a frame" in x["route"]
+            and x["frames_by_route"]["captured"] == 1 and x["frames_by_route"]["looped"] == 0)]
+        split_ms, one_ms = max(x["split_ms"] for x in xs), max(x["one_ms"] for x in xs)
+        summary = {
+            "split_ms": [x["split_ms"] for x in xs], "one_ms": [x["one_ms"] for x in xs],
+            "speedup": one_ms / split_ms, "gather_ms": [x["gather_ms"] for x in xs],
+            "gather_bytes": xs[0]["gather_bytes"], "gap": [x["gap"] for x in xs],
+            "bit_identical": [x["bit_identical"] for x in xs],
+            "same_on_every_rank": len({x["digest"] for x in xs}) == 1,
+            "capture_s": [x["capture"]["warmup_s"] + x["capture"]["capture_s"] for x in xs],
+            "pool_mib": [x["capture"]["pool_mib"] for x in xs],
+            "launches_a_replay": [x["launches_a_replay"] for x in xs],
+            "launches": [x["launches"] for x in xs],
+            "launches_counted": [x["launches_counted"] for x in xs],
+            "turns_ms": [x["turns_ms"] for x in xs], "chunk": xs[0]["chunk"],
+            "block": xs[0]["block"], "chunks": xs[0]["chunks"], "route": xs[0]["route"]}
+        out[cell] = summary
+        print(f"{label} split frame, {cell}x{side} over {world} ranks ({summary['chunks']} chunks "
+              f"of {summary['chunk']} rays, {summary['block']} a rank): bit-identical to one "
+              f"process in chunks of {summary['block']} {summary['bit_identical']}, the same on "
+              f"every rank {summary['same_on_every_rank']}; ms a frame by rank "
+              f"{', '.join(f'{v:.3f}' for v in summary['split_ms'])} against one process's "
+              f"graph frame {', '.join(f'{v:.3f}' for v in summary['one_ms'])} "
+              f"({summary['speedup']:.3f}x); the gather of {summary['gather_bytes']} bytes "
+              f"{', '.join(f'{v:.3f}' for v in summary['gather_ms'])} ms; capture s "
+              f"{', '.join(f'{v:.3f}' for v in summary['capture_s'])}, pool MiB "
+              f"{', '.join(f'{v:.1f}' for v in summary['pool_mib'])}; launches a replay "
+              f"(profiled) {summary['launches_a_replay']}; route {summary['route']!r} ({smi})",
+              flush=True)
+        if bad:
+            fail(f"{label} split frame {cell}: ranks {bad} stray from the one-process frame, "
+                 f"from each other or from the launches ({want} a replay) and route wanted: "
+                 f"{[xs[r] for r in bad]}")
+    return out
 
 
 def check_nccl_kinds(ranks: list, one_process: dict, smi: str) -> dict:
@@ -2276,7 +2478,11 @@ def dp_phase(dev, smi: str) -> dict:
     ``Engine`` with ``images_per_batch=2`` from the same seed and draws
     (``DP_TOL``); the demo: the same dict on both ranks, each view's PNGs
     written once under one stamped directory, the scores of the 1-rank
-    demo of the same checkpoint; then ``torchrun`` itself
+    demo of the same checkpoint; every validation and demo frame split
+    over the ranks, on each rank one graph of its blocks, captured once
+    and replayed once a frame; the split frames of ``DP_SPLIT_CELLS``
+    (``split_frames``, ``check_split_frames``: bit for bit against one
+    process in chunks of a block, ms, the gather); then ``torchrun`` itself
     (``python -m torch.distributed.run --standalone``) trains stages
     ``DP_CUTS["launch stages"]`` to the end.  Times: each rank's step ms
     by stage, the host's wait for the card before the gradient all-reduce
@@ -2323,7 +2529,8 @@ def dp_phase(dev, smi: str) -> dict:
     one_card = {"CUDA_VISIBLE_DEVICES": os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]}
     t0 = time.perf_counter()
     spawn_ranks(DP_WORLD, [str(pathlib.Path(__file__).resolve()), "--dp-rank",
-                           json.dumps({"work": str(work), "name": name, "cli": True})],
+                           json.dumps({"work": str(work), "name": name, "cli": True,
+                                       "split": "dp"})],
                 str(work), env=one_card, timeout=900)
     ranks_s = time.perf_counter() - t0
     ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(DP_WORLD)]
@@ -2365,20 +2572,18 @@ def dp_phase(dev, smi: str) -> dict:
         fail(f"dp: cache builds by rank {[x['cache_builds'] for x in ranks]}: rank 0's alone")
     if r0["kept"] != [0, 1, 2]:
         fail(f"dp: checkpoints {r0['kept']}")
-    # the frames: rank 0 validates, each rank renders its demo views, every
-    # frame a replay of one graph (the frame has no collective)
+    # the frames, split over the ranks: every rank renders every validation
+    # and demo view, its blocks a replay of one graph, the gather after it
     n_val = sum(1 for h in r0["history"] if h["stage"])
     frame_routes = [{path: x["frames"].get(path, {}).get("routes") for path in ("dp_train",
                                                                              "dp_demo")}
                     for x in ranks]
     want = [{"dp_train": [{"captured": 1, "replayed": n_val, "looped": 0}],
-             "dp_demo": [{"captured": 1, "replayed": len(range(r, n_test, DP_WORLD)),
-                          "looped": 0}]} for r in range(DP_WORLD)]
-    for w in want[1:]:
-        w["dp_train"] = []
+             "dp_demo": [{"captured": 1, "replayed": n_test, "looped": 0}]}] * DP_WORLD
     print(f"dp: frames by route and rank {frame_routes}", flush=True)
     if frame_routes != want:
         fail(f"dp: frames by route {frame_routes}, {want} wanted")
+    split = check_split_frames(ranks, DP_SPLIT_CELLS, smi, "dp")
 
     # the 1-rank run with twice the images a step, and its demo
     cfg1 = from_args(build_argparser().parse_args(flags("dp", "--train")))
@@ -2462,7 +2667,7 @@ def dp_phase(dev, smi: str) -> dict:
         fail("torchrun's run failed:\n" + proc.stdout[-3000:] + proc.stderr[-6000:])
 
     # times
-    summary = {"ranks_s": ranks_s, "steps_per_epoch": spe, "launch_s": launch_s,
+    summary = {"ranks_s": ranks_s, "steps_per_epoch": spe, "launch_s": launch_s, "split": split,
                "one_rank_train_s": one_train_s, "demo_s": [x["demo_s"] for x in ranks],
                "one_rank_demo_s": demo1_s, "metric_err": metric_err, "param_err": param_err,
                "param_errs": param_errs, "demo_err": demo_err,
@@ -2503,6 +2708,12 @@ def dp_phase(dev, smi: str) -> dict:
     launches = {path: [x["launches"][path] for x in ranks] for path in ("dp_train", "dp_demo")}
     frame_launches = {path: [x["frames"][path]["launches"] for x in ranks]
                       for path in ("dp_train", "dp_demo")}
+    # the split frames: each rank's launches in its split graphs' replays
+    # (profiled), and the wrappers' in their first frames
+    frame_launches["dp_split"] = [{k: sum(c["launches"][k] for c in x["split"].values())
+                                   for k in FRAME_SIGNATURE} for x in ranks]
+    launches["dp_split"] = [{k: sum(c["launches_counted"][k] for c in x["split"].values())
+                             for k in FRAME_SIGNATURE} for x in ranks]
     return {"summary": summary, "calls": calls, "nerf": eng1.cfg.nerf, "launches": launches,
             "frame_launches": frame_launches,
             "by_epoch": [[(stage, n) for path, stage, n, *_ in x["epochs"]
@@ -2515,12 +2726,16 @@ def nccl_phase(smi: str, graph: dict) -> Optional[dict]:
     torch.distributed.run``) of ``dp_rank`` without the CLI, one rank a
     card (the backend rule picks NCCL), each running the step kinds
     (``nccl_kinds``): the graph route is one CUDA graph a step, its
-    collectives captured in it.  Checks (``check_nccl_kinds``): the graph's
-    state equal to the loop's bit for bit on every rank and the same on
-    all ranks, one graph a step, the launches a step; prints the ms a step of
-    both routes in turns, the loop's all-reduce on the host and the NCCL
-    kernels' ms a step on the card.  With one card it prints that it is
-    skipped and returns None."""
+    collectives captured in it; then frames split over the ranks
+    (``split_frames`` of ``NCCL_SPLIT_CELLS``).  Checks
+    (``check_nccl_kinds``): the graph's state equal to the loop's bit for
+    bit on every rank and the same on all ranks, one graph a step, the
+    launches a step; prints the ms a step of both routes in turns, the
+    loop's all-reduce on the host and the NCCL kernels' ms a step on the
+    card; (``check_split_frames``) each split frame the same on every rank
+    and bit for bit one process's frame in chunks of a block, its ms
+    against one process's graph frame, the gather's.  Then ``nccl_cli``.
+    With one card it prints that it is skipped and returns None."""
     import os
     import pathlib
     import shutil
@@ -2535,7 +2750,8 @@ def nccl_phase(smi: str, graph: dict) -> Optional[dict]:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     rc, out = torchrun(n, [str(pathlib.Path(__file__).resolve()), "--dp-rank",
-                           json.dumps({"work": str(work), "kinds": True})], 600)
+                           json.dumps({"work": str(work), "kinds": True, "split": "nccl"})],
+                       900)
     if rc != 0:
         fail(f"nccl phase: torchrun over {n} cards exited {rc}:\n" + out[-8000:])
     ranks = [json.loads((work / f"rank{r}.json").read_text()) for r in range(n)]
@@ -2544,13 +2760,48 @@ def nccl_phase(smi: str, graph: dict) -> Optional[dict]:
             fail(f"nccl rank {r}: {x['rank']} of {x['world']}, {x['backend']} on {x['device']}: "
                  f"rank {r} of {n}, nccl on cuda:{r} wanted")
     kinds = check_nccl_kinds(ranks, graph["kinds"], smi)
+    split = check_split_frames(ranks, NCCL_SPLIT_CELLS, smi, "nccl")
+    kernels = split_kernels(torch.load(work / "calls.pt", weights_only=False), ranks,
+                            "nccl_split")
 
     launch_s, frames, epochs = nccl_cli(work, n, smi)
     shutil.rmtree(work, ignore_errors=True)
     seconds = time.perf_counter() - t_phase
     print(f"nccl phase: {n} cards, {seconds:.1f} s", flush=True)
-    return {"cards": n, "kinds": kinds, "launch_s": launch_s, "launch_frames": frames,
-            "launch_epochs": epochs, "seconds": seconds, "card": smi}
+    return {"cards": n, "kinds": kinds, "split": split, "kernels": kernels,
+            "launch_s": launch_s, "launch_frames": frames, "launch_epochs": epochs,
+            "seconds": seconds, "card": smi}
+
+
+def split_kernels(calls: dict, ranks: list, path: str) -> list:
+    """The kernels line's entries of a split path: K1, K2 and K4 held
+    against their plain versions, with the planted faults, and timed on
+    the block inputs rank 0 gave them there (``calls``, recorded by
+    ``split_rank``; ``path_kernel_numbers`` at ``Config()``'s widths, which
+    ``frame_cell`` keeps); "launches" those of every rank's split graphs'
+    replays (profiled, ``split_frames``), "launches_by_rank" the wrappers'
+    in each rank's first frames, "launches_counted" rank 0's.  Fails
+    unless each of them was held on the path."""
+    from mc_nerf_torch.config import Config
+
+    failures = []
+    checked = path_kernel_numbers(calls, Config().nerf, np.random.default_rng(SEED), RENDER_TOL,
+                                  MLP_TOL, plants=True, failures=failures)
+    if failures:
+        fail(f"the {path} kernel checks failed: " + "; ".join(failures))
+    if set(checked) != {(path, name) for name in FRAME_SIGNATURE}:
+        fail(f"kernels checked on the {path} path {sorted(checked)}")
+    kernels = []
+    for (_, name), shapes in checked.items():
+        numbers = per_launch_over_shapes(shapes)
+        replayed = [sum(c["launches"][name] for c in x["split"].values()) for x in ranks]
+        kernels.append({"name": name, "path": path, "route": "cuda", "source": SOURCES[name],
+                        "replaces": REPLACES[name], **numbers,
+                        "launches_by_rank": [sum(c["launches_counted"][name]
+                                                 for c in x["split"].values()) for x in ranks],
+                        "launches_in_frame_graphs_by_rank": replayed,
+                        "launches": sum(replayed), "launches_counted": numbers["launches"]})
+    return kernels
 
 
 def nccl_cli(work, n: int, smi: str, timeout: float = 300.0) -> tuple:
@@ -2560,8 +2811,9 @@ def nccl_cli(work, n: int, smi: str, timeout: float = 300.0) -> tuple:
     engine over NCCL, one rank a card.  Fails unless it exits 0 within
     ``timeout`` seconds (printing what the ranks wrote if not), keeps
     every checkpoint, logs one graph of the step over the ``n`` ranks and
-    renders rank 0's validation frame through one graph of the frame,
-    captured while the group and the step graphs live.  Returns (its
+    renders the validation frames split over the ranks, each rank's blocks
+    through one graph, captured while the group and the step graphs live,
+    and gathered after its replay.  Returns (its
     seconds, the frames' routes logged, {epoch: its seconds and ms a
     step, from the engine's log})."""
     import os
@@ -2600,7 +2852,9 @@ def nccl_cli(work, n: int, smi: str, timeout: float = 300.0) -> tuple:
     if (rc != 0 or kept != list(range(sum(DP_CUTS["launch stages"])))
             or not routes or not all(f"one CUDA graph of the step over {n} ranks" in r
                                      for r in routes)
-            or not frames or not all(r.startswith("one CUDA graph of the frame") for r in frames)):
+            or not frames or not all(r.startswith("one CUDA graph of the frame")
+                                     and f"split over {n} ranks, one all-gather a frame" in r
+                                     for r in frames)):
         fail("nccl: torchrun's run failed:\n" + out[-8000:])
     return launch_s, frames, epochs
 
@@ -2626,8 +2880,8 @@ def torchrun(n: int, args: list, timeout: float) -> tuple:
 
 def launched_routes(output: str, what: str = "train steps: ") -> list:
     """The distinct routes an engine under ``torchrun`` logged in
-    ``output`` (``train steps: ...``, every rank its own; ``frames: ...``,
-    the ranks that render)."""
+    ``output`` (``train steps: ...`` and ``frames: ...``: rank 0 logs at
+    INFO, the other ranks from WARNING up)."""
     return sorted({line.split(what, 1)[1] for line in output.splitlines() if what in line})
 
 
@@ -2875,6 +3129,27 @@ def engine_recorder(fn, name: str, shape_of, where: list, calls: dict, last: boo
             rec["n"] += 1
         return fn(*args)
     return call
+
+
+@contextlib.contextmanager
+def recording_frames(where: list, calls: dict):
+    """The eval kernels' entry points in ``models/nerf.py`` (K1, K2, K4)
+    recorded into ``calls`` while ``where[0]`` names a path
+    (``engine_recorder``, each shape's last call); restored on exit."""
+    import mc_nerf_torch.models.nerf as nerf_module
+
+    wrapped = {"fused_render": lambda a: f"{a[2].shape[0]} rays x {a[8]}",
+               "fused_mlp_apply": lambda a: f"{a[1].shape[0]} points",
+               "fused_shaded_mlp": lambda a: f"{a[2].shape[0]} rays x {a[5]}"}
+    originals = {name: getattr(nerf_module, name) for name in wrapped}
+    for name, shape_of in wrapped.items():
+        setattr(nerf_module, name, engine_recorder(originals[name], name, shape_of, where, calls,
+                                                   last=True))
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(nerf_module, name, fn)
 
 
 def shaded_numbers(nc, pk, feat, basis16, depth, skips, s, nb, iters: int = 5) -> dict:
@@ -3443,8 +3718,7 @@ def main() -> None:
     nb = (nc.sh_deg + 1) ** 2
     rng = np.random.default_rng(SEED)
     errs = {"fused_mlp_apply": 0.0, "fused_render": 0.0}   # max abs, for the kernels line
-    mlp_tol = {"rel": MLP_RTOL}
-    render_tol = {"rgb/opacity": RENDER_ATOL, "depth": DEPTH_ATOL, "wsel": RENDER_ATOL}
+    mlp_tol, render_tol = MLP_TOL, RENDER_TOL
 
     # ---- kernel vs plain at the main path's widths
     n_pts = 65536 + 37
@@ -3683,24 +3957,10 @@ def main() -> None:
     # ---- NCCL: one graph a step over the cards, where there are two or more
     nccl = nccl_phase(smi, graph)
 
-    replaces = {"fused_mlp_apply": "mc_nerf_tpu/ops/pallas/fused_mlp.py:241",
-                "fused_render": "mc_nerf_tpu/ops/pallas/fused_render.py:211",
-                "render_bwd_points": "mc_nerf_tpu/ops/pallas/fused_render.py:290",
-                "render_bwd_weights": "mc_nerf_tpu/ops/pallas/fused_render.py:290",
-                "fused_shaded_mlp": "mc_nerf_tpu/ops/pallas/fused_mlp.py:381",
-                "fused_shaded_mlp_bwd": "mc_nerf_tpu/ops/pallas/fused_mlp.py:423",
-                "fused_mlp_bwd": "mc_nerf_tpu/ops/pallas/fused_mlp.py:739"}
-    sources = {"fused_mlp_apply": "mc_nerf_torch/csrc/fused_mlp.cu",
-               "fused_render": "mc_nerf_torch/csrc/fused_render.cu",
-               "render_bwd_points": "mc_nerf_torch/csrc/fused_render_bwd.cu",
-               "render_bwd_weights": "mc_nerf_torch/csrc/fused_render_bwd.cu",
-               "fused_shaded_mlp": "mc_nerf_torch/csrc/fused_shaded.cu",
-               "fused_shaded_mlp_bwd": "mc_nerf_torch/csrc/fused_mlp_bwd.cu",
-               "fused_mlp_bwd": "mc_nerf_torch/csrc/fused_mlp_bwd.cu"}
 
     def entry(name, path, launches, numbers):
-        return {"name": name, "path": path, "route": "cuda", "source": sources[name],
-                "replaces": replaces[name], "launches": launches, "max_abs_err": errs[name],
+        return {"name": name, "path": path, "route": "cuda", "source": SOURCES[name],
+                "replaces": REPLACES[name], "launches": launches, "max_abs_err": errs[name],
                 **numbers}
 
     # one entry per kernel and path, each path's launches counted from 0
@@ -3716,8 +3976,8 @@ def main() -> None:
                              {**chunk_numbers, "launches_counted": demo_counted[name],
                               "per_pass": {"eval chunk": chunk_numbers}}))
     kernels += [{
-        "name": name, "path": "train_step", "route": "cuda", "source": sources[name],
-        "replaces": replaces[name], "launches": train["launches"][name],
+        "name": name, "path": "train_step", "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name], "launches": train["launches"][name],
         "launches_per_step": train["launches"][name] / N_TRAIN, "max_abs_err": errs[name],
         **per_launch(train_numbers[name]),
     } for name in ("fused_render", "render_bwd_points", "render_bwd_weights")]
@@ -3770,15 +4030,15 @@ def main() -> None:
         fail(f"kernels checked on the frame graph path {sorted(frame_checked)}")
     for (path, name), shapes in frame_checked.items():
         numbers = per_launch_over_shapes(shapes)
-        kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
-                        "replaces": replaces[name], **numbers,
+        kernels.append({"name": name, "path": path, "route": "cuda", "source": SOURCES[name],
+                        "replaces": REPLACES[name], **numbers,
                         **frame_numbers(path, name, numbers)})
     for (path, name), shapes in path_kernel_numbers(engine["calls"], engine["nerf"], rng,
                                                     render_tol, mlp_tol).items():
         numbers = per_launch_over_shapes(shapes)
         graphed = in_graphs.get(path, {}).get(name, 0)
-        kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
-                        "replaces": replaces[name], **numbers,
+        kernels.append({"name": name, "path": path, "route": "cuda", "source": SOURCES[name],
+                        "replaces": REPLACES[name], **numbers,
                         **({"launches_in_graphs": graphed,
                             "launches_per_step": graphed / nerf_steps}
                            if path == "engine_train" else {}),
@@ -3795,8 +4055,8 @@ def main() -> None:
     for (path, name), shapes in cli_numbers.items():
         numbers = per_launch_over_shapes(shapes)
         graphed = in_graphs.get(path, {}).get(name, 0)
-        kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
-                        "replaces": replaces[name], **numbers,
+        kernels.append({"name": name, "path": path, "route": "cuda", "source": SOURCES[name],
+                        "replaces": REPLACES[name], **numbers,
                         **({"launches_in_graphs": graphed,
                             "launches_per_nerf_step": graphed / cli_steps[path]}
                            if path in cli_steps else {}),
@@ -3824,8 +4084,8 @@ def main() -> None:
         by_stage = ({STAGE_NAMES[stage]: found.get(SIGNATURE[name], 0)
                      for stage, found in cli_cf["summary"]["per_replay"].items() if stage}
                     if path == "cli_train_cf" else None)
-        kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
-                        "replaces": replaces[name], **numbers,
+        kernels.append({"name": name, "path": path, "route": "cuda", "source": SOURCES[name],
+                        "replaces": REPLACES[name], **numbers,
                         **({"launches_in_graphs": in_graphs[path][name],
                             "launches_per_step_by_stage": by_stage} if by_stage else {}),
                         **frame_numbers(path, name, numbers)})
@@ -3835,7 +4095,8 @@ def main() -> None:
     if set(cf_numbers) != wanted:
         fail(f"kernels checked on the coarse-free CLI paths {sorted(cf_numbers)}, "
              f"wanted {sorted(wanted)}")
-    # the data-parallel paths: K1, K2 and K3 on the inputs rank 0 gave them
+    # the data-parallel paths: K1, K2 and K3 on the inputs rank 0 gave them;
+    # K1, K2 and K4 on rank 0's blocks of the split frames (dp_split)
     failures = []
     dp_numbers = path_kernel_numbers(dp["calls"], dp["nerf"], rng, render_tol, mlp_tol,
                                      plants=True, failures=failures)
@@ -3847,16 +4108,18 @@ def main() -> None:
         by_stage = ({STAGE_NAMES[stage]: n[name] / spe for stage, n in dp["by_epoch"][0]}
                     if path == "dp_train" else None)
         in_frames_by_rank = [f.get(name, 0) for f in dp["frame_launches"][path]]
-        kernels.append({"name": name, "path": path, "route": "cuda", "source": sources[name],
-                        "replaces": replaces[name], **numbers,
+        kernels.append({"name": name, "path": path, "route": "cuda", "source": SOURCES[name],
+                        "replaces": REPLACES[name], **numbers,
                         "launches_by_rank": [n[name] for n in dp["launches"][path]],
                         **({"launches_per_step_by_stage": by_stage} if by_stage else {}),
                         **({"launches_in_frame_graphs_by_rank": in_frames_by_rank}
                            if path == "dp_train" else
                            {"launches": sum(in_frames_by_rank),
                             "launches_counted": numbers["launches"]})})
-    wanted = {(p, n) for p in ("dp_train", "dp_demo") for n in ("fused_mlp_apply", "fused_render")}
-    wanted |= {("dp_train", "render_bwd_points"), ("dp_train", "render_bwd_weights")}
+    wanted = {(p, n) for p in ("dp_train", "dp_demo", "dp_split")
+              for n in ("fused_mlp_apply", "fused_render")}
+    wanted |= {("dp_train", "render_bwd_points"), ("dp_train", "render_bwd_weights"),
+               ("dp_split", "fused_shaded_mlp")}
     if set(dp_numbers) != wanted:
         fail(f"kernels checked on the data-parallel paths {sorted(dp_numbers)}, "
              f"wanted {sorted(wanted)}")
@@ -3880,6 +4143,8 @@ def main() -> None:
     print(json.dumps({"cli_cf": cli_cf["summary"], "cli_cf_launches": cli_cf["launches"],
                       "card": smi}))
     print(json.dumps({"dp": dp["summary"], "dp_launches": dp["launches"], "card": smi}))
+    if nccl is not None:
+        kernels += nccl.pop("kernels")
     print(json.dumps({"nccl": nccl, "card": smi}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -3890,8 +4155,9 @@ def main() -> None:
 def nccl_main() -> None:
     """``python3 chip_smoke.py --nccl``: on a machine with two cards or
     more, the build, the graph phase (one process's graph route, what
-    the ranks are held to) and ``nccl_phase`` alone; its result line
-    last."""
+    the ranks are held to) and ``nccl_phase`` alone; then its result
+    line, the kernels line of its split path (``nccl_split``) and the
+    device line, last."""
     from mc_nerf_torch.ops.cuda import _build
     from mc_nerf_torch.ops.cuda.fused_mlp import (
         fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd)
@@ -3915,7 +4181,12 @@ def nccl_main() -> None:
     nccl = nccl_phase(smi, graph)
     if nccl is None:
         fail("--nccl needs two cards or more")
+    kernels = nccl.pop("kernels")
     print(json.dumps({"nccl": nccl, "card": smi}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
 
 
 if __name__ == "__main__":

@@ -10,9 +10,11 @@ inserts.  Here each rank is one process with one card: every rank holds
 the parameters and the scene, draws the global batch and keeps its
 contiguous block (:func:`batch_slice`, as ``P("data")`` shards a leading
 axis), and the step averages one flat gradient (:func:`all_reduce_mean_`).
-The JAX package also splits an eval chunk over a process's local devices
-with ``shard_map`` (``mc_nerf_tpu/train/steps.py:334-341``); that has no
-counterpart, since a process owns one card.
+The JAX package also splits each eval chunk's rays over its devices with
+``shard_map`` (``mc_nerf_tpu/train/steps.py:334-343``); here the ranks
+split it the same way, each rendering its contiguous block of every
+chunk, and one gather of equal blocks (:func:`all_gather_blocks`) puts
+the frame back together on every rank (``train/steps.py::FrameRender``).
 
 Every helper works without a group as the one-process identity.  Sums
 and means are SUM all-reduces (``ReduceOp.AVG`` is NCCL's alone); a
@@ -95,6 +97,25 @@ def all_reduce_max(t: torch.Tensor) -> torch.Tensor:
     if world_size() > 1:
         dist.all_reduce(out, op=dist.ReduceOp.MAX)
     return out
+
+
+def all_gather_blocks(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``t`` (the same shape on each) stacked along the
+    leading axis in rank order, ``[world * n, ...]``, on every rank; ``t``
+    itself without a group.  NCCL gathers into one tensor; gloo, which
+    runs on the host for CPU and CUDA tensors alike, into a list that is
+    then concatenated."""
+    world = world_size()
+    if world == 1:
+        return t
+    t = t.contiguous()
+    if dist.get_backend() == "nccl":
+        out = t.new_empty((world * t.shape[0], *t.shape[1:]))
+        dist.all_gather_into_tensor(out, t)
+        return out
+    parts = [torch.empty_like(t) for _ in range(world)]
+    dist.all_gather(parts, t)
+    return torch.cat(parts)
 
 
 def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:

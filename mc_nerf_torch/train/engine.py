@@ -37,10 +37,14 @@ Under ``torchrun`` (``parallel/``), with one process per card: each rank
 trains on its block of the global batch (``images_per_batch`` x the world
 size; steps per epoch and rays/s count it), rank 0 builds the detection
 cache while the others wait, writes every checkpoint and prunes them, and
-alone reports cameras, validates and writes TensorBoard; every rank
-refreshes the occupancy map from the same parameters, restores a resume
-and ends ``train`` at a barrier, so a demo or resume launched after it
-sees the last checkpoint.  The demo shards its views over the ranks
+alone reports cameras, scores validation and writes TensorBoard; every
+rank refreshes the occupancy map from the same parameters, restores a
+resume and ends ``train`` at a barrier, so a demo or resume launched
+after it sees the last checkpoint.  Every frame (validation, the demo) is
+split over the ranks, as the JAX engine splits it over its render mesh:
+each rank renders its block of every chunk and the frame is gathered on
+every rank (``FrameRender`` with the engine's world size), so every rank
+renders every validation and demo view; one rank scores and writes each
 (:func:`demo`).
 """
 
@@ -166,12 +170,15 @@ def demo(nerf_params: NerfParams, test_split: SplitData, cfg: Config,
     one (``make_render_fn``).  With ``out_dir`` the pred, depth and gt PNGs
     are written under it.
 
-    Under a process group the views are sharded round robin over the ranks
-    (the JAX demo's ``range(rank, count, world)``): each rank renders,
-    scores and writes its own, per-view rows ``[psnr, ssim, lpips,
-    lpips_valid]`` (zeros for the views of other ranks) are summed with
-    one all-reduce, so every rank returns the same result and each PNG is
-    written once; rank 0 prints it.
+    Under a process group every rank renders every view, in the same
+    order (a frame split over the ranks gathers once; ``render`` None
+    splits it over the group, ``world=world_size()``), and the views are
+    sharded round robin over the ranks for scoring (the JAX demo's
+    ``range(rank, count, world)``): rank ``i % world`` alone scores and
+    writes view ``i``, per-view rows ``[psnr, ssim, lpips, lpips_valid]``
+    (zeros for the views of other ranks) are summed with one all-reduce,
+    so every rank returns the same result and each PNG is written once;
+    rank 0 prints it.
 
     Returns {"psnr", "ssim", "lpips", "count"}: the means over the views;
     LPIPS over the views it scored, None without a weights file.
@@ -179,7 +186,7 @@ def demo(nerf_params: NerfParams, test_split: SplitData, cfg: Config,
     dev = resolve_device(device)
     test = test_split
     if render is None:
-        render = make_render_fn(cfg, test.img_h, test.img_w, device=dev)
+        render = make_render_fn(cfg, test.img_h, test.img_w, device=dev, world=world_size())
     if occ is None and cfg.nerf.occ_grid_size > 0 and cfg.eval.fine_mode == "importance":
         if cull:
             occ = refresh_occupancy(nerf_params, cfg, dev, epoch,
@@ -193,8 +200,10 @@ def demo(nerf_params: NerfParams, test_split: SplitData, cfg: Config,
             os.makedirs(d, exist_ok=True)
 
     per_view = np.zeros((test.count, 4), np.float64)
-    for i in range(rank(), test.count, world_size()):
+    for i in range(test.count):
         rgb, depth, opacity = render(nerf_params, test.poses_w2c[i], test.K[i], occ)
+        if i % world_size() != rank():
+            continue
         gt = torch.as_tensor(test.images_u8[i], device=dev).float() / 255.0
         per_view[i, :2] = float(psnr(rgb, gt)), float(ssim(rgb, gt))
         lp = lpips(rgb, gt)
@@ -440,10 +449,11 @@ class Engine:
     def _render_fn(self, img_h: int, img_w: int) -> FrameRender:
         """The renderer of ``img_h`` x ``img_w`` frames, made once and kept:
         validation and the demo share its graphs (the JAX engine's one
-        compiled program per image size)."""
+        compiled program per image size); its frames are split over the
+        engine's ranks."""
         if (img_h, img_w) not in self._render_fns:
             self._render_fns[(img_h, img_w)] = render = make_render_fn(
-                self.cfg, img_h, img_w, device=self.device)
+                self.cfg, img_h, img_w, device=self.device, world=self.world)
             if not self._frame_route_logged:     # say which route, once
                 logging.info("frames: %s", render.route())
                 self._frame_route_logged = True
@@ -514,8 +524,8 @@ class Engine:
                 self.ckpt.save(epoch, self.state)
                 record["ckpt_seconds"] = time.perf_counter() - t0
                 self._report_cameras(epoch)
-                if stage > 0:
-                    record.update(self._validate(epoch))
+            if stage > 0:             # every rank renders its part of the frame
+                record.update(self._validate(epoch))
         # a demo or resume started after train() sees the last checkpoint
         barrier()
         self.writer.close()
@@ -561,15 +571,24 @@ class Engine:
             logging.exception("pose plot %s failed", path)
 
     def _validate(self, epoch: int) -> dict:
-        """Render one validation view with its ground-truth camera and score
-        it (ref mc_nerf.py:754-813); writes the pred, gt and depth PNGs."""
-        from PIL import Image
-
+        """Render one validation view with its ground-truth camera, on every
+        rank (the frame is split over them), and on rank 0 score it (ref
+        mc_nerf.py:754-813; :meth:`_score_validation`).  Returns the scores,
+        or {} on the other ranks."""
         val = self.scene.val
         idx = epoch % val.count
         occ = self._occ_map if self._occ_eval else None
         rgb, depth, _ = self._render_fn(val.img_h, val.img_w)(
             self.state.params.nerf, val.poses_w2c[idx], val.K[idx], occ)
+        return self._score_validation(epoch, idx, rgb, depth) if is_main_process() else {}
+
+    def _score_validation(self, epoch: int, idx: int, rgb: torch.Tensor,
+                          depth: torch.Tensor) -> dict:
+        """Score validation view ``idx``'s frame, log the scores, write them
+        to TensorBoard and write the pred, gt and depth PNGs."""
+        from PIL import Image
+
+        val = self.scene.val
         gt = torch.as_tensor(val.images_u8[idx], device=self.device).float() / 255.0
         p, s = float(psnr(rgb, gt)), float(ssim(rgb, gt))
         lp = lpips(rgb, gt)

@@ -23,7 +23,9 @@ gloo ranks (their collectives run on the host), the same step body runs
 as a loop.  The frame (:func:`make_render_fn`, the JAX ``jax.jit`` over
 ``lax.map``) is likewise one CUDA graph on the card, captured once for
 each image size and map kind and replayed once a frame; on the CPU, a
-loop over its chunks.
+loop over its chunks.  Over ranks each chunk's rays are split into rank
+blocks and the frame is gathered once after the replay (the JAX
+``shard_map`` render).
 
 Data parallelism (``world`` > 1 ranks of the default process group, the
 JAX package's ``mesh``): every rank draws the global batch of
@@ -69,6 +71,7 @@ from mc_nerf_torch.models.nerf import (
     render_rays_train,
 )
 from mc_nerf_torch.parallel.mesh import (
+    all_gather_blocks,
     all_reduce_max,
     all_reduce_mean_,
     batch_slice,
@@ -524,31 +527,50 @@ class FrameRender:
     fixed-size ray chunks through ``render_rays_eval`` (the last chunk
     padded to full size, so every chunk has the same shapes) and their
     concatenation: the body of the JAX package's ``jax.jit`` over
-    ``lax.map`` (``mc_nerf_tpu/train/steps.py:290-362``).  ``graph`` picks
-    the route (None: a graph on CUDA, the loop on the CPU; the frame has
-    no collective, so the world size does not enter):
+    ``lax.map`` (``mc_nerf_tpu/train/steps.py:290-362``).
+
+    Split over ``world`` > 1 ranks of the default process group (the JAX
+    ``make_render_fn(mesh=...)``'s ``shard_map``, ``:313-343``): the chunk
+    is rounded up to a multiple of ``world`` (:func:`split_chunk`), each
+    rank renders its contiguous block of every chunk (``batch_slice``, the
+    ``P("data")`` block) with the weights, pose and map whole, and one
+    gather of every rank's blocks a frame (``all_gather_blocks``) puts the
+    frame back together in chunk order on every rank.  A block renders as
+    a chunk of its own: the grid mode's cutoff is the block's max, padding
+    rays included, as under ``shard_map``, so a frame split over N ranks
+    is a one-process frame in chunks of ``chunk / N`` rays.  ``world`` is
+    1 or the group's size; 1 under a group renders whole frames with no
+    collective.
+
+    ``graph`` picks the route (None: a graph on CUDA, the loop on the
+    CPU):
 
     * the graph route (CUDA): the first frame of each map kind
       (:meth:`graph_key`: no map, or the map's dtype and shape, on which
-      the JAX jit recompiles too) runs one chunk eagerly on a side stream
-      (the kernels' libraries, cached device constants and workspaces are
-      made outside any capture), then the whole frame is captured as a
+      the JAX jit recompiles too) runs one chunk (split: this rank's block
+      of it) eagerly on a side stream (the kernels' libraries, cached
+      device constants and workspaces are made outside any capture), then
+      this rank's whole part of the frame is captured as a
       ``torch.cuda.CUDAGraph`` in this renderer's memory pool; every frame
-      is then one replay.  The graph owns its inputs: the weights are
-      copied into its own copy of the parameters, the pose and K into
-      device buffers and the map into the graph's buffer, in place,
-      before each replay, so any values a caller passes go in.  A failed
-      capture or replay raises: nothing falls back to the loop.
+      is then one replay.  A split frame's gather runs after the replay,
+      outside the graph, on the current stream, so NCCL and gloo ranks
+      alike keep the graph (gloo's collectives run on the host, which no
+      graph captures).  The graph owns its inputs: the weights are copied
+      into its own copy of the parameters, the pose and K into device
+      buffers and the map into the graph's buffer, in place, before each
+      replay, so any values a caller passes go in.  A failed capture,
+      replay or gather raises: nothing falls back to the loop.
     * the loop (CPU tensors, or ``graph=False``): the same body, eagerly.
 
     ``cfg.eval.use_pallas`` picks the numeric route: None or True renders
     through the Hopper kernels, False through the plain route in
     ``cfg.compute_dtype``.  ``cfg.eval.fine_mode`` picks the fine mode; in
-    grid mode the selection's cutoff is a max over each chunk, padding rays
-    included, as in the JAX package's ``lax.map``.  ``occ`` is an optional
-    sampler map (``ops/occupancy.sampler_map``) for culled coarse sampling
-    (importance mode only); with ``cfg.eval_coarse_free`` the fine depths
-    come from its PMF and no coarse pass runs.
+    grid mode the selection's cutoff is a max over each chunk (split: each
+    block), padding rays included, as in the JAX package's ``lax.map``.
+    ``occ`` is an optional sampler map (``ops/occupancy.sampler_map``) for
+    culled coarse sampling (importance mode only); with
+    ``cfg.eval_coarse_free`` the fine depths come from its PMF and no
+    coarse pass runs.
 
     ``counts`` tallies the frames each way ran ("captured", "replayed",
     "looped"); ``captures`` holds, per map kind, the warm-up's and the
@@ -557,10 +579,14 @@ class FrameRender:
 
     def __init__(self, cfg: Config, img_h: int, img_w: int,
                  rays_per_chunk: Optional[int] = None, device=None,
-                 graph: Optional[bool] = None):
+                 graph: Optional[bool] = None, world: int = 1):
+        if world not in (1, world_size()):
+            raise ValueError(f"a frame split over {world} ranks in a group of {world_size()}")
         self.device = resolve_device(device)
         self.cfg, self.img_h, self.img_w = cfg, img_h, img_w
-        self.chunk = rays_per_chunk or cfg.eval.rays_per_chunk
+        self.world, self.rank = world, (rank() if world > 1 else 0)
+        self.chunk = split_chunk(rays_per_chunk or cfg.eval.rays_per_chunk, world)
+        self.block = self.chunk // world
         self.hw = img_h * img_w
         self.n_chunks = -(-self.hw // self.chunk)
         self.padded = self.n_chunks * self.chunk
@@ -571,7 +597,7 @@ class FrameRender:
         self.counts = dict.fromkeys(("captured", "replayed", "looped"), 0)
         self.captures: Dict[tuple, Dict[str, float]] = {}
         self.pool = None
-        # per map kind: (graph, its map buffer, its outputs)
+        # per map kind: (graph, its map buffer, its output: this rank's part)
         self._graphs: Dict[tuple, tuple] = {}
         self._params: Optional[torch.nn.Module] = None
         self._pose = self._K = None
@@ -587,11 +613,13 @@ class FrameRender:
     def route(self) -> str:
         """The route a frame takes, in words."""
         chunks = f"{self.n_chunks} chunks of {self.chunk} rays"
+        split = (f"; split over {self.world} ranks, one all-gather a frame" if self.world > 1
+                 else "")
         if self.uses_graph():
             return (f"one CUDA graph of the frame ({chunks}), captured once a map kind and "
-                    "replayed once a frame")
+                    f"replayed once a frame{split}")
         why = "CPU tensors" if self.device.type != "cuda" else "graph=False"
-        return f"the chunk loop ({why}; {chunks})"
+        return f"the chunk loop ({why}; {chunks}){split}"
 
     @staticmethod
     def graph_key(occ: Optional[torch.Tensor]) -> tuple:
@@ -600,25 +628,38 @@ class FrameRender:
         return ("none",) if occ is None else (str(occ.dtype), tuple(occ.shape))
 
     def _chunks(self, nerf_params, pose_w2c, K, occ, starts) -> list:
-        """The frame body up to the chunks starting at ``starts``: their
-        (rgb, depth, opacity)."""
+        """The frame body up to the chunks starting at ``starts``: the
+        (rgb, depth, opacity) of each one's block of this rank (the whole
+        chunk with one rank)."""
         pix = F.pad(pixel_grid(self.img_h, self.img_w, device=self.device),
                     (0, 0, 0, self.padded - self.hw))
         rays_d, rays_o = rays_for_pixels(pix, pose_w2c, K)
         packed = pack_eval_params(nerf_params, self.cfg.nerf) if self.use_kernels else None
-        ev, c = self.cfg.eval, self.chunk
-        return [render_rays_eval(nerf_params, rays_d[i:i + c], rays_o[i:i + c], self.cfg.nerf,
-                                 self.cd, fine_mode=ev.fine_mode,
-                                 importance_samples=ev.importance_samples, packed=packed,
-                                 occ=occ, coarse_free=self.cfg.eval_coarse_free)
+        ev, own = self.cfg.eval, batch_slice(self.chunk, self.rank, self.world)
+        return [render_rays_eval(nerf_params, rays_d[i + own.start:i + own.stop],
+                                 rays_o[i + own.start:i + own.stop], self.cfg.nerf, self.cd,
+                                 fine_mode=ev.fine_mode, importance_samples=ev.importance_samples,
+                                 packed=packed, occ=occ, coarse_free=self.cfg.eval_coarse_free)
                 for i in starts]
 
-    def _frame(self, nerf_params, pose_w2c, K, occ) -> Tuple[torch.Tensor, ...]:
-        """The whole frame, as both routes run it."""
+    def _frame(self, nerf_params, pose_w2c, K, occ) -> torch.Tensor:
+        """This rank's part of the frame, as both routes run it: its block
+        of every chunk (with one rank, the chunk) as one ``[n_chunks *
+        block, 5]`` tensor of (rgb, depth, opacity) rows."""
         outs = self._chunks(nerf_params, pose_w2c, K, occ, range(0, self.padded, self.chunk))
-        rgb, depth, opacity = (torch.cat(t)[:self.hw] for t in zip(*outs))
+        return torch.cat([torch.cat(out, -1) for out in outs])
+
+    def _whole(self, part: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """The whole frame from every rank's part (:meth:`_frame`): one
+        gather (none with one rank, also under a group), in rank order
+        ``[world, n_chunks, block]``, put back in chunk order and cut to the
+        image; each output a fresh copy (a lane of the rows is strided)."""
+        rows = all_gather_blocks(part) if self.world > 1 else part
+        rows = rows.view(self.world, self.n_chunks, self.block, 5)
+        rows = rows.transpose(0, 1).reshape(self.padded, 5)[:self.hw]
         h, w = self.img_h, self.img_w
-        return rgb.reshape(h, w, 3), depth.reshape(h, w), opacity.reshape(h, w)
+        return (rows[:, :3].reshape(h, w, 3).contiguous(), rows[:, 3].reshape(h, w).contiguous(),
+                rows[:, 4].reshape(h, w).contiguous())
 
     def _write_inputs(self, nerf_params, pose_w2c, K) -> None:
         """The weights, pose and K, written in place into the graphs'
@@ -660,11 +701,11 @@ class FrameRender:
         reserved = torch.cuda.memory_reserved(dev)
         g = torch.cuda.CUDAGraph()
         with torch.cuda.graph(g, pool=self.pool, stream=side):
-            outs = self._frame(self._params, self._pose, self._K, occ_buf)
+            part = self._frame(self._params, self._pose, self._K, occ_buf)
         self.captures[key] = {"warmup_s": t1 - t0, "capture_s": time.perf_counter() - t1,
                               "pool_mib": (torch.cuda.memory_reserved(dev) - reserved) / 2**20,
                               "replays": 0}
-        self._graphs[key] = (g, occ_buf, outs)
+        self._graphs[key] = (g, occ_buf, part)
         self.counts["captured"] += 1
 
     def release(self) -> None:
@@ -683,25 +724,33 @@ class FrameRender:
             # transposed pose (a w2c from a c2w) would run in another order
             pose_w2c, K = (torch.as_tensor(x, dtype=torch.float32, device=self.device)
                            .contiguous() for x in (pose_w2c, K))
-            return self._frame(nerf_params, pose_w2c, K, occ)
+            return self._whole(self._frame(nerf_params, pose_w2c, K, occ))
         key = self.graph_key(occ)
         self._write_inputs(nerf_params, pose_w2c, K)
         if key not in self._graphs:
             self.capture(occ)
-        g, occ_buf, outs = self._graphs[key]
+        g, occ_buf, part = self._graphs[key]
         if occ is not None:
             occ_buf.copy_(occ)
         g.replay()
         self.counts["replayed"] += 1
         self.captures[key]["replays"] += 1
-        return tuple(t.clone() for t in outs)
+        return self._whole(part)
+
+
+def split_chunk(rays_per_chunk: int, world: int) -> int:
+    """A chunk of ``rays_per_chunk`` rays rounded up to a multiple of
+    ``world``, so that it splits into equal rank blocks
+    (``mc_nerf_tpu/train/steps.py:314-315``)."""
+    return -(-rays_per_chunk // world) * world
 
 
 def make_render_fn(cfg: Config, img_h: int, img_w: int,
                    rays_per_chunk: Optional[int] = None,
-                   device=None, graph: Optional[bool] = None) -> FrameRender:
+                   device=None, graph: Optional[bool] = None, world: int = 1) -> FrameRender:
     """Full-image renderer: a :class:`FrameRender` (``(nerf_params,
     pose_w2c, K, occ=None) -> (rgb, depth, opacity)``), one replayed CUDA
     graph a frame on the card (``graph`` None: CUDA), else a loop over the
-    chunks."""
-    return FrameRender(cfg, img_h, img_w, rays_per_chunk, device, graph)
+    chunks; with ``world`` > 1 ranks, each chunk split over them and the
+    frame gathered once (the JAX ``make_render_fn(mesh=...)``)."""
+    return FrameRender(cfg, img_h, img_w, rays_per_chunk, device, graph, world)

@@ -22,9 +22,10 @@ protocol on 2 ranks (5 steps an epoch: 5 views x 2 / 2 images) gives:
     refresh, the same bits on both ranks;
   * a resume from the epoch-1 checkpoint (epoch 0's is pruned) ending on
     the uninterrupted run's bits on both ranks;
-  * the demo: the views sharded over the ranks, each PNG written once, one
-    stamped directory, the same dict on both ranks, and the scores of the
-    1-rank demo of the same checkpoint.
+  * the demo: every view rendered on both ranks (each frame split over
+    them), the views' scoring sharded over the ranks, each PNG written
+    once, one stamped directory, the same dict on both ranks, and the
+    scores of the 1-rank demo of the same checkpoint.
 """
 
 import dataclasses
