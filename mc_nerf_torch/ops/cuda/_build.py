@@ -7,7 +7,8 @@ use, into ``build/mc_nerf_torch/<hash>/`` at the repository root, keyed by a
 hash of every source and header and of the flags, so an edited kernel
 rebuilds and an unchanged one loads as is.  Nothing here runs at import
 time: a machine with no ``nvcc`` imports the package and runs the plain
-versions on CPU tensors.
+versions on CPU tensors.  The counter ``kernels.built`` counts the
+libraries ``nvcc`` compiled in this process (``utils/trace.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+from mc_nerf_torch.utils import trace
 
 _PKG = Path(__file__).resolve().parents[2]          # .../mc_nerf_torch
 CSRC = _PKG / "csrc"
@@ -77,11 +80,14 @@ def build_all() -> Path:
             tmp.replace(out / f"lib{cu.stem}.so")   # atomic publish
     if errors:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+    trace.count("kernels.built", len(todo))
     return out
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building all first."""
+    """The loaded library of ``csrc/<name>.cu``, building all first; the
+    first load of each is the span ``kernels.load``."""
     if name not in _libs:
-        _libs[name] = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
+        with trace.span("kernels.load", library=name):
+            _libs[name] = ctypes.CDLL(str(build_all() / f"lib{name}.so"))
     return _libs[name]

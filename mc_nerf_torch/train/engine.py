@@ -24,7 +24,12 @@ the cameras restarted and a checkpoint restored in place.  A frame
 (validation, the demo) goes through ``train/steps.py``'s
 :class:`FrameRender` of its size, which the engine keeps: on the card one
 CUDA graph a map kind, replayed once a frame; on the CPU the chunk loop
-(:meth:`Engine.close` drops the step and frame graphs).
+(:meth:`Engine.close` drops the step and frame graphs).  Each epoch is the
+span ``engine.epoch`` (``utils/trace.py``), holding ``engine.steps``
+(through the epoch-end read), ``engine.restart_cameras``,
+``engine.refresh``, ``engine.checkpoint`` and ``engine.validate``; the
+history's seconds are those spans', and :meth:`Engine.train` ends by
+logging the tracer's table.
 
 A scene without a detection cache (a reference-format scene: calib and
 coord images only) gets one from the tag36h11 detector before training.
@@ -95,6 +100,7 @@ from mc_nerf_torch.train.steps import (
     make_render_fn,
     make_stage_epoch,
 )
+from mc_nerf_torch.utils import trace
 from mc_nerf_torch.utils.logging import is_main_process, setup_logging
 from mc_nerf_torch.utils.tensorboard import ScalarWriter
 from mc_nerf_torch.utils.visualization import (
@@ -370,8 +376,10 @@ class Engine:
         self._data: Optional[TrainData] = None
         self._frame_route_logged = False
         self._table_rows = []
-        # per trained epoch: epoch, stage, the mean metrics, seconds, rays/s,
-        # checkpoint seconds and (stages 1-2) the validation scores
+        # per trained epoch: epoch, stage, the mean metrics, seconds (the
+        # steps through the epoch-end read), rays/s, the seconds of the step
+        # graph's capture, the refresh, the checkpoint and the validation
+        # (their spans'), and (stages 1-2) the validation scores
         self.history = []
         # occupancy state: derived from the coarse MLP, never checkpointed;
         # resume and demo rebuild it in one lattice evaluation
@@ -393,9 +401,10 @@ class Engine:
         ``nerf.refresh_source`` names for ``epoch``'s stage (the coarse in
         two-pass stages): fresh the first time, EMA-max after."""
         source = self.cfg.nerf.refresh_source(self.cfg.stages.stage_of_epoch(epoch))
-        self.occ_grid = refresh_grid(self.state.params.nerf, self.cfg, self.device, epoch,
-                                     self.occ_grid, source)
-        self._set_occ_map(sampler_map(self.occ_grid, self.cfg.nerf))
+        with trace.span("engine.refresh", epoch=epoch):
+            self.occ_grid = refresh_grid(self.state.params.nerf, self.cfg, self.device, epoch,
+                                         self.occ_grid, source)
+            self._set_occ_map(sampler_map(self.occ_grid, self.cfg.nerf))
 
     def _set_occ_map(self, occ: torch.Tensor) -> None:
         """The sampler map, written into the one buffer the train data
@@ -486,50 +495,65 @@ class Engine:
             data = self._data = data._replace(occ=self._occ_map)
 
         for epoch in range(start_epoch, cfg.stages.total_epochs):
-            stage = cfg.stages.stage_of_epoch(epoch)
-            t0 = time.perf_counter()
-            self._gen.manual_seed(fold_seed(cfg.train.seed, epoch))
-            metrics = {k: float(v)
-                       for k, v in self._epoch_fn(stage)(self.state, data, self._gen).items()}
-            dt = time.perf_counter() - t0
-            rays_per_s = 0.0 if stage == 0 else (
-                spe * self.images_per_batch * cfg.train.rays_per_batch / dt)
-            logging.info("%s %d | loss %.6f | intr %.6f | extr %.6f | rgb_c %.5f rgb_f %.5f"
-                         " | %.1fs (%.0f rays/s)", STAGE_NAMES[stage], epoch, metrics["loss"],
-                         metrics["loss_intr"], metrics["loss_extr"], metrics["loss_rgb_c"],
-                         metrics["loss_rgb_f"], dt, rays_per_s)
-            for k, v in metrics.items():
-                self.writer.scalar(f"train/{k}", v, epoch)
-            record = {"epoch": epoch, "stage": stage, **metrics, "seconds": dt,
-                      "rays_per_s": rays_per_s}
-            self.history.append(record)
-
-            # rescue cameras stuck in reflection minima, while the
-            # calibration stage still has epochs left to re-converge
-            if stage == 0 and epoch < cfg.stages.cam_param_epochs - 1:
-                self._maybe_restart_cameras(data, epoch)
-
-            # the refresh (from the coarse MLP in two-pass stages) once the
-            # NeRF stages train it, gated on occ_warmup_steps of NeRF
-            # training: a grid from a barely trained field mislocalizes the
-            # culling
-            nerf_epochs_done = epoch + 1 - cfg.stages.cam_param_epochs
-            if (self._occ_train and stage >= 1
-                    and nerf_epochs_done % cfg.nerf.occ_update_every == 0
-                    and nerf_epochs_done * spe >= cfg.nerf.occ_warmup_steps):
-                self._refresh_occupancy(epoch)
-
-            if is_main_process():     # one writer; the ranks hold the same bits
-                t0 = time.perf_counter()
-                self.ckpt.save(epoch, self.state)
-                record["ckpt_seconds"] = time.perf_counter() - t0
-                self._report_cameras(epoch)
-            if stage > 0:             # every rank renders its part of the frame
-                record.update(self._validate(epoch))
+            with trace.span("engine.epoch", epoch=epoch,
+                            stage=cfg.stages.stage_of_epoch(epoch)) as ep:
+                self._train_epoch(epoch, data)
+            record = self.history[-1]
+            record["refresh_seconds"] = ep.within.get("engine.refresh", 0.0)
+            record["validate_seconds"] = ep.within.get("engine.validate", 0.0)
         # a demo or resume started after train() sees the last checkpoint
         barrier()
         self.writer.close()
+        logging.info("trace (spans, counters, device intervals):\n%s", trace.table())
         return self.state
+
+    def _train_epoch(self, epoch: int, data: TrainData) -> None:
+        """One epoch of :meth:`train`: its steps, then the camera restart,
+        the refresh, the checkpoint and the validation it is due; its
+        record appended to ``history``."""
+        cfg, spe = self.cfg, self.steps_per_epoch
+        stage = cfg.stages.stage_of_epoch(epoch)
+        with trace.span("engine.steps", epoch=epoch, stage=stage) as steps:
+            self._gen.manual_seed(fold_seed(cfg.train.seed, epoch))
+            metrics = {k: float(v)       # the epoch-end read
+                       for k, v in self._epoch_fn(stage)(self.state, data, self._gen).items()}
+        dt, capture_s = steps.seconds, steps.within.get("epoch.capture", 0.0)
+        rays = 0 if stage == 0 else spe * self.images_per_batch * cfg.train.rays_per_batch
+        logging.info("%s %d | loss %.6f | intr %.6f | extr %.6f | rgb_c %.5f rgb_f %.5f"
+                     " | %.1fs (%.0f rays/s; %.0f rays/s without the capture's %.1fs)",
+                     STAGE_NAMES[stage], epoch, metrics["loss"], metrics["loss_intr"],
+                     metrics["loss_extr"], metrics["loss_rgb_c"], metrics["loss_rgb_f"], dt,
+                     rays / dt, rays / (dt - capture_s), capture_s)
+        for k, v in metrics.items():
+            self.writer.scalar(f"train/{k}", v, epoch)
+        record = {"epoch": epoch, "stage": stage, **metrics, "seconds": dt,
+                  "rays_per_s": rays / dt, "capture_seconds": capture_s}
+        self.history.append(record)
+
+        # rescue cameras stuck in reflection minima, while the
+        # calibration stage still has epochs left to re-converge
+        if stage == 0 and epoch < cfg.stages.cam_param_epochs - 1:
+            with trace.span("engine.restart_cameras", epoch=epoch):
+                self._maybe_restart_cameras(data, epoch)
+
+        # the refresh (from the coarse MLP in two-pass stages) once the
+        # NeRF stages train it, gated on occ_warmup_steps of NeRF
+        # training: a grid from a barely trained field mislocalizes the
+        # culling
+        nerf_epochs_done = epoch + 1 - cfg.stages.cam_param_epochs
+        if (self._occ_train and stage >= 1
+                and nerf_epochs_done % cfg.nerf.occ_update_every == 0
+                and nerf_epochs_done * spe >= cfg.nerf.occ_warmup_steps):
+            self._refresh_occupancy(epoch)
+
+        if is_main_process():     # one writer; the ranks hold the same bits
+            with trace.span("engine.checkpoint", epoch=epoch) as ckpt:
+                self.ckpt.save(epoch, self.state)
+            record["ckpt_seconds"] = ckpt.seconds
+            self._report_cameras(epoch)
+        if stage > 0:             # every rank renders its part of the frame
+            with trace.span("engine.validate", epoch=epoch):
+                record.update(self._validate(epoch))
 
     @torch.no_grad()
     def _maybe_restart_cameras(self, data: TrainData, epoch: int) -> None:

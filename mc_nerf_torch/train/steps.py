@@ -43,7 +43,6 @@ from __future__ import annotations
 import copy
 import dataclasses
 import gc
-import time
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -88,6 +87,7 @@ from mc_nerf_torch.train.optim import (
     flat_grads,
     flatten_params,
 )
+from mc_nerf_torch.utils import trace
 
 
 class TrainData(NamedTuple):
@@ -362,7 +362,12 @@ class StageEpoch:
     the sums) is allocated outside the pool.  :meth:`release` drops the
     graph (over NCCL it holds the group's communicator: release it before
     the group is destroyed).  ``counts`` tallies the steps each way ran:
-    "warmup", "captured", "replayed" and "looped"."""
+    "warmup", "captured", "replayed" and "looped".
+
+    Spans (``utils/trace.py``), tagged with the stage: ``epoch.capture``
+    (with its ``epoch.warmup``), ``epoch.check_buffers``, ``epoch.launch``
+    (an epoch's first replay: its launch onto an empty queue) and
+    ``epoch.replay`` (the rest); ``epoch.loop`` on the loop route."""
 
     def __init__(self, cfg: Config, stage: int, tx: FlatRAdam, img_h: int, img_w: int,
                  total_steps: int, steps_per_epoch: int, world: int = 1,
@@ -453,7 +458,7 @@ class StageEpoch:
         gen_state = generator.get_state()
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
+        with trace.span("epoch.warmup", stage=self.stage), torch.cuda.stream(side):
             for _ in range(WARMUP_STEPS):
                 self._step(state, data, generator)
         torch.cuda.current_stream(dev).wait_stream(side)
@@ -471,6 +476,7 @@ class StageEpoch:
         with torch.cuda.graph(g, pool=self.pool, stream=side):
             self._step(state, data, generator)
         self.counts["captured"] += 1
+        trace.count("graph.captures")
         self._cuda_graph = g
         self.bind(state, data, generator)
 
@@ -493,16 +499,25 @@ class StageEpoch:
         graph = self.uses_graph(dev)
         self._sums_on(dev).zero_()
         if graph and self._cuda_graph is None:
-            self.capture(state, data, generator)
-        n = self.steps_per_epoch
+            with trace.span("epoch.capture", stage=self.stage):
+                self.capture(state, data, generator)
+        n, stage = self.steps_per_epoch, self.stage
         if graph:
-            self.check_buffers(state, data, generator)
-            for _ in range(n):
+            with trace.span("epoch.check_buffers", stage=stage):
+                self.check_buffers(state, data, generator)
+            # the first replay is launched onto a queue the caller's
+            # epoch-end read emptied: its host time is the launch's cost
+            with trace.span("epoch.launch", units=1, stage=stage):
                 self._cuda_graph.replay()
+            if n > 1:
+                with trace.span("epoch.replay", units=n - 1, stage=stage):
+                    for _ in range(n - 1):
+                        self._cuda_graph.replay()
             self.counts["replayed"] += n
         else:
-            for _ in range(n):
-                self._step(state, data, generator)
+            with trace.span("epoch.loop", units=n, stage=stage):
+                for _ in range(n):
+                    self._step(state, data, generator)
             self.counts["looped"] += n
         means = (self._sums / n).float()
         return dict(zip(METRICS, all_reduce_mean_(means)))
@@ -574,8 +589,16 @@ class FrameRender:
 
     ``counts`` tallies the frames each way ran ("captured", "replayed",
     "looped"); ``captures`` holds, per map kind, the warm-up's and the
-    capture's seconds, the memory the capture reserved (MiB) and the
-    replays.  :meth:`release` drops the graphs."""
+    capture's seconds (their spans'), the memory the capture reserved
+    (MiB) and the replays.  :meth:`release` drops the graphs.
+
+    Spans (``utils/trace.py``), tagged with the renderer's frame number:
+    ``frame.inputs``, ``frame.launch`` (the replay's launch),
+    ``frame.gather`` and, at a capture, ``frame.warmup`` and
+    ``frame.capture``; ``frame.loop`` on the loop route.  On the graph
+    route the device interval ``frame.caller`` runs from a frame's
+    outputs to the next call's first work: the card's wait for its
+    caller."""
 
     def __init__(self, cfg: Config, img_h: int, img_w: int,
                  rays_per_chunk: Optional[int] = None, device=None,
@@ -686,27 +709,28 @@ class FrameRender:
         occ_buf = None if occ is None else torch.empty_like(occ, device=dev).copy_(occ)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        t0 = time.perf_counter()
-        with torch.cuda.stream(side):
-            self._chunks(self._params, self._pose, self._K, occ_buf, (0,))
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-        # torch.cuda.graph empties the cache on entry: do it first, so that
-        # the growth below is the capture's own
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g, pool=self.pool, stream=side):
-            part = self._frame(self._params, self._pose, self._K, occ_buf)
-        self.captures[key] = {"warmup_s": t1 - t0, "capture_s": time.perf_counter() - t1,
+        with trace.span("frame.warmup") as warmup:
+            with torch.cuda.stream(side):
+                self._chunks(self._params, self._pose, self._K, occ_buf, (0,))
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+        with trace.span("frame.capture") as capture:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            # torch.cuda.graph empties the cache on entry: do it first, so
+            # that the growth below is the capture's own
+            gc.collect()
+            torch.cuda.empty_cache()
+            reserved = torch.cuda.memory_reserved(dev)
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=self.pool, stream=side):
+                part = self._frame(self._params, self._pose, self._K, occ_buf)
+        self.captures[key] = {"warmup_s": warmup.seconds, "capture_s": capture.seconds,
                               "pool_mib": (torch.cuda.memory_reserved(dev) - reserved) / 2**20,
                               "replays": 0}
         self._graphs[key] = (g, occ_buf, part)
         self.counts["captured"] += 1
+        trace.count("graph.captures")
 
     def release(self) -> None:
         """Drop every captured graph; a later frame captures anew, in a new
@@ -718,24 +742,34 @@ class FrameRender:
 
     @torch.no_grad()
     def __call__(self, nerf_params, pose_w2c, K, occ=None):
+        frame = self.counts["replayed"] + self.counts["looped"]
         if not self.uses_graph():
             self.counts["looped"] += 1
-            # contiguous, as the graph's buffers are: the rays' sums over a
-            # transposed pose (a w2c from a c2w) would run in another order
-            pose_w2c, K = (torch.as_tensor(x, dtype=torch.float32, device=self.device)
-                           .contiguous() for x in (pose_w2c, K))
-            return self._whole(self._frame(nerf_params, pose_w2c, K, occ))
+            with trace.span("frame.loop", units=1, frame=frame):
+                # contiguous, as the graph's buffers are: the rays' sums over
+                # a transposed pose (a w2c from a c2w) would run in another
+                # order
+                pose_w2c, K = (torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                               .contiguous() for x in (pose_w2c, K))
+                return self._whole(self._frame(nerf_params, pose_w2c, K, occ))
+        # the card's wait for the caller since the last frame's outputs
+        trace.interval_end("frame.caller", self.device)
         key = self.graph_key(occ)
-        self._write_inputs(nerf_params, pose_w2c, K)
+        with trace.span("frame.inputs", frame=frame):
+            self._write_inputs(nerf_params, pose_w2c, K)
+            if occ is not None and key in self._graphs:
+                self._graphs[key][1].copy_(occ)
         if key not in self._graphs:
-            self.capture(occ)
-        g, occ_buf, part = self._graphs[key]
-        if occ is not None:
-            occ_buf.copy_(occ)
-        g.replay()
+            self.capture(occ)        # copies the map into the graph's buffer
+        g, _, part = self._graphs[key]
+        with trace.span("frame.launch", units=1, frame=frame):
+            g.replay()
         self.counts["replayed"] += 1
         self.captures[key]["replays"] += 1
-        return self._whole(part)
+        with trace.span("frame.gather", frame=frame):
+            out = self._whole(part)
+        trace.interval_start("frame.caller", self.device)
+        return out
 
 
 def split_chunk(rays_per_chunk: int, world: int) -> int:
