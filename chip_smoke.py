@@ -12,14 +12,17 @@ on a reference-format scene.
    fine full 8x256, 65,536 points plus a ragged tail) and ``fused_render``
    (flags (F,F), (T,T), (T,F) at s=32 and s=48, 2,000 rays); then times
    both, and compares them again, on one eval chunk of 16384 rays (48
-   coarse, 32 fine samples per ray).
+   coarse, 32 fine samples per ray); holds ``sample_pdf``'s kernel against
+   its plain body (``draw_gap``: each draw within rounding) at the frame
+   chunk's two calls and the train step's two, and times both.
 3. Drives the demo (``mc_nerf_torch.train.engine.demo``) at the library's
    default full width over two 800x800 views, with the occupancy refresh,
    through a renderer whose first frame captures the frame as a CUDA
-   graph, and checks that both kernels ran (the wrappers count the
-   warm-up's and the capture's launches, the profiler those of a replay
-   of the graph, times its replays: ``replayed_frames``); renders one
-   chunk through the plain route and compares; times frames.
+   graph, and checks that K1, K2 and ``sample_pdf``'s kernel ran (the
+   wrappers count the warm-up's and the capture's launches, the profiler
+   those of a replay of the graph, times its replays: ``replayed_frames``);
+   renders a frame again with ``sample_pdf``'s plain body and one chunk
+   through the plain route, and compares; times frames.
 4. The training slice: ``fused_render`` at the training packs and flags
    (coarse full 4x128, s=48, noise + wsel; fine 8x256, s=32, noise; 7000
    rays); the backward's two launches (``render_bwd_points``,
@@ -190,6 +193,16 @@ RENDER_ATOL = 2e-2         # rgb / opacity / wsel
 DEPTH_ATOL = 5e-2          # depth, in [near, far] = [1, 8]
 MLP_TOL = {"rel": MLP_RTOL}
 RENDER_TOL = {"rgb/opacity": RENDER_ATOL, "depth": DEPTH_ATOL, "wsel": RENDER_ATOL}
+# sample_pdf's kernel vs its plain body (csrc/sample_pdf.cu): the PMF's
+# sums in another order, so each draw is held within rounding of the plain
+# body's by ops/cuda/sample_pdf.py::draw_gap (1 or less: its depth within
+# 2e-5, or its place on the CDF within 4e-6), as tests/test_torch_gpu.py
+SAMPLE_PDF_TOL = {"draw": 1.0}
+# its calls on the main path: the frame chunk's two (the coarse draw on
+# the stride-0 probe ladder, the fine from the coarse weights) and the
+# train step's two (uniforms): (label, rays, S, K, uniforms)
+SAMPLE_PDF_CALLS = (("frame coarse", 16384, 66, 48, False), ("frame fine", 16384, 48, 32, False),
+                    ("train coarse", 7000, 66, 48, True), ("train fine", 7000, 48, 32, True))
 # Kernel route vs the bf16 plain route on one chunk of the frame: two
 # numeric routes whose importance samples land apart where the coarse
 # weights differ a little, so the bound is the JAX package's own
@@ -260,7 +273,17 @@ FRAME_ITERS = {800: 2, 200: 10}
 # composite; K4 the FWD_SHADED instance, which K2 also runs
 FRAME_SIGNATURE = {"fused_mlp_apply": r"shaded_fwd_kernel<\D*1>",
                    "fused_render": r"\bcomposite_fwd_kernel\b",
-                   "fused_shaded_mlp": r"shaded_fwd_kernel<\D*0>"}
+                   "fused_shaded_mlp": r"shaded_fwd_kernel<\D*0>",
+                   "sample_pdf_cuda": r"\binverse_cdf_kernel\b"}
+# each eval mode's launches of each wrapper a chunk (a block of a split
+# frame): K1 the coarse pass, K2 or K4 the fine one; sample_pdf's draws
+# of the coarse depths from the map's PMF and of the fine ones
+FRAME_LAUNCHES = {"importance culled": {"fused_mlp_apply": 1, "fused_render": 1,
+                                        "sample_pdf_cuda": 2},
+                  "importance unculled": {"fused_mlp_apply": 1, "fused_render": 1,
+                                          "sample_pdf_cuda": 1},
+                  "coarse-free bitpack": {"fused_render": 1, "sample_pdf_cuda": 1},
+                  "grid": {"fused_mlp_apply": 1, "fused_shaded_mlp": 1}}
 # the engine phase's cuts of the protocol (52 epochs of 50 steps a train
 # image, 3000 warm-up steps, 800x800 images, 200 test views)
 ENGINE_CUTS = {"stages": (1, 1, 1), "steps_per_image_epoch": 2, "occ_warmup_steps": 16}
@@ -345,14 +368,10 @@ DP_LAUNCHES = {
 # the frame split over ranks (split_frames): the cells each phase splits
 # over its ranks (dp_phase's 2 gloo ranks on the one card: the demo's size
 # in both fine modes; nccl_phase's ranks, one a card: the frame graph
-# phase's eight), the eval kernels each mode launches once a chunk's block,
-# and the gathers timed alone
+# phase's eight; FRAME_LAUNCHES a chunk's block), and the gathers timed
+# alone
 DP_SPLIT_CELLS = (("importance culled", 800), ("grid", 800))
 NCCL_SPLIT_CELLS = tuple((mode, side) for mode in FRAME_MODES for side in FRAME_SIDES)
-SPLIT_KERNELS = {"importance culled": ("fused_mlp_apply", "fused_render"),
-                 "importance unculled": ("fused_mlp_apply", "fused_render"),
-                 "coarse-free bitpack": ("fused_render",),
-                 "grid": ("fused_mlp_apply", "fused_shaded_mlp")}
 GATHER_ITERS = 10
 # each wrapper's TPU kernel (the kernels line's "replaces") and its source
 REPLACES = {"fused_mlp_apply": "mc_nerf_tpu/ops/pallas/fused_mlp.py:241",
@@ -361,14 +380,16 @@ REPLACES = {"fused_mlp_apply": "mc_nerf_tpu/ops/pallas/fused_mlp.py:241",
             "render_bwd_weights": "mc_nerf_tpu/ops/pallas/fused_render.py:290",
             "fused_shaded_mlp": "mc_nerf_tpu/ops/pallas/fused_mlp.py:381",
             "fused_shaded_mlp_bwd": "mc_nerf_tpu/ops/pallas/fused_mlp.py:423",
-            "fused_mlp_bwd": "mc_nerf_tpu/ops/pallas/fused_mlp.py:739"}
+            "fused_mlp_bwd": "mc_nerf_tpu/ops/pallas/fused_mlp.py:739",
+            "sample_pdf_cuda": "none: mc_nerf_tpu/ops/volume.py::sample_pdf is plain jnp"}
 SOURCES = {"fused_mlp_apply": "mc_nerf_torch/csrc/fused_mlp.cu",
            "fused_render": "mc_nerf_torch/csrc/fused_render.cu",
            "render_bwd_points": "mc_nerf_torch/csrc/fused_render_bwd.cu",
            "render_bwd_weights": "mc_nerf_torch/csrc/fused_render_bwd.cu",
            "fused_shaded_mlp": "mc_nerf_torch/csrc/fused_shaded.cu",
            "fused_shaded_mlp_bwd": "mc_nerf_torch/csrc/fused_mlp_bwd.cu",
-           "fused_mlp_bwd": "mc_nerf_torch/csrc/fused_mlp_bwd.cu"}
+           "fused_mlp_bwd": "mc_nerf_torch/csrc/fused_mlp_bwd.cu",
+           "sample_pdf_cuda": "mc_nerf_torch/csrc/sample_pdf.cu"}
 
 
 def fail(msg: str) -> None:
@@ -581,11 +602,87 @@ def train_passes(nc, params):
             ("fine", params.fine, nc.fine_depth, nc.fine_width, nc.fine_skips, 32, False))
 
 
+def hold_sample_pdf(label: str, args: tuple, plants: bool = True,
+                    failures: list = None) -> dict:
+    """sample_pdf_cuda on ``args`` (z, weights, K, uniforms or None, eps)
+    against sample_pdf_plain: every draw within rounding of the plain
+    body's (``draw_gap`` within SAMPLE_PDF_TOL); with ``plants``, each
+    planted fault (the midpoints one bin late; the draws' jitter dropped,
+    or added where there is none) at 2x it or more.  Returns {"draw_gap",
+    "max_abs_err": the largest depth gap}."""
+    from mc_nerf_torch.ops.cuda.sample_pdf import draw_gap, sample_pdf_cuda
+    from mc_nerf_torch.ops.volume import sample_pdf_plain
+
+    z, w, k, u, eps = args
+    ker = sample_pdf_cuda(*args)
+    torch.cuda.synchronize()
+    ref = sample_pdf_plain(z, w, k, u, eps=eps)
+
+    def err(x):
+        return {"draw": draw_gap(x, ref, z, w, eps)}
+
+    planted = {}
+    if plants:
+        jitter = None if u is not None else torch.rand(
+            (w.shape[0], k), generator=torch.Generator(device=w.device).manual_seed(SEED),
+            device=w.device)
+        planted = {"midpoints one bin late": err(sample_pdf_plain(z.roll(1, 1), w, k, u, eps=eps)),
+                   "jitter " + ("dropped" if u is not None else "added"):
+                   err(sample_pdf_plain(z, w, k, jitter, eps=eps))}
+    e, depth = err(ker), float((ker - ref).abs().max())
+    hold(f"{label} (max abs depth gap {depth:.3e}, {int((ker != ref).sum())} of {ker.numel()} "
+         "depths differ)", e, SAMPLE_PDF_TOL, planted, 2.0, failures)
+    return {"draw_gap": e["draw"], "max_abs_err": depth}
+
+
+def sample_pdf_times(args: tuple) -> dict:
+    """sample_pdf_cuda on ``args`` (z, weights, K, uniforms, eps): its ms
+    a launch, the plain body's, and the bound (the call's bytes over the
+    memory rate: weights, z (one row where its row stride is 0), uniforms
+    in, depths out)."""
+    from mc_nerf_torch.ops.cuda.sample_pdf import sample_pdf_cuda
+    from mc_nerf_torch.ops.volume import sample_pdf_plain
+
+    z, w, k, u, eps = args
+    rays, s = w.shape
+    nbytes = 4 * (rays * s + (s if z.stride(0) == 0 else rays * s)
+                  + (0 if u is None else rays * k) + rays * k)
+    b_ms, by = bound(0.0, nbytes)
+    with torch.no_grad():
+        return {"ms": cuda_ms(lambda: sample_pdf_cuda(*args), ENGINE_ITERS),
+                "plain_ms": cuda_ms(lambda: sample_pdf_plain(z, w, k, u, eps=eps), 3),
+                "bound_ms": b_ms, "bound_by": by}
+
+
+def sample_pdf_numbers(dev, rng) -> dict:
+    """sample_pdf's kernel against its plain body at the main path's calls
+    (SAMPLE_PDF_CALLS, seeded inputs: sorted depths in [1, 8], the probe
+    ladder one row; weights of bins 70% empty), held with the planted
+    faults (``hold_sample_pdf``) and timed (``sample_pdf_times``).
+    Returns {label: numbers}."""
+    out = {}
+    for label, rays, s, k, jitter in SAMPLE_PDF_CALLS:
+        ladder = label == "frame coarse"
+        z = torch.as_tensor(np.sort(rng.uniform(1.0, 8.0, (1 if ladder else rays, s)), axis=-1),
+                            dtype=torch.float32, device=dev).expand(rays, s)
+        w = rng.uniform(0.0, 1.0, (rays, s)) * (rng.uniform(size=(rays, s)) < 0.3)
+        w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+        u = torch.as_tensor(rng.uniform(size=(rays, k)), dtype=torch.float32, device=dev)
+        args = (z, w, k, u if jitter else None, 1e-5)
+        out[label] = {**hold_sample_pdf(f"sample_pdf {label} R={rays} S={s} K={k}", args),
+                      **sample_pdf_times(args)}
+        x = out[label]
+        print(f"sample_pdf {label}: {x['ms']:.4f} ms a launch (plain {x['plain_ms']:.3f}, bound "
+              f"{x['bound_ms']:.4f} by {x['bound_by']})", flush=True)
+    return out
+
+
 def per_launch(passes: dict) -> dict:
     """One kernel's numbers over a training step's launches (one per pass):
     each time and bound is the mean per launch; ``per_pass`` keeps each."""
     mean = {k: sum(p[k] for p in passes.values()) / len(passes)
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")
+            if all(k in p for p in passes.values())}
     by = max(passes.values(), key=lambda p: p["bound_ms"])["bound_by"]
     return {**mean, "bound_by": by, "per_pass": passes}
 
@@ -1276,8 +1373,8 @@ def frame_graph_phase(dev, smi: str, counters: dict) -> dict:
     the graph's first frame (one chunk of warm-up, the capture, a replay)
     equal to the loop's frame bit for bit; each eval kernel's launches a
     frame the same on both routes (the loop's by its wrapper, the graph's
-    by the profiler on one replay; the loop's by the profiler too): one a
-    chunk where the mode runs it; new weights (every weight x 1.01), a new
+    by the profiler on one replay; the loop's by the profiler too):
+    ``FRAME_LAUNCHES[mode]`` a chunk; new weights (every weight x 1.01), a new
     pose and a new map of the same kind (half of the box emptied) reach
     the replay, which equals the loop
     on them bit for bit without a second capture, and leave the first
@@ -1328,9 +1425,9 @@ def frame_graph_phase(dev, smi: str, counters: dict) -> dict:
             prof[route] = {"wall_ms": wall, "kernel_ms": kernel_ms, "busy_share": kernel_ms / wall,
                            "kernels": sum(r[1] for r in rows),
                            "launches": frame_launches_in(rows)}
-        want = {k: (chunks if v else 0) for k, v in loop_launches.items()}
+        want = {k: FRAME_LAUNCHES[mode].get(k, 0) * chunks for k in FRAME_SIGNATURE}
         launches_ok = (loop_launches == prof["graph"]["launches"] == prof["loop"]["launches"]
-                       == want and any(want.values())
+                       == want
                        and captured == {k: v + v // chunks for k, v in loop_launches.items()})
         # new weights, pose and map, written by the caller (the map: this
         # one with the half of the box at x < 0 emptied; the seeded scene's
@@ -1417,6 +1514,7 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
 
     import mc_nerf_torch.models.nerf as nerf_module
     import mc_nerf_torch.ops.cuda.fused_render as render_module
+    import mc_nerf_torch.ops.volume as volume_module
 
     from mc_nerf_torch.config import Config, NerfConfig, PathsConfig, StageConfig, TrainConfig
     from mc_nerf_torch.data.calibration import load_calibration
@@ -1455,7 +1553,8 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
     where, calls = [None], {}
     wrapped = {(nerf_module, "fused_render"): lambda a: f"{a[2].shape[0]} rays x {a[8]}",
                (nerf_module, "fused_mlp_apply"): lambda a: f"{a[1].shape[0]} points",
-               (render_module, "fused_render_bwd"): lambda a: f"{a[3].shape[0]} rays x {a[9]}"}
+               (render_module, "fused_render_bwd"): lambda a: f"{a[3].shape[0]} rays x {a[9]}",
+               (volume_module, "sample_pdf_cuda"): pdf_shape}
     originals = {k: getattr(*k) for k in wrapped}
     for (module, name), shape_of in wrapped.items():
         setattr(module, name, engine_recorder(originals[module, name], name, shape_of, where,
@@ -1513,15 +1612,17 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
             and sum(c["replayed"] for c in routes.values()) == spe * sum(stages)
             and replays == nerf_steps):
         fail(f"engine run A did not replay one captured step a stage: {routes}")
-    for n in ("fused_render", "render_bwd_points", "render_bwd_weights"):
+    # sample_pdf: a two-pass step's coarse draw from the map's PMF and its
+    # fine draw
+    train_wrappers = ("fused_render", "render_bwd_points", "render_bwd_weights", "sample_pdf_cuda")
+    for n in train_wrappers:
         if train_launches[n] != 2 * host:
             fail(f"{n}: {train_launches[n]} launches in {host} GLOBAL_OPTIM / FINE_TUNE steps "
                  "of warm-up and capture, not 2 a step")
     graph_launches, per_replay = replayed_launches(
-        eng_a, "engine_train", ("fused_render", "render_bwd_points", "render_bwd_weights"),
-        {0: 0, 1: 2, 2: 2}, csrc_kernel_names())
+        eng_a, "engine_train", train_wrappers, {0: 0, 1: 2, 2: 2}, csrc_kernel_names())
     if train_launches["fused_mlp_apply"] != 0 or not all(
-            val_launches[n] > 0 for n in ("fused_mlp_apply", "fused_render")):
+            val_launches[n] > 0 for n in ("fused_mlp_apply", "fused_render", "sample_pdf_cuda")):
         fail(f"engine validation launches {val_launches}, training {train_launches}")
     # the validation frames: one graph of the frame, captured once and
     # replayed once a frame (the wrappers count the warm-up and capture)
@@ -1529,7 +1630,8 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
     val_frames, _ = replayed_frames(eng_a._render_fns.values(), "engine_validation")
     if not (frame_routes["engine_validation"] == [{"captured": 1, "replayed": stages[1] + stages[2],
                                                    "looped": 0}]
-            and val_frames["fused_mlp_apply"] > 0 and val_frames["fused_render"] > 0):
+            and val_frames["fused_mlp_apply"] > 0 and val_frames["fused_render"] > 0
+            and val_frames["sample_pdf_cuda"] > 0):
         fail(f"engine validation frames by route {frame_routes}, launches in their replays "
              f"{val_frames}")
 
@@ -1592,8 +1694,9 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
     if not (demo["count"] == 2 and math.isfinite(demo["psnr"]) and math.isfinite(demo["ssim"])):
         fail(f"engine demo result is not finite: {demo}")
     if not (demo_launches["fused_mlp_apply"] > 0 and demo_launches["fused_render"] > 0
-            and demo_launches["render_bwd_points"] == 0
+            and demo_launches["sample_pdf_cuda"] > 0 and demo_launches["render_bwd_points"] == 0
             and demo_frames["fused_mlp_apply"] > 0 and demo_frames["fused_render"] > 0
+            and demo_frames["sample_pdf_cuda"] > 0
             and frame_routes["engine_demo"] == [{"captured": 1, "replayed": 2, "looped": 0}]):
         fail(f"engine demo launches {demo_launches}, in its frame graphs {demo_frames}; frames "
              f"by route {frame_routes['engine_demo']}")
@@ -1606,9 +1709,11 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
                "engine_demo": demo_launches}
     for path, got in counted.items():
         seen = {name: sum(c["n"] for c in calls.get((path, name), {}).values())
-                for name in ("fused_render", "fused_mlp_apply", "fused_render_bwd")}
+                for name in ("fused_render", "fused_mlp_apply", "fused_render_bwd",
+                             "sample_pdf_cuda")}
         want = {"fused_render": got["fused_render"], "fused_mlp_apply": got["fused_mlp_apply"],
-                "fused_render_bwd": got["render_bwd_points"]}
+                "fused_render_bwd": got["render_bwd_points"],
+                "sample_pdf_cuda": got["sample_pdf_cuda"]}
         if seen != want or got["render_bwd_points"] != got["render_bwd_weights"]:
             fail(f"{path}: recorded calls {seen} are not the launches counted {got}")
     return {"seconds": seconds, "train_s": train_s, "resume_s": resume_s,
@@ -1800,21 +1905,25 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
     host_i, host_g = summary["importance"]["host_nerf_steps"], summary["grid"]["host_nerf_steps"]
     if not (l_train["render_bwd_points"] == l_train["render_bwd_weights"] == 2 * host_i
             and l_train["fused_render"] > 2 * host_i and l_train["fused_mlp_apply"] > 0
+            and l_train["sample_pdf_cuda"] > 2 * host_i
             and l_train["fused_shaded_mlp"] == l_train["fused_shaded_mlp_bwd"] == 0):
         fail(f"cli_train launches {l_train} ({host_i} NeRF steps of warm-up and capture)")
     if not (l_train_g["fused_shaded_mlp_bwd"] == 2 * host_g
             and l_train_g["fused_shaded_mlp"] > 2 * host_g and l_train_g["fused_mlp_apply"] > 0
-            and l_train_g["fused_render"] == l_train_g["render_bwd_points"] == 0):
+            and l_train_g["fused_render"] == l_train_g["render_bwd_points"]
+            == l_train_g["sample_pdf_cuda"] == 0):
         fail(f"cli_train_grid launches {l_train_g} ({host_g} NeRF steps of warm-up and "
              "capture)")
     graph_launches, summary["per_replay"] = {}, {}
     for path, eng, wrappers in (
-            ("cli_train", eng_i, ("fused_render", "render_bwd_points", "render_bwd_weights")),
+            ("cli_train", eng_i, ("fused_render", "render_bwd_points", "render_bwd_weights",
+                                  "sample_pdf_cuda")),
             ("cli_train_grid", eng_g, ("fused_shaded_mlp", "fused_shaded_mlp_bwd"))):
         graph_launches[path], summary["per_replay"][path] = replayed_launches(
             eng, path, wrappers, {0: 0, 1: 2, 2: 2}, csrc_kernel_names())
     for path, result, dt, launches, kernels in (
-            ("cli_demo", demo_i, demo_s, l_demo, ("fused_mlp_apply", "fused_render")),
+            ("cli_demo", demo_i, demo_s, l_demo, ("fused_mlp_apply", "fused_render",
+                                                  "sample_pdf_cuda")),
             ("cli_demo_grid", demo_g, demo_g_s, l_demo_g, ("fused_mlp_apply", "fused_shaded_mlp"))):
         print(f"{path}: {result} in {dt:.2f} s ({smi}); launches {launches}", flush=True)
         if not (result["count"] == n_test and math.isfinite(result["psnr"])
@@ -1825,8 +1934,9 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
         summary[path] = {"seconds": dt, "psnr": result["psnr"], "ssim": result["ssim"]}
     # every frame on the graph route: one capture a renderer, a replay a frame
     for path, kernels, n_frames in (
-            ("cli_train", ("fused_mlp_apply", "fused_render"), sum(runs["importance"][0][1:])),
-            ("cli_demo", ("fused_mlp_apply", "fused_render"), n_test),
+            ("cli_train", ("fused_mlp_apply", "fused_render", "sample_pdf_cuda"),
+             sum(runs["importance"][0][1:])),
+            ("cli_demo", ("fused_mlp_apply", "fused_render", "sample_pdf_cuda"), n_test),
             ("cli_train_grid", ("fused_mlp_apply", "fused_shaded_mlp"), sum(runs["grid"][0][1:])),
             ("cli_demo_grid", ("fused_mlp_apply", "fused_shaded_mlp"), n_test)):
         fr = frames[path]
@@ -1977,10 +2087,12 @@ def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
     # per training epoch: 2 launches a two-pass step, 1 a coarse-free step,
     # counted over the epoch's warm-up and capture; its replays run them
     # again without the wrappers, which the profiler counts in one replay
+    # (sample_pdf: a two-pass step's draws from the map's PMF and from the
+    # coarse weights; a coarse-free step's one mixture draw)
     trained = [(stage, n) for path, stage, n, *_ in epochs if path == "cli_train_cf"]
     routes = [(stage, c) for path, stage, _, _, c in epochs if path == "cli_train_cf"]
     per_step = {0: 0, 1: 2, 2: 1}
-    wrappers = ("fused_render", "render_bwd_points", "render_bwd_weights")
+    wrappers = ("fused_render", "render_bwd_points", "render_bwd_weights", "sample_pdf_cuda")
     for (stage, n), (_, c) in zip(trained, routes):
         want = {k: per_step[stage] * host_steps(c) if k in wrappers else 0 for k in n}
         if n != want or c["captured"] != 1 or c["looped"] or c["replayed"] != spe:
@@ -1992,27 +2104,31 @@ def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
         eng, "cli_train_cf", wrappers, per_step, csrc_kernel_names())
     # the validation frames: the wrappers count a chunk of warm-up and the
     # capture's chunks, once (every validation renders coarse-free on the
-    # bitpacked map: one graph); the profiler a chunk's launch a replay
+    # bitpacked map: one graph); the profiler a chunk's launch a replay.
+    # A coarse-free chunk: one draw from the map's PMF, K2 on it
+    eval_wrappers = ("fused_render", "sample_pdf_cuda")
     val = {k: l_train[k] - sum(n[k] for _, n in trained) for k in l_train}
     chunks = -(-res * res // eng.cfg.eval.rays_per_chunk)
     n_val = sum(1 for h in eng.history if h["stage"])
     fr = frames["cli_train_cf"]
-    if (val != {k: (1 + chunks if k == "fused_render" else 0) for k in val}
+    if (val != {k: (1 + chunks if k in eval_wrappers else 0) for k in val}
             or fr["routes"] != [{"captured": 1, "replayed": n_val, "looped": 0}]
-            or fr["launches"] != {k: (chunks * n_val if k == "fused_render" else 0)
+            or fr["launches"] != {k: (chunks * n_val if k in eval_wrappers else 0)
                                   for k in fr["launches"]}):
-        fail(f"cli_train_cf validation launches {val} ({1 + chunks} fused_render wanted), "
-             f"frames by route {fr['routes']}, in their replays {fr['launches']} ({chunks} "
-             f"fused_render a view wanted)")
+        fail(f"cli_train_cf validation launches {val} ({1 + chunks} of {eval_wrappers} "
+             f"wanted), frames by route {fr['routes']}, in their replays {fr['launches']} "
+             f"({chunks} of {eval_wrappers} a view wanted)")
     for path, launches in (("cli_demo_cf", l_demo), ("cli_demo_density", l_density)):
         fr = frames[path]
         if not (launches["fused_render"] > 0
-                and all(v == 0 for k, v in launches.items() if k != "fused_render")
+                and launches["sample_pdf_cuda"] == launches["fused_render"]
+                and all(v == 0 for k, v in launches.items() if k not in eval_wrappers)
                 and fr["routes"] == [{"captured": 1, "replayed": n_test, "looped": 0}]
-                and fr["launches"]["fused_render"] == chunks * n_test
-                and all(v == 0 for k, v in fr["launches"].items() if k != "fused_render")):
+                and all(fr["launches"][k] == chunks * n_test for k in eval_wrappers)
+                and all(v == 0 for k, v in fr["launches"].items() if k not in eval_wrappers)):
             fail(f"{path} launches {launches}, in its frame graphs' replays {fr['launches']}, "
-                 f"frames by route {fr['routes']}: fused_render only (K1 never) wanted")
+                 f"frames by route {fr['routes']}: {eval_wrappers} alike and only (K1 never) "
+                 "wanted")
     print(f"cli_train_cf: {train_s:.2f} s; launches {l_train} (by epoch {trained}, validation "
           f"{val}); cache built in {cache_s[0]:.3f} s", flush=True)
 
@@ -2167,6 +2283,7 @@ def dp_rank(spec: dict) -> None:
         fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd)
     from mc_nerf_torch.ops.cuda.fused_render import (
         fused_render, render_bwd_points, render_bwd_weights)
+    from mc_nerf_torch.ops.cuda.sample_pdf import sample_pdf_cuda
     from mc_nerf_torch.parallel.distributed import initialize_distributed
 
     torch.backends.cuda.matmul.allow_tf32 = False    # as the parent's runs
@@ -2174,7 +2291,8 @@ def dp_rank(spec: dict) -> None:
     topo = initialize_distributed()
     work = pathlib.Path(spec["work"])
     counters = {k.__name__: k for k in (fused_render, render_bwd_points, render_bwd_weights,
-                                        fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd)}
+                                        fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd,
+                                        sample_pdf_cuda)}
     reduces, written = [], []
     mean_, write = steps_module.all_reduce_mean_, engine_module._write_pngs
 
@@ -2331,15 +2449,15 @@ def check_split_frames(ranks: list, cells, smi: str, label: str) -> dict:
     the frame equal to its one-process frame in chunks of a block, bit for
     bit, finite, the same bits on every rank; the graph route with the
     gather after its replay (``FrameRender.route``), captured once; each of
-    the mode's ``SPLIT_KERNELS`` launched once a chunk's block in a replay
-    (profiled) and none other.  Prints each cell's ms a frame against one
+    wrapper launched ``FRAME_LAUNCHES[mode]`` times a chunk's block in a
+    replay (profiled), and no other.  Prints each cell's ms a frame against one
     process's graph frame, the gather's ms, and each rank's capture seconds,
     pool and launches a replay.  Returns {cell: summary}."""
     world, out = len(ranks), {}
     for mode, side in cells:
         cell = f"{mode} {side}"
         xs = [r["split"][cell] for r in ranks]
-        want = {k: (xs[0]["chunks"] if k in SPLIT_KERNELS[mode] else 0) for k in FRAME_SIGNATURE}
+        want = {k: FRAME_LAUNCHES[mode].get(k, 0) * xs[0]["chunks"] for k in FRAME_SIGNATURE}
         bad = [r for r, x in enumerate(xs) if not (
             x["bit_identical"] and x["finite"] and x["digest"] == xs[0]["digest"]
             and x["launches_a_replay"] == want
@@ -2552,7 +2670,8 @@ def dp_phase(dev, smi: str) -> dict:
             fail(f"dp rank {r} trained stages {[s for s, *_ in trained]}")
         for stage, n, c in trained:
             want = {k: (2 * host_steps(c) if stage and k in (
-                "fused_render", "render_bwd_points", "render_bwd_weights") else 0) for k in n}
+                "fused_render", "render_bwd_points", "render_bwd_weights", "sample_pdf_cuda")
+                        else 0) for k in n}
             if n != want or (c["captured"], c["looped"], c["replayed"]) != (0, spe, 0):
                 fail(f"dp rank {r} {STAGE_NAMES[stage]}: launches {n}, wanted {want}; steps by "
                      f"route {c}: {spe} on the loop wanted")
@@ -2774,9 +2893,10 @@ def nccl_phase(smi: str, graph: dict) -> Optional[dict]:
 
 
 def split_kernels(calls: dict, ranks: list, path: str) -> list:
-    """The kernels line's entries of a split path: K1, K2 and K4 held
-    against their plain versions, with the planted faults, and timed on
-    the block inputs rank 0 gave them there (``calls``, recorded by
+    """The kernels line's entries of a split path: K1, K2, K4 and
+    ``sample_pdf_cuda`` held against their plain versions, with the
+    planted faults, and timed on the block inputs rank 0 gave them there
+    (``calls``, recorded by
     ``split_rank``; ``path_kernel_numbers`` at ``Config()``'s widths, which
     ``frame_cell`` keeps); "launches" those of every rank's split graphs'
     replays (profiled, ``split_frames``), "launches_by_rank" the wrappers'
@@ -2891,11 +3011,12 @@ def check_recorded(calls: dict, counted: dict) -> None:
     for path, got in counted.items():
         seen = {n: sum(c["n"] for c in calls.get((path, n), {}).values())
                 for n in ("fused_render", "fused_mlp_apply", "fused_render_bwd",
-                          "fused_shaded_mlp", "fused_shaded_mlp_bwd")}
+                          "fused_shaded_mlp", "fused_shaded_mlp_bwd", "sample_pdf_cuda")}
         want = {"fused_render": got["fused_render"], "fused_mlp_apply": got["fused_mlp_apply"],
                 "fused_render_bwd": got["render_bwd_points"],
                 "fused_shaded_mlp": got["fused_shaded_mlp"],
-                "fused_shaded_mlp_bwd": got["fused_shaded_mlp_bwd"]}
+                "fused_shaded_mlp_bwd": got["fused_shaded_mlp_bwd"],
+                "sample_pdf_cuda": got["sample_pdf_cuda"]}
         if seen != want:
             fail(f"{path}: recorded calls {seen} are not the launches counted {got}")
 
@@ -2928,6 +3049,7 @@ def cli_recording(work, name: str, counters: dict):
     import mc_nerf_torch.models.nerf as nerf_module
     import mc_nerf_torch.ops.cuda.fused_mlp as mlp_module
     import mc_nerf_torch.ops.cuda.fused_render as render_module
+    import mc_nerf_torch.ops.volume as volume_module
     import mc_nerf_torch.train.engine as engine_module
     from mc_nerf_torch.main import main as cli_main
 
@@ -2935,7 +3057,8 @@ def cli_recording(work, name: str, counters: dict):
     wrapped = {(nerf_module, "fused_render"): lambda a: f"{a[2].shape[0]} rays x {a[8]}",
                (nerf_module, "fused_mlp_apply"): lambda a: f"{a[1].shape[0]} points",
                (nerf_module, "fused_shaded_mlp"): lambda a: f"{a[2].shape[0]} rays x {a[5]}",
-               (render_module, "fused_render_bwd"): lambda a: f"{a[3].shape[0]} rays x {a[9]}"}
+               (render_module, "fused_render_bwd"): lambda a: f"{a[3].shape[0]} rays x {a[9]}",
+               (volume_module, "sample_pdf_cuda"): pdf_shape}
     originals = {k: getattr(*k) for k in wrapped}
     for (module, fn_name), shape_of in wrapped.items():
         setattr(module, fn_name, engine_recorder(originals[module, fn_name], fn_name, shape_of,
@@ -3055,7 +3178,7 @@ def csrc_kernel_names() -> list:
 # a path): what the profiler counts for the wrapper in a step graph's replay
 SIGNATURE = {"fused_render": "composite_fwd_kernel", "render_bwd_points": "mlp_points_kernel",
              "render_bwd_weights": "weight_grad_kernel", "fused_shaded_mlp": "shaded_fwd_kernel",
-             "fused_shaded_mlp_bwd": "mlp_points_kernel"}
+             "fused_shaded_mlp_bwd": "mlp_points_kernel", "sample_pdf_cuda": "inverse_cdf_kernel"}
 
 
 def replayed_launches(eng, path: str, wrappers, per_step: dict, names) -> tuple:
@@ -3134,22 +3257,30 @@ def engine_recorder(fn, name: str, shape_of, where: list, calls: dict, last: boo
 @contextlib.contextmanager
 def recording_frames(where: list, calls: dict):
     """The eval kernels' entry points in ``models/nerf.py`` (K1, K2, K4)
-    recorded into ``calls`` while ``where[0]`` names a path
-    (``engine_recorder``, each shape's last call); restored on exit."""
+    and ``sample_pdf_cuda`` in ``ops/volume.py`` recorded into ``calls``
+    while ``where[0]`` names a path (``engine_recorder``, each shape's
+    last call); restored on exit."""
     import mc_nerf_torch.models.nerf as nerf_module
+    import mc_nerf_torch.ops.volume as volume_module
 
-    wrapped = {"fused_render": lambda a: f"{a[2].shape[0]} rays x {a[8]}",
-               "fused_mlp_apply": lambda a: f"{a[1].shape[0]} points",
-               "fused_shaded_mlp": lambda a: f"{a[2].shape[0]} rays x {a[5]}"}
-    originals = {name: getattr(nerf_module, name) for name in wrapped}
-    for name, shape_of in wrapped.items():
-        setattr(nerf_module, name, engine_recorder(originals[name], name, shape_of, where, calls,
-                                                   last=True))
+    wrapped = {(nerf_module, "fused_render"): lambda a: f"{a[2].shape[0]} rays x {a[8]}",
+               (nerf_module, "fused_mlp_apply"): lambda a: f"{a[1].shape[0]} points",
+               (nerf_module, "fused_shaded_mlp"): lambda a: f"{a[2].shape[0]} rays x {a[5]}",
+               (volume_module, "sample_pdf_cuda"): pdf_shape}
+    originals = {k: getattr(*k) for k in wrapped}
+    for (module, name), shape_of in wrapped.items():
+        setattr(module, name, engine_recorder(originals[module, name], name, shape_of, where,
+                                              calls, last=True))
     try:
         yield
     finally:
-        for name, fn in originals.items():
-            setattr(nerf_module, name, fn)
+        for (module, name), fn in originals.items():
+            setattr(module, name, fn)
+
+
+def pdf_shape(a) -> str:
+    """A ``sample_pdf_cuda`` call's shape, as ``engine_recorder`` keys it."""
+    return f"{a[1].shape[0]} rays x {a[1].shape[1]} to {a[2]}"
 
 
 def shaded_numbers(nc, pk, feat, basis16, depth, skips, s, nb, iters: int = 5) -> dict:
@@ -3206,7 +3337,8 @@ def path_kernel_numbers(calls: dict, nc, rng, render_tol: dict, mlp_tol: dict,
     shape it was called at, the kernel held against its plain version (the
     tolerances of the other phases; with ``plants``, the planted faults of
     those phases too, each at 2x a tolerance or more), its ms, the plain
-    version's, the library call's and the bound, per launch.  The forward
+    version's, the library call's (none for sample_pdf's) and the bound,
+    per launch.  The forward
     kernels are timed over ``ENGINE_ITERS`` calls, after a collection of
     the paths' garbage: on an H100, 5 calls of the engine's fine K2 once
     measured 1.251 ms, 20 calls 0.646 (the train-step phase's K2 0.627
@@ -3285,6 +3417,9 @@ def path_kernel_numbers(calls: dict, nc, rng, render_tol: dict, mlp_tol: dict,
                      2.0, failures)
                 nums = {name: {**shaded_bwd_numbers(nc, *a), "max_abs_err": max_abs(k, ref)}}
                 del k, ref
+            elif name == "sample_pdf_cuda":
+                held = hold_sample_pdf(label, a, plants, failures)
+                nums = {name: {**sample_pdf_times(a), **held}}
             else:
                 ws, bs, depth = a[0], a[1], a[7]
                 k = fused_render_bwd(*a)
@@ -3304,10 +3439,12 @@ def path_kernel_numbers(calls: dict, nc, rng, render_tol: dict, mlp_tol: dict,
                                           ("render_bwd_weights", zip([*k[0], *k[1]],
                                                                      [*ref[0], *ref[1]])))}
             for kn, x in nums.items():
+                chain = (f", bf16 torch chain {x['library_ms']:.3f}" if "library_ms" in x
+                         else "")
                 print(f"{kn} on the {path} inputs ({shape}, {n} launches): "
-                      f"{x['ms']:.3f} ms (plain {x['plain_ms']:.3f}, bf16 torch chain "
-                      f"{x['library_ms']:.3f}, bound {x['bound_ms']:.3f} by {x['bound_by']}), "
-                      f"max abs error {x['max_abs_err']:.3e}", flush=True)
+                      f"{x['ms']:.3f} ms (plain {x['plain_ms']:.3f}{chain}, bound "
+                      f"{x['bound_ms']:.3f} by {x['bound_by']}), max abs error "
+                      f"{x['max_abs_err']:.3e}", flush=True)
                 out.setdefault((path, kn), {})[shape] = {**x, "launches": n}
     return out
 
@@ -3318,7 +3455,8 @@ def per_launch_over_shapes(shapes: dict) -> dict:
     shape), the largest error, ``per_shape`` keeping each."""
     n = sum(x["launches"] for x in shapes.values())
     mean = {k: sum(x[k] * x["launches"] for x in shapes.values()) / n
-            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for k in ("ms", "plain_ms", "library_ms", "bound_ms")
+            if all(k in x for x in shapes.values())}
     by = max(shapes.values(), key=lambda x: x["bound_ms"] * x["launches"])["bound_by"]
     return {"launches": n, "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
             **mean, "bound_by": by, "per_shape": shapes}
@@ -3686,6 +3824,8 @@ def main() -> None:
     from mc_nerf_torch.ops.cuda.fused_render import (
         fused_render, fused_render_plain, max_samples, max_samples_bwd, render_bwd_points,
         render_bwd_weights)
+    from mc_nerf_torch.ops.cuda.sample_pdf import sample_pdf_cuda
+    from mc_nerf_torch.ops.volume import sample_pdf_plain
     from mc_nerf_torch.tools.bwd_check import mixed_in_tiles, pair_swapped, render_scan_late
     from mc_nerf_torch.tools.scene import LEGO_FOV, orbit_views, scene_params
     from mc_nerf_torch.train.engine import STAGE_NAMES, demo, refresh_occupancy
@@ -3819,6 +3959,8 @@ def main() -> None:
     e = render_errs(*fused_render(*fr_args), *fused_render_plain(*fr_args))
     errs["fused_render"] = max(errs["fused_render"], *e.values())
     hold("fused_render main-path chunk", e, render_tol, {})
+    pdf_numbers = sample_pdf_numbers(dev, rng)
+    errs["sample_pdf_cuda"] = max(n["max_abs_err"] for n in pdf_numbers.values())
 
     # ---- the slice at full width: demo() over two 800x800 views
     h = w = 800
@@ -3838,12 +3980,14 @@ def main() -> None:
     # the profiler those of a replay
     fused_mlp_apply.launches = 0
     fused_render.launches = 0
+    sample_pdf_cuda.launches = 0
     t0 = time.perf_counter()
     result = demo(params, split, cfg, device=dev, cull=True, render=render)
     torch.cuda.synchronize()
     demo_s = time.perf_counter() - t0
     demo_counted = {"fused_mlp_apply": fused_mlp_apply.launches,
-                    "fused_render": fused_render.launches}
+                    "fused_render": fused_render.launches,
+                    "sample_pdf_cuda": sample_pdf_cuda.launches}
     replays, _ = replayed_frames([render], "demo")
     demo_launches = {k: replays[k] for k in demo_counted}
     print(f"demo: {result} in {demo_s:.2f} s (its capture included); launches in its frame "
@@ -3862,6 +4006,30 @@ def main() -> None:
           f"(occupancy culled, {math.ceil(h * w / chunk)} chunks of {chunk} rays); "
           f"rgb {float(rgb.min()):.3f}..{float(rgb.max()):.3f} (std {float(rgb.std()):.4f}), "
           f"opacity mean {float(opac.mean()):.4f}, depth std {float(depth.std()):.4f}")
+
+    # the same frame with sample_pdf's plain body on the card (the chunk
+    # loop both times: the renders' draws through sample_pdf_plain): the
+    # draws land apart by their sums' rounding, so the bound is the slice
+    # chunk's below (two routes whose samples land apart)
+    import mc_nerf_torch.models.nerf as nerf_module
+
+    loop = make_render_fn(cfg, h, w, device=dev, graph=False)
+    frames = {"kernel": loop(params, poses[1], K, occ)}
+    drawn = nerf_module.sample_pdf
+    nerf_module.sample_pdf = sample_pdf_plain
+    try:
+        frames["plain"] = loop(params, poses[1], K, occ)
+    finally:
+        nerf_module.sample_pdf = drawn
+    torch.cuda.synchronize()
+    (rgb_k, depth_k, opac_k), (rgb_p, depth_p, opac_p) = frames["kernel"], frames["plain"]
+    hold("800x800 frame with sample_pdf's kernel vs with its plain body",
+         {"max rgb/opacity": max(float((rgb_k - rgb_p).abs().max()),
+                                 float((opac_k - opac_p).abs().max())),
+          "max depth/(far-near)": float((depth_k - depth_p).abs().max()) / (nc.far - nc.near),
+          "mean rgb": float((rgb_k - rgb_p).abs().mean())},
+         {"max rgb/opacity": SLICE_ATOL, "max depth/(far-near)": SLICE_ATOL,
+          "mean rgb": SLICE_MEAN_ATOL}, {})
 
     # one chunk of the frame through the plain route on the card
     pix = pixel_grid(h, w, device=dev)[h * w // 2 - chunk // 2: h * w // 2 + chunk // 2]
@@ -3903,7 +4071,8 @@ def main() -> None:
                   flush=True)
 
     # ---- the GLOBAL_OPTIM train step at full width
-    train = train_phase(cfg, dev, h, w, (fused_render, render_bwd_points, render_bwd_weights),
+    train = train_phase(cfg, dev, h, w, (fused_render, render_bwd_points, render_bwd_weights,
+                                         sample_pdf_cuda),
                         N_TRAIN, {"loss rel": STEP_LOSS_RTOL, **STEP_GRAD_TOL})
 
     # ---- the grid fine mode: its kernels, the demo, the train step
@@ -3935,21 +4104,21 @@ def main() -> None:
 
     # ---- the compiled frame: the captured frame against the chunk loop, four eval modes
     frame = frame_graph_phase(dev, smi, {k.__name__: k for k in (
-        fused_mlp_apply, fused_render, fused_shaded_mlp)})
+        fused_mlp_apply, fused_render, fused_shaded_mlp, sample_pdf_cuda)})
 
     # ---- the engine: three stages, a resume, the demo from a checkpoint
     engine = engine_phase(dev, smi, {k.__name__: k for k in (
-        fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply)})
+        fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, sample_pdf_cuda)})
 
     # ---- the CLI on a reference-format scene: cache build, both modes, demos
     cli = cli_phase(dev, smi, {k.__name__: k for k in (
         fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, fused_shaded_mlp,
-        fused_shaded_mlp_bwd)})
+        fused_shaded_mlp_bwd, sample_pdf_cuda)})
 
     # ---- the CLI's coarse-free paths: the hybrid schedule, its demos, LPIPS
     cli_cf = cli_cf_phase(dev, smi, {k.__name__: k for k in (
         fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, fused_shaded_mlp,
-        fused_shaded_mlp_bwd)})
+        fused_shaded_mlp_bwd, sample_pdf_cuda)})
 
     # ---- data parallelism: 2 ranks on the card through main(), torchrun
     dp = dp_phase(dev, smi)
@@ -3995,6 +4164,17 @@ def main() -> None:
                 for name in ("fused_shaded_mlp", "fused_shaded_mlp_bwd")]
     kernels += [entry(name, "fused_mlp_vjp", vjp["launches"][name], per_launch(vjp[name]))
                 for name in ("fused_mlp_apply", "fused_mlp_bwd")]
+    # sample_pdf: the demo (its two draws a chunk; times at the frame
+    # chunk's two calls) and the train step (its two draws a step; times
+    # at the step's two), each the mean of its two calls, kept in per_pass
+    frame_pdf = {k: pdf_numbers[k] for k in ("frame coarse", "frame fine")}
+    kernels.append(entry("sample_pdf_cuda", "demo", demo_launches["sample_pdf_cuda"],
+                         {**per_launch(frame_pdf),
+                          "launches_counted": demo_counted["sample_pdf_cuda"]}))
+    kernels.append({**entry("sample_pdf_cuda", "train_step", train["launches"]["sample_pdf_cuda"],
+                            per_launch({k: pdf_numbers[k]
+                                        for k in ("train coarse", "train fine")})),
+                    "launches_per_step": train["launches"]["sample_pdf_cuda"] / N_TRAIN})
     # the engine: run A's training steps, its validation renders and the
     # demo, each kernel checked and timed on the inputs the engine gave it.
     # A train path's "launches" are the wrappers' count (the warm-ups, the
@@ -4062,8 +4242,9 @@ def main() -> None:
                            if path in cli_steps else {}),
                         **frame_numbers(path, name, numbers)})
     wanted = {("cli_train", n) for n in ("fused_mlp_apply", "fused_render", "render_bwd_points",
-                                         "render_bwd_weights")}
+                                         "render_bwd_weights", "sample_pdf_cuda")}
     wanted |= {("cli_demo", "fused_mlp_apply"), ("cli_demo", "fused_render"),
+               ("cli_demo", "sample_pdf_cuda"),
                ("cli_train_grid", "fused_mlp_apply"), ("cli_train_grid", "fused_shaded_mlp"),
                ("cli_train_grid", "fused_shaded_mlp_bwd"), ("cli_demo_grid", "fused_mlp_apply"),
                ("cli_demo_grid", "fused_shaded_mlp")}
@@ -4090,13 +4271,14 @@ def main() -> None:
                             "launches_per_step_by_stage": by_stage} if by_stage else {}),
                         **frame_numbers(path, name, numbers)})
     wanted = {("cli_train_cf", n) for n in ("fused_render", "render_bwd_points",
-                                            "render_bwd_weights")}
-    wanted |= {("cli_demo_cf", "fused_render"), ("cli_demo_density", "fused_render")}
+                                            "render_bwd_weights", "sample_pdf_cuda")}
+    wanted |= {(p, n) for p in ("cli_demo_cf", "cli_demo_density")
+               for n in ("fused_render", "sample_pdf_cuda")}
     if set(cf_numbers) != wanted:
         fail(f"kernels checked on the coarse-free CLI paths {sorted(cf_numbers)}, "
              f"wanted {sorted(wanted)}")
     # the data-parallel paths: K1, K2 and K3 on the inputs rank 0 gave them;
-    # K1, K2 and K4 on rank 0's blocks of the split frames (dp_split)
+    # K1, K2, K4 and sample_pdf on rank 0's blocks of the split frames (dp_split)
     failures = []
     dp_numbers = path_kernel_numbers(dp["calls"], dp["nerf"], rng, render_tol, mlp_tol,
                                      plants=True, failures=failures)
@@ -4117,7 +4299,7 @@ def main() -> None:
                            {"launches": sum(in_frames_by_rank),
                             "launches_counted": numbers["launches"]})})
     wanted = {(p, n) for p in ("dp_train", "dp_demo", "dp_split")
-              for n in ("fused_mlp_apply", "fused_render")}
+              for n in ("fused_mlp_apply", "fused_render", "sample_pdf_cuda")}
     wanted |= {("dp_train", "render_bwd_points"), ("dp_train", "render_bwd_weights"),
                ("dp_split", "fused_shaded_mlp")}
     if set(dp_numbers) != wanted:

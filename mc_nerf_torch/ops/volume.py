@@ -17,6 +17,9 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from mc_nerf_torch.ops.cuda.sample_pdf import sample_pdf_cuda
+from mc_nerf_torch.utils import trace
+
 
 def compute_deltas(z_vals: torch.Tensor, last_inf: bool = True,
                    max_delta: Optional[float] = None) -> torch.Tensor:
@@ -130,7 +133,43 @@ def sample_pdf(
     generator: Optional[torch.Generator] = None,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    """Inverse-CDF importance sampling of depths from coarse weights.
+    """Inverse-CDF importance sampling of depths from coarse weights:
+    :func:`sample_pdf_plain`'s contract, and its values within rounding.
+
+    On CUDA tensors one launch of ``ops/cuda/sample_pdf.py::sample_pdf_cuda``
+    computes it (its ``check_args`` raises on inputs the kernel does not
+    take: the card has no other route); on the CPU :func:`sample_pdf_plain`
+    does.  Each call adds one to the tracer's counter ``sample_pdf.kernel``
+    or ``sample_pdf.plain`` (``utils/trace.py``; under a CUDA graph, one a
+    capture)."""
+    if weights.is_cuda:
+        if uniforms is None and generator is not None:
+            uniforms = _draw_uniforms(generator, (weights.shape[0], n_samples), z_vals.device)
+        # a row-broadcast z (the eval's probe ladder, row stride 0) stays a view
+        out = sample_pdf_cuda(z_vals if z_vals.stride(-1) == 1 else z_vals.contiguous(),
+                              weights.contiguous(), n_samples,
+                              None if uniforms is None else uniforms.contiguous(), eps)
+        trace.count("sample_pdf.kernel")
+        return out
+    trace.count("sample_pdf.plain")
+    return sample_pdf_plain(z_vals, weights, n_samples, uniforms, generator, eps)
+
+
+def _draw_uniforms(generator: torch.Generator, shape, device) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, dtype=torch.float32,
+                      device=generator.device).to(device)
+
+
+def sample_pdf_plain(
+    z_vals: torch.Tensor,
+    weights: torch.Tensor,
+    n_samples: int,
+    uniforms: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """Inverse-CDF importance sampling of depths from coarse weights, in
+    plain PyTorch: the CPU route and the kernel's oracle.
 
     Args:
       z_vals: [R, S] sorted coarse depths.
@@ -153,8 +192,7 @@ def sample_pdf(
     shape = (*cdf.shape[:-1], n_samples)
     strata = torch.arange(n_samples, dtype=torch.float32, device=z_vals.device)
     if uniforms is None and generator is not None:
-        uniforms = torch.rand(shape, generator=generator, dtype=torch.float32,
-                              device=generator.device).to(z_vals.device)
+        uniforms = _draw_uniforms(generator, shape, z_vals.device)
     if uniforms is None:
         u = ((strata + 0.5) / n_samples).expand(shape)
     else:

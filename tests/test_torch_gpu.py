@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on a CUDA card:
 fused_mlp_apply, fused_render (forward and backward), fused_shaded_mlp
-(forward and backward) and the differentiable fused_mlp's backward.
+(forward and backward), the differentiable fused_mlp's backward and
+sample_pdf's inverse-CDF kernel.
 
 Every test here is marked ``gpu`` and skips without a card (the kernels
 have no CPU build).  The file imports nothing of JAX, so it runs on a
@@ -58,6 +59,8 @@ from mc_nerf_torch.ops.cuda.fused_render import (
     render_bwd_points,
     render_bwd_weights,
 )
+from mc_nerf_torch.ops.cuda.sample_pdf import _launch, draw_gap, max_bins, sample_pdf_cuda
+from mc_nerf_torch.ops.volume import sample_pdf, sample_pdf_plain
 from mc_nerf_torch.tools.bwd_check import (
     WEIGHT_TILE,
     LAST_TILE_TOL,
@@ -78,6 +81,7 @@ from mc_nerf_torch.tools.bwd_check import (
     workspace_acts,
 )
 from mc_nerf_torch.tools.scene import scene_params
+from mc_nerf_torch.utils import trace
 
 NARROW = dict(emb_freqs_xyz=4, coarse_depth=2, coarse_width=32, coarse_skips=(1,),
               fine_depth=3, fine_width=64, fine_skips=(1,))
@@ -1127,3 +1131,218 @@ def test_graph_frame_captures_anew_after_release(cuda, tmp_path):
     assert again.counts == {"captured": 2, "replayed": 2, "looped": 0}
     for x, y, z in zip(a, b, c):
         assert torch.equal(x, y) and torch.equal(x, z)
+
+
+# ------------------------------------------------------------ sample_pdf
+
+# Depths in [1, 8].  The kernel sums and scans each PMF row in its own
+# order, so a draw on a plateau of the CDF may move far in depth; each
+# draw is held within rounding of the plain body's by draw_gap (its depth
+# within 2e-5, or its place on the CDF within 4e-6)
+SAMPLE_PDF_SHAPES = [(66, 48), (48, 32), (128, 64), (130, 64), (7, 3)]
+# PMF values (eps 0) whose CDF ends below 1: -3M at 0 and 1, 3M + 1 at 32
+# and 33, 1 at 64 (M = 2**21) sum to 3, and divided by it read -M, -M,
+# M + 1/4 (M + 1/3 rounded), M + 1/4, 1/3, so the CDF climbs -M, -2M, ...,
+# -M + 1/4, 1/2, ..., 5/6 and a draw above 5/6 finds no bin above it (the
+# 1e10 bracket).  Every sum of the weights is exact, and so is every
+# prefix of the PMF that the kernel (its scan a slot of 32 at a time) or a
+# left-to-right sum takes; other windows (1/3 with an odd number of the
+# M's) round, and the card's scan of a single row (CUB) may take them
+BELOW_U_PMF = {0: -3.0 * 2 ** 21, 1: -3.0 * 2 ** 21, 32: 3.0 * 2 ** 21 + 1,
+               33: 3.0 * 2 ** 21 + 1, 64: 1.0}
+
+
+def _pdf_case(s, k, rows, rays, draws, device, seed=0):
+    """(z, weights, uniforms or None, eps) of one sample_pdf call: sorted
+    depths in [1, 8] (``"stride-0 z"``: one row for every ray, as the
+    eval's probe ladder), weights of half empty bins (``"all-zero"``: the
+    uniform fallback; ``"spike"``: one bin a ray; ``"two surfaces"``: two
+    peaks with a plateau between; ``"last CDF below u"``: BELOW_U_PMF, the
+    last draw at 0.99 where there are uniforms)."""
+    rng = np.random.default_rng(seed * 1000 + 7 * s + k)
+    z = np.sort(rng.uniform(1.0, 8.0, (rays, s)), axis=-1)
+    w = rng.uniform(0.0, 1.0, (rays, s)) * (rng.uniform(size=(rays, s)) < 0.5)
+    u = rng.uniform(size=(rays, k)) if draws == "uniforms" else None
+    eps = 1e-5
+    if rows in ("all-zero", "spike", "last CDF below u"):
+        w[:] = 0.0
+    if rows == "spike":
+        w[np.arange(rays), rng.integers(1, s - 1, rays)] = 1.0
+    if rows == "two surfaces":
+        j = np.arange(s)[None]
+        c1, c2 = rng.integers(1, max(2, s // 2), (2, rays, 1)) + np.array([0, s // 2])[:, None, None]
+        a = rng.uniform(size=(rays, 1))
+        w = a * np.exp(-0.5 * (j - c1) ** 2) + (1 - a) * np.exp(-0.5 * (j - np.minimum(c2, s - 2)) ** 2)
+    if rows == "last CDF below u":
+        for j, v in BELOW_U_PMF.items():
+            w[:, 1 + j] = v
+        eps = 0.0
+        if u is not None:
+            u[:, -1] = 0.99
+    z = torch.as_tensor(z, dtype=torch.float32, device=device)
+    if rows == "stride-0 z":
+        z = z[:1].expand(rays, s)
+    w = torch.as_tensor(w, dtype=torch.float32, device=device)
+    u = None if u is None else torch.as_tensor(u, dtype=torch.float32, device=device)
+    return z, w, u, eps
+
+
+def _pdf_counts():
+    c = trace.snapshot()["counters"]
+    return c.get("sample_pdf.kernel", 0), c.get("sample_pdf.plain", 0), sample_pdf_cuda.launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,k", SAMPLE_PDF_SHAPES)
+@pytest.mark.parametrize("draws", ["midpoints", "uniforms"])
+@pytest.mark.parametrize("rows", ["random", "all-zero", "spike", "two surfaces", "stride-0 z"])
+@pytest.mark.parametrize("rays", [1, 1001])
+def test_sample_pdf_kernel_matches_plain(cuda, s, k, draws, rows, rays):
+    """The kernel against sample_pdf_plain: every draw within rounding
+    (draw_gap), one launch counted; 1001 rays is no multiple of a block's
+    8; S = 130 is the kernel's ceiling of 128 PMF values."""
+    z, w, u, eps = _pdf_case(s, k, rows, rays, draws, cuda)
+    before = sample_pdf_cuda.launches
+    out = sample_pdf_cuda(z, w, k, u, eps)
+    assert sample_pdf_cuda.launches == before + 1
+    ref = sample_pdf_plain(z, w, k, u, eps=eps)
+    gap = draw_gap(out, ref, z, w, eps)
+    print(f"measured sample_pdf draw gap {gap:.3e}, max abs depth "
+          f"{float((out - ref).abs().max()):.3e} s={s} k={k} {draws} {rows} R={rays}")
+    assert tuple(out.shape) == (rays, k) and bool(torch.isfinite(out).all())
+    assert gap <= 1.0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s", [128, 130])
+@pytest.mark.parametrize("draws", ["midpoints", "uniforms"])
+@pytest.mark.parametrize("rays", [1, 1001])
+def test_sample_pdf_kernel_takes_the_1e10_bracket(cuda, s, draws, rays):
+    """On rows whose CDF ends at 5/6 (BELOW_U_PMF), the draws above it
+    find no bin above them and take the plain body's 1e10 bracket: past
+    the last midpoint, within rounding of the plain body run on the CPU,
+    whose left-to-right prefix in double is exact on these rows."""
+    z, w, u, eps = _pdf_case(s, 64, "last CDF below u", rays, draws, cuda)
+    out = sample_pdf_cuda(z, w, 64, u, eps)
+    ref = sample_pdf_plain(z.cpu(), w.cpu(), 64, None if u is None else u.cpu(), eps=eps)
+    gap = draw_gap(out.cpu(), ref, z.cpu(), w.cpu(), eps)
+    last_mid = 0.5 * (z[:, -1] + z[:, -2]).cpu()
+    beyond = int((out.cpu() > last_mid[:, None]).sum())
+    print(f"measured sample_pdf 1e10 bracket S={s} {draws} R={rays}: draw gap {gap:.3e}, "
+          f"{beyond} draws past the last midpoint")
+    assert gap <= 1.0
+    assert beyond > 0 and beyond == int((ref > last_mid[:, None]).sum())
+
+
+# (rays, S, K, draws): the frame chunk's two calls (the coarse draw on the
+# stride-0 probe ladder, the fine from the coarse weights), the train
+# step's two (uniforms), and other shapes of rays and rows
+SAMPLE_PDF_MAIN = [(16384, 66, 48, "midpoints"), (16384, 48, 32, "midpoints"),
+                   (7000, 66, 48, "uniforms"), (7000, 48, 32, "uniforms"),
+                   (8, 100, 16, "midpoints"), (40000, 66, 48, "midpoints"),
+                   (16384, 7, 3, "uniforms"), (1001, 34, 20, "uniforms"),
+                   (1001, 130, 64, "midpoints")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rays,s,k,draws", SAMPLE_PDF_MAIN)
+@pytest.mark.parametrize("rows", ["random", "two surfaces"])
+def test_sample_pdf_kernel_at_the_main_path_shapes(cuda, rays, s, k, draws, rows):
+    """At the main path's shapes the kernel's draws are within rounding of
+    the plain body's (draw_gap), and the same bits on a second call."""
+    z, w, u, eps = _pdf_case(s, k, "stride-0 z" if s == 66 and rows == "random" else rows,
+                             rays, draws, cuda)
+    a = sample_pdf_cuda(z, w, k, u, eps)
+    b = sample_pdf_cuda(z, w, k, u, eps)
+    ref = sample_pdf_plain(z, w, k, u, eps=eps)
+    torch.cuda.synchronize()
+    gap = draw_gap(a, ref, z, w, eps)
+    print(f"measured sample_pdf R={rays} S={s} K={k} {draws} {rows}: draw gap {gap:.3e}, "
+          f"{int((a != ref).sum())} of {a.numel()} depths differ, max abs "
+          f"{float((a - ref).abs().max()):.3e}")
+    assert torch.equal(a, b)
+    assert gap <= 1.0
+
+
+@pytest.mark.gpu
+def test_sample_pdf_kernel_carries_nan_as_plain(cuda):
+    """A NaN weight, depth or uniform makes its ray's depths NaN where the
+    plain body's are; the other rays keep within rounding of them."""
+    z, w, u, eps = _pdf_case(48, 32, "random", 64, "uniforms", cuda)
+    z = z.clone()
+    w[3, 10] = float("nan")
+    z[7, 20] = float("nan")
+    u[11, 5] = float("nan")
+    out = sample_pdf_cuda(z, w, 32, u, eps)
+    ref = sample_pdf_plain(z, w, 32, u, eps=eps)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.isnan(out), torch.isnan(ref))
+    assert bool(torch.isnan(ref[[3, 7, 11]]).any(dim=1).all())
+    keep = ~torch.isnan(ref).any(dim=1)
+    assert draw_gap(out[keep], ref[keep], z[keep], w[keep], eps) <= 1.0
+
+
+@pytest.mark.gpu
+def test_sample_pdf_kernel_replays_in_a_cuda_graph(cuda):
+    """sample_pdf captured in a CUDA graph (the stride-0 probe ladder, as
+    in the frame's graph): a replay on new inputs copied into the captured
+    tensors gives the eager call's bits; the capture counts one kernel
+    call, the replay none."""
+    z, w, u, eps = _pdf_case(66, 48, "random", 4096, "uniforms", cuda)
+    z2, w2, u2, _ = _pdf_case(66, 48, "random", 4096, "uniforms", cuda, seed=1)
+    ladder = z[:1].clone()
+    zs, ws, us = ladder.expand(4096, 66), w.clone(), u.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sample_pdf(zs, ws, 48, uniforms=us)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = _pdf_counts()
+    with torch.cuda.graph(graph):
+        out = sample_pdf(zs, ws, 48, uniforms=us)
+    assert _pdf_counts() == (before[0] + 1, before[1], before[2] + 1)
+    ladder.copy_(z2[:1])
+    ws.copy_(w2)
+    us.copy_(u2)
+    graph.replay()
+    want = sample_pdf(z2[:1].expand(4096, 66), w2, 48, uniforms=u2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert not torch.equal(out, sample_pdf(z[:1].expand(4096, 66), w, 48, uniforms=u))
+    assert _pdf_counts() == (before[0] + 3, before[1], before[2] + 3)
+
+
+@pytest.mark.gpu
+def test_sample_pdf_refused_launch_raises(cuda):
+    """A launch the kernel refuses (no draws a ray) raises and counts no
+    launch."""
+    z, w, u, eps = _pdf_case(48, 32, "random", 100, "uniforms", cuda)
+    out = torch.empty((100, 0), device=cuda)
+    before = sample_pdf_cuda.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        _launch(z, w, None, out, eps)
+    assert sample_pdf_cuda.launches == before
+
+
+@pytest.mark.gpu
+def test_sample_pdf_routes_by_what_it_sees_on_the_card(cuda):
+    """On CUDA tensors sample_pdf launches the kernel and nothing else: an
+    input that requires grad (outside no_grad), a float64 input and a row
+    past the kernel's ceiling raise ValueError, and count no call; an
+    input that requires grad under no_grad launches."""
+    z, w, u, eps = _pdf_case(48, 32, "random", 300, "uniforms", cuda)
+    before = _pdf_counts()
+    out = sample_pdf(z, w, 32, uniforms=u)
+    assert _pdf_counts() == (before[0] + 1, before[1], before[2] + 1)
+    wg = w.clone().requires_grad_()
+    zl, wl, _, _ = _pdf_case(max_bins() + 2, 8, "random", 30, "midpoints", cuda)
+    for args in ((z, wg, 32, u), (z.double(), w.double(), 32, u.double()), (zl, wl, 8, None)):
+        with pytest.raises(ValueError, match="sample_pdf_cuda"):
+            sample_pdf(args[0], args[1], args[2], uniforms=args[3])
+    assert _pdf_counts() == (before[0] + 1, before[1], before[2] + 1)
+    with torch.no_grad():
+        out_g = sample_pdf(z, wg, 32, uniforms=u)
+    torch.cuda.synchronize()
+    assert _pdf_counts() == (before[0] + 2, before[1], before[2] + 2)
+    assert torch.equal(out, out_g)

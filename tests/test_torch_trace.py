@@ -265,7 +265,9 @@ def test_the_loop_routes_frame_and_epoch_spans(tracer):
     """On the CPU a frame is one ``frame.loop`` span (a frame a unit,
     tagged with the renderer's frame number) and an epoch one
     ``epoch.loop`` (a step a unit, tagged with the stage); the graph
-    route's spans, captures and intervals do not occur."""
+    route's spans, captures and intervals do not occur, nor a kernel
+    build: the one counter is ``sample_pdf.plain``, the inverse-CDF
+    draws taking the plain body on CPU tensors."""
     cfg = Config(nerf=NerfConfig(**NERF_KW), eval=EvalConfig(rays_per_chunk=128,
                  importance_samples=8, use_pallas=False), compute_dtype="float32",
                  train=TrainConfig(rays_per_batch=64, importance_samples=8))
@@ -287,7 +289,8 @@ def test_the_loop_routes_frame_and_epoch_spans(tracer):
     assert snap["spans"]["epoch.loop"]["units"] == 3
     assert snap["spans"]["epoch.loop"]["last"] == {"stage": 1}
     assert set(snap["spans"]) == {"frame.loop", "epoch.loop"}
-    assert snap["counters"] == {} and snap["intervals"] == {}
+    assert set(snap["counters"]) == {"sample_pdf.plain"} and snap["intervals"] == {}
+    assert snap["counters"]["sample_pdf.plain"] > 0
 
 
 def _engine(tmp_path) -> t_engine.Engine:
