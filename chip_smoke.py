@@ -7,6 +7,21 @@ on a reference-format scene.
 1. Prints the card's name and power limit, builds the CUDA kernels from
    ``mc_nerf_torch/csrc`` (nvcc, sm_90a, one process per source, in
    parallel) and prints the build time.
+1b. The hash-grid field (``ngp_phase``; alone: ``python3 chip_smoke.py
+   --ngp``) at the benchmark's instant-ngp-base configuration and
+   train.ngp inputs (8 of its 800x800 images): the occupancy refresh from
+   the field, the GLOBAL_OPTIM and FINE_TUNE step graphs
+   (``make_stage_epoch``, 10 steps on each route) and the 800x800 frame
+   graph (``make_render_fn``, the same bits as its chunk loop); the
+   encode's launches by path (``ops/cuda/hashgrid.py::launches`` zeroed
+   before each: one forward and one backward a loop step, the warm-ups'
+   and the capture's in a graph epoch, one forward a frame chunk; the
+   profiler's in a replay of each graph); ``hash_encode_fwd_kernel`` and
+   ``hash_encode_bwd_kernel`` held against ``hash_encode_plain`` on each
+   path's first recorded call (features 2^-8 of their largest, the
+   table's gradient and d/dx 2e-6 relative L2, as
+   ``tests/test_torch_ngp_gpu.py``), with five planted faults, and timed
+   with the plain body's forward and backward and their bound.
 2. Holds each eval kernel against its plain PyTorch version on the card, at
    the main path's widths: ``fused_mlp_apply`` (coarse sigma-only 4x128 and
    fine full 8x256, 65,536 points plus a ragged tail) and ``fused_render``
@@ -140,7 +155,8 @@ on a reference-format scene.
    fused_mlp VJP; the frame graph phase; the engine's training steps,
    validation renders and demo; the CLI's importance and grid ``--train``
    and ``--demo``; the data-parallel ``--train`` and ``--demo`` and the
-   frames split over its ranks): that
+   frames split over its ranks; the hash encode's refresh, GLOBAL_OPTIM,
+   FINE_TUNE and frame paths): that
    path's launches (an eval path's: its frame graphs' replays, profiled;
    ``launches_counted`` the wrappers'), time per launch at its shapes,
    bound, plain and library times; then ``{"ok": true, "device": ...}``
@@ -3808,6 +3824,302 @@ def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> 
             "numbers": numbers}
 
 
+# ---- the hash-grid field (ngp_phase)
+
+# the benchmark's train.ngp cell: its configuration (the published widths)
+# and traffic (start step, schedule, image size)
+NGP_CONFIG = "portbench/configs/instant-ngp-base.json"
+NGP_TRAFFIC = "portbench/traffic/global_optim_ngp.json"
+NGP_IMAGES = 8
+NGP_STEPS = 10
+# The encode's kernels vs models/hashgrid.py::hash_encode_plain, the
+# tolerances of tests/test_torch_ngp_gpu.py: the features max |kernel -
+# plain| over max |plain| at 2^-8 (the kernel writes bf16, 2^-9 of a
+# feature); the table's gradient and d/dx relative L2 at 2e-6 (fp32 sums,
+# the atomics, in another order; measured 1.4e-7 and under)
+NGP_TOL = {"feat": 2.0 ** -8, "gtable": 2e-6, "gx": 2e-6}
+NGP_KERNELS = {"fwd": "hash_encode_fwd_kernel", "bwd": "hash_encode_bwd_kernel"}
+# a frame whose rgb spreads less is flat: a field that lost its table or
+# its density renders one colour (~0); the seeded field's 800x800 frame
+# reads 0.045 on an H100
+NGP_FLAT_STD = 0.01
+
+
+def ngp_plain(rec: dict, gout=None, primes=None, x=None, table=None, gate=None) -> tuple:
+    """``hash_encode_plain``'s (features, the table's gradient, the points')
+    on a recorded call ``rec`` for the cotangent ``gout`` (the features
+    alone without one); ``primes``, ``x``, ``table`` or ``gate`` plant
+    another spatial hash or input."""
+    from mc_nerf_torch.models import hashgrid as hg
+
+    x = rec["x"] if x is None else x
+    table = rec["table"] if table is None else table
+    gate = rec["gate"] if gate is None else gate
+    saved = hg.PRIMES
+    hg.PRIMES = saved if primes is None else primes
+    try:
+        with torch.enable_grad():
+            xg = x.clone().requires_grad_(gout is not None)
+            tg = table.clone().requires_grad_(gout is not None)
+            feat = hg.hash_encode_plain(xg, tg, gate, rec["grid"], rec["lo"], rec["hi"])
+            if gout is None:
+                return (feat.detach(),)
+            gx, gt = torch.autograd.grad(feat, (xg, tg), gout.float())
+    finally:
+        hg.PRIMES = saved
+    return feat.detach(), gt, gx
+
+
+def ngp_gaps(got: tuple, ref: tuple) -> dict:
+    """The errors ``NGP_TOL`` holds, of the outputs ``got`` has (a backward
+    without the points' gradient has no ``gx``)."""
+    rel = lambda a, b: float(torch.linalg.vector_norm((a - b).double())
+                             / torch.linalg.vector_norm(b.double()))
+    out = {"feat": float((got[0].float() - ref[0]).abs().max() / ref[0].abs().max())}
+    if len(got) > 1:
+        out["gtable"] = rel(got[1], ref[1])
+        if got[2] is not None:
+            out["gx"] = rel(got[2], ref[2])
+    return out
+
+
+def hold_ngp(path: str, rec: dict) -> dict:
+    """The encode's kernels against the plain body on a path's recorded call
+    ``rec`` (the backward's where the path has one, else the forward's),
+    with planted faults; then ms a launch of each kernel and of the plain
+    body's forward and backward, and their bound (the logical bytes
+    ``portbench/flops_ngp.py`` counts, over the memory rate)."""
+    from mc_nerf_torch.models.hashgrid import hash_encode_plain
+    from mc_nerf_torch.ops.cuda import hashgrid as hk
+
+    x, table, gate, grid, lo, hi = (rec[k] for k in ("x", "table", "gate", "grid", "lo", "hi"))
+    gout, need_x = rec.get("gout"), rec.get("need_x", False)
+    fwd = lambda: hk.encode_fwd(x, table, gate, grid, lo, hi)
+    bwd = lambda: hk.encode_bwd(x, table, gate, grid, lo, hi, gout, need_x)
+    got = (fwd(),) if gout is None else (fwd(), *bwd())
+    torch.cuda.synchronize()
+    ref = ngp_plain(rec, gout)
+    errs = ngp_gaps(got, ref)
+    tols = {k: NGP_TOL[k] for k in errs}
+    gate0 = torch.ones(grid.levels, device=x.device) if gate is None else gate.clone()
+    gate0[0] = 0.0
+    fp8 = lambda t: t.to(torch.float8_e4m3fn).float()
+    plants = {"hash primes swapped": ngp_plain(rec, gout, primes=(1, 805459861, 2654435761)),
+              "level 0 gated off": ngp_plain(rec, gout, gate=gate0),
+              "table in fp8": ngp_plain(rec, gout, table=fp8(table)),
+              "a point's neighbour's cell": ngp_plain(rec, gout, x=torch.roll(x, 1, 0))}
+    if gout is not None:
+        plants["cotangent in fp8"] = ngp_plain(rec, fp8(gout.float() * 2 ** 20) / 2 ** 20)
+    if gout is not None and not need_x:     # the kernel gave no d/dx: none compared
+        plants = {n: (*r[:2], None) for n, r in plants.items()}
+    p = x.shape[0]
+    hold(f"hash encode {path} P={p}", errs, tols,
+         {n: ngp_gaps(r, ref) for n, r in plants.items()}, 2.0)
+    # the logical bytes of a pass, as portbench/flops_ngp.py counts them
+    lf, corners = grid.out_dim, grid.levels * 8 * grid.features * 4
+    passes = {"fwd": (fwd, lambda: ngp_plain(rec), p * (12 + corners + 2 * lf))}
+    if gout is not None:
+        xg = x.clone().requires_grad_(True)
+        tg = table.clone().requires_grad_(True)
+        with torch.enable_grad():
+            feat = hash_encode_plain(xg, tg, gate, grid, lo, hi)
+        g = gout.float()
+        passes["bwd"] = (bwd, lambda: torch.autograd.grad(feat, (xg, tg) if need_x else (tg,), g,
+                                                          retain_graph=True),
+                         p * (2 * lf + 2 * corners + 12 + (12 if need_x else 0)))
+    numbers = {}
+    for kind, (kernel, plain, nbytes) in passes.items():
+        b_ms, by = bound(0.0, nbytes)
+        numbers[kind] = {"ms": cuda_ms(kernel), "plain_ms": cuda_ms(plain, 3), "bound_ms": b_ms,
+                         "bound_by": by, "points": p,
+                         "max_err": {k: v for k, v in errs.items()
+                                     if (k == "feat") == (kind == "fwd")}}
+        print(f"{NGP_KERNELS[kind]} {path} P={p}: {numbers[kind]['ms']:.4f} ms (bound "
+              f"{b_ms:.4f} by {by}; plain {numbers[kind]['plain_ms']:.3f})", flush=True)
+    return numbers
+
+
+def ngp_phase(dev, smi: str) -> dict:
+    """The hash-grid field (``nerf.field: hashgrid``) at the train.ngp cell's
+    configuration, on its seeded inputs (``NGP_IMAGES`` of its 800x800
+    images), through the port's entry points: the occupancy refresh from
+    the field, the GLOBAL_OPTIM and FINE_TUNE step graphs
+    (``make_stage_epoch``, an epoch of ``NGP_STEPS`` steps on each route)
+    and the 800x800 frame graph (``make_render_fn``, against its chunk
+    loop: the same bits).  The encode's launches by path:
+    ``ops/cuda/hashgrid.py::launches`` zeroed before each, the wrapper's
+    counts (one forward and one backward a loop step, the warm-ups' and the
+    capture's in a graph epoch, one forward a frame chunk) and the
+    profiler's in one replay of each graph.  The first eager call of each
+    path is recorded (a capture's are not: its tensors are not computed
+    yet), and the kernels are held against the plain body on it
+    (``hold_ngp``).  Returns the paths' numbers and the ``kernels``
+    entries."""
+    from mc_nerf_torch.models.hashgrid import hash_grid
+    from mc_nerf_torch.ops.cuda import hashgrid as hk
+    from mc_nerf_torch.tools.profile_step import count_named, profile_steps
+    from mc_nerf_torch.train.engine import refresh_occupancy
+    from mc_nerf_torch.train.optim import build_optimizers
+    from mc_nerf_torch.train.steps import WARMUP_STEPS, make_render_fn, make_stage_epoch
+    from portbench.program import port_config, train_setup
+    from portbench.scene import orbit_views
+    from portbench.scene_ngp import make_scene
+
+    t0 = time.perf_counter()
+    with open(NGP_CONFIG) as f:
+        conf = json.load(f)
+    with open(NGP_TRAFFIC) as f:
+        tr = json.load(f)
+    cfg = port_config(conf)
+    sc = dict(tr["scene"], n_images=NGP_IMAGES)
+    h, w = sc["img_h"], sc["img_w"]
+    scene = make_scene(conf["nerf"], sc, SEED, dev)
+    state, data, _ = train_setup(scene.params, scene.images_u8, scene.detections, cfg, tr, dev)
+    txs, _ = build_optimizers(cfg, state.params, state.p_flat, tr["lr_steps_per_epoch"])
+    field = state.params.nerf
+    print(f"ngp: {hash_grid(cfg.nerf).entries} table rows, "
+          f"{state.p_flat.numel()} parameters in the flat buffer", flush=True)
+
+    calls, counted, where = {}, {}, [None]
+    real = {"fwd": hk.encode_fwd, "bwd": hk.encode_bwd}
+
+    def recorder(kind):
+        def call(x, table, gate, grid, lo, hi, *rest):
+            rec = calls.setdefault(where[0], {})
+            if kind not in rec and not torch.cuda.is_current_stream_capturing():
+                keep = lambda t: None if t is None else t.detach().clone()
+                rec[kind] = {"x": keep(x), "table": keep(table), "gate": keep(gate),
+                             "grid": grid, "lo": lo, "hi": hi}
+                if kind == "bwd":
+                    rec[kind]["gout"] = keep(rest[0].to(torch.bfloat16))
+                    rec[kind]["need_x"] = rest[1] if len(rest) > 1 else True
+            return real[kind](x, table, gate, grid, lo, hi, *rest)
+        return call
+
+    def counting(path, fn):
+        where[0] = path
+        hk.launches.update(fwd=0, bwd=0)
+        out = fn()
+        torch.cuda.synchronize()
+        counted[path] = dict(hk.launches)
+        return out
+
+    def replayed(replay) -> dict:
+        _, rows, _ = profile_steps(replay, 1)
+        found = count_named(rows, list(NGP_KERNELS.values()))
+        return {k: found.get(n, 0) for k, n in NGP_KERNELS.items()}
+
+    hk.encode_fwd, hk.encode_bwd = recorder("fwd"), recorder("bwd")
+    paths = {}
+    try:
+        occ = counting("ngp_refresh", lambda: refresh_occupancy(field, cfg, dev, 0))
+        data = data._replace(occ=occ)
+        got = counted["ngp_refresh"]
+        print(f"ngp_refresh: the encode's launches (counted) {got}", flush=True)
+        if not (got["fwd"] > 0 and got["bwd"] == 0):
+            fail(f"ngp_refresh: the encode's launches {got}")
+        paths["ngp_refresh"] = {"launches": {"loop": got}}
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        for stage, path in ((1, "ngp_train"), (2, "ngp_fine_tune")):
+            ep = make_stage_epoch(cfg, stage, txs[stage], h, w, tr["total_steps"], NGP_STEPS,
+                                  graph=True)
+            m = counting(path, lambda: ep(state, data, gen))
+            per_replay = replayed(ep._cuda_graph.replay)
+            loop = make_stage_epoch(cfg, stage, txs[stage], h, w, tr["total_steps"], NGP_STEPS,
+                                    graph=False)
+            counting(path + "_loop", lambda: loop(state, data, gen))
+            calls.pop(path + "_loop", None)
+            got = {"graph": counted[path], "replay": per_replay, "loop": counted[path + "_loop"]}
+            want = {"graph": dict.fromkeys(NGP_KERNELS, WARMUP_STEPS + 1),
+                    "replay": dict.fromkeys(NGP_KERNELS, 1),
+                    "loop": dict.fromkeys(NGP_KERNELS, NGP_STEPS)}
+            metrics = {k: float(v) for k, v in m.items()}
+            print(f"{path}: the encode's launches, a graph epoch of {NGP_STEPS} steps (its "
+                  f"warm-up and capture, counted) {got['graph']}, a replay (profiled) "
+                  f"{per_replay}, a loop epoch (counted) {got['loop']}; metrics {metrics}",
+                  flush=True)
+            if got != want:
+                fail(f"{path}: the encode's launches {got}, wanted {want}")
+            if not all(math.isfinite(v) for v in metrics.values()):
+                fail(f"{path}: metrics not finite: {metrics}")
+            paths[path] = {"launches": got, "metrics": metrics}
+            ep.release()
+        poses, K = orbit_views(NGP_IMAGES, h, w)
+        pose = torch.as_tensor(poses[3], dtype=torch.float32, device=dev)
+        K = torch.as_tensor(K, dtype=torch.float32, device=dev)
+        render = make_render_fn(cfg, h, w, device=dev)
+        loop = make_render_fn(cfg, h, w, device=dev, graph=False)
+        a = counting("ngp_frame", lambda: render(field, pose, K, data.occ))
+        b = counting("ngp_frame_loop", lambda: loop(field, pose, K, data.occ))
+        calls.pop("ngp_frame_loop", None)
+        (g, _, _), = render._graphs.values()
+        n = render.n_chunks
+        got = {"graph": counted["ngp_frame"], "replay": replayed(g.replay),
+               "loop": counted["ngp_frame_loop"]}
+        want = {"graph": {"fwd": 1 + n, "bwd": 0}, "replay": {"fwd": n, "bwd": 0},
+                "loop": {"fwd": n, "bwd": 0}}
+        same = all(torch.equal(u, v) for u, v in zip(a, b))
+        rgb_std = float(a[0].float().std())
+        print(f"ngp_frame {h}x{w}: the encode's launches, the first frame (a chunk's warm-up "
+              f"and the capture, counted) {got['graph']}, a replay (profiled) {got['replay']}, "
+              f"the loop (counted) {got['loop']}, over {n} chunks; graph and loop the same "
+              f"bits: {same}; rgb std {rgb_std:.4f}", flush=True)
+        if got != want:
+            fail(f"ngp_frame: the encode's launches {got}, wanted {want}")
+        if not (same and rgb_std > NGP_FLAT_STD):
+            fail(f"ngp_frame: the frame graph and its loop differ ({not same}) or the frame is "
+                 f"flat (rgb std {rgb_std})")
+        frame_ms = cuda_ms(lambda: render(field, pose, K, data.occ))
+        paths["ngp_frame"] = {"launches": got, "chunks": n, "frame_ms": frame_ms}
+        render.release()
+    finally:
+        hk.encode_fwd, hk.encode_bwd = real["fwd"], real["bwd"]
+
+    kernels = []
+    for path, rec in calls.items():
+        numbers = hold_ngp(path, rec.get("bwd", rec["fwd"]))
+        for kind, x in numbers.items():
+            kernels.append({"name": NGP_KERNELS[kind], "path": path, "route": "cuda",
+                            "source": "mc_nerf_torch/csrc/hashgrid.cu",
+                            "replaces": "none: the JAX package has no hash-grid field",
+                            **{f"launches_{k}": v[kind]
+                               for k, v in paths[path]["launches"].items()},
+                            **x, "library_ms": None})
+    wanted = {("ngp_refresh", "hash_encode_fwd_kernel"), ("ngp_frame", "hash_encode_fwd_kernel"),
+              *((p, k) for p in ("ngp_train", "ngp_fine_tune") for k in NGP_KERNELS.values())}
+    checked = {(e["path"], e["name"]) for e in kernels}
+    if checked != wanted:
+        fail(f"hash encode: kernels checked on {sorted(checked)}, wanted {sorted(wanted)}")
+    seconds = time.perf_counter() - t0
+    print(f"ngp phase: {seconds:.1f} s ({smi})", flush=True)
+    return {"paths": paths, "kernels": kernels, "seconds": seconds, "card": smi}
+
+
+def ngp_main() -> None:
+    """``python3 chip_smoke.py --ngp``: the build and ``ngp_phase`` alone;
+    then its result line, its kernels line and the device line, last."""
+    from mc_nerf_torch.ops.cuda import _build
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    t0 = time.perf_counter()
+    build_dir = _build.build_all()
+    print(f"build: {time.perf_counter() - t0:.1f} s into {build_dir}", flush=True)
+    ngp = ngp_phase(torch.device("cuda"), smi)
+    kernels = ngp.pop("kernels")
+    print(json.dumps({"ngp": ngp}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke test needs a CUDA card")
@@ -3848,6 +4160,9 @@ def main() -> None:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {log.stem}: {line.strip()}")
+    ngp = ngp_phase(dev, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
 
     cfg = Config()
     nc = cfg.nerf
@@ -4328,6 +4643,8 @@ def main() -> None:
     if nccl is not None:
         kernels += nccl.pop("kernels")
     print(json.dumps({"nccl": nccl, "card": smi}))
+    kernels += ngp.pop("kernels")
+    print(json.dumps({"ngp": ngp}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
@@ -4376,5 +4693,7 @@ if __name__ == "__main__":
         dp_rank(json.loads(sys.argv[2]))
     elif sys.argv[1:2] == ["--nccl"]:
         nccl_main()
+    elif sys.argv[1:2] == ["--ngp"]:
+        ngp_main()
     else:
         main()

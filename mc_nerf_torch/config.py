@@ -170,6 +170,21 @@ class NerfConfig:
     # lifts the engine's refusal of the training configurations measured
     # to collapse (coarse-free from stage 1, the density PMF)
     allow_measured_harmful: bool = False
+    # the radiance field: "mlp" (MC-NeRF's coarse / fine MLP pair, the keys
+    # above) or "hashgrid" (Instant-NGP's multiresolution hash encoding and
+    # its two small MLPs, models/ngp.py; coarse-free from stage 1 only)
+    field: str = "mlp"
+    hash_levels: int = 16            # L levels of 2 features each (a divisor of 32)
+    hash_log2_size: int = 19         # T = 2^this entries a hashed level at most
+    hash_base_res: int = 16          # N_min, the coarsest level's resolution
+    hash_max_res: int = 2048         # N_max, the finest's
+    ngp_width: int = 64              # hidden width of both MLPs
+    ngp_density_hidden: int = 1      # hidden layers of the density MLP
+    ngp_geo_features: int = 16       # its outputs: raw density, then the colour MLP's input
+    ngp_color_hidden: int = 2        # hidden layers of the colour MLP
+    # the view directions' SH encoding, in tiny-cuda-nn's count: degree d
+    # gives d^2 coefficients (bands 0 to d - 1)
+    ngp_dir_degree: int = 4
 
     def coarse_free_at(self, stage: int) -> bool:
         """Is the renderer coarse-free at this engine stage (0 = CAM_PARAM,
@@ -387,6 +402,16 @@ def load_yaml(path: str, base: Optional[Config] = None) -> Config:
         occ_refresh_source=nf("occ_refresh_source", n.occ_refresh_source),
         cf_uniform_samples=nf("cf_uniform_samples", n.cf_uniform_samples),
         allow_measured_harmful=nf("allow_measured_harmful", n.allow_measured_harmful),
+        field=nf("field", n.field),
+        hash_levels=nf("hash_levels", n.hash_levels),
+        hash_log2_size=nf("hash_log2_size", n.hash_log2_size),
+        hash_base_res=nf("hash_base_res", n.hash_base_res),
+        hash_max_res=nf("hash_max_res", n.hash_max_res),
+        ngp_width=nf("ngp_width", n.ngp_width),
+        ngp_density_hidden=nf("ngp_density_hidden", n.ngp_density_hidden),
+        ngp_geo_features=nf("ngp_geo_features", n.ngp_geo_features),
+        ngp_color_hidden=nf("ngp_color_hidden", n.ngp_color_hidden),
+        ngp_dir_degree=nf("ngp_dir_degree", n.ngp_dir_degree),
     )
     tst = lambda key, default: get(sys_info, "test_params", key, default=default)
     evalc = dataclasses.replace(

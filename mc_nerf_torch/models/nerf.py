@@ -20,7 +20,10 @@ Both renders also have the coarse-free branch (``coarse_free=True``,
 importance mode with an occupancy map): the fine depths come straight
 from the occupancy PMF (``proposal_pmf``; in training the mixture of
 :func:`mixture_samples`), no coarse pass runs, and the fine pass is the
-two-pass renders' own.
+two-pass renders' own.  The ``field: hashgrid`` field
+(:mod:`mc_nerf_torch.models.ngp`, :class:`NgpField` in place of
+:class:`NerfParams`) renders on that branch alone, its exp density
+composited with no sigma noise.
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ from torch.utils.checkpoint import checkpoint
 from mc_nerf_torch import resolve_device
 from mc_nerf_torch.config import NerfConfig
 from mc_nerf_torch.models.encoding import barf_weights, sincos_encode
+from mc_nerf_torch.models.hashgrid import level_gate
 from mc_nerf_torch.models.mlp import NerfMLP, apply_nerf_mlp, init_nerf_mlp
+from mc_nerf_torch.models.ngp import NgpField, init_ngp_field, ngp_shade
 from mc_nerf_torch.models.sh import sh_basis
 from mc_nerf_torch.ops.cuda.fused_mlp import (
     BASIS_LANES,
@@ -49,6 +54,7 @@ from mc_nerf_torch.ops.cuda.fused_mlp import (
 from mc_nerf_torch.ops.cuda.fused_render import fused_render
 from mc_nerf_torch.ops.occupancy import mixture_samples, mixture_split, proposal_pmf
 from mc_nerf_torch.ops.volume import (
+    CompositeResult,
     composite,
     compute_deltas,
     expand_bins_to_samples,
@@ -68,10 +74,15 @@ class NerfParams(nn.Module):
 
 
 def init_nerf_params(cfg: NerfConfig, generator: Optional[torch.Generator] = None,
-                     device=None) -> NerfParams:
+                     device=None):
     """Fresh coarse (4x128 skip@2) and fine (8x256 skip@4) MLPs, drawn from
-    ``generator``."""
+    ``generator``; for ``cfg.field == "hashgrid"`` a fresh
+    :class:`NgpField` instead."""
     dev = resolve_device(device)
+    if cfg.field == "hashgrid":
+        return init_ngp_field(cfg, generator, dev)
+    if cfg.field != "mlp":
+        raise ValueError(f"unknown nerf.field: {cfg.field!r} (mlp | hashgrid)")
     coarse = init_nerf_mlp(cfg.embed_dim, cfg.coarse_depth, cfg.coarse_width,
                            cfg.coarse_skips, cfg.sh_dim, generator, dev)
     fine = init_nerf_mlp(cfg.embed_dim, cfg.fine_depth, cfg.fine_width,
@@ -243,6 +254,14 @@ def render_rays_eval(
         raise ValueError("coarse_free requires an occupancy map and fine_mode='importance'")
     if occ is not None and fine_mode != "importance":
         raise ValueError("occupancy culling requires fine_mode='importance'")
+    if isinstance(params, NgpField) and not coarse_free:
+        raise ValueError("the hashgrid field renders coarse-free only: it has no coarse MLP")
+    if isinstance(params, NgpField):
+        # the strata's midpoints of the PMF, all levels on
+        z_probe, pmf = proposal_pmf(occ, rays_o, rays_d, cfg)
+        z = torch.clamp(sample_pdf(z_probe, pmf, importance_samples), cfg.near, cfg.far)
+        out = _ngp_composite(params, rays_d, rays_o, z, cfg, None, compute_dtype)
+        return out.rgb, out.depth, out.opacity
     n_rays = rays_d.shape[0]
     basis = sh_basis(cfg.sh_deg, rays_d)
 
@@ -299,6 +318,17 @@ def render_rays_eval(
         out = _grid_composite(z_f, sigma_f, rgb_f, sample_valid, step_f, cfg, None)
         return out.rgb, out.depth, out.opacity
     return importance_fine(sample_pdf(z_c, w_sel, importance_samples))       # [R, K]
+
+
+def _ngp_composite(field: NgpField, rays_d, rays_o, z, cfg: NerfConfig,
+                   gate: Optional[torch.Tensor], compute_dtype) -> CompositeResult:
+    """The hash-grid field at depths ``z`` [R, K] (which the occupancy PMF
+    gave: it has no coarse MLP): its exp density composited over white,
+    with no sigma noise (instant-ngp has none)."""
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+    sigma, rgb = ngp_shade(field, xyz, rays_d, cfg, gate, compute_dtype)
+    return composite(z, sigma, rgb, noise=None, white_back=cfg.white_back, last_inf=True,
+                     density="exp")
 
 
 class RenderDraws(NamedTuple):
@@ -390,6 +420,10 @@ def render_rays_train(
     selection cutoff's max over the rays of this call to the max over the
     whole batch: a data-parallel step's all-reduce over the ranks.
 
+    The hash-grid field (``params`` an :class:`NgpField`) renders
+    coarse-free only: the PMF's draws, the level gate where ``barf_on``,
+    its exp density composited without sigma noise.
+
     Returns (rgb_coarse [R, 3], or None when coarse-free, rgb_fine [R, 3]).
     """
     if fine_mode not in ("importance", "grid"):
@@ -398,6 +432,16 @@ def render_rays_train(
         raise ValueError("coarse_free requires an occupancy map and fine_mode='importance'")
     if occ is not None and fine_mode != "importance":
         raise ValueError("occupancy culling requires fine_mode='importance'")
+    if isinstance(params, NgpField) and not coarse_free:
+        raise ValueError("the hashgrid field renders coarse-free only: it has no coarse MLP")
+    if isinstance(params, NgpField):
+        # the PMF's stratified draws (and the uniform share), sorted; the
+        # level gate where BARF is on
+        z = mixture_samples(*proposal_pmf(occ, rays_o, rays_d, cfg), importance_samples,
+                            cfg.cf_uniform_samples, draws.pdf_u, draws.mix_u, cfg.near,
+                            cfg.far).detach().contiguous()
+        gate = level_gate(cfg, step_r, barf_window) if barf_on else None
+        return None, _ngp_composite(params, rays_d, rays_o, z, cfg, gate, compute_dtype).rgb
     freq_w = barf_weights(cfg.emb_freqs_xyz, step_r, *barf_window) if barf_on else None
     basis = sh_basis(cfg.sh_deg, rays_d)
     k = importance_samples

@@ -48,6 +48,38 @@ def sigma_to_weights(deltas: torch.Tensor, sigma: torch.Tensor,
     return alpha * _exclusive_transmittance(sd)
 
 
+# instant-ngp's exp density: its gradient reads the raw density clamped here
+EXP_CLAMP = 15.0
+
+
+class _TruncExp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h):
+        ctx.save_for_backward(h)
+        return torch.exp(h)
+
+    @staticmethod
+    def backward(ctx, g):
+        (h,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp(h, max=EXP_CLAMP))
+
+
+def trunc_exp(h: torch.Tensor) -> torch.Tensor:
+    """exp(h), whose gradient is ``exp(min(h, 15))``: the density activation
+    of instant-ngp's NeRF, kept finite where a density saturates."""
+    return _TruncExp.apply(h)
+
+
+def activate_density(sigma: torch.Tensor, density: str) -> torch.Tensor:
+    """Raw density -> density: "softplus" (MC-NeRF's MLP pair) or "exp"
+    (:func:`trunc_exp`, the hash-grid field's)."""
+    if density == "softplus":
+        return F.softplus(sigma)
+    if density == "exp":
+        return trunc_exp(sigma)
+    raise ValueError(f"unknown density activation {density!r} (softplus | exp)")
+
+
 class CompositeResult(NamedTuple):
     rgb: torch.Tensor       # [..., 3]
     depth: torch.Tensor     # [..., 1]
@@ -58,11 +90,16 @@ class CompositeResult(NamedTuple):
 def composite(z_vals: torch.Tensor, sigma: torch.Tensor, rgb: torch.Tensor,
               noise: Optional[torch.Tensor] = None, white_back: bool = True,
               last_inf: bool = True,
-              max_delta: Optional[float] = None) -> CompositeResult:
+              max_delta: Optional[float] = None,
+              density: str = "softplus") -> CompositeResult:
     """Alpha-composite per-sample density/colour into per-ray outputs
-    (ref ``inference``, mc_nerf.py:705-727)."""
+    (ref ``inference``, mc_nerf.py:705-727).  ``density`` activates the raw
+    ``sigma`` (:func:`activate_density`); the noisy weights are the
+    softplus field's alone (the exp field takes no noise)."""
+    if noise is not None and density != "softplus":
+        raise ValueError("sigma noise is drawn for the softplus density only")
     deltas = compute_deltas(z_vals, last_inf=last_inf, max_delta=max_delta)
-    sigma_delta = F.softplus(sigma) * deltas
+    sigma_delta = activate_density(sigma, density) * deltas
     alpha = 1.0 - torch.exp(-sigma_delta)
     prob = _exclusive_transmittance(sigma_delta) * alpha
     opacity = torch.sum(prob, dim=-1, keepdim=True)

@@ -9,7 +9,9 @@ temporary file named for the process and publishes it with
 ``os.replace``, so a reader never sees half a file and two writers never
 share a temporary name.  Saves are synchronous: the JAX package saves
 asynchronously, but ~2.5 MB of flat state (the default model) is not
-worth a thread.  Retention follows the JAX package's ``Checkpointer``:
+worth a thread; the hash-grid field's 12.2 M parameters make a file of
+~0.34 GB (the buffer and three stages' moments), written in the epoch's
+gap as well.  Retention follows the JAX package's ``Checkpointer``:
 the newest ``max_keep`` epochs plus ``keep_epochs`` (the engine passes
 its stage boundaries); ``max_keep`` 0 keeps every epoch.
 """

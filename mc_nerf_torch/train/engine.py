@@ -11,7 +11,9 @@ validation view every epoch; and the demo, which restores a checkpoint
 and scores every test view through :func:`demo` (PSNR, SSIM, and LPIPS
 where a weights file is found).  The coarse-free modes and the density
 PMF are checked as the JAX engine checks them, training configurations
-measured to collapse refused unless ``allow_measured_harmful``.  An
+measured to collapse refused unless ``allow_measured_harmful``; the
+hash-grid field (``nerf.field: hashgrid``, no coarse MLP) trains
+coarse-free from stage 1 by design, and its refreshes probe its density.  An
 epoch is ``train/steps.py``'s :class:`StageEpoch` of its stage: on the
 card, with one process or over NCCL ranks, each stage's step captured
 once as a CUDA graph (over NCCL its collectives in it) and replayed once
@@ -75,12 +77,14 @@ from mc_nerf_torch.eval.metrics import lpips, psnr, ssim
 from mc_nerf_torch.models.camera_params import camera_poses, init_camera_params, intrinsics
 from mc_nerf_torch.models.encoding import sincos_encode
 from mc_nerf_torch.models.nerf import NerfParams, init_nerf_params
+from mc_nerf_torch.models.ngp import ngp_density
 from mc_nerf_torch.ops.occupancy import (
     OccupancyGrid,
     sampler_map,
     uniform_prior_map,
     update_grid,
 )
+from mc_nerf_torch.ops.volume import trunc_exp
 from mc_nerf_torch.parallel.mesh import (
     all_reduce_sum_,
     barrier,
@@ -137,15 +141,25 @@ def refresh_grid(nerf_params: NerfParams, cfg: Config, device, epoch: int,
     """The occupancy grid from the ``source`` ("coarse" / "fine") MLP: one
     jittered lattice evaluation (:func:`refresh_jitter`), fresh when
     ``grid`` is None, else the EMA-max into it.  Plain PyTorch in
-    ``cfg.compute_dtype`` (the JAX package leaves it to XLA)."""
+    ``cfg.compute_dtype`` (the JAX package leaves it to XLA).  The
+    hash-grid field has one density, which every source probes (its
+    encode the kernels' on the card)."""
     nc = cfg.nerf
     cd = _dtype(cfg.compute_dtype)
-    mlp = {"coarse": nerf_params.coarse, "fine": nerf_params.fine}[source]
+    if nc.field == "hashgrid":
+        @torch.no_grad()
+        def act(pts):
+            # the hash-grid field's density, all levels on; the probe is
+            # the span ngp.field
+            with trace.span("ngp.field", units=pts.shape[0]):
+                return trunc_exp(ngp_density(nerf_params, pts, nc, None, cd)[0])
+    else:
+        mlp = {"coarse": nerf_params.coarse, "fine": nerf_params.fine}[source]
 
-    @torch.no_grad()
-    def act(pts):
-        sigma, _ = mlp(sincos_encode(pts, nc.emb_freqs_xyz, None), cd, sigma_only=True)
-        return F.softplus(sigma.reshape(-1))
+        @torch.no_grad()
+        def act(pts):
+            sigma, _ = mlp(sincos_encode(pts, nc.emb_freqs_xyz, None), cd, sigma_only=True)
+            return F.softplus(sigma.reshape(-1))
 
     return update_grid(grid, act, nc.occ_grid_size, nc.bound_min, nc.bound_max,
                        uniforms=refresh_jitter(cfg, epoch, device), decay=nc.occ_decay,
@@ -273,6 +287,18 @@ def check_sampling_modes(cfg: Config) -> None:
     (``cfg.mode == 0``) unless ``nerf.allow_measured_harmful``; the demo
     renders existing checkpoints and is exempt."""
     nc = cfg.nerf
+    if nc.field not in ("mlp", "hashgrid"):
+        raise ValueError(f"unknown nerf.field: {nc.field!r} (mlp | hashgrid)")
+    if nc.field == "hashgrid" and not (nc.coarse_free and nc.coarse_free_from_stage == 1
+                                       and cfg.eval.coarse_free is not False):
+        raise ValueError(
+            "nerf.field='hashgrid' renders coarse-free in every stage (it has no coarse MLP): "
+            "set nerf.coarse_free=True and coarse_free_from_stage=1, and leave "
+            "eval.coarse_free unset")
+    if nc.field == "hashgrid" and (nc.hash_levels < 1 or 32 % nc.hash_levels):
+        raise ValueError(
+            f"nerf.hash_levels={nc.hash_levels}: the hash grid takes a divisor of 32 (the "
+            "encode's kernels sum a point's levels over the lanes of a warp)")
     if nc.coarse_free and (nc.occ_grid_size <= 0 or cfg.train.fine_mode != "importance"
                            or cfg.eval.fine_mode != "importance"):
         raise ValueError(
@@ -302,7 +328,8 @@ def check_sampling_modes(cfg: Config) -> None:
             "eval.coarse_free=True requires occ_grid_size > 0 and eval.fine_mode='importance' "
             "— the occupancy grid is the sampling proposal")
     if cfg.mode == 0 and not nc.allow_measured_harmful:
-        if nc.coarse_free and nc.coarse_free_from_stage == 1:
+        # measured on the MLP pair: the hash grid trains coarse-free by design
+        if nc.coarse_free and nc.coarse_free_from_stage == 1 and nc.field == "mlp":
             raise ValueError(
                 "nerf.coarse_free with coarse_free_from_stage=1 trains the field from scratch "
                 "on the grid PMF alone and collapsed to ~6 PSNR in all five measured takes "

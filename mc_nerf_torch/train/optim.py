@@ -11,7 +11,9 @@ trainable subsets are 0/1 masks (ref ``main.py:182-205``):
   3. everything except the camera poses (``pose_se3``);
 in coarse-free stages the coarse MLP is frozen too.
 The leaf order is the module's parameter order (cameras, then the coarse
-and fine MLPs), not the JAX package's ``ravel_pytree`` order; the update
+and fine MLPs, or the hash-grid field's table and MLPs: ~0.73 M and
+~12.2 M entries at the published widths), not the JAX package's
+``ravel_pytree`` order; the update
 is elementwise, so only the leaf-by-leaf values have to agree.
 """
 

@@ -657,7 +657,8 @@ class FrameRender:
         pix = F.pad(pixel_grid(self.img_h, self.img_w, device=self.device),
                     (0, 0, 0, self.padded - self.hw))
         rays_d, rays_o = rays_for_pixels(pix, pose_w2c, K)
-        packed = pack_eval_params(nerf_params, self.cfg.nerf) if self.use_kernels else None
+        packed = (pack_eval_params(nerf_params, self.cfg.nerf)
+                  if self.use_kernels and self.cfg.nerf.field == "mlp" else None)
         ev, own = self.cfg.eval, batch_slice(self.chunk, self.rank, self.world)
         return [render_rays_eval(nerf_params, rays_d[i + own.start:i + own.stop],
                                  rays_o[i + own.start:i + own.stop], self.cfg.nerf, self.cd,
