@@ -27,8 +27,14 @@ on a reference-format scene.
    fine full 8x256, 65,536 points plus a ragged tail) and ``fused_render``
    (flags (F,F), (T,T), (T,F) at s=32 and s=48, 2,000 rays); then times
    both, and compares them again, on one eval chunk of 16384 rays (48
-   coarse, 32 fine samples per ray); holds ``sample_pdf``'s kernel against
-   its plain body (``draw_gap``: each draw within rounding) at the frame
+   coarse, 32 fine samples per ray), where the eval path's rays entry
+   points (``fused_mlp_apply_rays``, ``fused_render_rays``: the encode in
+   the kernel) must give the feat entry points' bits on the encode's
+   features, and are timed beside the encode then the feat entry point
+   (every eval path below runs the rays entry points; its recorded rays
+   and depths give the oracle's features, ``feat_form``); holds
+   ``sample_pdf``'s kernel against its plain body (``draw_gap``: each
+   draw within rounding) at the frame
    chunk's two calls and the train step's two, and times both.
 3. Drives the demo (``mc_nerf_torch.train.engine.demo``) at the library's
    default full width over two 800x800 views, with the occupancy refresh,
@@ -67,9 +73,11 @@ on a reference-format scene.
    filled workspace (``mlp_bwd_weights``) with its bound, ``floor_ms`` and
    a bf16 torch.mm chain of the dW products, kept under ``per_pass``;
    the demo in grid mode over the two 800x800 views with K1 and K4 counted,
-   a frame timed, one chunk against the plain route, K1 and K4 at one eval
-   chunk's shapes; the grid GLOBAL_OPTIM step as in 5 (K4 and K5 twice
-   per step).
+   a frame timed, one chunk against the plain route, K1 and K4 on one eval
+   chunk's rays and depths (the rays entry points, timed beside the
+   encode then the feat entry point: the grid eval chunk before and after
+   the encode moved into the kernels); the grid GLOBAL_OPTIM step as in 5
+   (K4 and K5 twice per step).
 6b. The compiled epoch (``graph_phase``): for four step kinds on the
    workload of 5 (importance and grid GLOBAL_OPTIM, coarse-free FINE_TUNE,
    CAM_PARAM), epochs of 10 steps from one state and seed through the
@@ -95,8 +103,8 @@ on a reference-format scene.
    (``fused_render`` and its two backward launches exactly twice per
    GLOBAL_OPTIM / FINE_TUNE step of the warm-ups and captures, which the
    wrappers count, and twice in a replay of each stage's step graph,
-   which the profiler counts after the run; ``fused_mlp_apply`` and
-   ``fused_render`` in the validation frames, one graph replayed once a
+   which the profiler counts after the run; ``fused_mlp_apply_rays`` and
+   ``fused_render_rays`` in the validation frames, one graph replayed once a
    frame), run B resumes from run
    A's epoch-0 checkpoint and must end on the same bits, the demo
    restores the latest checkpoint and scores the test views.  The calls
@@ -126,7 +134,7 @@ on a reference-format scene.
    show.  Then the coarse-free hybrid through the CLI (GLOBAL_OPTIM
    two-pass, FINE_TUNE coarse-free, a bitpacked map): ``fused_render``
    and its two backward launches exactly twice a two-pass step and once
-   a coarse-free one, ``fused_mlp_apply`` never, the coarse MLP's
+   a coarse-free one, ``fused_mlp_apply_rays`` never, the coarse MLP's
    parameters bit-stable through FINE_TUNE; its ``--demo`` with LPIPS on
    seeded random weights (against the CPU's fp32 value) and with the
    density PMF; each kernel held on those inputs as above.
@@ -182,6 +190,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import gc
 import hashlib
 import json
@@ -284,22 +293,32 @@ FRAME_MODES = {"importance culled": ({}, {}, True),
                "grid": ({"fine_mode": "grid"}, {}, False)}
 FRAME_SIDES = (800, 200)
 FRAME_ITERS = {800: 2, 200: 10}
+# the eval paths' entry points (models/nerf.py::render_rays_eval), which
+# encode each point in the kernel from its ray and depth, and each one's
+# feat entry point: the route the oracle's features take
+RAYS_FORMS = {"fused_mlp_apply_rays": "fused_mlp_apply", "fused_render_rays": "fused_render",
+              "fused_shaded_mlp_rays": "fused_shaded_mlp"}
+# a rays entry point's call by shape, as engine_recorder keys it
+RAYS_SHAPES = {"fused_mlp_apply_rays": lambda a: f"{a[3].numel()} points",
+               "fused_render_rays": lambda a: f"{a[1].shape[0]} rays x {a[7]}",
+               "fused_shaded_mlp_rays": lambda a: f"{a[1].shape[0]} rays x {a[7]}"}
 # the kernel of csrc/ each eval wrapper launches once a call, as the
-# profiler names it: K1 the forward kernel's FWD_RAW instance, K2 its
-# composite; K4 the FWD_SHADED instance, which K2 also runs
-FRAME_SIGNATURE = {"fused_mlp_apply": r"shaded_fwd_kernel<\D*1>",
-                   "fused_render": r"\bcomposite_fwd_kernel\b",
-                   "fused_shaded_mlp": r"shaded_fwd_kernel<\D*0>",
+# profiler names it: K1 the forward kernel's FWD_RAW, FEAT_RAYS instance,
+# K2 its composite; K4 the FWD_SHADED, FEAT_RAYS instance, which K2 also
+# runs
+FRAME_SIGNATURE = {"fused_mlp_apply_rays": r"shaded_fwd_kernel<\D*1\D+1>",
+                   "fused_render_rays": r"\bcomposite_fwd_kernel\b",
+                   "fused_shaded_mlp_rays": r"shaded_fwd_kernel<\D*0\D+1>",
                    "sample_pdf_cuda": r"\binverse_cdf_kernel\b"}
 # each eval mode's launches of each wrapper a chunk (a block of a split
 # frame): K1 the coarse pass, K2 or K4 the fine one; sample_pdf's draws
 # of the coarse depths from the map's PMF and of the fine ones
-FRAME_LAUNCHES = {"importance culled": {"fused_mlp_apply": 1, "fused_render": 1,
+FRAME_LAUNCHES = {"importance culled": {"fused_mlp_apply_rays": 1, "fused_render_rays": 1,
                                         "sample_pdf_cuda": 2},
-                  "importance unculled": {"fused_mlp_apply": 1, "fused_render": 1,
+                  "importance unculled": {"fused_mlp_apply_rays": 1, "fused_render_rays": 1,
                                           "sample_pdf_cuda": 1},
-                  "coarse-free bitpack": {"fused_render": 1, "sample_pdf_cuda": 1},
-                  "grid": {"fused_mlp_apply": 1, "fused_shaded_mlp": 1}}
+                  "coarse-free bitpack": {"fused_render_rays": 1, "sample_pdf_cuda": 1},
+                  "grid": {"fused_mlp_apply_rays": 1, "fused_shaded_mlp_rays": 1}}
 # the engine phase's cuts of the protocol (52 epochs of 50 steps a train
 # image, 3000 warm-up steps, 800x800 images, 200 test views)
 ENGINE_CUTS = {"stages": (1, 1, 1), "steps_per_image_epoch": 2, "occ_warmup_steps": 16}
@@ -398,6 +417,7 @@ REPLACES = {"fused_mlp_apply": "mc_nerf_tpu/ops/pallas/fused_mlp.py:241",
             "fused_shaded_mlp_bwd": "mc_nerf_tpu/ops/pallas/fused_mlp.py:423",
             "fused_mlp_bwd": "mc_nerf_tpu/ops/pallas/fused_mlp.py:739",
             "sample_pdf_cuda": "none: mc_nerf_tpu/ops/volume.py::sample_pdf is plain jnp"}
+REPLACES.update({r: REPLACES[f] for r, f in RAYS_FORMS.items()})
 SOURCES = {"fused_mlp_apply": "mc_nerf_torch/csrc/fused_mlp.cu",
            "fused_render": "mc_nerf_torch/csrc/fused_render.cu",
            "render_bwd_points": "mc_nerf_torch/csrc/fused_render_bwd.cu",
@@ -406,6 +426,37 @@ SOURCES = {"fused_mlp_apply": "mc_nerf_torch/csrc/fused_mlp.cu",
            "fused_shaded_mlp_bwd": "mc_nerf_torch/csrc/fused_mlp_bwd.cu",
            "fused_mlp_bwd": "mc_nerf_torch/csrc/fused_mlp_bwd.cu",
            "sample_pdf_cuda": "mc_nerf_torch/csrc/sample_pdf.cu"}
+SOURCES.update({r: SOURCES[f] for r, f in RAYS_FORMS.items()})
+
+
+def rays_wrappers() -> tuple:
+    """The eval paths' rays entry points (``RAYS_FORMS``), the functions
+    whose ``launches`` count K1, K2 and K4 there."""
+    from mc_nerf_torch.ops.cuda.fused_mlp import fused_mlp_apply_rays, fused_shaded_mlp_rays
+    from mc_nerf_torch.ops.cuda.fused_render import fused_render_rays
+
+    return fused_mlp_apply_rays, fused_render_rays, fused_shaded_mlp_rays
+
+
+def feat_form(name: str, a: tuple) -> tuple:
+    """A rays entry point's recorded call ``a`` as its feat entry point's
+    arguments (``RAYS_FORMS``), with the oracle's features:
+    ``encode_kernel_order`` of the points from the recorded rays and
+    depths."""
+    from mc_nerf_torch.ops.cuda.fused_mlp import encode_kernel_order, pack_freqs, ray_points
+
+    if name == "fused_mlp_apply_rays":
+        pk, o, d, z, depth, skips = a
+    elif name == "fused_render_rays":
+        pk, o, d, basis16, z, depth, skips, s, nb, white_back = a
+    else:
+        pk, o, d, z, basis16, depth, skips, s, nb = a
+    feat = encode_kernel_order(ray_points(o, d, z).reshape(-1, 3), pack_freqs(pk))
+    if name == "fused_mlp_apply_rays":
+        return pk, feat, depth, skips
+    if name == "fused_render_rays":
+        return pk, feat, basis16, z, None, None, depth, skips, s, nb, False, False, white_back
+    return pk, feat, basis16, depth, skips, s, nb
 
 
 def fail(msg: str) -> None:
@@ -506,15 +557,16 @@ def render_errs(out, w, ref, ref_w) -> dict:
 
 
 def hold_render(label: str, a: tuple, tols: dict, plants: bool, failures: list,
-                unplanted: tuple = ()) -> dict:
-    """``fused_render`` on the inputs ``a`` held against its plain version
-    (``hold``), with the planted faults of the other phases but those in
-    ``unplanted`` at 2x (``CLI_WEAK_PLANTS`` at theirs); returns the
-    kernel's errors."""
+                unplanted: tuple = (), out: tuple = None) -> dict:
+    """``fused_render`` on the inputs ``a`` (or ``out``, the kernel's
+    (ray_out, wsel) on them by another route) held against its plain
+    version (``hold``), with the planted faults of the other phases but
+    those in ``unplanted`` at 2x (``CLI_WEAK_PLANTS`` at theirs); returns
+    the kernel's errors."""
     from mc_nerf_torch.ops.cuda.fused_render import fused_render, fused_render_plain
     from mc_nerf_torch.tools.bwd_check import render_scan_late
 
-    k_out, k_w = fused_render(*a)
+    k_out, k_w = fused_render(*a) if out is None else out
     torch.cuda.synchronize()
     p_out, p_w = fused_render_plain(*a)
     planted = {}
@@ -749,12 +801,13 @@ def bf16_pack(packed):
                           for x in packed))
 
 
-def render_forward_numbers(nc, args, iters: int = 5) -> dict:
-    """fused_render on ``args`` (its positional arguments): the kernel's
-    ms, the plain version's, a bf16 matmul chain's of the same MLP (each
-    of the two over ``iters`` calls) and the bound: the MLP's products, or
-    the bytes read (feat, basis, z, the noise draws it takes, the bf16
-    pack) and written (ray_out, wsel)."""
+def render_forward_numbers(nc, args, iters: int = 5, call=None) -> dict:
+    """fused_render on ``args`` (its positional arguments; ``call``, where
+    given, is the kernel timed: the rays route on the same points): the
+    kernel's ms, the plain version's, a bf16 matmul chain's of the same
+    MLP (each of the two over ``iters`` calls) and the bound: the MLP's
+    products, or the bytes read (feat, basis, z, the noise draws it takes,
+    the bf16 pack) and written (ray_out, wsel)."""
     from mc_nerf_torch.ops.cuda.fused_render import fused_render, fused_render_plain
     from mc_nerf_torch.tools.bwd_check import needed_macs
 
@@ -766,17 +819,18 @@ def render_forward_numbers(nc, args, iters: int = 5) -> dict:
     t_bound, by = bound(2.0 * needed_macs(nc, depth, pk.trunk_w[0].shape[1], skips, False) * p,
                         nbytes)
     with torch.no_grad():
-        return {"ms": cuda_ms(lambda: fused_render(*args), iters),
+        return {"ms": cuda_ms(call or (lambda: fused_render(*args)), iters),
                 "plain_ms": cuda_ms(lambda: fused_render_plain(*args), 3),
                 "library_ms": cuda_ms(lambda: library_mlp(pk16, feat, depth, skips), iters),
                 "bound_ms": t_bound, "bound_by": by}
 
 
-def mlp_numbers(nc, pk, feat, depth, skips, iters: int = 5) -> dict:
-    """fused_mlp_apply on these inputs: the kernel's ms, the plain
-    version's, a bf16 matmul chain's (the two over ``iters`` calls) and
-    the bound (the MLP's products, or feat and the pack read, the [P, 32]
-    rows written)."""
+def mlp_numbers(nc, pk, feat, depth, skips, iters: int = 5, call=None) -> dict:
+    """fused_mlp_apply on these inputs (``call``, where given, is the
+    kernel timed: the rays route on the same points): the kernel's ms, the
+    plain version's, a bf16 matmul chain's (the two over ``iters`` calls)
+    and the bound (the MLP's products, or feat and the pack read, the
+    [P, 32] rows written)."""
     from mc_nerf_torch.ops.cuda.fused_mlp import fused_mlp_apply, mlp_plain
     from mc_nerf_torch.tools.bwd_check import needed_macs
 
@@ -784,7 +838,7 @@ def mlp_numbers(nc, pk, feat, depth, skips, iters: int = 5) -> dict:
     sigma_only = pk.head_w0.shape[1] == width
     t_bound, by = bound(2.0 * needed_macs(nc, depth, width, skips, sigma_only) * p,
                         p * feat.shape[1] * 2 + p * 32 * 4 + pack_bytes(pk))
-    return {"ms": cuda_ms(lambda: fused_mlp_apply(pk, feat, depth, skips), iters),
+    return {"ms": cuda_ms(call or (lambda: fused_mlp_apply(pk, feat, depth, skips)), iters),
             "plain_ms": cuda_ms(lambda: mlp_plain(pk, feat, depth, skips), 3),
             "library_ms": cuda_ms(lambda: library_mlp(pk, feat, depth, skips), iters),
             "bound_ms": t_bound, "bound_by": by}
@@ -1316,11 +1370,11 @@ def graph_phase(dev, smi: str, counters: dict) -> dict:
 def frame_launches_in(rows) -> dict:
     """The eval kernels' launches in profiler ``rows`` (``profile_steps``'),
     by wrapper: each wrapper's ``FRAME_SIGNATURE`` kernel; K2 runs the
-    same ``shaded_fwd_kernel<FWD_SHADED>`` as K4 before its composite, so
-    K4's are those beyond K2's."""
+    same ``shaded_fwd_kernel<FWD_SHADED, FEAT_RAYS>`` as K4 before its
+    composite, so K4's are those beyond K2's."""
     found = {w: sum(c for _, c, name in rows if re.search(p, name))
              for w, p in FRAME_SIGNATURE.items()}
-    found["fused_shaded_mlp"] -= found["fused_render"]
+    found["fused_shaded_mlp_rays"] -= found["fused_render_rays"]
     return found
 
 
@@ -1568,7 +1622,8 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
     # the engine's calls of the kernels' entry points, by path and shape
     where, calls = [None], {}
     wrapped = {(nerf_module, "fused_render"): lambda a: f"{a[2].shape[0]} rays x {a[8]}",
-               (nerf_module, "fused_mlp_apply"): lambda a: f"{a[1].shape[0]} points",
+               (nerf_module, "fused_mlp_apply_rays"): RAYS_SHAPES["fused_mlp_apply_rays"],
+               (nerf_module, "fused_render_rays"): RAYS_SHAPES["fused_render_rays"],
                (render_module, "fused_render_bwd"): lambda a: f"{a[3].shape[0]} rays x {a[9]}",
                (volume_module, "sample_pdf_cuda"): pdf_shape}
     originals = {k: getattr(*k) for k in wrapped}
@@ -1637,8 +1692,10 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
                  "of warm-up and capture, not 2 a step")
     graph_launches, per_replay = replayed_launches(
         eng_a, "engine_train", train_wrappers, {0: 0, 1: 2, 2: 2}, csrc_kernel_names())
-    if train_launches["fused_mlp_apply"] != 0 or not all(
-            val_launches[n] > 0 for n in ("fused_mlp_apply", "fused_render", "sample_pdf_cuda")):
+    if train_launches["fused_mlp_apply_rays"] != 0 or train_launches["fused_render_rays"] != 0 \
+            or val_launches["fused_render"] != 0 or not all(
+            val_launches[n] > 0
+            for n in ("fused_mlp_apply_rays", "fused_render_rays", "sample_pdf_cuda")):
         fail(f"engine validation launches {val_launches}, training {train_launches}")
     # the validation frames: one graph of the frame, captured once and
     # replayed once a frame (the wrappers count the warm-up and capture)
@@ -1646,7 +1703,7 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
     val_frames, _ = replayed_frames(eng_a._render_fns.values(), "engine_validation")
     if not (frame_routes["engine_validation"] == [{"captured": 1, "replayed": stages[1] + stages[2],
                                                    "looped": 0}]
-            and val_frames["fused_mlp_apply"] > 0 and val_frames["fused_render"] > 0
+            and val_frames["fused_mlp_apply_rays"] > 0 and val_frames["fused_render_rays"] > 0
             and val_frames["sample_pdf_cuda"] > 0):
         fail(f"engine validation frames by route {frame_routes}, launches in their replays "
              f"{val_frames}")
@@ -1709,9 +1766,10 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
           f"route {frame_routes}", flush=True)
     if not (demo["count"] == 2 and math.isfinite(demo["psnr"]) and math.isfinite(demo["ssim"])):
         fail(f"engine demo result is not finite: {demo}")
-    if not (demo_launches["fused_mlp_apply"] > 0 and demo_launches["fused_render"] > 0
+    if not (demo_launches["fused_mlp_apply_rays"] > 0 and demo_launches["fused_render_rays"] > 0
             and demo_launches["sample_pdf_cuda"] > 0 and demo_launches["render_bwd_points"] == 0
-            and demo_frames["fused_mlp_apply"] > 0 and demo_frames["fused_render"] > 0
+            and demo_launches["fused_render"] == 0
+            and demo_frames["fused_mlp_apply_rays"] > 0 and demo_frames["fused_render_rays"] > 0
             and demo_frames["sample_pdf_cuda"] > 0
             and frame_routes["engine_demo"] == [{"captured": 1, "replayed": 2, "looped": 0}]):
         fail(f"engine demo launches {demo_launches}, in its frame graphs {demo_frames}; frames "
@@ -1725,9 +1783,11 @@ def engine_phase(dev, smi: str, counters: dict) -> dict:
                "engine_demo": demo_launches}
     for path, got in counted.items():
         seen = {name: sum(c["n"] for c in calls.get((path, name), {}).values())
-                for name in ("fused_render", "fused_mlp_apply", "fused_render_bwd",
-                             "sample_pdf_cuda")}
-        want = {"fused_render": got["fused_render"], "fused_mlp_apply": got["fused_mlp_apply"],
+                for name in ("fused_render", "fused_mlp_apply_rays", "fused_render_rays",
+                             "fused_render_bwd", "sample_pdf_cuda")}
+        want = {"fused_render": got["fused_render"],
+                "fused_mlp_apply_rays": got["fused_mlp_apply_rays"],
+                "fused_render_rays": got["fused_render_rays"],
                 "fused_render_bwd": got["render_bwd_points"],
                 "sample_pdf_cuda": got["sample_pdf_cuda"]}
         if seen != want or got["render_bwd_points"] != got["render_bwd_weights"]:
@@ -1919,15 +1979,17 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
     # replays run the captured ones again without them, which the profiler
     # counts in one replay of each step graph
     host_i, host_g = summary["importance"]["host_nerf_steps"], summary["grid"]["host_nerf_steps"]
+    # (K2 on features twice a step; K1 and K2 on rays in validation)
     if not (l_train["render_bwd_points"] == l_train["render_bwd_weights"] == 2 * host_i
-            and l_train["fused_render"] > 2 * host_i and l_train["fused_mlp_apply"] > 0
-            and l_train["sample_pdf_cuda"] > 2 * host_i
+            and l_train["fused_render"] == 2 * host_i and l_train["fused_render_rays"] > 0
+            and l_train["fused_mlp_apply_rays"] > 0 and l_train["sample_pdf_cuda"] > 2 * host_i
             and l_train["fused_shaded_mlp"] == l_train["fused_shaded_mlp_bwd"] == 0):
         fail(f"cli_train launches {l_train} ({host_i} NeRF steps of warm-up and capture)")
     if not (l_train_g["fused_shaded_mlp_bwd"] == 2 * host_g
-            and l_train_g["fused_shaded_mlp"] > 2 * host_g and l_train_g["fused_mlp_apply"] > 0
+            and l_train_g["fused_shaded_mlp"] >= 2 * host_g
+            and l_train_g["fused_shaded_mlp_rays"] > 0 and l_train_g["fused_mlp_apply_rays"] > 0
             and l_train_g["fused_render"] == l_train_g["render_bwd_points"]
-            == l_train_g["sample_pdf_cuda"] == 0):
+            == l_train_g["sample_pdf_cuda"] == l_train_g["fused_render_rays"] == 0):
         fail(f"cli_train_grid launches {l_train_g} ({host_g} NeRF steps of warm-up and "
              "capture)")
     graph_launches, summary["per_replay"] = {}, {}
@@ -1938,9 +2000,10 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
         graph_launches[path], summary["per_replay"][path] = replayed_launches(
             eng, path, wrappers, {0: 0, 1: 2, 2: 2}, csrc_kernel_names())
     for path, result, dt, launches, kernels in (
-            ("cli_demo", demo_i, demo_s, l_demo, ("fused_mlp_apply", "fused_render",
+            ("cli_demo", demo_i, demo_s, l_demo, ("fused_mlp_apply_rays", "fused_render_rays",
                                                   "sample_pdf_cuda")),
-            ("cli_demo_grid", demo_g, demo_g_s, l_demo_g, ("fused_mlp_apply", "fused_shaded_mlp"))):
+            ("cli_demo_grid", demo_g, demo_g_s, l_demo_g, ("fused_mlp_apply_rays",
+                                                           "fused_shaded_mlp_rays"))):
         print(f"{path}: {result} in {dt:.2f} s ({smi}); launches {launches}", flush=True)
         if not (result["count"] == n_test and math.isfinite(result["psnr"])
                 and math.isfinite(result["ssim"])):
@@ -1950,11 +2013,12 @@ def cli_phase(dev, smi: str, counters: dict) -> dict:
         summary[path] = {"seconds": dt, "psnr": result["psnr"], "ssim": result["ssim"]}
     # every frame on the graph route: one capture a renderer, a replay a frame
     for path, kernels, n_frames in (
-            ("cli_train", ("fused_mlp_apply", "fused_render", "sample_pdf_cuda"),
+            ("cli_train", ("fused_mlp_apply_rays", "fused_render_rays", "sample_pdf_cuda"),
              sum(runs["importance"][0][1:])),
-            ("cli_demo", ("fused_mlp_apply", "fused_render", "sample_pdf_cuda"), n_test),
-            ("cli_train_grid", ("fused_mlp_apply", "fused_shaded_mlp"), sum(runs["grid"][0][1:])),
-            ("cli_demo_grid", ("fused_mlp_apply", "fused_shaded_mlp"), n_test)):
+            ("cli_demo", ("fused_mlp_apply_rays", "fused_render_rays", "sample_pdf_cuda"), n_test),
+            ("cli_train_grid", ("fused_mlp_apply_rays", "fused_shaded_mlp_rays"),
+             sum(runs["grid"][0][1:])),
+            ("cli_demo_grid", ("fused_mlp_apply_rays", "fused_shaded_mlp_rays"), n_test)):
         fr = frames[path]
         print(f"{path}: frames by route {fr['routes']}, launches in the frame graphs' replays "
               f"{fr['launches']}", flush=True)
@@ -2122,7 +2186,7 @@ def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
     # capture's chunks, once (every validation renders coarse-free on the
     # bitpacked map: one graph); the profiler a chunk's launch a replay.
     # A coarse-free chunk: one draw from the map's PMF, K2 on it
-    eval_wrappers = ("fused_render", "sample_pdf_cuda")
+    eval_wrappers = ("fused_render_rays", "sample_pdf_cuda")
     val = {k: l_train[k] - sum(n[k] for _, n in trained) for k in l_train}
     chunks = -(-res * res // eng.cfg.eval.rays_per_chunk)
     n_val = sum(1 for h in eng.history if h["stage"])
@@ -2136,8 +2200,8 @@ def cli_cf_phase(dev, smi: str, counters: dict) -> dict:
              f"({chunks} of {eval_wrappers} a view wanted)")
     for path, launches in (("cli_demo_cf", l_demo), ("cli_demo_density", l_density)):
         fr = frames[path]
-        if not (launches["fused_render"] > 0
-                and launches["sample_pdf_cuda"] == launches["fused_render"]
+        if not (launches["fused_render_rays"] > 0
+                and launches["sample_pdf_cuda"] == launches["fused_render_rays"]
                 and all(v == 0 for k, v in launches.items() if k not in eval_wrappers)
                 and fr["routes"] == [{"captured": 1, "replayed": n_test, "looped": 0}]
                 and all(fr["launches"][k] == chunks * n_test for k in eval_wrappers)
@@ -2308,7 +2372,7 @@ def dp_rank(spec: dict) -> None:
     work = pathlib.Path(spec["work"])
     counters = {k.__name__: k for k in (fused_render, render_bwd_points, render_bwd_weights,
                                         fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd,
-                                        sample_pdf_cuda)}
+                                        *rays_wrappers(), sample_pdf_cuda)}
     reduces, written = [], []
     mean_, write = steps_module.all_reduce_mean_, engine_module._write_pngs
 
@@ -3025,14 +3089,11 @@ def check_recorded(calls: dict, counted: dict) -> None:
     """Every launch counted on a path is a call ``engine_recorder``
     recorded there."""
     for path, got in counted.items():
+        names = ("fused_render", "fused_shaded_mlp", "fused_shaded_mlp_bwd", *RAYS_FORMS,
+                 "sample_pdf_cuda")
         seen = {n: sum(c["n"] for c in calls.get((path, n), {}).values())
-                for n in ("fused_render", "fused_mlp_apply", "fused_render_bwd",
-                          "fused_shaded_mlp", "fused_shaded_mlp_bwd", "sample_pdf_cuda")}
-        want = {"fused_render": got["fused_render"], "fused_mlp_apply": got["fused_mlp_apply"],
-                "fused_render_bwd": got["render_bwd_points"],
-                "fused_shaded_mlp": got["fused_shaded_mlp"],
-                "fused_shaded_mlp_bwd": got["fused_shaded_mlp_bwd"],
-                "sample_pdf_cuda": got["sample_pdf_cuda"]}
+                for n in (*names, "fused_render_bwd")}
+        want = {**{n: got[n] for n in names}, "fused_render_bwd": got["render_bwd_points"]}
         if seen != want:
             fail(f"{path}: recorded calls {seen} are not the launches counted {got}")
 
@@ -3071,8 +3132,8 @@ def cli_recording(work, name: str, counters: dict):
 
     where, calls, epochs, frames = [None], {}, [], {}
     wrapped = {(nerf_module, "fused_render"): lambda a: f"{a[2].shape[0]} rays x {a[8]}",
-               (nerf_module, "fused_mlp_apply"): lambda a: f"{a[1].shape[0]} points",
                (nerf_module, "fused_shaded_mlp"): lambda a: f"{a[2].shape[0]} rays x {a[5]}",
+               **{(nerf_module, n): shape for n, shape in RAYS_SHAPES.items()},
                (render_module, "fused_render_bwd"): lambda a: f"{a[3].shape[0]} rays x {a[9]}",
                (volume_module, "sample_pdf_cuda"): pdf_shape}
     originals = {k: getattr(*k) for k in wrapped}
@@ -3272,16 +3333,15 @@ def engine_recorder(fn, name: str, shape_of, where: list, calls: dict, last: boo
 
 @contextlib.contextmanager
 def recording_frames(where: list, calls: dict):
-    """The eval kernels' entry points in ``models/nerf.py`` (K1, K2, K4)
-    and ``sample_pdf_cuda`` in ``ops/volume.py`` recorded into ``calls``
-    while ``where[0]`` names a path (``engine_recorder``, each shape's
-    last call); restored on exit."""
+    """The eval kernels' entry points in ``models/nerf.py`` (K1, K2, K4:
+    ``RAYS_FORMS``, their rays and depths recorded) and ``sample_pdf_cuda``
+    in ``ops/volume.py`` recorded into ``calls`` while ``where[0]`` names
+    a path (``engine_recorder``, each shape's last call); restored on
+    exit."""
     import mc_nerf_torch.models.nerf as nerf_module
     import mc_nerf_torch.ops.volume as volume_module
 
-    wrapped = {(nerf_module, "fused_render"): lambda a: f"{a[2].shape[0]} rays x {a[8]}",
-               (nerf_module, "fused_mlp_apply"): lambda a: f"{a[1].shape[0]} points",
-               (nerf_module, "fused_shaded_mlp"): lambda a: f"{a[2].shape[0]} rays x {a[5]}",
+    wrapped = {**{(nerf_module, n): shape for n, shape in RAYS_SHAPES.items()},
                (volume_module, "sample_pdf_cuda"): pdf_shape}
     originals = {k: getattr(*k) for k in wrapped}
     for (module, name), shape_of in wrapped.items():
@@ -3299,11 +3359,13 @@ def pdf_shape(a) -> str:
     return f"{a[1].shape[0]} rays x {a[1].shape[1]} to {a[2]}"
 
 
-def shaded_numbers(nc, pk, feat, basis16, depth, skips, s, nb, iters: int = 5) -> dict:
-    """fused_shaded_mlp (K4) on these inputs: the kernel's ms, the plain
-    version's, a bf16 matmul chain's of the same MLP and the bound (the
-    MLP's products and the shading's fp32 ones, or feat, basis and the bf16
-    pack read, the [P, 8] rows written)."""
+def shaded_numbers(nc, pk, feat, basis16, depth, skips, s, nb, iters: int = 5,
+                   call=None) -> dict:
+    """fused_shaded_mlp (K4) on these inputs (``call``, where given, is
+    the kernel timed: the rays route on the same points): the kernel's ms,
+    the plain version's, a bf16 matmul chain's of the same MLP and the
+    bound (the MLP's products and the shading's fp32 ones, or feat, basis
+    and the bf16 pack read, the [P, 8] rows written)."""
     from mc_nerf_torch.ops.cuda.fused_mlp import fused_shaded_mlp, fused_shaded_mlp_plain
     from mc_nerf_torch.tools.bwd_check import needed_macs
 
@@ -3313,7 +3375,7 @@ def shaded_numbers(nc, pk, feat, basis16, depth, skips, s, nb, iters: int = 5) -
                         2.0 * 3 * nb * p)
     a = (pk, feat, basis16, depth, skips, s, nb)
     with torch.no_grad():
-        return {"ms": cuda_ms(lambda: fused_shaded_mlp(*a), iters),
+        return {"ms": cuda_ms(call or (lambda: fused_shaded_mlp(*a)), iters),
                 "plain_ms": cuda_ms(lambda: fused_shaded_mlp_plain(*a), 3),
                 "library_ms": cuda_ms(lambda: library_mlp(pk16, feat, depth, skips), iters),
                 "bound_ms": t_bound, "bound_by": by}
@@ -3359,25 +3421,44 @@ def path_kernel_numbers(calls: dict, nc, rng, render_tol: dict, mlp_tol: dict,
     the paths' garbage: on an H100, 5 calls of the engine's fine K2 once
     measured 1.251 ms, 20 calls 0.646 (the train-step phase's K2 0.627
     over 5, on a bf16 pack).  An eval chunk of ``fused_render`` (no
-    noise) is held again with its depths spread (``EVAL_SPREAD``).
+    noise) is held again with its depths spread (``EVAL_SPREAD``).  A
+    rays entry point's call (``RAYS_FORMS``) is that kernel on the
+    recorded rays and depths, held first to its feat entry point on the
+    oracle's features of the same points (``feat_form``), bit for bit,
+    then as the feat entry point is, and timed itself.
     Returns {(path, kernel): {shape: numbers with the shape's "launches"
     and "max_abs_err"}}."""
     from mc_nerf_torch.ops.cuda.fused_mlp import (
         PackedMLP, fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd,
         fused_shaded_mlp_bwd_plain, fused_shaded_mlp_plain, mlp_plain)
-    from mc_nerf_torch.ops.cuda.fused_render import fused_render_bwd, fused_render_bwd_plain
+    from mc_nerf_torch.ops.cuda.fused_render import (
+        fused_render, fused_render_bwd, fused_render_bwd_plain)
     from mc_nerf_torch.tools.bwd_check import (
         bwd_errs, mixed_in_tiles, pair_swapped, planted_errs, planted_errs_shaded)
 
     out = {}
     gc.collect()
+    rays_fns = {f.__name__: f for f in rays_wrappers()}
+    feat_fns = {"fused_mlp_apply": fused_mlp_apply, "fused_shaded_mlp": fused_shaded_mlp,
+                "fused_render": lambda *a: fused_render(*a)[0]}
     for (path, name), shapes in calls.items():
         for shape, rec in shapes.items():
             a, n, label = rec["args"], rec["n"], f"{name} on the {path} inputs ({shape})"
             planted = {}
-            if name == "fused_mlp_apply":
+            call = None          # the rays route's kernel on the points of ``a``
+            base = RAYS_FORMS.get(name, name)
+            if name in RAYS_FORMS:
+                call, a = functools.partial(rays_fns[name], *a), feat_form(name, a)
+                with torch.no_grad():
+                    same = torch.equal(call(), feat_fns[base](*a))
+                print(f"{label}: the rays route equals {base} on the encode's features, bit "
+                      f"for bit: {same}", flush=True)
+                if not same:
+                    (failures.append if failures is not None else fail)(
+                        f"{label}: the rays route strays from {base} on the same points")
+            if base == "fused_mlp_apply":
                 pk, feat, depth, skips = a
-                ker = fused_mlp_apply(*a)
+                ker = call() if call else fused_mlp_apply(*a)
                 torch.cuda.synchronize()
                 ref = mlp_plain(*a)
                 if plants:
@@ -3389,23 +3470,27 @@ def path_kernel_numbers(calls: dict, nc, rng, render_tol: dict, mlp_tol: dict,
                         "first layer lost": mlp_errs(mlp_plain(drop_first(pk), feat, depth, skips),
                                                      ref)}
                 hold(label, mlp_errs(ker, ref), mlp_tol, planted, 2.0, failures)
-                nums = {name: {**mlp_numbers(nc, *a, iters=ENGINE_ITERS),
+                nums = {name: {**mlp_numbers(nc, *a, iters=ENGINE_ITERS, call=call),
                                "max_abs_err": float((ker - ref).abs().max())}}
-            elif name == "fused_render":
+            elif base == "fused_render":
                 with torch.no_grad():
                     e = hold_render(label, a, render_tol, plants, failures,
-                                    ("scan one sample late",) if a[4] is None else ())
+                                    ("scan one sample late",) if a[4] is None else (),
+                                    (call(), None) if call else None)
                     if plants and a[4] is None:
+                        # the composite's scan on the recorded points: the
+                        # feat route (on the rays route the points would
+                        # move with the depths), the same composite kernel
                         z, k = a[3], EVAL_SPREAD
                         hold_render(f"{label}, depths spread {k}x",
                                     (*a[:3], z[:, :1] + (z - z[:, :1]) * k, *a[4:]),
                                     {**render_tol, "depth": DEPTH_ATOL * k}, plants, failures)
-                nums = {name: {**render_forward_numbers(nc, a, ENGINE_ITERS),
+                nums = {name: {**render_forward_numbers(nc, a, ENGINE_ITERS, call),
                                "max_abs_err": max(e.values())}}
-            elif name == "fused_shaded_mlp":
+            elif base == "fused_shaded_mlp":
                 pk, feat, basis16, depth, skips, s, nb = a
                 with torch.no_grad():
-                    k_out = fused_shaded_mlp(*a)
+                    k_out = call() if call else fused_shaded_mlp(*a)
                     torch.cuda.synchronize()
                     p_out = fused_shaded_mlp_plain(*a)
                     if plants:
@@ -3418,7 +3503,7 @@ def path_kernel_numbers(calls: dict, nc, rng, render_tol: dict, mlp_tol: dict,
                                 pk, feat, basis16.roll(basis16.shape[0] // 2, 0), *a[3:]),
                                 p_out)}
                 hold(label, shaded_errs(k_out, p_out), SHADED_TOL, planted, 2.0, failures)
-                nums = {name: {**shaded_numbers(nc, *a, iters=ENGINE_ITERS),
+                nums = {name: {**shaded_numbers(nc, *a, iters=ENGINE_ITERS, call=call),
                                "max_abs_err": float((k_out - p_out).abs().max())}}
             elif name == "fused_shaded_mlp_bwd":
                 depth = a[5]
@@ -3705,33 +3790,36 @@ def fused_mlp_vjp_phase(nc, params, dev, rng, rays, errs) -> dict:
 
 def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> dict:
     """The demo in the grid fine mode (``eval.fine_mode="grid"``: uniform
-    128 coarse samples through the sigma-only ``fused_mlp_apply``, 26 bins
-    x 5 fine samples per ray through ``fused_shaded_mlp``, no occupancy
-    refresh) over two 800x800 views, K1 and K4 counted from 0 just before;
-    one frame timed; one chunk of the frame through the plain route
-    against the kernel route; K1 and K4 at one eval chunk's shapes
-    (16384 x 128 coarse, 16384 x 130 fine) against their plain versions,
-    and their times."""
+    128 coarse samples through the sigma-only ``fused_mlp_apply_rays``, 26
+    bins x 5 fine samples per ray through ``fused_shaded_mlp_rays``, no
+    occupancy refresh) over two 800x800 views, K1 and K4 counted from 0
+    just before; one frame timed; one chunk of the frame through the plain
+    route against the kernel route; K1 and K4 on the rays and depths of
+    one eval chunk (16384 x 128 coarse, 16384 x 130 fine): the feat entry
+    points' bits on the encode's features, held against their plain
+    versions, and timed, beside the encode then the feat entry point (the
+    eval pass before the encode moved into the kernels)."""
     from mc_nerf_torch.tools.bwd_check import mixed_in_tiles, needed_macs, pair_swapped
     from mc_nerf_torch.cameras.rays import pixel_grid, rays_for_pixels
     from mc_nerf_torch.models.nerf import pack_eval_params, render_rays_eval
+    from mc_nerf_torch.models.sh import sh_basis
     from mc_nerf_torch.ops.cuda.fused_mlp import (
-        encode_kernel_order, fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_plain,
-        mlp_plain)
+        encode_kernel_order, fused_mlp_apply, fused_mlp_apply_rays, fused_shaded_mlp,
+        fused_shaded_mlp_plain, fused_shaded_mlp_rays, mlp_plain, ray_points)
     from mc_nerf_torch.train.engine import demo
     from mc_nerf_torch.train.steps import make_render_fn
 
     nc = cfg.nerf
     cfg_g = dataclasses.replace(cfg, eval=dataclasses.replace(cfg.eval, fine_mode="grid"))
     render = make_render_fn(cfg_g, h, w, device=dev)
-    fused_mlp_apply.launches = 0
-    fused_shaded_mlp.launches = 0
+    fused_mlp_apply_rays.launches = 0
+    fused_shaded_mlp_rays.launches = 0
     t0 = time.perf_counter()
     result = demo(params, split, cfg_g, device=dev, cull=True, render=render)
     torch.cuda.synchronize()
     demo_s = time.perf_counter() - t0
-    counted = {"fused_mlp_apply": fused_mlp_apply.launches,
-               "fused_shaded_mlp": fused_shaded_mlp.launches}
+    counted = {"fused_mlp_apply_rays": fused_mlp_apply_rays.launches,
+               "fused_shaded_mlp_rays": fused_shaded_mlp_rays.launches}
     replays, _ = replayed_frames([render], "demo_grid")
     launches = {k: replays[k] for k in counted}
     print(f"grid demo: {result} in {demo_s:.2f} s (its capture included); launches in its frame "
@@ -3776,23 +3864,40 @@ def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> 
              broken, rd, ro, nc, torch.bfloat16, fine_mode="grid"))})
     del broken
 
-    # K1 and K4 at one eval chunk's shapes
+    # K1 and K4 on the rays and depths of one eval chunk
     rng = np.random.default_rng(SEED + 1)
     nb = (nc.sh_deg + 1) ** 2
     sc, sf = nc.samples_coarse, nc.samples_fine
-    feat_c = encode_kernel_order(torch.as_tensor(rng.uniform(-3.5, 3.5, (chunk * sc, 3)),
-                                                 dtype=torch.float32, device=dev),
-                                 nc.emb_freqs_xyz)
-    feat_f, basis16 = render_inputs(nc, chunk, sf, rng, dev)[:2]
+    d = torch.as_tensor(rng.normal(size=(chunk, 3)), dtype=torch.float32, device=dev)
+    d = d / d.norm(dim=-1, keepdim=True)
+    o = torch.tensor([0.0, 0.0, -4.0], device=dev).expand(chunk, 3).contiguous()
+    z_c, z_f = (torch.sort(torch.as_tensor(rng.uniform(1.0, 8.0, (chunk, k)), dtype=torch.float32,
+                                           device=dev), dim=-1).values.contiguous()
+                for k in (sc, sf))
+    basis16 = torch.nn.functional.pad(sh_basis(nc.sh_deg, d), (0, 16 - nb)).contiguous()
+
+    def encoded(z):
+        return encode_kernel_order(ray_points(o, d, z).reshape(-1, 3), nc.emb_freqs_xyz)
+    feat_c, feat_f = encoded(z_c), encoded(z_f)
     lib_c = (packed[0], feat_c, nc.coarse_depth, nc.coarse_skips)
     sh_args = (packed[1], feat_f, basis16, nc.fine_depth, nc.fine_skips, sf, nb)
-    ker_c, ref_c = fused_mlp_apply(*lib_c), mlp_plain(*lib_c)
+    rays_c = (packed[0], o, d, z_c, nc.coarse_depth, nc.coarse_skips)
+    rays_f = (packed[1], o, d, z_f, basis16, nc.fine_depth, nc.fine_skips, sf, nb)
+    same = {"fused_mlp_apply_rays": torch.equal(fused_mlp_apply_rays(*rays_c),
+                                                fused_mlp_apply(*lib_c)),
+            "fused_shaded_mlp_rays": torch.equal(fused_shaded_mlp_rays(*rays_f),
+                                                 fused_shaded_mlp(*sh_args))}
+    print(f"grid eval chunk, the rays route the feat route's bits: {same}", flush=True)
+    if not all(same.values()):
+        fail(f"the rays route strays from the feat route at the grid eval chunk: {same}")
+    ker_c, ref_c = fused_mlp_apply_rays(*rays_c), mlp_plain(*lib_c)
     errs["fused_mlp_apply"] = max(errs["fused_mlp_apply"], float((ker_c - ref_c).abs().max()))
     hold(f"fused_mlp_apply grid eval chunk ({chunk} x {sc})", mlp_errs(ker_c, ref_c),
          {"rel": MLP_RTOL}, {"points mixed in a tile": mlp_errs(mixed_in_tiles(ker_c), ref_c),
                              "a pair's tiles swapped": mlp_errs(pair_swapped(ker_c), ref_c)}, 2.0)
-    ker_f, ref_f = fused_shaded_mlp(*sh_args), fused_shaded_mlp_plain(*sh_args)
+    ker_f, ref_f = fused_shaded_mlp_rays(*rays_f), fused_shaded_mlp_plain(*sh_args)
     errs["fused_shaded_mlp"] = max(errs["fused_shaded_mlp"], float((ker_f - ref_f).abs().max()))
+    errs.update({r: errs[f] for r, f in RAYS_FORMS.items() if f in errs})
     hold(f"fused_shaded_mlp grid eval chunk ({chunk} x {sf})", shaded_errs(ker_f, ref_f),
          SHADED_TOL, {"points mixed in a tile": shaded_errs(mixed_in_tiles(ker_f), ref_f),
                       "a pair's tiles swapped": shaded_errs(pair_swapped(ker_f), ref_f)}, 2.0)
@@ -3805,20 +3910,30 @@ def grid_demo_phase(cfg, params, dev, split, poses, K, h: int, w: int, errs) -> 
     b_f = bound(2.0 * macs_f * p_f, p_f * emb * 2 + chunk * 16 * 4 + p_f * 8 * 4
                 + pack_bytes(packed[1]), 2.0 * 3 * nb * p_f)
     numbers = {
-        "fused_mlp_apply": {"ms": cuda_ms(lambda: fused_mlp_apply(*lib_c)),
-                            "plain_ms": cuda_ms(lambda: mlp_plain(*lib_c), 2),
-                            "library_ms": cuda_ms(lambda: library_mlp(*lib_c)),
-                            "bound_ms": b_c[0], "bound_by": b_c[1]},
-        "fused_shaded_mlp": {"ms": cuda_ms(lambda: fused_shaded_mlp(*sh_args)),
-                             "plain_ms": cuda_ms(lambda: fused_shaded_mlp_plain(*sh_args), 2),
-                             "library_ms": cuda_ms(lambda: library_mlp(
-                                 packed[1], feat_f, nc.fine_depth, nc.fine_skips)),
-                             "bound_ms": b_f[0], "bound_by": b_f[1]},
+        "fused_mlp_apply_rays": {
+            "ms": cuda_ms(lambda: fused_mlp_apply_rays(*rays_c)),
+            "encode_then_feat_ms": cuda_ms(lambda: fused_mlp_apply(packed[0], encoded(z_c),
+                                                                   *lib_c[2:])),
+            "feat_ms": cuda_ms(lambda: fused_mlp_apply(*lib_c)),
+            "plain_ms": cuda_ms(lambda: mlp_plain(*lib_c), 2),
+            "library_ms": cuda_ms(lambda: library_mlp(*lib_c)),
+            "bound_ms": b_c[0], "bound_by": b_c[1]},
+        "fused_shaded_mlp_rays": {
+            "ms": cuda_ms(lambda: fused_shaded_mlp_rays(*rays_f)),
+            "encode_then_feat_ms": cuda_ms(lambda: fused_shaded_mlp(packed[1], encoded(z_f),
+                                                                    *sh_args[2:])),
+            "feat_ms": cuda_ms(lambda: fused_shaded_mlp(*sh_args)),
+            "plain_ms": cuda_ms(lambda: fused_shaded_mlp_plain(*sh_args), 2),
+            "library_ms": cuda_ms(lambda: library_mlp(
+                packed[1], feat_f, nc.fine_depth, nc.fine_skips)),
+            "bound_ms": b_f[0], "bound_by": b_f[1]},
     }
     for name, t in numbers.items():
-        print(f"{name} grid eval chunk: {t['ms']:.3f} ms (plain {t['plain_ms']:.3f}, bf16 "
-              f"matmul chain {t['library_ms']:.3f}, bound {t['bound_ms']:.3f} by "
-              f"{t['bound_by']})", flush=True)
+        print(f"{name} grid eval chunk: {t['ms']:.3f} ms (the feat entry point on the "
+              f"encode's features {t['feat_ms']:.3f}, the encode then it "
+              f"{t['encode_then_feat_ms']:.3f}; plain {t['plain_ms']:.3f}, bf16 matmul chain "
+              f"{t['library_ms']:.3f}, bound {t['bound_ms']:.3f} by {t['bound_by']})",
+              flush=True)
     return {"launches": launches, "launches_counted": counted, "frame_ms": frame_ms,
             "rays_per_s": h * w / frame_ms * 1e3, "demo_s": demo_s, "result": result,
             "numbers": numbers}
@@ -4131,11 +4246,11 @@ def main() -> None:
     from mc_nerf_torch.cameras.rays import pixel_grid, rays_for_pixels
     from mc_nerf_torch.ops.cuda import _build
     from mc_nerf_torch.ops.cuda.fused_mlp import (
-        BASIS_LANES, encode_kernel_order, fused_mlp_apply, fused_shaded_mlp, fused_shaded_mlp_bwd,
-        mlp_plain)
+        BASIS_LANES, encode_kernel_order, fused_mlp_apply, fused_mlp_apply_rays, fused_shaded_mlp,
+        fused_shaded_mlp_bwd, mlp_plain, ray_points)
     from mc_nerf_torch.ops.cuda.fused_render import (
-        fused_render, fused_render_plain, max_samples, max_samples_bwd, render_bwd_points,
-        render_bwd_weights)
+        fused_render, fused_render_plain, fused_render_rays, max_samples, max_samples_bwd,
+        render_bwd_points, render_bwd_weights)
     from mc_nerf_torch.ops.cuda.sample_pdf import sample_pdf_cuda
     from mc_nerf_torch.ops.volume import sample_pdf_plain
     from mc_nerf_torch.tools.bwd_check import mixed_in_tiles, pair_swapped, render_scan_late
@@ -4228,23 +4343,30 @@ def main() -> None:
                 "scan one sample late": render_errs(*render_scan_late(*args()), p_out, p_w),
             }, 2.0)
 
-    # ---- timings at the main path's shapes: one 16384-ray chunk
+    # ---- timings at the main path's shapes: one 16384-ray chunk, its
+    # coarse (sc) and fine (sf) depths on the rays o + d z; the eval path
+    # hands K1 and K2 the rays and depths (the encode in the kernels), the
+    # feat entry points take encode_kernel_order's features of the points
     chunk = cfg.eval.rays_per_chunk
     sc, sf = nc.occ_coarse_samples, cfg.eval.importance_samples
     emb = feat.shape[1]
-    feat_c = encode_kernel_order(torch.as_tensor(rng.uniform(-3.5, 3.5, (chunk * sc, 3)),
-                                                 dtype=torch.float32, device=dev), nc.emb_freqs_xyz)
     d = torch.as_tensor(rng.normal(size=(chunk, 3)), dtype=torch.float32, device=dev)
     d = d / d.norm(dim=-1, keepdim=True)
-    z_f = torch.sort(torch.as_tensor(rng.uniform(1.0, 8.0, (chunk, sf)), dtype=torch.float32,
-                                     device=dev), dim=-1).values.contiguous()
-    feat_f = encode_kernel_order((torch.tensor([0.0, 0.0, -4.0], device=dev)[None, None]
-                                  + d[:, None] * z_f[..., None]).reshape(-1, 3), nc.emb_freqs_xyz)
+    o = torch.tensor([0.0, 0.0, -4.0], device=dev).expand(chunk, 3).contiguous()
+    z_c, z_f = (torch.sort(torch.as_tensor(rng.uniform(1.0, 8.0, (chunk, k)), dtype=torch.float32,
+                                           device=dev), dim=-1).values.contiguous()
+                for k in (sc, sf))
+
+    def encoded(z):
+        return encode_kernel_order(ray_points(o, d, z).reshape(-1, 3), nc.emb_freqs_xyz)
+    feat_c, feat_f = encoded(z_c), encoded(z_f)
     basis16 = torch.nn.functional.pad(sh_basis(nc.sh_deg, d), (0, BASIS_LANES - nb)).contiguous()
     fr_args = (packed_f, feat_f, basis16, z_f, None, None, nc.fine_depth, nc.fine_skips,
                sf, nb, False, False, nc.white_back)
     lib_c = (packed_c, feat_c, nc.coarse_depth, nc.coarse_skips)
     lib_f = (packed_f, feat_f, nc.fine_depth, nc.fine_skips)
+    rays_c = (packed_c, o, d, z_c, nc.coarse_depth, nc.coarse_skips)
+    rays_f = (packed_f, o, d, basis16, z_f, nc.fine_depth, nc.fine_skips, sf, nb, nc.white_back)
     times = {
         "fused_mlp_apply": (cuda_ms(lambda: fused_mlp_apply(*lib_c)),
                             cuda_ms(lambda: mlp_plain(*lib_c), 3),
@@ -4253,27 +4375,54 @@ def main() -> None:
                          cuda_ms(lambda: fused_render_plain(*fr_args), 3),
                          cuda_ms(lambda: library_mlp(*lib_f))),
     }
+    times["fused_mlp_apply_rays"] = (cuda_ms(lambda: fused_mlp_apply_rays(*rays_c)),
+                                     *times["fused_mlp_apply"][1:])
+    times["fused_render_rays"] = (cuda_ms(lambda: fused_render_rays(*rays_f)),
+                                  *times["fused_render"][1:])
+    # the pass as the eval path ran it before the encode moved into the
+    # kernels: the encode of the points, then the feat entry point
+    glue_ms = {"fused_mlp_apply_rays": cuda_ms(lambda: fused_mlp_apply(
+                   packed_c, encoded(z_c), nc.coarse_depth, nc.coarse_skips)),
+               "fused_render_rays": cuda_ms(lambda: fused_render(
+                   packed_f, encoded(z_f), *fr_args[2:]))}
     p_c, p_f = chunk * sc, chunk * sf
     macs_c = needed_macs(nc, nc.coarse_depth, nc.coarse_width, nc.coarse_skips, True)
     macs_f = needed_macs(nc, nc.fine_depth, nc.fine_width, nc.fine_skips, False)
     print(f"MAC per point needed: coarse {macs_c}, fine {macs_f}")
+    # the rays route reads z and the rays in place of feat: its bound is
+    # the compute's either way
     bounds = {
         "fused_mlp_apply": bound(2.0 * macs_c * p_c,
                                  p_c * emb * 2 + p_c * 32 * 4 + pack_bytes(packed_c)),
         "fused_render": bound(2.0 * macs_f * p_f,
                               p_f * emb * 2 + chunk * BASIS_LANES * 4 + p_f * 4
                               + chunk * 8 * 4 + pack_bytes(packed_f)),
+        "fused_mlp_apply_rays": bound(2.0 * macs_c * p_c,
+                                      p_c * 4 + chunk * 24 + p_c * 32 * 4 + pack_bytes(packed_c)),
+        "fused_render_rays": bound(2.0 * macs_f * p_f,
+                                   chunk * (24 + BASIS_LANES * 4) + p_f * 4 + chunk * 8 * 4
+                                   + pack_bytes(packed_f)),
     }
     for name, (ms, plain_ms, lib_ms) in times.items():
         print(f"{name} main-path chunk: {ms:.3f} ms (plain {plain_ms:.3f}, bf16 matmul chain "
-              f"{lib_ms:.3f}, bound {bounds[name][0]:.3f} by {bounds[name][1]})", flush=True)
-    # the same main-path chunks, kernel against plain
+              f"{lib_ms:.3f}, bound {bounds[name][0]:.3f} by {bounds[name][1]})"
+              + (f"; encode_kernel_order + {RAYS_FORMS[name]} {glue_ms[name]:.3f} ms"
+                 if name in glue_ms else ""), flush=True)
+    # the same main-path chunks, kernel against plain; the rays route the
+    # feat route's bits
     ker, ref = fused_mlp_apply(*lib_c), mlp_plain(*lib_c)
     errs["fused_mlp_apply"] = max(errs["fused_mlp_apply"], float((ker - ref).abs().max()))
     hold("fused_mlp_apply main-path chunk", mlp_errs(ker, ref), mlp_tol, {})
     e = render_errs(*fused_render(*fr_args), *fused_render_plain(*fr_args))
     errs["fused_render"] = max(errs["fused_render"], *e.values())
     hold("fused_render main-path chunk", e, render_tol, {})
+    same = {"fused_mlp_apply_rays": torch.equal(fused_mlp_apply_rays(*rays_c), ker),
+            "fused_render_rays": torch.equal(fused_render_rays(*rays_f),
+                                             fused_render(*fr_args)[0])}
+    print(f"main-path chunk, the rays route the feat route's bits: {same}", flush=True)
+    if not all(same.values()):
+        fail(f"the rays route strays from the feat route at the main-path chunk: {same}")
+    errs.update({r: errs[f] for r, f in RAYS_FORMS.items() if f in errs})
     pdf_numbers = sample_pdf_numbers(dev, rng)
     errs["sample_pdf_cuda"] = max(n["max_abs_err"] for n in pdf_numbers.values())
 
@@ -4293,15 +4442,15 @@ def main() -> None:
     # warms up one chunk and captures the frame graph, every frame is a
     # replay; the wrappers count the warm-up's and the capture's launches,
     # the profiler those of a replay
-    fused_mlp_apply.launches = 0
-    fused_render.launches = 0
+    fused_mlp_apply_rays.launches = 0
+    fused_render_rays.launches = 0
     sample_pdf_cuda.launches = 0
     t0 = time.perf_counter()
     result = demo(params, split, cfg, device=dev, cull=True, render=render)
     torch.cuda.synchronize()
     demo_s = time.perf_counter() - t0
-    demo_counted = {"fused_mlp_apply": fused_mlp_apply.launches,
-                    "fused_render": fused_render.launches,
+    demo_counted = {"fused_mlp_apply_rays": fused_mlp_apply_rays.launches,
+                    "fused_render_rays": fused_render_rays.launches,
                     "sample_pdf_cuda": sample_pdf_cuda.launches}
     replays, _ = replayed_frames([render], "demo")
     demo_launches = {k: replays[k] for k in demo_counted}
@@ -4419,21 +4568,22 @@ def main() -> None:
 
     # ---- the compiled frame: the captured frame against the chunk loop, four eval modes
     frame = frame_graph_phase(dev, smi, {k.__name__: k for k in (
-        fused_mlp_apply, fused_render, fused_shaded_mlp, sample_pdf_cuda)})
+        *rays_wrappers(), sample_pdf_cuda)})
 
     # ---- the engine: three stages, a resume, the demo from a checkpoint
     engine = engine_phase(dev, smi, {k.__name__: k for k in (
-        fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, sample_pdf_cuda)})
+        fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, *rays_wrappers(),
+        sample_pdf_cuda)})
 
     # ---- the CLI on a reference-format scene: cache build, both modes, demos
     cli = cli_phase(dev, smi, {k.__name__: k for k in (
         fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, fused_shaded_mlp,
-        fused_shaded_mlp_bwd, sample_pdf_cuda)})
+        fused_shaded_mlp_bwd, *rays_wrappers(), sample_pdf_cuda)})
 
     # ---- the CLI's coarse-free paths: the hybrid schedule, its demos, LPIPS
     cli_cf = cli_cf_phase(dev, smi, {k.__name__: k for k in (
         fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply, fused_shaded_mlp,
-        fused_shaded_mlp_bwd, sample_pdf_cuda)})
+        fused_shaded_mlp_bwd, *rays_wrappers(), sample_pdf_cuda)})
 
     # ---- data parallelism: 2 ranks on the card through main(), torchrun
     dp = dp_phase(dev, smi)
@@ -4452,10 +4602,10 @@ def main() -> None:
     # in per_pass too) and the train step (N_TRAIN steps; times per launch,
     # the mean of the coarse and the fine pass, each pass kept in per_pass)
     kernels = []
-    for name in ("fused_mlp_apply", "fused_render"):
+    for name in ("fused_mlp_apply_rays", "fused_render_rays"):
         chunk_numbers = {"ms": times[name][0], "plain_ms": times[name][1],
                          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-                         "library_ms": times[name][2]}
+                         "library_ms": times[name][2], "encode_then_feat_ms": glue_ms[name]}
         kernels.append(entry(name, "demo", demo_launches[name],
                              {**chunk_numbers, "launches_counted": demo_counted[name],
                               "per_pass": {"eval chunk": chunk_numbers}}))
@@ -4472,7 +4622,7 @@ def main() -> None:
                       {**grid_demo["numbers"][name],
                        "launches_counted": grid_demo["launches_counted"][name],
                        "per_pass": {"grid eval chunk": grid_demo["numbers"][name]}})
-                for name in ("fused_mlp_apply", "fused_shaded_mlp")]
+                for name in ("fused_mlp_apply_rays", "fused_shaded_mlp_rays")]
     kernels += [{**entry(name, "train_step_grid", grid_train["launches"][name],
                          per_launch(shaded[name])),
                  "launches_per_step": grid_train["launches"][name] / N_TRAIN_GRID}
@@ -4556,13 +4706,15 @@ def main() -> None:
                             "launches_per_nerf_step": graphed / cli_steps[path]}
                            if path in cli_steps else {}),
                         **frame_numbers(path, name, numbers)})
-    wanted = {("cli_train", n) for n in ("fused_mlp_apply", "fused_render", "render_bwd_points",
+    wanted = {("cli_train", n) for n in ("fused_mlp_apply_rays", "fused_render_rays",
+                                         "fused_render", "render_bwd_points",
                                          "render_bwd_weights", "sample_pdf_cuda")}
-    wanted |= {("cli_demo", "fused_mlp_apply"), ("cli_demo", "fused_render"),
+    wanted |= {("cli_demo", "fused_mlp_apply_rays"), ("cli_demo", "fused_render_rays"),
                ("cli_demo", "sample_pdf_cuda"),
-               ("cli_train_grid", "fused_mlp_apply"), ("cli_train_grid", "fused_shaded_mlp"),
-               ("cli_train_grid", "fused_shaded_mlp_bwd"), ("cli_demo_grid", "fused_mlp_apply"),
-               ("cli_demo_grid", "fused_shaded_mlp")}
+               ("cli_train_grid", "fused_mlp_apply_rays"),
+               ("cli_train_grid", "fused_shaded_mlp_rays"), ("cli_train_grid", "fused_shaded_mlp"),
+               ("cli_train_grid", "fused_shaded_mlp_bwd"),
+               ("cli_demo_grid", "fused_mlp_apply_rays"), ("cli_demo_grid", "fused_shaded_mlp_rays")}
     if wanted - set(cli_numbers):
         fail(f"kernels not checked on their CLI paths: {sorted(wanted - set(cli_numbers))}")
     # the coarse-free paths: K2 and K3 on the inputs the hybrid schedule's
@@ -4579,16 +4731,17 @@ def main() -> None:
         # replay of its step graph
         by_stage = ({STAGE_NAMES[stage]: found.get(SIGNATURE[name], 0)
                      for stage, found in cli_cf["summary"]["per_replay"].items() if stage}
-                    if path == "cli_train_cf" else None)
+                    if path == "cli_train_cf" and name in SIGNATURE else None)
         kernels.append({"name": name, "path": path, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], **numbers,
                         **({"launches_in_graphs": in_graphs[path][name],
                             "launches_per_step_by_stage": by_stage} if by_stage else {}),
                         **frame_numbers(path, name, numbers)})
-    wanted = {("cli_train_cf", n) for n in ("fused_render", "render_bwd_points",
-                                            "render_bwd_weights", "sample_pdf_cuda")}
+    wanted = {("cli_train_cf", n) for n in ("fused_render", "fused_render_rays",
+                                            "render_bwd_points", "render_bwd_weights",
+                                            "sample_pdf_cuda")}
     wanted |= {(p, n) for p in ("cli_demo_cf", "cli_demo_density")
-               for n in ("fused_render", "sample_pdf_cuda")}
+               for n in ("fused_render_rays", "sample_pdf_cuda")}
     if set(cf_numbers) != wanted:
         fail(f"kernels checked on the coarse-free CLI paths {sorted(cf_numbers)}, "
              f"wanted {sorted(wanted)}")
@@ -4614,9 +4767,9 @@ def main() -> None:
                            {"launches": sum(in_frames_by_rank),
                             "launches_counted": numbers["launches"]})})
     wanted = {(p, n) for p in ("dp_train", "dp_demo", "dp_split")
-              for n in ("fused_mlp_apply", "fused_render", "sample_pdf_cuda")}
-    wanted |= {("dp_train", "render_bwd_points"), ("dp_train", "render_bwd_weights"),
-               ("dp_split", "fused_shaded_mlp")}
+              for n in ("fused_mlp_apply_rays", "fused_render_rays", "sample_pdf_cuda")}
+    wanted |= {("dp_train", "fused_render"), ("dp_train", "render_bwd_points"),
+               ("dp_train", "render_bwd_weights"), ("dp_split", "fused_shaded_mlp_rays")}
     if set(dp_numbers) != wanted:
         fail(f"kernels checked on the data-parallel paths {sorted(dp_numbers)}, "
              f"wanted {sorted(wanted)}")

@@ -12,7 +12,9 @@
 // fp32, rgb_c = sigmoid(sum_b sh[1 + nb*c + b] * basis[ray, b]) in fp32.
 //
 // Design: K4's forward (shaded_fwd.cuh) and a composite kernel, three
-// launches on the caller's stream:
+// launches on the caller's stream (the eval route, mcn_fused_render_rays,
+// hands the forward the rays and depths instead of feat, and it encodes
+// the points itself: FEAT_RAYS, encode_rows):
 //  1. weight_images_kernel writes the recompute's weight images into the
 //     workspace (anew on every call: weights updated in place are read
 //     anew);
@@ -154,6 +156,49 @@ extern "C" long long mcn_fused_render_workspace(int rays, int s, int enc, int de
   return (long long)(align256((size_t)img) + (size_t)rays * s * IO_FLOATS * sizeof(float));
 }
 
+// The weight images into `workspace`, shaded_fwd_kernel<FWD_SHADED, FEAT>
+// over rays * s points (a: the features' source) into the [P, 8] rows
+// after them, then composite_fwd_kernel, on `stream`: mcn_fused_render's
+// and mcn_fused_render_rays' launches.
+template <int FEAT>
+static int fused_render_launch(const void* feat, PtArgs a, const void* basis16, const void* z,
+                               const void* noise, const void* noise_sel, void* ray_out,
+                               void* wsel, void* workspace, int rays, int s, int nb,
+                               int white_back, int enc, int depth, int skip_mask, int width,
+                               int head0, const void* const* w, const void* const* b,
+                               void* stream) {
+  MLPParams p;
+  int err = make_params(&p, feat, depth, skip_mask, enc, width, head0, w, b);
+  if (err) return err;
+  if (s < 2 || nb < 1 || nb > 9 || (noise_sel && !noise) || head0 != 2 * width)
+    return cudaErrorInvalidValue;
+  if (rays <= 0) return 0;
+  PtSchedule sc;
+  PtImages im;
+  const long long img = fwd_schedule(p, fwd_nch(head0), &sc, &im);
+  if (img < 0) return cudaErrorInvalidValue;
+  float* io = reinterpret_cast<float*>(static_cast<char*>(workspace) + align256((size_t)img));
+  a.nch = fwd_nch(head0);
+  a.basis16 = static_cast<const float*>(basis16);
+  a.out8 = io;
+  a.img = static_cast<const unsigned char*>(workspace);
+  a.points = (long long)rays * s;
+  a.s = s;
+  a.nb = nb;
+  cudaStream_t st = (cudaStream_t)stream;
+  weight_images_kernel<<<sc.stages, THREADS, 0, st>>>(im, sc,
+                                                      static_cast<unsigned char*>(workspace));
+  err = cudaGetLastError();
+  if (!err) err = launch_shaded_fwd<FWD_SHADED, FEAT>(p, a, sc, st);
+  if (err) return err;
+  const int per_block = COMPOSITE_THREADS / 32;
+  composite_fwd_kernel<<<(rays + per_block - 1) / per_block, COMPOSITE_THREADS, 0, st>>>(
+      io, static_cast<const float*>(z), static_cast<const float*>(noise),
+      static_cast<const float*>(noise_sel), static_cast<float*>(ray_out),
+      static_cast<float*>(wsel), rays, s, white_back);
+  return cudaGetLastError();
+}
+
 // feat [rays*s, enc] bf16; basis16 [rays, 16] fp32; z [rays, s] fp32;
 // noise / noise_sel [rays, s] fp32 or null (noise_sel only with noise);
 // ray_out [rays, 8] fp32; wsel [rays, s] fp32 or null; workspace of
@@ -167,36 +212,30 @@ extern "C" int mcn_fused_render(const void* feat, const void* basis16, const voi
                                 int white_back, int enc, int depth, int skip_mask, int width,
                                 int head0, const void* const* w, const void* const* b,
                                 void* stream) {
-  MLPParams p;
-  int err = make_params(&p, feat, depth, skip_mask, enc, width, head0, w, b);
-  if (err) return err;
-  if (s < 2 || nb < 1 || nb > 9 || (noise_sel && !noise) || head0 != 2 * width)
-    return cudaErrorInvalidValue;
-  if (rays <= 0) return 0;
-  PtSchedule sc;
-  PtImages im;
-  const long long img = fwd_schedule(p, fwd_nch(head0), &sc, &im);
-  if (img < 0) return cudaErrorInvalidValue;
-  float* io = reinterpret_cast<float*>(static_cast<char*>(workspace) + align256((size_t)img));
   PtArgs a = {};
-  a.nch = fwd_nch(head0);
   a.feat = static_cast<const bf16*>(feat);
-  a.basis16 = static_cast<const float*>(basis16);
-  a.out8 = io;
-  a.img = static_cast<const unsigned char*>(workspace);
-  a.points = (long long)rays * s;
-  a.s = s;
-  a.nb = nb;
-  cudaStream_t st = (cudaStream_t)stream;
-  weight_images_kernel<<<sc.stages, THREADS, 0, st>>>(im, sc,
-                                                      static_cast<unsigned char*>(workspace));
-  err = cudaGetLastError();
-  if (!err) err = launch_shaded_fwd<FWD_SHADED>(p, a, sc, st);
-  if (err) return err;
-  const int per_block = COMPOSITE_THREADS / 32;
-  composite_fwd_kernel<<<(rays + per_block - 1) / per_block, COMPOSITE_THREADS, 0, st>>>(
-      io, static_cast<const float*>(z), static_cast<const float*>(noise),
-      static_cast<const float*>(noise_sel), static_cast<float*>(ray_out),
-      static_cast<float*>(wsel), rays, s, white_back);
-  return cudaGetLastError();
+  return fused_render_launch<FEAT_ROWS>(feat, a, basis16, z, noise, noise_sel, ray_out, wsel,
+                                        workspace, rays, s, nb, white_back, enc, depth,
+                                        skip_mask, width, head0, w, b, stream);
+}
+
+// The eval form of mcn_fused_render (no noise, no wsel) with the features
+// encoded in the kernel (encode_rows, shaded_fwd.cuh) from rays_o, rays_d
+// [rays, 3] fp32 and the depths z [rays, s] fp32, which the composite
+// reads too: point i is ray i / s at depth z[i], its features
+// encode_kernel_order's (enc = 4 + 6L lanes, L >= 1), bit for bit.  No
+// feat passes through device memory.
+extern "C" int mcn_fused_render_rays(const void* rays_o, const void* rays_d, const void* z,
+                                     const void* basis16, void* ray_out, void* workspace,
+                                     int rays, int s, int nb, int white_back, int enc, int depth,
+                                     int skip_mask, int width, int head0, const void* const* w,
+                                     const void* const* b, void* stream) {
+  if (enc <= ENC_PAD || (enc - ENC_PAD) % 6) return cudaErrorInvalidValue;
+  PtArgs a = {};
+  a.rays_o = static_cast<const float*>(rays_o);
+  a.rays_d = static_cast<const float*>(rays_d);
+  a.z = static_cast<const float*>(z);
+  return fused_render_launch<FEAT_RAYS>(nullptr, a, basis16, z, nullptr, nullptr, ray_out,
+                                        nullptr, workspace, rays, s, nb, white_back, enc, depth,
+                                        skip_mask, width, head0, w, b, stream);
 }

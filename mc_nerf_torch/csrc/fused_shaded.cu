@@ -37,6 +37,11 @@
 //    232,448 a block may have (the backward's plan leaves room for 3).  At
 //    the coarse 4x128 full pack (nch 256): 7,168 B a half-slab, 114,688
 //    for the 16, 6 slots: 213,088.
+//  * The eval route (mcn_fused_shaded_rays) takes the rays and depths in
+//    place of feat and encodes each tile's points in the consumers'
+//    prologue (FEAT_RAYS, shaded_fwd.cuh: encode_rows), bit for bit
+//    encode_kernel_order's features; training keeps feat (FEAT_ROWS), whose
+//    encode's VJP carries the cameras' gradients.
 //
 // Bound (H100 SXM): compute.  The fine pass (8x256, 629,248 MAC per
 // point) over 7000 x 130 points is >= 1.158 ms at 989 TFLOP/s dense bf16,
@@ -71,6 +76,35 @@ extern "C" long long mcn_fused_shaded_workspace(int enc, int depth, int skip_mas
   return bytes < 0 ? 0 : bytes;
 }
 
+// The weight images into `workspace`, then shaded_fwd_kernel<FWD_SHADED,
+// FEAT> over a.points points (a: the features' source, s), on `stream`:
+// mcn_fused_shaded's and mcn_fused_shaded_rays' launches.
+template <int FEAT>
+static int fused_shaded_launch(const void* feat, PtArgs a, const void* basis16, void* out,
+                               void* workspace, int nb, int enc, int depth, int skip_mask,
+                               int width, int head0, const void* const* w, const void* const* b,
+                               void* stream) {
+  MLPParams p;
+  int err = make_params(&p, feat, depth, skip_mask, enc, width, head0, w, b);
+  if (err) return err;
+  if (a.s < 1 || nb < 1 || nb > 9 || a.points % a.s || head0 != 2 * width)
+    return cudaErrorInvalidValue;
+  if (a.points <= 0) return 0;
+  PtSchedule sc;
+  PtImages im;
+  a.nch = fwd_nch(head0);
+  if (fwd_schedule(p, a.nch, &sc, &im) < 0) return cudaErrorInvalidValue;
+  a.basis16 = static_cast<const float*>(basis16);
+  a.out8 = static_cast<float*>(out);
+  a.img = static_cast<const unsigned char*>(workspace);
+  a.nb = nb;
+  cudaStream_t st = (cudaStream_t)stream;
+  weight_images_kernel<<<sc.stages, THREADS, 0, st>>>(im, sc,
+                                                      static_cast<unsigned char*>(workspace));
+  err = cudaGetLastError();
+  return err ? err : launch_shaded_fwd<FWD_SHADED, FEAT>(p, a, sc, st);
+}
+
 // feat [n_points, enc] bf16, basis16 [n_points / s, 16] fp32, out
 // [n_points, 8] fp32, workspace of mcn_fused_shaded_workspace bytes (the
 // weight images, written here); w[l] / b[l] for the depth trunk layers then
@@ -80,27 +114,31 @@ extern "C" int mcn_fused_shaded(const void* feat, const void* basis16, void* out
                                 long long n_points, int s, int nb, int enc, int depth,
                                 int skip_mask, int width, int head0, const void* const* w,
                                 const void* const* b, void* stream) {
-  MLPParams p;
-  int err = make_params(&p, feat, depth, skip_mask, enc, width, head0, w, b);
-  if (err) return err;
-  if (s < 1 || nb < 1 || nb > 9 || n_points % s || head0 != 2 * width)
-    return cudaErrorInvalidValue;
-  if (n_points <= 0) return 0;
-  PtSchedule sc;
-  PtImages im;
   PtArgs a = {};
-  a.nch = fwd_nch(head0);
-  if (fwd_schedule(p, a.nch, &sc, &im) < 0) return cudaErrorInvalidValue;
   a.feat = static_cast<const bf16*>(feat);
-  a.basis16 = static_cast<const float*>(basis16);
-  a.out8 = static_cast<float*>(out);
-  a.img = static_cast<const unsigned char*>(workspace);
   a.points = n_points;
   a.s = s;
-  a.nb = nb;
-  cudaStream_t st = (cudaStream_t)stream;
-  weight_images_kernel<<<sc.stages, THREADS, 0, st>>>(im, sc,
-                                                      static_cast<unsigned char*>(workspace));
-  err = cudaGetLastError();
-  return err ? err : launch_shaded_fwd<FWD_SHADED>(p, a, sc, st);
+  return fused_shaded_launch<FEAT_ROWS>(feat, a, basis16, out, workspace, nb, enc, depth,
+                                        skip_mask, width, head0, w, b, stream);
+}
+
+// mcn_fused_shaded with the features encoded in the kernel (encode_rows,
+// shaded_fwd.cuh) from rays_o, rays_d [n_points / s, 3] fp32 and the
+// depths z [n_points / s, s] fp32: point i is ray i / s at depth z[i], its
+// features encode_kernel_order's (enc = 4 + 6L lanes, L >= 1), bit for
+// bit.  The eval route: no feat passes through device memory.
+extern "C" int mcn_fused_shaded_rays(const void* rays_o, const void* rays_d, const void* z,
+                                     const void* basis16, void* out, void* workspace,
+                                     long long n_points, int s, int nb, int enc, int depth,
+                                     int skip_mask, int width, int head0, const void* const* w,
+                                     const void* const* b, void* stream) {
+  if (enc <= ENC_PAD || (enc - ENC_PAD) % 6) return cudaErrorInvalidValue;
+  PtArgs a = {};
+  a.rays_o = static_cast<const float*>(rays_o);
+  a.rays_d = static_cast<const float*>(rays_d);
+  a.z = static_cast<const float*>(z);
+  a.points = n_points;
+  a.s = s;
+  return fused_shaded_launch<FEAT_RAYS>(nullptr, a, basis16, out, workspace, nb, enc, depth,
+                                        skip_mask, width, head0, w, b, stream);
 }

@@ -196,8 +196,10 @@ struct PtArgs {
   float* out32;          //   K1's [P, 32] output
   float* dfeat;          // [P, enc]
   const float* z;        // PT_RENDER: the composite's inputs, [rays, s], [rays, s] or
-  const float* noise;    //   null, [rays, 8]
+  const float* noise;    //   null, [rays, 8]; FEAT_RAYS (shaded_fwd.cuh): z the depths
   const float* dray;
+  const float* rays_o;   // FEAT_RAYS: the rays' origins and directions, [rays, 3]
+  const float* rays_d;
   long long rays;
   int ray_k, white_back;  // PT_RENDER: rays per warpgroup
   const unsigned char* img;

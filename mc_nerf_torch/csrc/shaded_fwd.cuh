@@ -54,6 +54,73 @@ __device__ __forceinline__ void fwd_layer_at(int nc, const PtGemm& G, uint32_t a
 constexpr int FWD_SHADED = 0;  // K4, K3's composed forward: [P, 8] rows, sigma and rgb
 constexpr int FWD_RAW = 1;     // K1: [P, 32] rows, the packed head's raw output
 
+// Where fwd_consume's features come from (its second template argument):
+constexpr int FEAT_ROWS = 0;  // feat [P, enc] bf16 rows (load_feat_rows): training, the
+                              //   public feat entry points
+constexpr int FEAT_RAYS = 1;  // encoded in the prologue from the rays and depths (encode_rows)
+constexpr int ENC_PAD = 4;    // [x, y, z, 0] ahead of the octaves in the encode's lanes
+
+// The warp's 16 rows of the kernel-order encode (ops/cuda/fused_mlp.py::
+// encode_kernel_order) into the feature columns [0, ep) of its act buffer,
+// in load_feat_rows' core-matrix layout: row row0 + r is ray (row0 + r) /
+// s, sample (row0 + r) % s, so its depth is z[row0 + r] of z [rays, s];
+// xyz = o + d z, then lanes [x, y, z, 0, sin f0 x3, cos f0 x3, ...] of
+// the double-angle recurrence of models/encoding.py::spectrum_octaves
+// (s' = (2s) c, c' = 1 - (2s) s), each op rounded on its own as torch's
+// kernels round it (no contraction into an FMA; sinf / cosf the precise
+// functions), each lane rounded to bf16.  Rows at or past nr, the pad lane
+// and the lanes past enc are zero.  The 48 chains of a warp (16 rows x 3
+// coordinates) run two a lane: coordinate lane / 16 and coordinate 2 of
+// row lane % 16 (lanes 16..31 compute the second and keep none of it).
+__device__ __forceinline__ void encode_rows(const MLPParams& p, const PtArgs& a, long long row0,
+                                            int nr, unsigned char* act, int half, int ep) {
+  const int lane = threadIdx.x & 31, chunks = ep >> 3;
+  for (int idx = lane; idx < 16 * chunks; idx += 32) {
+    const int r8 = idx & 7, rest = idx >> 3;
+    const int c = rest % chunks, hh = rest / chunks;
+    *reinterpret_cast<uint4*>(act + hh * half + c * 128 + r8 * 16) = make_uint4(0, 0, 0, 0);
+  }
+  __syncwarp();
+  const int r = lane & 15;
+  if (r < nr) {
+    const long long i = row0 + r, ray = i / a.s;
+    const float z = a.z[i];
+    const int dim[2] = {lane >> 4, 2};
+    const bool keep[2] = {true, lane < 16};
+    unsigned char* row = act + (r >> 3) * half + (r & 7) * 16;
+    float s[2], c[2];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float x =
+          __fadd_rn(a.rays_o[3 * ray + dim[k]], __fmul_rn(a.rays_d[3 * ray + dim[k]], z));
+      s[k] = sinf(x);
+      c[k] = cosf(x);
+      if (keep[k]) {
+        const int e = dim[k];
+        *reinterpret_cast<bf16*>(row + (e >> 3) * 128 + (e & 7) * 2) = __float2bfloat16_rn(x);
+      }
+    }
+    const int n_freqs = (p.enc - ENC_PAD) / 6;
+    for (int f = 0; f < n_freqs; ++f) {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (keep[k]) {
+          const int es = ENC_PAD + 6 * f + dim[k], ec = es + 3;
+          *reinterpret_cast<bf16*>(row + (es >> 3) * 128 + (es & 7) * 2) =
+              __float2bfloat16_rn(s[k]);
+          *reinterpret_cast<bf16*>(row + (ec >> 3) * 128 + (ec & 7) * 2) =
+              __float2bfloat16_rn(c[k]);
+        }
+        const float s2 = __fmul_rn(2.f, s[k]);
+        const float sn = __fmul_rn(s2, c[k]);
+        c[k] = __fsub_rn(1.f, __fmul_rn(s2, s[k]));
+        s[k] = sn;
+      }
+    }
+  }
+  __syncwarp();
+}
+
 // One consumer warp's share of every tile of its block (tiles b, b + G,
 // ...), in its slab (act [ep + width] and h1 [nch] columns of its 16 rows;
 // its warpgroup's four slabs are the A operand): the recompute of
@@ -67,8 +134,10 @@ constexpr int FWD_RAW = 1;     // K1: [P, 32] rows, the packed head's raw output
 // past column 0 for a sigma-only pack).  pt_consume keeps its own copy of
 // the loop: one shared helper moved K6's coarse points stage by 3.5% on an
 // H100 (PERF.md); the epilogue as a template argument left K4 unmoved
-// (PERF.md, K1's redesign).
-template <int EPI>
+// (PERF.md, K1's redesign).  FEAT: FEAT_ROWS loads the rows of a.feat,
+// FEAT_RAYS encodes them from a.rays_o, a.rays_d and a.z (encode_rows);
+// the skip layers reread them from the act buffer either way.
+template <int EPI, int FEAT>
 __device__ __forceinline__ void fwd_consume(const MLPParams& p, const PtArgs& a,
                                             const PtSchedule& sc, unsigned char* slab, Ring& rg) {
   const int warp = threadIdx.x >> 5;
@@ -83,7 +152,10 @@ __device__ __forceinline__ void fwd_consume(const MLPParams& p, const PtArgs& a,
     const long long row0 = t * TILE_M + 16 * warp, left = a.points - row0;
     const int nr = left <= 0 ? 0 : (left >= 16 ? 16 : (int)left);
     int gi = 0;
-    load_feat_rows(p, a.feat, row0, nr, act, half, ep);
+    if constexpr (FEAT == FEAT_RAYS)
+      encode_rows(p, a, row0, nr, act, half, ep);
+    else
+      load_feat_rows(p, a.feat, row0, nr, act, half, ep);
     wg_sync();
     for (int l = 0; l < depth; ++l) {
       const bool takes_feat = l == 0 || ((p.skip_mask >> l) & 1);
@@ -139,7 +211,7 @@ __device__ __forceinline__ void fwd_consume(const MLPParams& p, const PtArgs& a,
 // Persistent: warpgroups 0 and 1 consume, warp 8 produces; registers moved
 // by setmaxnreg from the producer's warpgroup to the consumers', as in
 // mlp_points_kernel.
-template <int EPI>
+template <int EPI, int FEAT>
 __global__ void __launch_bounds__(PT_THREADS, 1)
     shaded_fwd_kernel(const __grid_constant__ MLPParams p, const __grid_constant__ PtArgs a,
                       const __grid_constant__ PtSchedule sc) {
@@ -166,7 +238,7 @@ __global__ void __launch_bounds__(PT_THREADS, 1)
     if (threadIdx.x < THREADS + 32) pt_produce(sc, a.img, a.tiles, rg);
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    fwd_consume<EPI>(p, a, sc, slabs + (size_t)(threadIdx.x >> 5) * 2 * a.half, rg);
+    fwd_consume<EPI, FEAT>(p, a, sc, slabs + (size_t)(threadIdx.x >> 5) * 2 * a.half, rg);
   }
 }
 
@@ -188,14 +260,16 @@ static long long fwd_schedule(const MLPParams& p, int nch, PtSchedule* sc, PtIma
   return g.off + (long long)g.k_tiles * KT * g.nc * 2;
 }
 
-// One launch of shaded_fwd_kernel<EPI> over a.points points (a: feat,
-// basis16, the outputs EPI writes, s, nb, nch and the images at a.img,
-// written for the recompute's products that sc holds) on the forward-only
-// plan: per half-slab act [ep + width] and h1 [nch] columns x 16 bytes, no
-// mask bits, no backward buffer, and the ring as deep as the rest of the block's shared memory allows, up to
-// PT_MAX_STAGES (on an H100 4 slots ran as fast as 7 or 9, PERF.md); one
-// persistent block per SM.  Returns cudaGetLastError().
-template <int EPI>
+// One launch of shaded_fwd_kernel<EPI, FEAT> over a.points points (a:
+// feat, or FEAT_RAYS' rays_o, rays_d and z; basis16, the outputs EPI
+// writes, s, nb, nch and the images at a.img, written for the
+// recompute's products that sc holds) on the forward-only plan: per
+// half-slab act [ep + width] and h1 [nch] columns x 16 bytes, no mask
+// bits, no backward buffer, and the ring as deep as the rest of the
+// block's shared memory allows, up to PT_MAX_STAGES (on an H100 4 slots
+// ran as fast as 7 or 9, PERF.md); one persistent block per SM.  Returns
+// cudaGetLastError().
+template <int EPI, int FEAT = FEAT_ROWS>
 static int launch_shaded_fwd(const MLPParams& p, PtArgs a, const PtSchedule& sc,
                              cudaStream_t st) {
   int dev = 0, limit = 0, sms = 0;
@@ -212,11 +286,11 @@ static int launch_shaded_fwd(const MLPParams& p, PtArgs a, const PtSchedule& sc,
   a.nst = (int)(room < PT_MAX_STAGES ? room : PT_MAX_STAGES);
   if (a.nst < 2) return cudaErrorInvalidValue;
   const size_t smem = (size_t)a.nst * PT_STAGE + (size_t)slabs + 16 * a.nst;
-  err = cudaFuncSetAttribute(shaded_fwd_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  err = cudaFuncSetAttribute(shaded_fwd_kernel<EPI, FEAT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err) return err;
   const long long blocks = a.tiles < sms ? a.tiles : sms;
-  shaded_fwd_kernel<EPI><<<(unsigned)blocks, PT_THREADS, smem, st>>>(p, a, sc);
+  shaded_fwd_kernel<EPI, FEAT><<<(unsigned)blocks, PT_THREADS, smem, st>>>(p, a, sc);
   return cudaGetLastError();
 }
 

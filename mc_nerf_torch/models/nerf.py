@@ -10,8 +10,9 @@ top-k bins of the fine grid), by two routes:
 * the plain route: ``_shade`` + ``composite`` in the configured compute
   dtype (autograd for training);
 * the kernel route: for eval the sigma-only coarse pass through
-  ``fused_mlp_apply``, the fine pass through ``fused_render``
-  (importance) or ``fused_shaded_mlp`` + ``composite`` (grid); for
+  ``fused_mlp_apply_rays``, the fine pass through ``fused_render_rays``
+  (importance) or ``fused_shaded_mlp_rays`` + ``composite`` (grid), each
+  handed the rays and depths and encoding the points in the kernel; for
   training both passes through the differentiable ``fused_render``
   (importance) or ``fused_shaded_mlp`` (grid), hand-written forward and
   backward kernels, on an fp32 pack.
@@ -47,11 +48,13 @@ from mc_nerf_torch.ops.cuda.fused_mlp import (
     BASIS_LANES,
     PackedMLP,
     encode_kernel_order,
-    fused_mlp_apply,
+    fused_mlp_apply_rays,
     fused_shaded_mlp,
+    fused_shaded_mlp_rays,
     pack_mlp_params,
+    ray_points,
 )
-from mc_nerf_torch.ops.cuda.fused_render import fused_render
+from mc_nerf_torch.ops.cuda.fused_render import fused_render, fused_render_rays
 from mc_nerf_torch.ops.occupancy import mixture_samples, mixture_split, proposal_pmf
 from mc_nerf_torch.ops.volume import (
     CompositeResult,
@@ -160,20 +163,21 @@ def _basis16(basis: torch.Tensor, cfg: NerfConfig) -> Tuple[torch.Tensor, int]:
     return F.pad(basis, (0, BASIS_LANES - nb)).contiguous(), nb
 
 
-def _shade_pallas(packed: PackedMLP, depth: int, skips, xyz: torch.Tensor,
-                  basis: Optional[torch.Tensor], cfg: NerfConfig
+def _shade_pallas(packed: PackedMLP, depth: int, skips, rays: Tuple[torch.Tensor, torch.Tensor],
+                  z: torch.Tensor, basis: Optional[torch.Tensor], cfg: NerfConfig
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Kernel shading: encode -> ``fused_mlp_apply`` (``basis=None``: the
-    density-only coarse pass, returns (sigma [R, S], None)) or
-    ``fused_shaded_mlp`` with the SH shading in the kernel (returns
-    (sigma [R, S], rgb [R, S, 3]))."""
-    r, s = xyz.shape[0], xyz.shape[1]
-    feat = encode_kernel_order(xyz.reshape(r * s, 3), cfg.emb_freqs_xyz, None)
+    """Kernel shading of the points at depths z [R, S] of ``rays``
+    (rays_o, rays_d [R, 3], contiguous), the encode in the kernel:
+    ``fused_mlp_apply_rays`` (``basis=None``: the density-only coarse
+    pass, returns (sigma [R, S], None)) or ``fused_shaded_mlp_rays`` with
+    the SH shading in the kernel (returns (sigma [R, S], rgb [R, S, 3]))."""
+    r, s = z.shape
+    z = z.contiguous()
     if basis is None:
-        out = fused_mlp_apply(packed, feat, depth, tuple(skips))
+        out = fused_mlp_apply_rays(packed, *rays, z, depth, tuple(skips))
         return out[:, 0].reshape(r, s), None
     basis16, nb = _basis16(basis, cfg)
-    out = fused_shaded_mlp(packed, feat, basis16, depth, tuple(skips), s, nb)
+    out = fused_shaded_mlp_rays(packed, *rays, z, basis16, depth, tuple(skips), s, nb)
     return out[:, 0].reshape(r, s), out[:, 1:4].reshape(r, s, 3)
 
 
@@ -264,26 +268,25 @@ def render_rays_eval(
         return out.rgb, out.depth, out.opacity
     n_rays = rays_d.shape[0]
     basis = sh_basis(cfg.sh_deg, rays_d)
+    # the kernel route's rays, as the kernels read them
+    rays = (rays_o.contiguous(), rays_d.contiguous()) if packed is not None else None
 
     def points(z):
-        return rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+        return ray_points(rays_o, rays_d, z)
 
     def shade_fine(z_f):
         if packed is not None:
-            return _shade_pallas(packed[1], cfg.fine_depth, cfg.fine_skips, points(z_f),
-                                 basis, cfg)
+            return _shade_pallas(packed[1], cfg.fine_depth, cfg.fine_skips, rays, z_f, basis,
+                                 cfg)
         return _shade(params.fine, cfg.fine_skips, points(z_f), basis, cfg, None,
                       compute_dtype)
 
     def importance_fine(z_f):
         if packed is not None:
             basis16, nb = _basis16(basis, cfg)
-            feat_f = encode_kernel_order(points(z_f).reshape(-1, 3), cfg.emb_freqs_xyz, None)
-            ray_f, _ = fused_render(
-                packed[1], feat_f, basis16, z_f.contiguous(), None, None,
-                cfg.fine_depth, tuple(cfg.fine_skips), importance_samples, nb,
-                False, False, cfg.white_back,
-            )
+            ray_f = fused_render_rays(packed[1], *rays, basis16, z_f.contiguous(),
+                                      cfg.fine_depth, tuple(cfg.fine_skips), importance_samples,
+                                      nb, cfg.white_back)
             return ray_f[:, :3], ray_f[:, 3:4], ray_f[:, 4:5]
         sigma_f, rgb_f = shade_fine(z_f)
         out = composite(z_f, sigma_f, rgb_f, noise=None, white_back=cfg.white_back,
@@ -305,8 +308,8 @@ def render_rays_eval(
         z_c = z_c[None, :].expand(n_rays, sc)
 
     if packed is not None:
-        sigma_c, _ = _shade_pallas(packed[0], cfg.coarse_depth, cfg.coarse_skips,
-                                   points(z_c), None, cfg)
+        sigma_c, _ = _shade_pallas(packed[0], cfg.coarse_depth, cfg.coarse_skips, rays, z_c,
+                                   None, cfg)
     else:
         sigma_c, _ = _shade(params.coarse, cfg.coarse_skips, points(z_c), basis, cfg,
                             None, compute_dtype, sigma_only=True)

@@ -23,6 +23,12 @@ kernels replace its four Pallas bodies:
   gradients by split-K with a fixed-order reduction (``csrc/mlp_bwd.cuh``,
   shared with ``fused_render``'s backward).
 
+The eval entry points :func:`fused_mlp_apply_rays` and
+:func:`fused_shaded_mlp_rays` (and ``fused_render_rays``) take the rays
+and depths in place of features: the forward kernel encodes each point in
+its prologue, bit for bit :func:`encode_kernel_order`, so the features
+never pass through device memory.  Training keeps the feat entry points.
+
 Bound on an H100 SXM (989 TFLOP/s dense bf16): compute.  The eval coarse
 pass (sigma-only 4x128, 81,792 MAC per point needed) over a 16384 x 48
 chunk is >= 0.130 ms; a backward needs about three times its forward's
@@ -49,6 +55,7 @@ import torch
 
 from mc_nerf_torch.models.encoding import spectrum_octaves
 from mc_nerf_torch.models.mlp import NerfMLP
+from mc_nerf_torch.utils import trace
 
 ENC_PAD = 4        # [x, y, z, pad] header lanes in the encode layout
 BASIS_LANES = 16   # SH deg <= 2 basis (9) padded to 16 lanes
@@ -343,12 +350,16 @@ def mlp_bwd_plain(ws, xins, h_last, h1, dout32, depth: int, skips: Sequence[int]
     return dws + [d_hw0, d_hw1], dbs + [d_hb0, d_hb1], d_feat
 
 
-def _check_mlp_args(packed: PackedMLP, feat: torch.Tensor, depth: int,
+def _check_mlp_args(packed: PackedMLP, feat: Optional[torch.Tensor], depth: int,
                     skips: Sequence[int]) -> None:
+    """The pack against depth and skips, and ``feat`` (where given) against
+    the pack's feature lanes."""
     if len(packed.trunk_w) != depth:
         raise ValueError(f"pack has {len(packed.trunk_w)} trunk layers, depth={depth}")
     if 0 in skips:
         raise ValueError("a skip at layer 0 is not a skip")
+    if feat is None:
+        return
     if feat.dim() != 2 or feat.shape[1] != packed.trunk_w[0].shape[0]:
         raise ValueError(f"feat {tuple(feat.shape)} does not match the pack's "
                          f"{packed.trunk_w[0].shape[0]} feature lanes")
@@ -427,6 +438,116 @@ def fused_mlp_apply(packed: PackedMLP, feat: torch.Tensor, depth: int,
 
 
 fused_mlp_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The eval entry points that take rays and depths in place of features: on
+# CUDA tensors the forward kernel encodes each point in its prologue
+# (``csrc/shaded_fwd.cuh``, ``encode_rows``), so the features never pass
+# through device memory; on CPU tensors :func:`encode_kernel_order` of
+# :func:`ray_points` and the plain body.  Either way the result is the
+# feat entry point's on those features, bit for bit.  Each call adds one
+# to the tracer's counter ``encode.kernel`` (the kernel encoded) or
+# ``encode.glue`` (``encode_kernel_order``'s features; under a CUDA graph,
+# one a capture).  No autograd: training passes ``feat``, whose encode's
+# VJP carries the cameras' gradients.
+# ---------------------------------------------------------------------------
+
+
+def ray_points(rays_o: torch.Tensor, rays_d: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """[R, 3], [R, 3], [R, S] -> [R, S, 3] points o + d z: the product,
+    then the sum, each rounded (what the kernels' encode computes)."""
+    return rays_o[:, None, :] + rays_d[:, None, :] * z[..., None]
+
+
+def pack_freqs(packed: PackedMLP) -> int:
+    """The octaves L of a pack's 4 + 6L feature lanes."""
+    enc = packed.trunk_w[0].shape[0]
+    if enc <= ENC_PAD or (enc - ENC_PAD) % 6:
+        raise ValueError(f"the pack's {enc} feature lanes are not 4 + 6L")
+    return (enc - ENC_PAD) // 6
+
+
+def _check_rays(name: str, rays_o, rays_d, z, s: int, **tensors) -> int:
+    """A rays entry point's inputs: rays_o, rays_d [R, 3] and z [R, s]
+    (s >= 1); on a CUDA device all of them and ``tensors`` contiguous
+    float32 on one device.  Returns R."""
+    rays = rays_o.shape[0] if rays_o.dim() == 2 else -1
+    if (tuple(rays_o.shape) != (rays, 3) or tuple(rays_d.shape) != (rays, 3)
+            or tuple(z.shape) != (rays, s) or s < 1):
+        raise ValueError(f"{name}: rays_o {tuple(rays_o.shape)}, rays_d {tuple(rays_d.shape)} "
+                         f"and z {tuple(z.shape)} are not [R, 3], [R, 3], [R, {s}]")
+    if rays_o.device.type == "cpu":
+        return rays
+    if rays_o.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {rays_o.device}")
+    for key, t in {"rays_o": rays_o, "rays_d": rays_d, "z": z, **tensors}.items():
+        if t.device != rays_o.device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous float32 on {rays_o.device}")
+    return rays
+
+
+def _glue_feat(packed: PackedMLP, rays_o, rays_d, z) -> torch.Tensor:
+    """The CPU route's features: :func:`encode_kernel_order` of the points,
+    counted as ``encode.glue``."""
+    trace.count("encode.glue")
+    return encode_kernel_order(ray_points(rays_o, rays_d, z).reshape(-1, 3), pack_freqs(packed))
+
+
+def ray_args(rays_o, rays_d, z):
+    """The rays and depths as the kernels' C calls take them."""
+    return rays_o.data_ptr(), rays_d.data_ptr(), z.data_ptr()
+
+
+@torch.no_grad()
+def fused_mlp_apply_rays(packed: PackedMLP, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                         z: torch.Tensor, depth: int, skips: Sequence[int]) -> torch.Tensor:
+    """:func:`fused_mlp_apply` on the points ``o + d z`` of rays_o, rays_d
+    [R, 3] and depths z [R, S], ray-major: [R * S, 32] fp32, the same bits
+    as ``fused_mlp_apply(packed, encode_kernel_order(points), ...)``.
+    CUDA tensors launch ``csrc/fused_mlp.cu``'s ``mcn_fused_mlp_rays``
+    (one launch a call), the encode in the kernel."""
+    skips = tuple(skips)
+    s = z.shape[-1] if z.dim() == 2 else 0
+    rays = _check_rays("fused_mlp_apply_rays", rays_o, rays_d, z, s)
+    if rays_o.device.type == "cpu":
+        return fused_mlp_apply(packed, _glue_feat(packed, rays_o, rays_d, z), depth, skips)
+    _check_mlp_args(packed, None, depth, skips)
+    pack_freqs(packed)
+    ws, bs = _flat_weights(packed)
+    enc = ws[0].shape[0]
+    _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, rays_o.device)
+    fn = _rays_fns()[0]
+    images = torch.empty(max(_mlp_fwd_fns()[0](enc, depth, skip_mask, width, head0), 1),
+                         dtype=torch.uint8, device=rays_o.device)
+    out = torch.empty((rays * s, OUT_COLS), dtype=torch.float32, device=rays_o.device)
+    stream = torch.cuda.current_stream(rays_o.device).cuda_stream
+    err = fn(*ray_args(rays_o, rays_d, z), out.data_ptr(), images.data_ptr(), rays * s, s, enc,
+             depth, skip_mask, width, head0, wp, bp, stream)
+    if err:
+        raise RuntimeError(f"fused_mlp_apply_rays kernel launch failed: CUDA error {err}")
+    trace.count("encode.kernel")
+    fused_mlp_apply_rays.launches += 1
+    return out
+
+
+fused_mlp_apply_rays.launches = 0
+
+
+def _rays_fns():
+    """(``mcn_fused_mlp_rays``, ``mcn_fused_shaded_rays``) with their C
+    signatures."""
+    from mc_nerf_torch.ops.cuda import _build
+
+    mlp_fn = _build.load("fused_mlp").mcn_fused_mlp_rays
+    mlp_fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 6
+                       + [ctypes.c_void_p] * 3)
+    mlp_fn.restype = ctypes.c_int
+    shaded_fn = _build.load("fused_shaded").mcn_fused_shaded_rays
+    shaded_fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_int] * 7
+                          + [ctypes.c_void_p] * 3)
+    shaded_fn.restype = ctypes.c_int
+    return mlp_fn, shaded_fn
 
 
 # ---------------------------------------------------------------------------
@@ -802,6 +923,50 @@ def fused_shaded_mlp(packed: PackedMLP, feat: torch.Tensor, basis16: torch.Tenso
 
 
 fused_shaded_mlp.launches = 0
+
+
+@torch.no_grad()
+def fused_shaded_mlp_rays(packed: PackedMLP, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                          z: torch.Tensor, basis16: torch.Tensor, depth: int,
+                          skips: Sequence[int], s: int, nb: int) -> torch.Tensor:
+    """:func:`fused_shaded_mlp`'s forward on the points ``o + d z`` of
+    rays_o, rays_d [R, 3] and depths z [R, s], ray-major: [R * s, 8] fp32,
+    the same bits as ``fused_shaded_mlp(packed, encode_kernel_order(points),
+    ...)``.  CUDA tensors launch ``csrc/fused_shaded.cu``'s
+    ``mcn_fused_shaded_rays`` (one launch a call), the encode in the
+    kernel.  No autograd."""
+    skips = tuple(skips)
+    rays = _check_rays("fused_shaded_mlp_rays", rays_o, rays_d, z, s, basis16=basis16)
+    if rays_o.device.type == "cpu":
+        return fused_shaded_mlp(packed, _glue_feat(packed, rays_o, rays_d, z), basis16, depth,
+                                skips, s, nb)
+    _check_mlp_args(packed, None, depth, skips)
+    pack_freqs(packed)
+    enc = packed.trunk_w[0].shape[0]
+    if not 1 <= nb <= 9:
+        raise ValueError(f"fused_shaded_mlp_rays takes 1 <= nb <= 9; got nb={nb}")
+    if packed.head_w0.shape[1] != 2 * packed.trunk_w[0].shape[1]:
+        raise ValueError("fused_shaded_mlp_rays needs a full (sigma + SH) pack")
+    if tuple(basis16.shape) != (rays, BASIS_LANES):
+        raise ValueError(f"fused_shaded_mlp_rays: basis16 {tuple(basis16.shape)} is not "
+                         f"[{rays}, {BASIS_LANES}]")
+    ws, bs = _flat_weights(packed)
+    _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, rays_o.device)
+    images = torch.empty(max(_shaded_fwd_fns()[0](enc, depth, skip_mask, width, head0), 1),
+                         dtype=torch.uint8, device=rays_o.device)
+    out = torch.empty((rays * s, SHADED_COLS), dtype=torch.float32, device=rays_o.device)
+    stream = torch.cuda.current_stream(rays_o.device).cuda_stream
+    err = _rays_fns()[1](*ray_args(rays_o, rays_d, z), basis16.data_ptr(), out.data_ptr(),
+                         images.data_ptr(), rays * s, s, nb, enc, depth, skip_mask, width, head0,
+                         wp, bp, stream)
+    if err:
+        raise RuntimeError(f"fused_shaded_mlp_rays kernel launch failed: CUDA error {err}")
+    trace.count("encode.kernel")
+    fused_shaded_mlp_rays.launches += 1
+    return out
+
+
+fused_shaded_mlp_rays.launches = 0
 
 
 class _FusedMLP(torch.autograd.Function):

@@ -47,12 +47,17 @@ from mc_nerf_torch.ops.cuda.fused_mlp import (
     OUT_COLS,
     PackedMLP,
     _check_mlp_args,
+    _check_rays,
     _flat_weights,
+    _glue_feat,
     launch_args_flat,
     mlp_bwd_plain,
     mlp_plain_flat,
     mlp_recompute_plain,
+    pack_freqs,
+    ray_args,
 )
+from mc_nerf_torch.utils import trace
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -501,3 +506,54 @@ def fused_render(
 
 
 fused_render.launches = 0
+
+
+@torch.no_grad()
+def fused_render_rays(packed: PackedMLP, rays_o: torch.Tensor, rays_d: torch.Tensor,
+                      basis16: torch.Tensor, z: torch.Tensor, depth: int, skips: Sequence[int],
+                      s: int, nb: int, white_back: bool = True) -> torch.Tensor:
+    """The eval form of :func:`fused_render` (no noise, no wsel) on the
+    points ``o + d z`` of rays_o, rays_d [R, 3] and depths z [R, s]:
+    ray_out [R, 8] fp32, the same bits as ``fused_render(packed,
+    encode_kernel_order(points), basis16, z, None, None, ..., False,
+    False, white_back)[0]``.  CUDA tensors launch ``csrc/fused_render.cu``'s
+    ``mcn_fused_render_rays`` (one launch a call), the encode in the
+    kernel; CPU tensors the plain version on the encode's features.  No
+    autograd (``ops/cuda/fused_mlp.py`` says why)."""
+    skips = tuple(skips)
+    rays = _check_rays("fused_render_rays", rays_o, rays_d, z, s, basis16=basis16)
+    if rays_o.device.type == "cpu":
+        return fused_render(packed, _glue_feat(packed, rays_o, rays_d, z), basis16, z, None,
+                            None, depth, skips, s, nb, False, False, white_back)[0]
+    _check_mlp_args(packed, None, depth, skips)
+    pack_freqs(packed)
+    if s < 2 or not 1 <= nb <= 9:
+        raise ValueError(f"fused_render_rays takes s >= 2 and 1 <= nb <= 9; got s={s}, nb={nb}")
+    if tuple(basis16.shape) != (rays, BASIS_LANES):
+        raise ValueError(f"fused_render_rays: basis16 {tuple(basis16.shape)} is not "
+                         f"[{rays}, {BASIS_LANES}]")
+    ws, bs = _flat_weights(packed)
+    enc = ws[0].shape[0]
+    _keep, skip_mask, width, head0, wp, bp = launch_args_flat(ws, bs, skips, rays_o.device)
+    work = torch.empty(max(_fwd_fns()[0](rays, s, enc, depth, skip_mask, width, head0), 1),
+                       dtype=torch.uint8, device=rays_o.device)
+    ray_out = torch.empty((rays, 8), dtype=torch.float32, device=rays_o.device)
+    stream = torch.cuda.current_stream(rays_o.device).cuda_stream
+    err = _rays_fn()(*ray_args(rays_o, rays_d, z), basis16.data_ptr(), ray_out.data_ptr(),
+                     work.data_ptr(), rays, s, nb, int(white_back), enc, depth, skip_mask, width,
+                     head0, wp, bp, stream)
+    if err:
+        raise RuntimeError(f"fused_render_rays kernel launch failed: CUDA error {err}")
+    trace.count("encode.kernel")
+    fused_render_rays.launches += 1
+    return ray_out
+
+
+fused_render_rays.launches = 0
+
+
+def _rays_fn():
+    fn = _lib("fused_render").mcn_fused_render_rays
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    return fn

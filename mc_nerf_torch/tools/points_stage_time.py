@@ -28,7 +28,12 @@ chunk, 16384 x 32 (no noise).  K1 (``fused_mlp_apply``,
 ``csrc/fused_mlp.cu``) at the demos' sigma-only coarse 4x128 pass over an
 eval chunk, 16384 x 128 (grid) and 16384 x 48 (importance), and as the
 ``fused_mlp`` VJP's forward, the coarse full pack over 7000 x 48 and the
-fine over 7000 x 32.  Weights: the seeded scene
+fine over 7000 x 32.  The "... path" shapes time a frame's eval pass from
+its rays and depths at the eval chunk (K1 at 48 and 128 samples, K2 at
+32, K4 at 130): the rays entry point (``fused_mlp_apply_rays``,
+``fused_render_rays``, ``fused_shaded_mlp_rays``: the encode in the
+kernel) where the checkout has one, else ``encode_kernel_order`` of the
+points and the feat entry point, as ``render_rays_eval`` ran them before.  Weights: the seeded scene
 (``tools/scene.scene_params``); cotangents: ``tools/bwd_check``'s (K3's an
 MSE's of the plain forward's rays).  Beside each time: ``bound_ms``, the
 recompute and dX products the function needs over the bf16 peak (the
@@ -83,7 +88,11 @@ SHAPES = (("K5 coarse", "coarse", 128, "shaded", RAYS, 0),
           ("K1 grid eval", "coarse-sigma", 128, "mlp_fwd", EVAL_RAYS, 0),
           ("K1 eval", "coarse-sigma", 48, "mlp_fwd", EVAL_RAYS, 0),
           ("K1 vjp coarse", "coarse", 48, "mlp_fwd", RAYS, 0),
-          ("K1 vjp fine", "fine", 32, "mlp_fwd", RAYS, 0))
+          ("K1 vjp fine", "fine", 32, "mlp_fwd", RAYS, 0),
+          ("K1 eval path", "coarse-sigma", 48, "mlp_path", EVAL_RAYS, 0),
+          ("K1 grid eval path", "coarse-sigma", 128, "mlp_path", EVAL_RAYS, 0),
+          ("K2 eval path", "fine", 32, "render_path", EVAL_RAYS, 0),
+          ("K4 eval path", "fine", 130, "forward_path", EVAL_RAYS, 0))
 ROOT = Path(__file__).resolve().parents[2]
 
 
@@ -107,6 +116,12 @@ def _time_here(iters: int, only) -> dict:
     from mc_nerf_torch.tools.bwd_check import mlp_cotangent, mse_cotangent, shaded_cotangent
     from mc_nerf_torch.tools.scene import scene_params
 
+    try:
+        from mc_nerf_torch.ops.cuda.fused_mlp import fused_mlp_apply_rays, fused_shaded_mlp_rays
+        from mc_nerf_torch.ops.cuda.fused_render import fused_render_rays
+    except ImportError:    # a checkout before the rays route: the encode, then feat
+        fused_mlp_apply_rays = fused_shaded_mlp_rays = fused_render_rays = None
+
     dev = torch.device("cuda")
     nc = NerfConfig()
     params = scene_params(nc, 0, device=dev)
@@ -127,7 +142,28 @@ def _time_here(iters: int, only) -> dict:
         packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips, pack == "coarse-sigma")
         ws, bs = _flat_weights(packed)
         work = None
-        if kind == "forward":
+        o = torch.tensor([0.0, 0.0, -4.0], device=dev).expand(rays, 3).contiguous()
+
+        def encoded():
+            return encode_kernel_order((o[:, None] + d[:, None] * z[..., None]).reshape(-1, 3),
+                                       nc.emb_freqs_xyz)
+        if kind == "mlp_path":
+            fn, args = ((lambda: fused_mlp_apply_rays(packed, o, d, z, depth, skips))
+                        if fused_mlp_apply_rays else
+                        (lambda: fused_mlp_apply(packed, encoded(), depth, skips))), ()
+        elif kind == "render_path":
+            fn, args = ((lambda: fused_render_rays(packed, o, d, basis16, z, depth, skips, s, nb,
+                                                   nc.white_back))
+                        if fused_render_rays else
+                        (lambda: fused_render(packed, encoded(), basis16, z, None, None, depth,
+                                              skips, s, nb, False, False, nc.white_back))), ()
+        elif kind == "forward_path":
+            fn, args = ((lambda: fused_shaded_mlp_rays(packed, o, d, z, basis16, depth, skips, s,
+                                                       nb))
+                        if fused_shaded_mlp_rays else
+                        (lambda: fused_shaded_mlp(packed, encoded(), basis16, depth, skips, s,
+                                                  nb))), ()
+        elif kind == "forward":
             fn = fused_shaded_mlp
             args = (packed, feat, basis16, depth, skips, s, nb)
         elif kind == "mlp_fwd":
@@ -191,6 +227,16 @@ def _bounds(only) -> dict:
         head0 = width if sigma_only else 2 * width
         p = rays * s
         macs = needed_macs(nc, depth, width, skips, sigma_only)
+        if kind.endswith("_path"):
+            # the pass from its rays and depths: z in ([P] fp32), the
+            # rays' origins, directions and basis, the outputs; bound only
+            shade = 0.0 if kind == "mlp_path" else 2.0 * 3 * nb * p / PEAK_FP32_FLOPS
+            ops_ms = (2.0 * macs * p / PEAK_BF16_FLOPS + shade) * 1e3
+            out_bytes = {"forward_path": 8 * 4 * p, "render_path": 8 * 4 * rays,
+                         "mlp_path": 32 * 4 * p}
+            need = 4 * p + (24 + 16 * 4) * rays + out_bytes[kind]
+            out[label] = (max(ops_ms, need / PEAK_BYTES * 1e3), None)
+            continue
         if kind in ("forward", "render_fwd", "mlp_fwd"):
             # needed: feat in and the outputs (K4: [P, 8]; K2: the rays'
             # [P / s, 8] and wsel; K1: [P, 32]), the rays' basis and K2's
@@ -263,7 +309,8 @@ def main() -> None:
         name = "this tree" if tree == ROOT else os.path.relpath(tree, ROOT)
         runs.append({"tree": name, "ms": ms})
         print(f"{name}: " + ", ".join(
-            f"{k} {v:.3f} ms (bound {bounds[k][0]:.3f}, floor {bounds[k][1]:.3f})"
+            f"{k} {v:.3f} ms (bound {bounds[k][0]:.3f}"
+            + (f", floor {bounds[k][1]:.3f})" if bounds[k][1] is not None else ")")
             for k, v in ms.items()), flush=True)
     print(json.dumps({"points_stage": runs, "bound_ms": {k: v[0] for k, v in bounds.items()},
                       "floor_ms": {k: v[1] for k, v in bounds.items()}, "card": card}))

@@ -321,7 +321,7 @@ def test_coarse_free_eval_render_matches_jax(route, pmf, monkeypatch):
     in fp32 against JAX's XLA path (rgb / opacity 1e-4, depth 1e-3), the
     kernel route against the Pallas kernels in interpret mode (max abs
     0.05, ``tests/test_render_eval.py:131``).  No coarse pass: the coarse
-    kernel (``fused_mlp_apply``) is never called."""
+    kernel (``fused_mlp_apply_rays``, the eval route's K1) is never called."""
     jc, tc = _cfgs(occ_pmf=pmf)
     jp, tp = _params(jc, tc)
     jg, tg = _maps(jc, tc, _density())
@@ -331,7 +331,7 @@ def test_coarse_free_eval_render_matches_jax(route, pmf, monkeypatch):
     def no_coarse(*a, **kw):
         raise AssertionError("the coarse pass ran")
 
-    monkeypatch.setattr(t_nerf, "fused_mlp_apply", no_coarse)
+    monkeypatch.setattr(t_nerf, "fused_mlp_apply_rays", no_coarse)
     kernel = route == "kernel"
     ref = j_render_eval(jp, jnp.asarray(rd), jnp.asarray(ro), jc,
                         jnp.bfloat16 if kernel else jnp.float32, importance_samples=K,

@@ -39,12 +39,14 @@ from mc_nerf_torch.ops.cuda.fused_mlp import (
     encode_kernel_order,
     fused_mlp,
     fused_mlp_apply,
+    fused_mlp_apply_rays,
     fused_mlp_bwd,
     fused_mlp_bwd_plain,
     fused_shaded_mlp,
     fused_shaded_mlp_bwd,
     fused_shaded_mlp_bwd_plain,
     fused_shaded_mlp_plain,
+    fused_shaded_mlp_rays,
     mlp_plain,
     pack_mlp_params,
 )
@@ -54,6 +56,7 @@ from mc_nerf_torch.ops.cuda.fused_render import (
     fused_render_bwd,
     fused_render_bwd_plain,
     fused_render_plain,
+    fused_render_rays,
     max_samples,
     max_samples_bwd,
     render_bwd_points,
@@ -1032,13 +1035,14 @@ def test_graph_frame_matches_the_loop_bit_for_bit(cuda, mode):
     """One frame through the captured graph and through the chunk loop,
     from the same weights, pose and map: rgb, depth and opacity the same
     bits; the graph captured once, for the map's kind, and replayed once
-    a frame; each kernel the loop launches, launched at the capture as
-    often (the wrappers count the capture's launches once)."""
+    a frame; each kernel the loop launches (K1, K2 and K4 through the
+    eval path's rays entry points), launched at the capture as often (the
+    wrappers count the capture's launches once)."""
     from mc_nerf_torch.train.steps import make_render_fn
 
     cfg, params, occ = _frame_workload(mode, cuda)
     (pose, _), K = _frame_views()
-    counters = (fused_mlp_apply, fused_render, fused_shaded_mlp)
+    counters = (fused_mlp_apply_rays, fused_render_rays, fused_shaded_mlp_rays)
     loop = make_render_fn(cfg, FRAME_SIDE, FRAME_SIDE, device=cuda, graph=False)
     graph = make_render_fn(cfg, FRAME_SIDE, FRAME_SIDE, device=cuda, graph=True)
     launched = {}
