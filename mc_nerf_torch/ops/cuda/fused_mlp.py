@@ -797,8 +797,8 @@ def mlp_bwd_weights(ws, bs, feat, skips, shaded: bool, work):
     on CUDA tensors: every layer's weight and bias gradient from the
     workspace ``work`` that :func:`_shaded_bwd_launch` or
     :func:`_mlp_bwd_launch` filled at the same shapes.  Returns (dws, dbs)
-    fp32.  It lets ``chip_smoke.py`` time the stage apart; no path of the
-    port calls it."""
+    fp32.  It lets ``tools/weight_stage_time.py`` time the stage apart; no
+    path of the port calls it."""
     _check_cuda("mlp_bwd_weights", feat)
     p, enc = feat.shape
     dw, db, split = _grad_buffers(ws, bs, feat.device)
@@ -818,8 +818,8 @@ def mlp_bwd_points(ws, bs, feat, basis16, dout, depth, skips, s, nb, shaded: boo
     recompute, the heads-and-trunk backward and (K5) the per-ray dbasis
     sums, into the workspace ``work`` (``_workspace`` at the same shapes),
     with no weight stage.  Returns (dfeat, dbasis or None) fp32.  It lets
-    ``chip_smoke.py`` and ``tools/points_stage_time.py`` time the stage
-    apart; no path of the port calls it."""
+    ``tools/points_stage_time.py`` time the stage apart; no path of the
+    port calls it."""
     skips = tuple(skips)
     if shaded:
         _check_cuda("mlp_bwd_points", feat, basis16=basis16, dout=dout)

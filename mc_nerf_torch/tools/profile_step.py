@@ -25,11 +25,10 @@ the occupancy PMF).
 steps and the step captured once as a CUDA graph and replayed; it times
 both in turns (loop, graph, graph, loop; host clock around a
 synchronized epoch) and profiles one epoch of each, per step
-(:func:`routes_in_turns` and :func:`profile_routes`, which
-``chip_smoke.py``'s graph phase runs too).  In the importance mode the
-occupancy refresh (``train/engine.py:refresh_grid`` and ``sampler_map``
-from the coarse MLP: fresh, then the EMA-max) is timed on its own as
-well, with CUDA events.  Needs a CUDA card.
+(:func:`routes_in_turns` and :func:`profile_routes`).  In the importance
+mode the occupancy refresh (``train/engine.py:refresh_grid`` and
+``sampler_map`` from the coarse MLP: fresh, then the EMA-max) is timed on
+its own as well, with CUDA events.  Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -40,12 +39,17 @@ import json
 import re
 import subprocess
 import time
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
 # the order in which the two routes of an epoch are timed
 TURNS = ("loop", "graph", "graph", "loop")
+# the calls profile_fullest profiles to read one: the profiler lost a
+# record in 1 of 16 replays of the hash-grid frame's graph (~5,000
+# kernels, on an H100; PERF.md section 6), so three all lose one about
+# once in 4,000
+FULLEST_OF = 3
 
 
 def profile_steps(step, n: int, steps_per_call: int = 1):
@@ -76,48 +80,64 @@ def profile_steps(step, n: int, steps_per_call: int = 1):
     return wall * 1e3, rows, host
 
 
-def routes_in_turns(epochs: Dict[str, Callable], run: Callable, steps: int,
-                    reset: Optional[Callable] = None, keep: Optional[Callable] = None):
+def profile_fullest(step: Callable, steps_per_call: int = 1,
+                    after: Optional[Callable] = None) -> list:
+    """The kernel rows of :func:`profile_steps` for one call of ``step()``
+    (taking ``steps_per_call`` steps), from the fullest of ``FULLEST_OF``
+    calls each profiled on its own (``after()`` runs after each, outside
+    the profiler).  For a launch count: a call of the same CUDA graph, or of
+    the same eager step, launches the same kernels every time, and the
+    profiler may lose a kernel's record but never adds one, so the call
+    with the most kernel records reads the launches best.  A count from
+    it is never above the launches, and is short of them only if every
+    call lost a record of that kernel.  The number of calls is fixed, not
+    a retry until some count comes out: ranks that run collectives in
+    ``step`` stay in step."""
+    best = None
+    for _ in range(FULLEST_OF):
+        _, rows, _ = profile_steps(step, 1, steps_per_call)
+        if after is not None:
+            after()
+        if best is None or sum(r[1] for r in rows) > sum(r[1] for r in best):
+            best = rows
+    return best
+
+
+def routes_in_turns(epochs: Dict[str, Callable], run: Callable,
+                    steps: int) -> Dict[str, List[float]]:
     """Both routes of an epoch of ``steps`` steps, timed in turns.
     ``epochs`` maps "loop" and "graph" to their epoch functions;
     ``run(ep)`` runs one epoch of ``ep``.  Each route's first epoch (the
     graph's warm-up and capture) runs untimed, then ``TURNS``, each on the
-    host's clock around a synchronized epoch; ``reset()`` runs before each
-    epoch and ``keep()`` after it, both outside the clock.  Returns
-    ({route: keep() after its first epoch}, {route: [(ms a step, keep()
-    after the epoch)] in the order timed})."""
+    host's clock around a synchronized epoch.  Returns {route: [ms a step,
+    one a turn, in the order timed]}."""
     def once(route):
-        if reset is not None:
-            reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run(epochs[route])
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / steps
-        return ms, keep() if keep is not None else None
+        return (time.perf_counter() - t0) * 1e3 / steps
 
-    first = {route: once(route)[1] for route in epochs}
+    for route in epochs:
+        once(route)
     turns = {route: [] for route in epochs}
     for route in TURNS:
         turns[route].append(once(route))
-    return first, turns
+    return turns
 
 
-def profile_routes(epochs: Dict[str, Callable], run: Callable, steps: int,
-                   names: Sequence[str] = ()) -> dict:
+def profile_routes(epochs: Dict[str, Callable], run: Callable, steps: int) -> dict:
     """One epoch of each route of ``epochs`` under the profiler
     (``run(ep)`` runs one epoch of ``steps`` steps): {route: wall ms a
-    step, device ms of kernels a step, the busy share, kernels a step,
-    the kernel rows of :func:`profile_steps`, and the launches a step of
-    each kernel of ``names`` (a kernel whose name holds it as a word; a
-    CUDA graph's kernel nodes are reported one by one)}."""
+    step, device ms of kernels a step, the busy share, kernels a step and
+    the kernel rows of :func:`profile_steps` (a CUDA graph's kernel nodes
+    are reported one by one)}."""
     out = {}
     for route, ep in epochs.items():
         wall, rows, _ = profile_steps(lambda: run(ep), 1, steps)
         busy = sum(r[0] for r in rows)
         out[route] = {"step_ms": wall, "kernel_ms": busy, "busy_share": busy / wall,
-                      "kernels_a_step": sum(r[1] for r in rows), "rows": rows,
-                      "named_a_step": count_named(rows, names)}
+                      "kernels_a_step": sum(r[1] for r in rows), "rows": rows}
     return out
 
 
@@ -186,8 +206,7 @@ def main() -> None:
         def run(ep):
             ep(state, data, gen)
 
-        _, turns = routes_in_turns(epochs, run, args.steps)
-        turns = {route: [ms for ms, _ in v] for route, v in turns.items()}
+        turns = routes_in_turns(epochs, run, args.steps)
         print(f"{label}, {args.steps} steps an epoch; ms a step in turns (loop, graph, graph, "
               f"loop): {turns['loop'][0]:.3f}, {turns['graph'][0]:.3f}, "
               f"{turns['graph'][1]:.3f}, {turns['loop'][1]:.3f}")

@@ -83,6 +83,7 @@ from mc_nerf_torch.tools.bwd_check import (
     shaded_cotangent,
     workspace_acts,
 )
+from mc_nerf_torch.tools.card_kinds import COARSE_FREE, FRAME_LAUNCHES, FRAME_MODES, STEP_KINDS
 from mc_nerf_torch.tools.scene import scene_params
 from mc_nerf_torch.utils import trace
 
@@ -315,31 +316,36 @@ def _render_over(out, w, ref, ref_w):
 @pytest.mark.parametrize("cfg_kw", [NARROW, {}], ids=["narrow", "default"])
 @pytest.mark.parametrize("s", [31, 32, 48])
 def test_fused_render_planted_faults(cuda, cfg_kw, s):
-    """K2 at the training flags (noise, noise_sel, wsel) on the fine pack
-    over 54 rays within its tolerances, and each planted fault of the plain
-    version at 2x them or more: the skip input dropped, the first layer
-    lost, the samples of each pair of rays swapped, the composite's prefix
-    sums one sample late (``tools/bwd_check.render_scan_late``)."""
+    """K2 at the training flags (noise, noise_sel, wsel) on the fine and the
+    coarse full pack over 54 rays within its tolerances, and each planted
+    fault of the plain version at 2x them or more: the skip input dropped,
+    the first layer lost, the samples of each pair of rays swapped, another
+    ray's SH basis, the composite's prefix sums one sample late
+    (``tools/bwd_check.render_scan_late``)."""
     nc, params = _params(cfg_kw, seed=s)
-    packed = pack_mlp_params(params.fine, nc.emb_freqs_xyz, nc.fine_skips)
-    args = _render_args(nc, packed, nc.fine_depth, nc.fine_skips, s, 54, True, True, cuda)
-    ref = fused_render_plain(*args)
-    assert _render_over(*fused_render(*args), *ref) <= 1.0
-    skipless = pack_mlp_params(params.fine, nc.emb_freqs_xyz, nc.fine_skips)
-    for i in nc.fine_skips:
-        skipless.trunk_w[i][:args[1].shape[1]] = 0
-    firstless = pack_mlp_params(params.fine, nc.emb_freqs_xyz, nc.fine_skips)
-    firstless.trunk_w[0].zero_()
-    swapped = args[1].view(54, s, -1)[torch.arange(54, device=cuda).view(-1, 2).flip(1)
-                                       .reshape(-1)].reshape(54 * s, -1)
-    plants = {"skip input dropped": fused_render_plain(skipless, *args[1:]),
-              "first layer lost": fused_render_plain(firstless, *args[1:]),
-              "pairs of rays swapped": fused_render_plain(args[0], swapped, *args[2:]),
-              "scan one sample late": render_scan_late(*args)}
-    over = {n: _render_over(*o, *ref) for n, o in plants.items()}
-    print(f"measured render plants over tolerance {cfg_kw and 'narrow' or 'default'} s={s}: "
-          + " ".join(f"{n}: {r:.1f}" for n, r in over.items()))
-    assert all(r >= 2.0 for r in over.values()), over
+    for name, mlp, depth, skips in (("fine", params.fine, nc.fine_depth, nc.fine_skips),
+                                    ("coarse", params.coarse, nc.coarse_depth, nc.coarse_skips)):
+        packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+        args = _render_args(nc, packed, depth, skips, s, 54, True, True, cuda)
+        ref = fused_render_plain(*args)
+        assert _render_over(*fused_render(*args), *ref) <= 1.0
+        skipless = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+        for i in skips:
+            skipless.trunk_w[i][:args[1].shape[1]] = 0
+        firstless = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
+        firstless.trunk_w[0].zero_()
+        swapped = args[1].view(54, s, -1)[torch.arange(54, device=cuda).view(-1, 2).flip(1)
+                                           .reshape(-1)].reshape(54 * s, -1)
+        plants = {"skip input dropped": fused_render_plain(skipless, *args[1:]),
+                  "first layer lost": fused_render_plain(firstless, *args[1:]),
+                  "pairs of rays swapped": fused_render_plain(args[0], swapped, *args[2:]),
+                  "another ray's basis": fused_render_plain(*args[:2], args[2].roll(1, 0),
+                                                            *args[3:]),
+                  "scan one sample late": render_scan_late(*args)}
+        over = {n: _render_over(*o, *ref) for n, o in plants.items()}
+        print(f"measured render plants over tolerance {cfg_kw and 'narrow' or 'default'} "
+              f"{name} s={s}: " + " ".join(f"{n}: {r:.1f}" for n, r in over.items()))
+        assert all(r >= 2.0 for r in over.values()), (name, over)
 
 
 @pytest.mark.gpu
@@ -506,8 +512,9 @@ K4_SHAPES = SHADED_SHAPES + [(1, 1), (7, 43), (3, 130), (16384, 130)]
 def test_fused_shaded_mlp_kernel_matches_plain(cuda, cfg, coarse, rays, s):
     """K4 on both full packs: sigma's max abs error within MLP_RTOL of its
     largest magnitude, rgb within SHADED_RGB_ATOL, lanes 4..7 zero; one
-    launch counted; another ray's basis (where there is one) and the skip
-    input dropped land outside the tolerances."""
+    launch counted; another ray's basis (where there is one), the skip
+    input dropped and, where there is more than one point, the points of
+    a tile mixed up and two tiles swapped land outside the tolerances."""
     nc, mlp, depth, skips = _pass(cfg, coarse)
     packed = pack_mlp_params(mlp, nc.emb_freqs_xyz, skips)
     feat, basis16, nb = _shaded_inputs(nc, rays, s, cuda)
@@ -532,6 +539,9 @@ def test_fused_shaded_mlp_kernel_matches_plain(cuda, cfg, coarse, rays, s):
     if rays > 1:
         assert over(fused_shaded_mlp_plain(packed, feat, basis16.roll(1, 0), depth, skips, s,
                                            nb)) > 1.0
+    if rays * s > 1:
+        assert over(mixed_in_tiles(ker)) > 1.0
+        assert over(pair_swapped(ker)) > 1.0
 
 
 @pytest.mark.gpu
@@ -683,6 +693,74 @@ def test_grid_train_step_autograd_launches_k4_and_k5(cuda):
         (before[0] + 2, before[1] + 2)
     assert all(p.grad is not None and bool(torch.isfinite(p.grad).all())
                for p in params.parameters())
+
+
+# one GLOBAL_OPTIM step's loss and gradients, the kernel route against the
+# bf16 plain route from the same params and draws: the plain route rounds
+# sigma and SH to bf16 (the kernels keep them fp32), so its importance
+# samples land apart a little, and in the grid fine mode a ray near the
+# selection's threshold may pick another bin.  About 10x the loss and
+# worst leaf measured on an H100 at the default widths (importance 2.6e-5
+# and 1.4e-2; grid 18x and 6x, 5.6e-6 and 4.7e-2)
+STEP_ROUTE_TOL = {"importance": {"loss rel": 3e-4, "grad rel L2 (worst leaf)": 0.15},
+                  "grid": {"loss rel": 1e-4, "grad rel L2 (worst leaf)": 0.3}}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fine_mode", sorted(STEP_ROUTE_TOL))
+def test_train_step_kernel_route_matches_the_plain_route(cuda, fine_mode):
+    """A GLOBAL_OPTIM step at Config()'s widths on the workload bench.py
+    times (``tools/scene.train_workload``, 4 of its 800x800 images; step
+    143,000 of 286,000: the BARF gate half open): the kernel route's loss
+    and gradients within STEP_ROUTE_TOL of the bf16 plain route's, the
+    fine MLP's skip input dropped on the plain route outside it; then 20
+    kernel-route steps on one fixed batch lower the rgb loss."""
+    import dataclasses
+
+    from mc_nerf_torch.config import Config, TrainConfig
+    from mc_nerf_torch.tools.scene import STEPS_PER_EPOCH, TOTAL_STEPS, train_workload
+    from mc_nerf_torch.train.optim import build_optimizers, counter, flatten_params
+    from mc_nerf_torch.train.steps import TrainState, draw_step, make_loss_fn, make_stage_step
+
+    cfg = Config(train=TrainConfig(fine_mode=fine_mode))
+    plain = cfg.replace(train=dataclasses.replace(cfg.train, use_pallas=False))
+    params, data = train_workload(cfg, 0, cuda, n_images=4)
+    p_flat = flatten_params(params)
+    txs, states = build_optimizers(cfg, params, p_flat, STEPS_PER_EPOCH)
+    state = TrainState(params, p_flat, states, counter(TOTAL_STEPS // 2, cuda))
+    draws = draw_step(cfg, 1, 4, 800, 800, data.occ is not None,
+                      torch.Generator(device=cuda).manual_seed(0))
+
+    def loss_and_grads(c, prm):
+        for q in prm.parameters():
+            q.grad = None
+        total, _ = make_loss_fn(c, 1, 800, 800, TOTAL_STEPS)(prm, data, draws, state.step)
+        total.backward()
+        return float(total.detach()), {n: q.grad.detach().clone()
+                                       for n, q in prm.named_parameters()}
+
+    def gaps(a, b):
+        return {"loss rel": abs(a[0] - b[0]) / abs(b[0]),
+                "grad rel L2 (worst leaf)": max(rel_l2(a[1][n], b[1][n]) for n in b[1]
+                                                if float(b[1][n].norm()) > 0)}
+
+    tol = STEP_ROUTE_TOL[fine_mode]
+    ker, pln = loss_and_grads(cfg, params), loss_and_grads(plain, params)
+    broken = copy.deepcopy(params)
+    with torch.no_grad():
+        broken.nerf.fine.trunk[cfg.nerf.fine_skips[0]].weight[:, :cfg.nerf.embed_dim] = 0
+    got, planted = gaps(ker, pln), gaps(loss_and_grads(plain, broken), pln)
+    print(f"measured {fine_mode} step, kernel route vs plain route {got}; the plant {planted}")
+    assert all(got[k] <= tol[k] for k in tol), got
+    assert max(planted[k] / tol[k] for k in tol) > 1.0, planted
+    step = make_stage_step(cfg, 1, txs[1], 800, 800, TOTAL_STEPS)
+    rgb = []
+    for _ in range(20):
+        m = step(state, data, draws)
+        rgb.append(float(m["loss_rgb_c"] + m["loss_rgb_f"]))
+    print(f"measured {fine_mode} rgb loss over 20 steps on one batch: {rgb[0]:.6f} -> "
+          f"{rgb[-1]:.6f}")
+    assert rgb[-1] < rgb[0], rgb
 
 
 # ------------------------------------------------- the weight-gradient stage
@@ -911,18 +989,22 @@ def test_render_backward_narrow_fine_dbasis_spread(cuda, rays, s):
 # ------------------------------------------------------- the compiled epoch
 
 # step kinds of the graph route (train/steps.py StageEpoch): (stage, image
-# side, the train config's and the NeRF config's changes from the narrow
-# widths).  The 24x24 images have 576 pixels <= 8 x 128 rays: the pixels
-# are drawn with torch.randperm; the 64x64 ones with torch.randint.
+# side, widths, the train config's and the NeRF config's changes).  The
+# narrow kinds take 128 rays of 16 importance samples: the 24x24 images
+# have 576 pixels <= 8 x 128 rays, drawn with torch.randperm; the 64x64
+# ones with torch.randint.  The default kinds are the main path's step
+# kinds (tools/card_kinds.STEP_KINDS): Config() widths, 7000 rays from
+# 800x800 images.
 GRAPH_KINDS = {
-    "importance stage 1": (1, 64, {}, {}),
-    "importance stage 2": (2, 64, {}, {}),
-    "randperm pixels": (1, 24, {}, {}),
-    "grid stage 1": (1, 64, {"fine_mode": "grid"}, {}),
-    "grid remat_shade": (1, 64, {"fine_mode": "grid", "remat_shade": True}, {}),
-    "coarse-free stage 2": (2, 64, {}, {"coarse_free": True, "coarse_free_from_stage": 2,
-                                        "cf_uniform_samples": 8, "occ_map_dtype": "bitpack"}),
-    "cam_param stage 0": (0, 64, {}, {}),
+    "importance stage 1": (1, 64, "narrow", {}, {}),
+    "importance stage 2": (2, 64, "narrow", {}, {}),
+    "randperm pixels": (1, 24, "narrow", {}, {}),
+    "grid stage 1": (1, 64, "narrow", {"fine_mode": "grid"}, {}),
+    "grid remat_shade": (1, 64, "narrow", {"fine_mode": "grid", "remat_shade": True}, {}),
+    "coarse-free stage 2": (2, 64, "narrow", {}, COARSE_FREE),
+    "cam_param stage 0": (0, 64, "narrow", {}, {}),
+    **{f"{kind} default": (stage, 800, "default", train_kw, nerf_kw)
+       for kind, (stage, train_kw, nerf_kw) in STEP_KINDS.items()},
 }
 
 
@@ -932,9 +1014,10 @@ def _graph_workload(kind, device):
     from mc_nerf_torch.train.optim import build_optimizers, counter, flatten_params
     from mc_nerf_torch.train.steps import TrainState
 
-    stage, side, train_kw, nerf_kw = GRAPH_KINDS[kind]
-    cfg = Config(train=TrainConfig(rays_per_batch=128, importance_samples=16, **train_kw),
-                 nerf=NerfConfig(**NARROW, **nerf_kw))
+    stage, side, widths, train_kw, nerf_kw = GRAPH_KINDS[kind]
+    small = {"rays_per_batch": 128, "importance_samples": 16} if widths == "narrow" else {}
+    cfg = Config(train=TrainConfig(**small, **train_kw),
+                 nerf=NerfConfig(**CFGS[widths], **nerf_kw))
     params, data = train_workload(cfg, 0, device, n_images=4, img_h=side, img_w=side)
     p_flat = flatten_params(params)
     txs, states = build_optimizers(cfg, params, p_flat, 10)
@@ -953,23 +1036,33 @@ def test_graph_epoch_matches_the_loop_bit_for_bit(cuda, kind):
     """Two epochs of 6 steps through the captured step and
     through the loop, from the same state and seeds: the same p_flat,
     moments, count and step, bit for bit, and the same metric means; the
-    graph was captured once (after its warm-up) and replayed 12 times."""
+    graph was captured once (after its warm-up) and replayed 12 times;
+    the kernels' wrappers count as many launches a step in the loop's
+    steps as in the graph's warm-up and capture (a replay runs the
+    captured launches without them)."""
     from mc_nerf_torch.train.steps import WARMUP_STEPS, make_stage_epoch
 
     cfg, stage, side, state, data, txs = _graph_workload(kind, cuda)
     start = [t.clone() for t in _graph_state(state, stage)]
+    counters = (fused_render, render_bwd_points, render_bwd_weights, fused_mlp_apply,
+                fused_shaded_mlp, fused_shaded_mlp_bwd, sample_pdf_cuda)
     out = {}
     for graph in (False, True):
         for t, s in zip(_graph_state(state, stage), start):
             t.copy_(s)
         ep = make_stage_epoch(cfg, stage, txs[stage], side, side, 286000, 6, graph=graph)
         gen = torch.Generator(device=cuda)
+        before = [c.launches for c in counters]
         means = [ep(state, data, gen.manual_seed(seed)) for seed in (1, 2)]
         torch.cuda.synchronize()
-        out[graph] = [t.clone() for t in _graph_state(state, stage)], means, dict(ep.counts)
-    (a, ma, ca), (b, mb, cb) = out[False], out[True]
+        launched = [c.launches - n for c, n in zip(counters, before)]
+        out[graph] = ([t.clone() for t in _graph_state(state, stage)], means, dict(ep.counts),
+                      launched)
+    (a, ma, ca, la), (b, mb, cb, lb) = out[False], out[True]
     assert ca == {"warmup": 0, "captured": 0, "replayed": 0, "looped": 12}
     assert cb == {"warmup": WARMUP_STEPS, "captured": 1, "replayed": 12, "looped": 0}
+    assert [n / 12 for n in la] == [n / (WARMUP_STEPS + 1) for n in lb], (la, lb)
+    assert stage == 0 or sum(la) > 0
     for name, x, y in zip(("p_flat", "mu", "nu", "count", "step"), a, b):
         assert torch.equal(x, y), name
     assert int(b[4]) == 143012 and not torch.equal(a[0], start[0])
@@ -995,30 +1088,87 @@ def test_graph_epoch_refuses_a_rebound_map(cuda):
     assert ep.counts["replayed"] == 6
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["importance stage 1", "cam_param stage 0"])
+def test_graph_epoch_departs_from_the_loop_on_a_value_the_capture_freezes(cuda, kind,
+                                                                         monkeypatch):
+    """A value made from the host's count of the steps it issued (stage 1:
+    the progress clock the loss reads; stage 0: the count of the LR
+    schedule) is right in the loop and frozen by a capture: two epochs of
+    6 steps from the start state and seed with it, the loop's ends on the
+    loop's bits without it, the graph's (its warm-up and capture, then its
+    replays alone) does not.  The plant shows that the bit comparison of
+    the graph route sees a value the capture froze."""
+    import mc_nerf_torch.train.steps as steps_module
+    from mc_nerf_torch.train.optim import FlatRAdam
+
+    cfg, stage, side, state, data, txs = _graph_workload(kind, cuda)
+    live = _graph_state(state, stage)
+    start = [t.clone() for t in live]
+    host = {"n": 0}
+    gen = torch.Generator(device=cuda)
+
+    def issued(dtype):
+        host["n"] += 1
+        return torch.full((), host["n"] - 1, dtype=dtype, device=cuda)
+
+    def run(graph, tx):
+        ep = steps_module.make_stage_epoch(cfg, stage, tx, side, side, 286000, 6, graph=graph)
+        for _ in range(2):
+            host["n"] = 0
+            for t, s in zip(live, start):
+                t.copy_(s)
+            ep(state, data, gen.manual_seed(1))
+        torch.cuda.synchronize()
+        return [t.clone() for t in live]
+
+    tx = txs[stage]
+    want = run(False, tx)
+    if stage == 1:
+        real = steps_module.make_loss_fn
+
+        def make_loss_fn(*a, **kw):
+            fn = real(*a, **kw)
+            return lambda prm, dat, draws, step: fn(prm, dat, draws,
+                                                    issued(torch.int32) + 143000)
+
+        monkeypatch.setattr(steps_module, "make_loss_fn", make_loss_fn)
+    else:
+        lr = tx.lr
+        tx = FlatRAdam(tx.mask, lambda t: lr(issued(torch.float32)), tx.weight_decay, tx.clip)
+    assert all(torch.equal(x, y) for x, y in zip(run(False, tx), want))
+    graph = run(True, tx)
+    gap = max(float((x.double() - y.double()).abs().max()) for x, y in zip(graph, want))
+    print(f"measured {kind}: the graph with the host's count {gap:.3e} from the loop's bits")
+    assert gap > 0
+
+
 # -------------------------------------------------------- the compiled frame
 
-# eval modes of the graph frame (train/steps.py FrameRender): (the eval
-# config's and the NeRF config's changes from the narrow widths, the map)
-FRAME_MODES = {
-    "importance culled": ({}, {}, "fresh"),
-    "importance unculled": ({}, {}, None),
-    "coarse-free bitpack": ({}, {"coarse_free": True, "occ_map_dtype": "bitpack"}, "fresh"),
-    "grid": ({"fine_mode": "grid"}, {}, None),
-}
-# 40 x 40 = 1600 pixels in chunks of 512 rays: the fourth chunk mostly padding
+# eval modes of the graph frame (train/steps.py FrameRender) and their
+# launches a chunk of the eval wrappers FRAME_COUNTERS: tools/card_kinds'
+# FRAME_MODES and FRAME_LAUNCHES
+FRAME_COUNTERS = (fused_mlp_apply_rays, fused_render_rays, fused_shaded_mlp_rays, sample_pdf_cuda)
+# (side, chunk, NeRF config) by widths: narrow, 40 x 40 = 1600 pixels in
+# chunks of 512 rays, the fourth chunk mostly padding; the main path's,
+# Config() at the engine's validation size, 200 x 200 in chunks of 16384,
+# the third padded
 FRAME_SIDE, FRAME_CHUNK = 40, 512
+FRAME_WIDTHS = {"narrow": (FRAME_SIDE, FRAME_CHUNK, dict(NARROW, occ_grid_size=32)),
+                "default": (200, 16384, {})}
 
 
-def _frame_workload(mode, device, seed=0, epoch=0):
-    """A narrow config of ``mode``, seeded weights and, where the mode has
-    one, a fresh map refreshed from them with ``epoch``'s jitter."""
+def _frame_workload(mode, device, seed=0, epoch=0, widths="narrow"):
+    """A config of ``mode`` at ``widths``, seeded weights and, where the
+    mode has one, a fresh map refreshed from them with ``epoch``'s jitter."""
     from mc_nerf_torch.config import Config, EvalConfig
     from mc_nerf_torch.tools.scene import scene_params
     from mc_nerf_torch.train.engine import refresh_occupancy
 
     ev_kw, nerf_kw, occ = FRAME_MODES[mode]
-    cfg = Config(nerf=NerfConfig(**NARROW, occ_grid_size=32, **nerf_kw),
-                 eval=EvalConfig(rays_per_chunk=FRAME_CHUNK, **ev_kw))
+    _, chunk, nerf_widths = FRAME_WIDTHS[widths]
+    cfg = Config(nerf=NerfConfig(**nerf_widths, **nerf_kw),
+                 eval=EvalConfig(rays_per_chunk=chunk, **ev_kw))
     params = scene_params(cfg.nerf, seed, device=device)
     return cfg, params, refresh_occupancy(params, cfg, device, epoch) if occ else None
 
@@ -1030,45 +1180,49 @@ def _frame_views(side=FRAME_SIDE):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("widths", sorted(FRAME_WIDTHS))
 @pytest.mark.parametrize("mode", sorted(FRAME_MODES))
-def test_graph_frame_matches_the_loop_bit_for_bit(cuda, mode):
+def test_graph_frame_matches_the_loop_bit_for_bit(cuda, mode, widths):
     """One frame through the captured graph and through the chunk loop,
     from the same weights, pose and map: rgb, depth and opacity the same
     bits; the graph captured once, for the map's kind, and replayed once
-    a frame; each kernel the loop launches (K1, K2 and K4 through the
-    eval path's rays entry points), launched at the capture as often (the
-    wrappers count the capture's launches once)."""
+    a frame; each eval kernel (K1, K2 and K4 through the eval path's rays
+    entry points, sample_pdf's) launched by the loop as often a chunk as
+    the mode wants, and at the capture as often (the wrappers count the
+    capture's launches once)."""
     from mc_nerf_torch.train.steps import make_render_fn
 
-    cfg, params, occ = _frame_workload(mode, cuda)
-    (pose, _), K = _frame_views()
-    counters = (fused_mlp_apply_rays, fused_render_rays, fused_shaded_mlp_rays)
-    loop = make_render_fn(cfg, FRAME_SIDE, FRAME_SIDE, device=cuda, graph=False)
-    graph = make_render_fn(cfg, FRAME_SIDE, FRAME_SIDE, device=cuda, graph=True)
+    cfg, params, occ = _frame_workload(mode, cuda, widths=widths)
+    side, chunk, _ = FRAME_WIDTHS[widths]
+    (pose, _), K = _frame_views(side)
+    loop = make_render_fn(cfg, side, side, device=cuda, graph=False)
+    graph = make_render_fn(cfg, side, side, device=cuda, graph=True)
     launched = {}
     for name, render in (("loop", loop), ("graph", graph)):
-        for c in counters:
+        for c in FRAME_COUNTERS:
             c.launches = 0
         out = render(params, pose, K, occ)
         torch.cuda.synchronize()
-        launched[name] = [c.launches for c in counters]
+        launched[name] = [c.launches for c in FRAME_COUNTERS]
         launched[name + " out"] = out
     a, b = launched["loop out"], launched["graph out"]
     for name, x, y in zip(("rgb", "depth", "opacity"), a, b):
         assert x.shape == y.shape and torch.equal(x, y), name
     assert bool(torch.isfinite(a[0]).all()) and float(a[0].std()) > 0
-    chunks = -(-FRAME_SIDE ** 2 // FRAME_CHUNK)
+    chunks = -(-side ** 2 // chunk)
+    assert launched["loop"] == [FRAME_LAUNCHES[mode].get(c.__name__, 0) * chunks
+                                  for c in FRAME_COUNTERS]
     # the capture's launches are the loop's, plus one chunk of warm-up
     assert launched["graph"] == [n + n // chunks for n in launched["loop"]]
-    assert sum(launched["loop"]) > 0
     assert loop.counts == {"captured": 0, "replayed": 0, "looped": 1}
     assert graph.counts == {"captured": 1, "replayed": 1, "looped": 0}
     assert list(graph.captures) == [graph.graph_key(occ)]
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("widths", sorted(FRAME_WIDTHS))
 @pytest.mark.parametrize("mode", sorted(FRAME_MODES))
-def test_graph_frame_takes_new_weights_pose_and_map(cuda, mode):
+def test_graph_frame_takes_new_weights_pose_and_map(cuda, mode, widths):
     """After the capture, new weights (the first scaled by 1.01), a new
     pose and a new map of the same kind (the first with the half of the
     box at x < 0 emptied) reach the replay: it equals the loop on them,
@@ -1076,10 +1230,11 @@ def test_graph_frame_takes_new_weights_pose_and_map(cuda, mode):
     still hold what they held."""
     from mc_nerf_torch.train.steps import make_render_fn
 
-    cfg, params, occ = _frame_workload(mode, cuda)
-    (pose, pose2), K = _frame_views()
-    graph = make_render_fn(cfg, FRAME_SIDE, FRAME_SIDE, device=cuda, graph=True)
-    loop = make_render_fn(cfg, FRAME_SIDE, FRAME_SIDE, device=cuda, graph=False)
+    cfg, params, occ = _frame_workload(mode, cuda, widths=widths)
+    side = FRAME_WIDTHS[widths][0]
+    (pose, pose2), K = _frame_views(side)
+    graph = make_render_fn(cfg, side, side, device=cuda, graph=True)
+    loop = make_render_fn(cfg, side, side, device=cuda, graph=False)
     first = graph(params, pose, K, occ)
     kept = [t.clone() for t in first]
     params2 = copy.deepcopy(params)
@@ -1253,19 +1408,30 @@ SAMPLE_PDF_MAIN = [(16384, 66, 48, "midpoints"), (16384, 48, 32, "midpoints"),
 @pytest.mark.parametrize("rows", ["random", "two surfaces"])
 def test_sample_pdf_kernel_at_the_main_path_shapes(cuda, rays, s, k, draws, rows):
     """At the main path's shapes the kernel's draws are within rounding of
-    the plain body's (draw_gap), and the same bits on a second call."""
+    the plain body's (draw_gap), and the same bits on a second call; each
+    planted fault of the plain body (the midpoints one bin late; the
+    draws' jitter dropped, or added where there is none) at 2x that or
+    more."""
     z, w, u, eps = _pdf_case(s, k, "stride-0 z" if s == 66 and rows == "random" else rows,
                              rays, draws, cuda)
     a = sample_pdf_cuda(z, w, k, u, eps)
     b = sample_pdf_cuda(z, w, k, u, eps)
     ref = sample_pdf_plain(z, w, k, u, eps=eps)
+    jitter = None if u is not None else torch.rand(
+        (rays, k), generator=torch.Generator(device=cuda).manual_seed(0), device=cuda)
+    plants = {"midpoints one bin late": sample_pdf_plain(z.roll(1, 1), w, k, u, eps=eps),
+              "jitter " + ("dropped" if u is not None else "added"):
+              sample_pdf_plain(z, w, k, jitter, eps=eps)}
     torch.cuda.synchronize()
     gap = draw_gap(a, ref, z, w, eps)
+    caught = {n: draw_gap(x, ref, z, w, eps) for n, x in plants.items()}
     print(f"measured sample_pdf R={rays} S={s} K={k} {draws} {rows}: draw gap {gap:.3e}, "
           f"{int((a != ref).sum())} of {a.numel()} depths differ, max abs "
-          f"{float((a - ref).abs().max()):.3e}")
+          f"{float((a - ref).abs().max()):.3e}; plants " + " ".join(
+              f"{n}: {g:.1f}" for n, g in caught.items()))
     assert torch.equal(a, b)
     assert gap <= 1.0
+    assert all(g >= 2.0 for g in caught.values()), caught
 
 
 @pytest.mark.gpu

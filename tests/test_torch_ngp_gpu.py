@@ -135,9 +135,12 @@ def test_planted_faults_and_the_fp8_control_read_as_faults(cuda):
     grid, x, table, gate, gout = _inputs(cuda, seed=1)
     ref = _plain(x, table, gate, grid, gout)
     fp8 = lambda t: t.to(torch.float8_e4m3fn).float()
+    level0_off = gate.clone()
+    level0_off[0] = 0.0
     plants = {
         "hash primes swapped": _plain(x, table, gate, grid, gout, (1, 805459861, 2654435761)),
         "gate dropped": _plain(x, table, None, grid, gout),
+        "level 0 gated off": _plain(x, table, level0_off, grid, gout),
         "table in fp8": _plain(x, fp8(table), gate, grid, gout),
         "cotangent in fp8": _plain(x, table, gate, grid, fp8(gout * 2 ** 20) / 2 ** 20),
         "a point's neighbour's cell": _plain(torch.roll(x, 1, 0), table, gate, grid, gout),

@@ -3,10 +3,9 @@ the planted fault that the card tests hold the weight stage against at any
 point count, and the port's depth colormap against the JAX package's.
 
 ``tools/bwd_check.points_stage_bytes`` follows the reads and writes of
-``csrc/mlp_bwd_points.cuh`` (``chip_smoke.py`` and
-``tools/points_stage_time.py`` divide it by the card's memory rate for the
-stage's ``floor_ms``); the counts below are summed by hand from that
-kernel's schedule.  ``last_tile_cotangent`` zeroes a cotangent outside the
+``csrc/mlp_bwd_points.cuh`` (``tools/points_stage_time.py`` divides it by
+the card's memory rate for the stage's ``floor_ms``); the counts below are
+summed by hand from that kernel's schedule.  ``last_tile_cotangent`` zeroes a cotangent outside the
 last 64-point tile, so that ``planted_last_tile`` (dW without that tile)
 removes all of dW however many points come before it.
 """

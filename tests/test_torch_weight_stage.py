@@ -2,9 +2,9 @@
 
 ``tools/bwd_check.weight_stage_bytes`` follows the job list of
 ``launch_weight_grads`` (``weight_jobs`` in ``csrc/mlp_bwd.cuh``);
-``chip_smoke.py`` divides it
-by the card's memory rate for the stage's ``floor_ms``.  The counts below
-are summed by hand from that job list.  ``planted_last_tile`` is the fault
+``tools/weight_stage_time.py`` divides it by the card's memory rate for
+the stage's ``floor_ms``.  The counts below are summed by hand from that
+job list.  ``planted_last_tile`` is the fault
 the card tests hold the weight kernels against: dW without the points of
 the last 64-point tile.
 """
